@@ -1,0 +1,29 @@
+"""repro_torch: the stencil framework on PyTorch and hand-written CUDA for
+an NVIDIA H100, beside the JAX reference package ``repro``.
+
+One front door, as in the reference::
+
+    import repro_torch
+
+    program = repro_torch.StencilProgram(ndim=2, radius=4)
+    plan = repro_torch.BlockPlan(spec=program, block_shape=(1024, 1024),
+                                 par_time=2)
+    cs = repro_torch.stencil(program).compile((16384, 16384), steps=9,
+                                              plan=plan)
+    out = cs.run(grid)          # grid: float32 tensor on the card
+
+The package imports torch and numpy only, never jax or ``repro``.
+"""
+
+from repro_torch.core.blocking import BlockPlan
+from repro_torch.core.program import ProgramCoeffs, StencilProgram
+from repro_torch.executor import CompiledStencil, Stencil, stencil
+
+__all__ = [
+    "BlockPlan",
+    "CompiledStencil",
+    "ProgramCoeffs",
+    "Stencil",
+    "StencilProgram",
+    "stencil",
+]

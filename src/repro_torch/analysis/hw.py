@@ -1,0 +1,51 @@
+"""GPU constants — the port's counterpart of ``repro/analysis/hw.py``.
+
+``GpuChip`` replaces ``TpuChip``: what the kernels size themselves by (SM
+count, the per-block opt-in shared memory) and what a roofline bound
+divides by (memory bandwidth, FP32 peak outside the tensor cores).
+Bandwidth and peak are not device properties, so they come from NVIDIA's
+data sheets, picked by the card's name.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class GpuChip:
+    name: str
+    sm_count: int
+    smem_optin: int              # bytes of shared memory one block may use
+    hbm_bytes_per_s: float
+    peak_fp32_flops: float       # FP32 outside the tensor cores
+
+    @classmethod
+    def from_device(cls, index: int = 0) -> "GpuChip":
+        """The visible card's SM count and shared-memory limit, with the
+        data-sheet bandwidth and peak for its name."""
+        props = torch.cuda.get_device_properties(index)
+        sheet = datasheet(props.name)
+        return dataclasses.replace(
+            sheet, name=props.name, sm_count=props.multi_processor_count,
+            smem_optin=getattr(props, "shared_memory_per_block_optin",
+                               sheet.smem_optin))
+
+
+#: NVIDIA H100 SXM5 data sheet: 3.35 TB/s HBM3, 67 TFLOP/s FP32 (700 W).
+H100_SXM = GpuChip(name="NVIDIA H100 SXM", sm_count=132, smem_optin=232448,
+                   hbm_bytes_per_s=3.35e12, peak_fp32_flops=67e12)
+
+#: NVIDIA H100 PCIe data sheet: 2.0 TB/s HBM2e, 51 TFLOP/s FP32 (350 W).
+H100_PCIE = GpuChip(name="NVIDIA H100 PCIe", sm_count=114, smem_optin=232448,
+                    hbm_bytes_per_s=2.0e12, peak_fp32_flops=51e12)
+
+
+def datasheet(name: str) -> GpuChip:
+    """Data-sheet figures for a card name as ``nvidia-smi`` or
+    ``torch.cuda.get_device_name`` print it (PCIe parts by the word
+    "PCIe", every other H100 as SXM)."""
+    return H100_PCIE if "pcie" in name.lower() else H100_SXM
+

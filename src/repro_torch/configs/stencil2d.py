@@ -1,0 +1,46 @@
+"""The paper's 2D workloads as data — counterpart of ``repro/configs/stencil2d.py``.
+
+``2d_r{1..4}_paper`` is the paper's single-device grid (~16k², Table III);
+``2d_r{1..4}_pod`` the cluster-scale grid; ``2d_box_periodic_pod`` a 9-point
+box with periodic wrap.  The (block_shape, par_time) pairs are the
+reference's hand-written plans; the port runs them pinned.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Tuple
+
+from repro_torch.core.blocking import BlockPlan
+from repro_torch.core.program import StencilProgram
+
+
+@dataclasses.dataclass(frozen=True)
+class StencilWorkload:
+    name: str
+    spec: StencilProgram
+    grid_shape: Tuple[int, ...]
+    block_shape: Tuple[int, ...]
+    par_time: int
+
+    def plan(self) -> BlockPlan:
+        return BlockPlan(spec=self.spec, block_shape=self.block_shape,
+                         par_time=self.par_time)
+
+
+def workloads(radius: int = 4) -> Dict[str, StencilWorkload]:
+    out = {}
+    for rad in range(1, radius + 1):
+        spec = StencilProgram(ndim=2, radius=rad)
+        out[f"2d_r{rad}_paper"] = StencilWorkload(
+            name=f"2d_r{rad}_paper", spec=spec, grid_shape=(16384, 16384),
+            block_shape=(1024, 1024), par_time=max(1, 8 // rad))
+        out[f"2d_r{rad}_pod"] = StencilWorkload(
+            name=f"2d_r{rad}_pod", spec=spec, grid_shape=(65536, 65536),
+            block_shape=(1024, 1024), par_time=max(1, 8 // rad))
+    out["2d_box_periodic_pod"] = StencilWorkload(
+        name="2d_box_periodic_pod",
+        spec=StencilProgram(ndim=2, radius=1, shape="box",
+                            boundary="periodic"),
+        grid_shape=(65536, 65536), block_shape=(1024, 1024), par_time=4)
+    return out

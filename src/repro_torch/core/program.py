@@ -1,0 +1,189 @@
+"""StencilProgram — the frontend IR, in PyTorch.
+
+Counterpart of ``repro/core/program.py``.  A stencil is an explicit tap set
+(integer offset vectors plus one coefficient each) from which the halo
+depth, the FLOP count and the boundary handling all derive.
+
+Families (radius-parametric):
+
+* ``star``     — taps on the axes only, ``±d·e_a`` for d = 1..radius.
+* ``box``      — every offset with Chebyshev norm <= radius.
+* ``diamond``  — every offset with L1 norm <= radius.
+
+Boundaries: ``clamp`` (nearest border cell), ``periodic`` (wrap) and
+``constant`` (``boundary_value``).
+
+Tap order is canonical because summation order is part of the semantics
+and is never reassociated: ``star`` is direction-major in (W, E, S, N[, B,
+A]) order with distances ascending; ``box``/``diamond`` are ordered by
+(shell distance, lexicographic offset).  Grids are (Y, X) in 2D and
+(Z, Y, X) in 3D, X minor.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Tuple
+
+import numpy as np
+import torch
+
+Offset = Tuple[int, ...]
+
+SHAPES = ("star", "box", "diamond")
+BOUNDARIES = ("clamp", "periodic", "constant")
+SHARING = ("pertap", "distance")
+
+
+@functools.lru_cache(maxsize=None)
+def _star_taps(ndim: int, radius: int) -> Tuple[Offset, ...]:
+    """(W, E, S, N[, B, A]) × distance ascending."""
+    last = ndim - 1
+    axes_signs = [(last, -1), (last, +1), (last - 1, -1), (last - 1, +1)]
+    if ndim == 3:
+        axes_signs += [(0, -1), (0, +1)]
+    taps = []
+    for axis, sign in axes_signs:
+        for dist in range(1, radius + 1):
+            off = [0] * ndim
+            off[axis] = sign * dist
+            taps.append(tuple(off))
+    return tuple(taps)
+
+
+def _shell_sorted(offsets, norm) -> Tuple[Offset, ...]:
+    return tuple(sorted(offsets, key=lambda o: (norm(o), o)))
+
+
+@functools.lru_cache(maxsize=None)
+def _box_taps(ndim: int, radius: int) -> Tuple[Offset, ...]:
+    rng = range(-radius, radius + 1)
+    if ndim == 2:
+        offs = [(y, x) for y in rng for x in rng if (y, x) != (0, 0)]
+    else:
+        offs = [(z, y, x) for z in rng for y in rng for x in rng
+                if (z, y, x) != (0, 0, 0)]
+    return _shell_sorted(offs, lambda o: max(abs(c) for c in o))
+
+
+@functools.lru_cache(maxsize=None)
+def _diamond_taps(ndim: int, radius: int) -> Tuple[Offset, ...]:
+    rng = range(-radius, radius + 1)
+    if ndim == 2:
+        offs = [(y, x) for y in rng for x in rng
+                if 0 < abs(y) + abs(x) <= radius]
+    else:
+        offs = [(z, y, x) for z in rng for y in rng for x in rng
+                if 0 < abs(z) + abs(y) + abs(x) <= radius]
+    return _shell_sorted(offs, lambda o: sum(abs(c) for c in o))
+
+
+_TAP_BUILDERS = {"star": _star_taps, "box": _box_taps, "diamond": _diamond_taps}
+
+
+def tap_distance(shape: str, off: Offset) -> int:
+    """Distance shell of a tap: L1 for diamond, Chebyshev otherwise."""
+    if shape == "diamond":
+        return sum(abs(c) for c in off)
+    return max(abs(c) for c in off)
+
+
+@dataclasses.dataclass(frozen=True)
+class StencilProgram:
+    """Shape/boundary-parametric stencil description (same fields as the
+    reference, so ``dataclasses.asdict`` of either side compares equal)."""
+
+    ndim: int
+    radius: int
+    shape: str = "star"
+    boundary: str = "clamp"
+    boundary_value: float = 0.0
+    coeff_sharing: str = "pertap"
+    dtype: str = "float32"
+
+    def __post_init__(self):
+        if self.ndim not in (2, 3):
+            raise ValueError(f"ndim must be 2 or 3, got {self.ndim}")
+        if self.radius < 1:
+            raise ValueError(f"radius must be >= 1, got {self.radius}")
+        if self.shape not in SHAPES:
+            raise ValueError(f"shape must be one of {SHAPES}, got {self.shape}")
+        if self.boundary not in BOUNDARIES:
+            raise ValueError(
+                f"boundary must be one of {BOUNDARIES}, got {self.boundary}")
+        if self.coeff_sharing not in SHARING:
+            raise ValueError(
+                f"coeff_sharing must be one of {SHARING}, got"
+                f" {self.coeff_sharing}")
+
+    @property
+    def neighbor_taps(self) -> Tuple[Offset, ...]:
+        """Canonically ordered non-center taps (see module docstring)."""
+        return _TAP_BUILDERS[self.shape](self.ndim, self.radius)
+
+    @property
+    def num_neighbor_taps(self) -> int:
+        return len(self.neighbor_taps)
+
+    @property
+    def num_taps(self) -> int:
+        return self.num_neighbor_taps + 1
+
+    @property
+    def tap_groups(self) -> Tuple[int, ...]:
+        """Per-tap distance-shell index (0-based), for coefficient sharing."""
+        return tuple(tap_distance(self.shape, o) - 1
+                     for o in self.neighbor_taps)
+
+    @property
+    def num_shells(self) -> int:
+        return max(self.tap_groups) + 1 if self.neighbor_taps else 0
+
+    @property
+    def halo_radius(self) -> int:
+        """Per-axis halo one application needs (== radius for all families)."""
+        return max(max(abs(c) for c in o) for o in self.neighbor_taps)
+
+    @property
+    def flops_per_cell(self) -> int:
+        """One multiply per tap and one add per neighbor tap, as executed."""
+        return 2 * self.num_neighbor_taps + 1
+
+    @property
+    def bytes_per_cell(self) -> int:
+        """One read + one write at full on-chip reuse (paper Table I)."""
+        return 2 * np.dtype(self.dtype).itemsize
+
+    def default_coeffs(self, seed: int = 0) -> "ProgramCoeffs":
+        """Per-tap coefficients whose magnitudes sum to 1 (constant grids
+        are fixed points).  Draws the same ``RandomState`` stream as the
+        reference, so both packages get identical values for a seed."""
+        rng = np.random.RandomState(seed)
+        n = self.num_neighbor_taps
+        if self.coeff_sharing == "distance":
+            shell = rng.uniform(0.2, 1.0,
+                                size=(self.num_shells,)).astype(self.dtype)
+            raw = shell[np.asarray(self.tap_groups)]
+        elif self.shape == "star":
+            # legacy draw shape: (2*ndim, radius), direction-major flatten
+            raw = rng.uniform(0.2, 1.0, size=(2 * self.ndim, self.radius))
+            raw = raw.astype(self.dtype).ravel()
+        else:
+            raw = rng.uniform(0.2, 1.0, size=(n,)).astype(self.dtype)
+        raw = raw / (2.0 * raw.sum())
+        center = np.asarray(0.5, dtype=self.dtype)
+        return ProgramCoeffs(center=torch.from_numpy(center),
+                             taps=torch.from_numpy(np.ascontiguousarray(raw)))
+
+
+@dataclasses.dataclass
+class ProgramCoeffs:
+    """Runtime coefficients: ``taps[k]`` pairs with
+    ``program.neighbor_taps[k]``; ``center`` is the (0,…,0) tap."""
+
+    center: torch.Tensor
+    taps: torch.Tensor
+
+    def to(self, device) -> "ProgramCoeffs":
+        return ProgramCoeffs(self.center.to(device), self.taps.to(device))

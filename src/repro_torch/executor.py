@@ -1,0 +1,283 @@
+"""One front door: ``repro_torch.stencil(program).compile(...).run(grid)`` —
+counterpart of ``repro/executor.py`` for the single-device run.
+
+``compile`` validates the request with the reference's RP codes and in
+its order (grid, steps, batch, placement, variant, plan), then binds it to
+a device; ``run`` checks the grid and hands it to the fused executor
+(``kernels/common.run_call``) through ``kernels/ops._stencil_run``.
+
+What this port does not do yet, and says so when asked: plan search
+(``plan="auto"``/``"model"``, ROADMAP A5), the pipelined and temporal
+variants (A6), and meshes (``devices > 1``, A9).  Entry points run on the
+card: ``device=None`` means CUDA and raises when no GPU is visible; the CPU
+runs only when the caller passes ``device="cpu"``.
+"""
+
+from __future__ import annotations
+
+import math
+import operator
+from typing import Optional, Tuple, Union
+
+import torch
+
+from repro_torch.core.blocking import BlockPlan, normalize_variant
+from repro_torch.core.program import ProgramCoeffs, StencilProgram
+from repro_torch.kernels import ops
+from repro_torch.lint.diagnostics import DiagnosticError
+from repro_torch.lint.diagnostics import error as _diag
+
+Devices = Union[None, int, Tuple[int, ...]]
+
+
+def _as_int(value) -> Optional[int]:
+    """``operator.index``'d value, or None for non-integral types (bools
+    excluded)."""
+    if isinstance(value, bool):
+        return None
+    try:
+        return operator.index(value)
+    except TypeError:
+        return None
+
+
+def _check_steps(steps, context: str = "") -> int:
+    """Validate a step count: integral, >= 1 (RP102 on rejection)."""
+    v = _as_int(steps)
+    if v is None or v < 1:
+        raise DiagnosticError([_diag(
+            "RP102",
+            f"steps must be an int >= 1 (got {steps!r}){context}",
+            hint="run at least one time step; fractional or zero step "
+                 "counts have no executable")])
+    return v
+
+
+def _check_devices(prog: StencilProgram, devices: Devices) -> None:
+    """Only one device runs in this port (RP110 otherwise)."""
+    if devices is None:
+        return
+    n = _as_int(devices)
+    if n is None:
+        try:
+            axes = tuple(operator.index(s) for s in devices)
+        except TypeError:
+            raise DiagnosticError([_diag(
+                "RP110",
+                f"devices must be None, an int device count, or a "
+                f"{prog.ndim}-tuple of shards per grid axis (got "
+                f"{devices!r})",
+                hint="an int searches every factorization; a tuple pins "
+                     "shards per axis")])
+        if len(axes) != prog.ndim or any(s < 1 for s in axes):
+            raise DiagnosticError([_diag(
+                "RP110",
+                f"devices {devices!r} must give one positive shard count "
+                f"per grid axis ({prog.ndim} of them)",
+                hint=f"give {prog.ndim} positive shard counts")])
+        n = math.prod(axes)
+    if n < 1:
+        raise DiagnosticError([_diag(
+            "RP110", f"devices must be >= 1 (got {devices})",
+            hint="pass a positive device count or drop devices=")])
+    if n > 1:
+        raise DiagnosticError([_diag(
+            "RP110",
+            f"compile(devices={devices!r}) asks for {n} devices; this port "
+            f"runs on one device so far (the mesh executor is ROADMAP A9)",
+            hint="drop devices= to run on one card")])
+
+
+def _resolve_device(device) -> torch.device:
+    """``None`` -> the current CUDA device; raises RP110 when no GPU is
+    visible.  An explicit device is taken as given."""
+    if device is not None:
+        dev = torch.device(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        return dev
+    if not torch.cuda.is_available():
+        raise DiagnosticError([_diag(
+            "RP110",
+            "compile() runs on a CUDA device by default and none is "
+            "visible",
+            hint="run on a GPU host, or pass device='cpu' for the plain "
+                 "PyTorch versions of the kernels")])
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def stencil(program: StencilProgram,
+            coeffs: Optional[ProgramCoeffs] = None) -> "Stencil":
+    """The front door: bind a program to its coefficients (default: the
+    program's ``default_coeffs()``)."""
+    return Stencil(program, coeffs)
+
+
+class Stencil:
+    """A program + coefficients, ready to compile."""
+
+    def __init__(self, program: StencilProgram,
+                 coeffs: Optional[ProgramCoeffs] = None):
+        self.program = program
+        self.coeffs = program.default_coeffs() if coeffs is None else coeffs
+
+    def compile(self, grid_shape, *, steps: int,
+                batch: Optional[int] = None,
+                devices: Devices = None,
+                plan: Union[str, BlockPlan] = "auto",
+                variant: Optional[str] = None,
+                device=None) -> "CompiledStencil":
+        """Validate the run and bind it to ``device``.
+
+        grid_shape  spatial extent of one grid; ``batch`` adds a leading
+                    ``(B, *grid)`` axis of independent grids.
+        steps       the step count ``run`` uses by default (>= 1).
+        devices     None or 1; more is RP110 (ROADMAP A9).
+        plan        a pinned ``BlockPlan``; "auto"/"model" are RP112
+                    (ROADMAP A5).
+        variant     None/"auto"/"plain"; "pipelined" and "temporal" raise
+                    NotImplementedError (ROADMAP A6).
+        device      None = CUDA (RP110 without a GPU); "cpu" runs the
+                    plain versions of the kernels.
+        """
+        prog = self.program
+        try:
+            grid_shape = tuple(operator.index(s) for s in grid_shape)
+        except TypeError:
+            raise DiagnosticError([_diag(
+                "RP101",
+                f"grid_shape must be a sequence of ints (got {grid_shape!r})",
+                hint="pass the spatial extents, e.g. (4096, 4096)")])
+        if len(grid_shape) != prog.ndim or any(s < 1 for s in grid_shape):
+            raise DiagnosticError([_diag(
+                "RP101",
+                f"grid_shape {grid_shape} does not describe a {prog.ndim}-D "
+                f"grid for this {prog.ndim}-D program (expected "
+                f"{prog.ndim} positive extents); a leading batch axis is "
+                f"declared via compile(batch=B), not in grid_shape",
+                hint=f"give exactly {prog.ndim} positive extents")])
+        steps = _check_steps(
+            steps,
+            "; compile() pins the step count the executable is built for, "
+            "and run(grid, steps=n) may override it per call")
+        if batch is not None:
+            b = _as_int(batch)
+            if b is None or b < 1:
+                raise DiagnosticError([_diag(
+                    "RP103",
+                    f"batch must be None (unbatched) or an int >= 1 — the "
+                    f"extent of the leading (B, *grid) axis of independent "
+                    f"grids (got {batch!r})",
+                    hint="drop batch= for a single grid, or stack "
+                         "independent grids along a leading axis")])
+            batch = b
+        _check_devices(prog, devices)
+        v = normalize_variant(None if variant == "auto" else variant)
+        if v != "plain":
+            raise NotImplementedError(
+                f"variant {v!r} is not ported yet (ROADMAP A6); use "
+                f"variant='plain'")
+        if isinstance(plan, str) and plan in ("auto", "model"):
+            raise DiagnosticError([_diag(
+                "RP112",
+                f"plan={plan!r} asks for the planner, which sizes blocks "
+                f"for a TPU's VMEM and is not ported (ROADMAP A5); pin a "
+                f"BlockPlan",
+                hint="pass plan=BlockPlan(spec=program, block_shape=..., "
+                     "par_time=...)")])
+        if not isinstance(plan, BlockPlan):
+            raise DiagnosticError([_diag(
+                "RP112",
+                f'plan must be "auto", "model", or a BlockPlan '
+                f"(got {plan!r})",
+                hint='use plan="auto" unless pinning a tuned BlockPlan')])
+        if len(plan.block_shape) != prog.ndim:
+            raise DiagnosticError([_diag(
+                "RP111",
+                f"plan block {plan.block_shape} has rank "
+                f"{len(plan.block_shape)}, the program is {prog.ndim}-D",
+                hint="give one output-tile extent per grid axis")])
+        if prog.dtype != "float32":
+            raise DiagnosticError([_diag(
+                "RP109",
+                f"program dtype {prog.dtype!r}: the port's kernels take "
+                f"float32",
+                hint="use float32")])
+        dev = _resolve_device(device)
+        return CompiledStencil(program=prog, coeffs=self.coeffs.to(dev),
+                               grid_shape=grid_shape, steps=steps,
+                               batch=batch, plan=plan, variant=v, device=dev)
+
+
+class CompiledStencil:
+    """A validated run bound to one device; ``run`` dispatches it."""
+
+    def __init__(self, *, program: StencilProgram, coeffs: ProgramCoeffs,
+                 grid_shape: Tuple[int, ...], steps: int,
+                 batch: Optional[int], plan: BlockPlan, variant: str,
+                 device: torch.device):
+        self.program = program
+        self.coeffs = coeffs
+        self.grid_shape = grid_shape
+        self.steps = steps
+        self.batch = batch
+        self.plan = plan
+        self.variant = variant
+        self.device = device
+
+    def _check_grid(self, grid: torch.Tensor) -> None:
+        if not isinstance(grid, torch.Tensor):
+            raise TypeError(f"grid must be a torch.Tensor on {self.device} "
+                            f"(got {type(grid).__name__})")
+        if grid.device != self.device:
+            raise DiagnosticError([_diag(
+                "RP110",
+                f"grid lies on {grid.device} but this executable was "
+                f"compiled for {self.device}",
+                hint=f"move the grid with .to({str(self.device)!r}) or "
+                     f"compile for its device")])
+        if grid.dtype != torch.float32:
+            raise DiagnosticError([_diag(
+                "RP109", f"grid dtype {grid.dtype}: the kernels take "
+                         f"float32", hint="use float32")])
+        want = self.grid_shape if self.batch is None \
+            else (self.batch,) + self.grid_shape
+        if tuple(grid.shape) == want:
+            return
+        spatial = len(self.grid_shape)
+        if self.batch is None and grid.ndim == spatial + 1 \
+                and tuple(grid.shape[1:]) == self.grid_shape:
+            raise DiagnosticError([_diag(
+                "RP103",
+                f"this executable was compiled unbatched for grid "
+                f"{self.grid_shape} but got a batched grid of shape "
+                f"{tuple(grid.shape)}; compile(batch={grid.shape[0]}) to "
+                f"run a leading axis of independent grids",
+                hint=f"recompile with batch={grid.shape[0]}")])
+        if self.batch is not None and tuple(grid.shape) == self.grid_shape:
+            raise DiagnosticError([_diag(
+                "RP103",
+                f"this executable was compiled for batch={self.batch} "
+                f"grids of shape {self.grid_shape} but got a single "
+                f"unbatched grid {tuple(grid.shape)}; stack the grids "
+                f"(B, *grid) or compile(batch=None)",
+                hint="batch rank is pinned at compile time")])
+        raise DiagnosticError([_diag(
+            "RP101",
+            f"grid shape {tuple(grid.shape)} does not match the compiled "
+            f"{'batch=' + str(self.batch) + ' ' if self.batch else ''}"
+            f"grid_shape {want}; compile() pins shapes so the executable "
+            f"cache stays exact — recompile for a different shape",
+            hint=f"recompile for grid {tuple(grid.shape)}")])
+
+    def run(self, grid: torch.Tensor,
+            steps: Optional[int] = None) -> torch.Tensor:
+        """Advance ``steps`` time steps (default: the compiled count) and
+        return a new tensor; ``grid`` is not written."""
+        steps = self.steps if steps is None else _check_steps(steps)
+        self._check_grid(grid)
+        return self._dispatch(grid, steps)
+
+    def _dispatch(self, grid: torch.Tensor, steps: int) -> torch.Tensor:
+        return ops._stencil_run(grid, self.program, self.coeffs, self.plan,
+                                steps, variant=self.variant)

@@ -1,0 +1,89 @@
+"""Build the CUDA kernels at first use and load them with ctypes.
+
+Each ``csrc/*.cu`` file has a plain C interface and compiles on its own
+with ``nvcc`` into ``build/repro_torch/<name>-<hash>.so`` under the repo
+root; the hash covers the source and the flags, so an edited source
+rebuilds and an unchanged one loads.  :func:`build` starts one ``nvcc``
+per missing library, all at once.  Nothing but the sources in the repo and
+the CUDA toolkit is used.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Iterable
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+SOURCES = ("padded_superstep.cu", "wrap_halo.cu")
+FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc() -> str:
+    """Path of the CUDA compiler: ``$CUDA_HOME/bin``, ``PATH``, or the
+    toolkit's default install."""
+    home = os.environ.get("CUDA_HOME")
+    for cand in (home and os.path.join(home, "bin", "nvcc"),
+                 shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels build only where "
+                       "the CUDA toolkit is installed")
+
+
+def library_path(source: str) -> Path:
+    digest = hashlib.sha256((CSRC / source).read_bytes()
+                            + " ".join(FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{Path(source).stem}-{digest}.so"
+
+
+def build(sources: Iterable[str] = SOURCES) -> Dict[str, str]:
+    """Compile every source whose library is missing, one ``nvcc`` each,
+    in parallel.  Returns the compiler's output (``-Xptxas=-v`` register
+    and shared-memory report) per source it built; raises on a failure."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    try:
+        for source in sources:
+            out = library_path(source)
+            if out.exists():
+                continue
+            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+            proc = subprocess.Popen(
+                [nvcc(), *FLAGS, "-o", str(tmp), str(CSRC / source)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            jobs[source] = (proc, tmp, out)
+        logs, failed = {}, []
+        for source, (proc, tmp, out) in jobs.items():
+            logs[source] = proc.communicate()[0]
+            if proc.returncode == 0:
+                os.replace(tmp, out)
+            else:
+                failed.append(f"{source}:\n{logs[source]}")
+    finally:
+        for proc, _, _ in jobs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return logs
+
+
+def load(source: str) -> ctypes.CDLL:
+    """The loaded library of ``source``, built first if missing."""
+    lib = _LIBS.get(source)
+    if lib is None:
+        path = library_path(source)
+        if not path.exists():
+            build([source])
+        lib = _LIBS[source] = ctypes.CDLL(str(path))
+    return lib

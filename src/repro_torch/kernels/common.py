@@ -1,0 +1,463 @@
+"""The padded-carry fused executor — counterpart of ``repro/kernels/common.py``.
+
+The run keeps its carry in halo-extended (padded) layout: a ping-pong pair
+of buffers, each superstep reading halo'd windows from one and writing the
+advanced interior into the other.  The boundary ring is healed by
+O(surface) work: a t=0 ``boundary_fixup`` of every loaded window for
+clamp/constant, a wrap refresh of the source's ring for periodic.
+
+Two kernels carry a superstep, each with a plain PyTorch version here:
+
+* ``padded_superstep`` (reference ``build_padded_superstep_kernel``):
+  window load at ring offset ``H - h``, t=0 fixup, ``par_time`` tap
+  updates over a shrinking region with fixups between, tile write.
+* ``refresh_wrap_halo`` (reference ``_refresh_wrap_halo``): same-buffer
+  periodic ring copies following ``wrap_copies``, axis by axis.
+
+Both dispatch on where the tensor lies: a CUDA tensor launches the
+hand-written kernel (``kernels/cuda.py``), a CPU tensor takes the plain
+version, and any other device raises.
+
+Cells of the round-up slack ``[H+n, H+rounded)`` never feed a true cell:
+clamp/constant fixups overwrite window positions >= n, and the periodic
+refresh rewrites ``[H+n, P)`` before every superstep.  So what a superstep
+leaves there is unspecified (the CUDA kernel computes only true cells, the
+plain version the whole rounded grid), and results compare on the true
+interior, plus the refreshed ring for periodic.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import itertools
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.blocking import (BlockPlan, TEMPORAL_CHUNK,
+                                       normalize_variant, round_up)
+from repro_torch.core.codegen import boundary_pad, tap_interior_update
+from repro_torch.core.program import ProgramCoeffs, StencilProgram
+from repro_torch.kernels import cuda
+
+
+def batch_dims(program: StencilProgram, grid_ndim: int) -> int:
+    """Number of leading batch axes on a grid: 0 (unbatched) or 1."""
+    nb = grid_ndim - program.ndim
+    if nb not in (0, 1):
+        raise ValueError(
+            f"grid rank {grid_ndim} does not match a {program.ndim}-D "
+            f"program (expected {program.ndim} or {program.ndim + 1} with "
+            f"a batch axis)")
+    return nb
+
+
+def boundary_fixup(program: StencilProgram, cur: torch.Tensor,
+                   starts: Sequence[int],
+                   true_shape: Tuple[int, ...]) -> torch.Tensor:
+    """Restore boundary semantics on out-of-grid positions of a window.
+
+    ``starts[d]`` is the global coordinate of ``cur``'s origin along
+    spatial axis d (the last ``program.ndim`` axes).  clamp copies the
+    border slab, axis by axis in increasing d, each axis reading the
+    already-fixed result (so corners take the corner cell); constant fills
+    ``boundary_value``; periodic is a no-op (the wrapped halo evolves under
+    the same update as the grid).
+    """
+    if program.boundary == "periodic":
+        return cur
+    nb = cur.ndim - program.ndim
+    for d in range(program.ndim):
+        ax = nb + d
+        size = cur.shape[ax]
+        n = true_shape[d]
+        if starts[d] >= 0 and starts[d] + size <= n:
+            continue                       # window inside the grid
+        shape = [1] * cur.ndim
+        shape[ax] = size
+        pos = (starts[d] + torch.arange(size, device=cur.device)).reshape(
+            shape)
+        if program.boundary == "constant":
+            cur = torch.where((pos < 0) | (pos > n - 1),
+                              program.boundary_value, cur)
+            continue
+        left = cur.narrow(ax, min(max(-starts[d], 0), size - 1), 1)
+        right = cur.narrow(ax, min(max(n - 1 - starts[d], 0), size - 1), 1)
+        cur = torch.where(pos < 0, left, cur)
+        cur = torch.where(pos > n - 1, right, cur)
+    return cur
+
+
+def _fused_steps(program: StencilProgram, coeffs: ProgramCoeffs,
+                 cur: torch.Tensor, starts: Sequence[int],
+                 true_shape: Tuple[int, ...], steps: int) -> torch.Tensor:
+    """``steps`` tap updates over a shrinking window whose origin sits at
+    global ``starts``, with boundary fixups between the steps."""
+    r = program.halo_radius
+    for t in range(1, steps + 1):
+        cur = tap_interior_update(program, coeffs, cur)
+        if t < steps:
+            cur = boundary_fixup(program, cur, [s + t * r for s in starts],
+                                 true_shape)
+    return cur
+
+
+# ---- padded layout and ring schedule -----------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class PaddedLayout:
+    """Geometry of the persistent halo-extended carry buffer.
+
+    Each spatial axis is rounded up to a block multiple and extended by the
+    ring depth ``halo`` (H) on both sides.  ``wrap_axes`` lists the axes
+    whose ring a periodic refresh rewrites before every superstep.
+    """
+
+    halo: int
+    local_shape: Tuple[int, ...]
+    rounded: Tuple[int, ...]
+    wrap_axes: Tuple[int, ...] = ()
+
+    @property
+    def padded_shape(self) -> Tuple[int, ...]:
+        return tuple(r + 2 * self.halo for r in self.rounded)
+
+    def wrap_degenerate(self) -> bool:
+        """True when a wrap axis is too small for one-lap ring copies: the
+        lo ring copies ``halo`` true cells and the hi region
+        ``rounded - n + halo``; either exceeding ``n`` needs the re-pad
+        fallback."""
+        for d in self.wrap_axes:
+            n = self.local_shape[d]
+            if self.halo > n or self.rounded[d] - n + self.halo > n:
+                return True
+        return False
+
+
+@dataclasses.dataclass(frozen=True)
+class RingCopy:
+    """One O(surface) halo copy along ``axis`` in padded coordinates;
+    ``src``/``dst`` are half-open intervals, every other axis spans its
+    full padded extent."""
+
+    kind: str
+    axis: int
+    src: Tuple[int, int]
+    dst: Tuple[int, int]
+
+    @property
+    def width(self) -> int:
+        return self.dst[1] - self.dst[0]
+
+
+def wrap_copies(layout: PaddedLayout) -> Tuple[RingCopy, ...]:
+    """The periodic refresh schedule: per wrap axis, in axis order, the lo
+    ring ``[0, H)`` from the last H true cells ``[n, n+H)``, then the hi
+    region ``[H+n, P)`` from the first ``W = P-H-n`` true cells."""
+    H = layout.halo
+    P = layout.padded_shape
+    copies = []
+    for d in layout.wrap_axes:
+        n = layout.local_shape[d]
+        W = P[d] - H - n
+        copies.append(RingCopy("wrap", d, (n, n + H), (0, H)))
+        copies.append(RingCopy("wrap", d, (H, H + W), (H + n, H + n + W)))
+    return tuple(copies)
+
+
+def ping_pong_aliases(wrap: bool) -> Dict[int, int]:
+    """The reference launch's ``input_output_aliases`` over operands
+    ``(offsets, center, taps, src, dst)``: the tile output lives in
+    ``dst`` (input 4), and a periodic launch also returns the refreshed
+    ``src`` (input 3).  Kept as data: torch writes in place and donates
+    nothing, but the schedule stays comparable with the reference's."""
+    return {3: 0, 4: 1} if wrap else {4: 0}
+
+
+def tile_output_index(wrap: bool) -> int:
+    """Which output of the reference launch carries the advanced tiles."""
+    return 1 if wrap else 0
+
+
+@dataclasses.dataclass(frozen=True)
+class SuperstepSchedule:
+    """One modeled superstep: which ping-pong buffer it reads and writes,
+    the ring offset ``H - h`` of its windows, its tiles and ring copies.
+    Field for field the reference's record."""
+
+    index: int
+    steps: int
+    halo: int
+    variant: str
+    read_buffer: int
+    write_buffer: int
+    window_offset: int
+    window_shape: Tuple[int, ...]
+    write_tile: Tuple[int, ...]
+    write_stride: Tuple[int, ...]
+    ring: Tuple[RingCopy, ...]
+    ring_deferred: bool = False
+    fixup: bool = False
+    aliases: Tuple[Tuple[int, int], ...] = ()
+
+
+@dataclasses.dataclass(frozen=True)
+class RunSchedule:
+    """The dataflow of one fused run: up to four full supersteps (the
+    buffer pattern is 2-periodic) and the remainder, or ``fallback`` for a
+    wrap-degenerate layout.  ``sharded_axes`` is always empty here (one
+    device) and stays for parity with the reference's record."""
+
+    program: StencilProgram
+    plan: BlockPlan
+    layout: PaddedLayout
+    variant: str
+    steps: int
+    full: int
+    rem: int
+    supersteps: Tuple[SuperstepSchedule, ...]
+    sharded_axes: Tuple[int, ...] = ()
+    fallback: bool = False
+
+
+def ring_schedule(program: StencilProgram, plan: BlockPlan,
+                  true_shape: Tuple[int, ...], steps: int, *,
+                  variant: Optional[str] = None) -> RunSchedule:
+    """The :class:`RunSchedule` of a single-device run (the reference's
+    ``ring_schedule`` with ``decomp=None``)."""
+    v = normalize_variant(variant)
+    ndim = program.ndim
+    chunk = TEMPORAL_CHUNK if v == "temporal" else 1
+    H = chunk * plan.halo
+    rounded = tuple(round_up(true_shape[d], plan.block_shape[d])
+                    for d in range(ndim))
+    wrap_axes = tuple(range(ndim)) if program.boundary == "periodic" else ()
+    layout = PaddedLayout(halo=H, local_shape=tuple(true_shape),
+                          rounded=rounded, wrap_axes=wrap_axes)
+    if layout.wrap_degenerate():
+        return RunSchedule(program=program, plan=plan, layout=layout,
+                           variant=v, steps=steps, full=0, rem=0,
+                           supersteps=(), fallback=True)
+    period = chunk * plan.par_time
+    full, rem = divmod(steps, period)
+    wrap = bool(wrap_axes)
+    amap = ping_pong_aliases(wrap)
+    tout = tile_output_index(wrap)
+    # the operand whose buffer backs the tile output (3 = window source)
+    winput = next((i for i, o in amap.items() if o == tout), 4)
+    wraps = wrap_copies(layout)
+
+    def entry(index, rb, ss_steps, ss_variant):
+        h = ss_steps * program.halo_radius
+        return SuperstepSchedule(
+            index=index, steps=ss_steps, halo=h, variant=ss_variant,
+            read_buffer=rb, write_buffer=rb if winput == 3 else 1 - rb,
+            window_offset=H - h,
+            window_shape=tuple(b + 2 * h for b in plan.block_shape),
+            write_tile=tuple(plan.block_shape),
+            write_stride=tuple(plan.block_shape),
+            ring=wraps, fixup=program.boundary != "periodic",
+            aliases=tuple(sorted(amap.items())))
+
+    supersteps = []
+    rb = 0
+    for i in range(min(full, 4)):
+        supersteps.append(entry(i, rb, period, v))
+        rb = 1 - rb
+    if rem:
+        supersteps.append(entry(len(supersteps), rb, rem,
+                                "plain" if v == "temporal" else v))
+    return RunSchedule(program=program, plan=plan, layout=layout, variant=v,
+                       steps=steps, full=full, rem=rem,
+                       supersteps=tuple(supersteps))
+
+
+# ---- the two kernels of a superstep: plain versions and dispatch ------------
+
+
+def _interior(offsets: Sequence[int], sizes: Sequence[int]):
+    return (Ellipsis,) + tuple(slice(o, o + s) for o, s in zip(offsets, sizes))
+
+
+def padded_superstep_plain(src: torch.Tensor, dst: torch.Tensor,
+                           center: torch.Tensor, taps: torch.Tensor, *,
+                           program: StencilProgram, plan: BlockPlan,
+                           layout: PaddedLayout,
+                           tile: Optional[Tuple[int, ...]] = None
+                           ) -> torch.Tensor:
+    """Plain version of the superstep kernel; writes ``dst``'s rounded
+    interior in place and returns ``dst``.
+
+    ``tile`` (default: the whole rounded grid as one tile) cuts the
+    interior into output tiles, each computed from its own halo'd window
+    as the kernel's CTAs do; the result on true cells does not depend on
+    it.
+    """
+    h = plan.halo
+    H = layout.halo
+    off = H - h
+    rounded = layout.rounded
+    tile = rounded if tile is None else tuple(tile)
+    coeffs = ProgramCoeffs(center, taps)
+    for origin in itertools.product(*(range(0, r, t)
+                                      for r, t in zip(rounded, tile))):
+        size = [min(t, r - o) for t, r, o in zip(tile, rounded, origin)]
+        win = src[_interior([off + o for o in origin],
+                            [s + 2 * h for s in size])]
+        starts = [o - h for o in origin]
+        cur = boundary_fixup(program, win, starts, layout.local_shape)
+        dst[_interior([H + o for o in origin], size)] = _fused_steps(
+            program, coeffs, cur, starts, layout.local_shape, plan.par_time)
+    return dst
+
+
+def refresh_wrap_halo_plain(src: torch.Tensor,
+                            layout: PaddedLayout) -> torch.Tensor:
+    """Plain version of the wrap refresh: the :func:`wrap_copies` schedule
+    as in-place copies of ``src`` (source and destination of one copy are
+    disjoint on a layout that is not wrap-degenerate)."""
+    nb = src.ndim - len(layout.rounded)
+    for c in wrap_copies(layout):
+        ax = nb + c.axis
+        src.narrow(ax, c.dst[0], c.width).copy_(
+            src.narrow(ax, c.src[0], c.width))
+    return src
+
+
+def _on_cuda(t: torch.Tensor) -> bool:
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"tensors on {t.device} have neither a kernel nor a "
+                     f"plain version here (cuda or cpu)")
+
+
+def padded_superstep(src: torch.Tensor, dst: torch.Tensor,
+                     center: torch.Tensor, taps: torch.Tensor, *,
+                     program: StencilProgram, plan: BlockPlan,
+                     layout: PaddedLayout) -> torch.Tensor:
+    """One superstep ``src`` -> ``dst``: the CUDA kernel for a CUDA tensor,
+    the plain version for a CPU tensor."""
+    if _on_cuda(src):
+        cuda.padded_superstep(src, dst, center, taps, program=program,
+                              plan=plan, layout=layout)
+        return dst
+    return padded_superstep_plain(src, dst, center, taps, program=program,
+                                  plan=plan, layout=layout)
+
+
+def refresh_wrap_halo(src: torch.Tensor,
+                      layout: PaddedLayout) -> torch.Tensor:
+    """Periodic ring refresh of ``src`` in place: one CUDA launch per wrap
+    axis for a CUDA tensor, the plain version for a CPU tensor."""
+    if _on_cuda(src):
+        cuda.refresh_wrap_halo(src, wrap_copies(layout),
+                               layout.padded_shape)
+        return src
+    return refresh_wrap_halo_plain(src, layout)
+
+
+# ---- executors -----------------------------------------------------------------
+
+
+def superstep_plain(padded: torch.Tensor, center: torch.Tensor,
+                    taps: torch.Tensor, *, program: StencilProgram,
+                    plan: BlockPlan,
+                    true_shape: Tuple[int, ...]) -> torch.Tensor:
+    """Plain version of the reference's pre-padded superstep
+    (``build_superstep_kernel``, ROADMAP B5): ``par_time`` fused steps over
+    a grid ``boundary_pad`` already padded by ``plan.halo``; no t=0
+    fixup.  Returns the rounded grid."""
+    h = plan.halo
+    return _fused_steps(program, ProgramCoeffs(center, taps), padded,
+                        [-h] * program.ndim, true_shape, plan.par_time)
+
+
+def run_call_padfallback(grid: torch.Tensor, center: torch.Tensor,
+                         taps: torch.Tensor, full: int, *,
+                         program: StencilProgram, plan: BlockPlan,
+                         true_shape: Tuple[int, ...],
+                         rem: int) -> torch.Tensor:
+    """Re-pad the true region every superstep: the path of wrap-degenerate
+    periodic layouts, where one-lap ring copies cannot refresh the ring.
+
+    It runs the pre-padded superstep, whose CUDA kernel (ROADMAP B5) is not
+    ported yet, so only CPU tensors take it.
+    """
+    if grid.device.type != "cpu":
+        raise NotImplementedError(
+            "this periodic layout is wrap-degenerate (an axis is smaller "
+            "than the ring depth or the round-up slack) and runs the "
+            "pre-padded superstep kernel, which is not ported to CUDA yet "
+            "(ROADMAP B5); grow the axis, shrink par_time, or pick a "
+            "block that divides the grid")
+    ndim = program.ndim
+    nb = grid.ndim - ndim
+    rounded = tuple(round_up(true_shape[d], plan.block_shape[d])
+                    for d in range(ndim))
+    g = F.pad(grid, [w for d in reversed(range(ndim))
+                     for w in (0, rounded[d] - true_shape[d])])
+    true_ix = _interior([0] * ndim, true_shape)
+
+    def superstep(g, step_plan):
+        h = step_plan.halo
+        padded = boundary_pad(program, g[true_ix], [(0, 0)] * nb + [
+            (h, rounded[d] - true_shape[d] + h) for d in range(ndim)])
+        return superstep_plain(padded, center, taps, program=program,
+                               plan=step_plan, true_shape=true_shape)
+
+    for _ in range(full):
+        g = superstep(g, plan)
+    if rem:
+        g = superstep(g, dataclasses.replace(plan, par_time=rem))
+    return g[true_ix].contiguous()
+
+
+def run_call(grid: torch.Tensor, center: torch.Tensor, taps: torch.Tensor,
+             full: int, *, program: StencilProgram, plan: BlockPlan,
+             true_shape: Tuple[int, ...], rem: int,
+             variant: Optional[str] = None) -> torch.Tensor:
+    """Fused multi-superstep executor over a persistent padded carry.
+
+    ``grid`` is the true-shaped grid, optionally behind one batch axis; it
+    is copied into the padded layout once and never written.  Each
+    superstep refreshes the periodic ring of the source (if any), runs the
+    superstep kernel into the other buffer, and swaps the two.  ``full``
+    supersteps of ``par_time`` steps run first, then one shallower
+    superstep of ``rem`` steps whose windows read at ring offset
+    ``H - rem * radius``.  Returns a new tensor holding the true interior.
+    """
+    v = normalize_variant(variant)
+    if v != "plain":
+        raise NotImplementedError(
+            f"variant {v!r} is not ported yet (ROADMAP A6); use "
+            f"variant='plain'")
+    sched = ring_schedule(program, plan, true_shape,
+                          full * plan.par_time + rem)
+    if sched.fallback:
+        return run_call_padfallback(grid, center, taps, full,
+                                    program=program, plan=plan,
+                                    true_shape=true_shape, rem=rem)
+    layout = sched.layout
+    nb = grid.ndim - program.ndim
+    src = grid.new_zeros(tuple(grid.shape[:nb]) + layout.padded_shape)
+    interior = _interior([layout.halo] * program.ndim, true_shape)
+    src[interior] = grid
+    dst = torch.zeros_like(src)
+
+    def superstep(src, dst, step_plan):
+        if layout.wrap_axes:
+            refresh_wrap_halo(src, layout)
+        padded_superstep(src, dst, center, taps, program=program,
+                         plan=step_plan, layout=layout)
+        return dst, src
+
+    for _ in range(full):
+        src, dst = superstep(src, dst, plan)
+    if rem:
+        src, dst = superstep(src, dst,
+                             dataclasses.replace(plan, par_time=rem))
+    return src[interior].contiguous()
