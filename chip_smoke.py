@@ -7,19 +7,23 @@ plain PyTorch version.
 Phases (any failure raises, so the exit code is non-zero):
 
 1. device: ``nvidia-smi`` name and power limit, the card's properties,
-   and the build of every CUDA kernel from ``src/repro_torch/kernels/csrc``;
+   and the build of every CUDA kernel from ``src/repro_torch/kernels/csrc``
+   (one ``nvcc`` per source, all at once);
 2. the main path, ``repro_torch.stencil(...).compile(...).run(grid)``, at
-   the paper's single-device workloads (``2d_r4_paper`` 16384², 9 steps;
-   ``3d_r4_paper`` 512x1024x704, 3 steps) and the periodic box workload at
-   16384² (10 steps).  Launch counts are zeroed just before each run and
-   read just after; each result is compared with the port's oracle
-   (``core/reference.program_nsteps``) on the same card tensors;
+   the paper's single-device workloads under each kernel variant, and the
+   pre-padded superstep through ``repro_torch.backends.lower(...)``
+   (see :func:`cases`).  Launch counts are zeroed just before each run and
+   read just after, and must equal the schedule's; each result is compared
+   with the port's oracle (``core/reference.program_nsteps``) on the same
+   card tensors;
 3. each kernel's wrapper against its plain version on the same inputs at
-   the shapes the main path gives it;
-4. small exact checks: 2D/3D x clamp/periodic/constant x batch 2 x a
-   remainder superstep against the float64 oracle on the card;
-5. times: CUDA events, two warm-ups, the median of 7 runs, beside the
-   card's bound and a PyTorch convolution yardstick (``library_ms``).
+   the shapes the main path gives it, then its time: CUDA events, two
+   warm-ups, the median of 7 runs, beside the card's bound, the plain
+   version's time and a PyTorch convolution yardstick (``library_ms``);
+4. small exact checks: 2D/3D x clamp/periodic/constant x star/box x batch
+   2 x each variant against the float64 oracle on the card, the
+   wrap-degenerate layout under each variant (the pre-padded kernels), and
+   the RP105 refusals of plans no CTA tile fits.
 
 The last lines are the ``{"kernels": [...]}`` record, the ``nvidia-smi``
 line, and ``{"ok": true, "device": {...}}``.
@@ -126,91 +130,178 @@ def library_step(program, coeffs, grid, steps: int):
     return x.reshape(grid.shape)
 
 
-def main_path_cases():
+TEMPORAL_CUT = ("par_time 1 instead of the paper plan's 2: under temporal "
+                "that plan's window has a halo of 16 per side, which no CTA "
+                "tile fits (RP105, checked)")
+
+
+def cases():
+    """The main-path runs, in order: the plain runs, then each new
+    variant and the pre-padded superstep surface.  ``expect`` is the launch
+    count of each kernel the run must make (all others 0)."""
+    import dataclasses
     from repro_torch.configs import stencil2d, stencil3d
     w2 = stencil2d.workloads()
     w3 = stencil3d.workloads()
-    box = w2["2d_box_periodic_pod"]
+    box_cut = ("grid 16384^2 instead of 65536^2: four float32 buffers of "
+               "17 GB would not fit 80 GB")
+    r2 = w3["3d_r2_paper"]
     return [
-        dict(name="2d_r4_paper", work=w2["2d_r4_paper"],
-             grid=w2["2d_r4_paper"].grid_shape, steps=9),
+        dict(name="2d_r4_paper", work=w2["2d_r4_paper"], steps=9,
+             expect={"padded_superstep": 5}, check="carry"),
+        dict(name="3d_r4_paper", work=w3["3d_r4_paper"], steps=3,
+             expect={"padded_superstep": 3}, check="carry"),
+        dict(name="2d_box_periodic_pod", work=w2["2d_box_periodic_pod"],
+             grid=(16384, 16384), steps=10,
+             expect={"padded_superstep": 3, "wrap_halo": 6},
+             check="carry", reduced=box_cut),
+        dict(name="2d_r4_paper", work=w2["2d_r4_paper"], steps=19,
+             variant="temporal",
+             expect={"temporal_superstep": 2, "padded_superstep": 1},
+             check="temporal"),
+        dict(name="3d_r2_paper", work=r2, steps=9, variant="temporal",
+             plan=dataclasses.replace(r2.plan(), par_time=1),
+             expect={"temporal_superstep": 2, "padded_superstep": 1},
+             check="temporal", reduced=TEMPORAL_CUT),
+        dict(name="3d_r4_paper", work=w3["3d_r4_paper"], steps=3,
+             variant="pipelined", expect={"padded_pipelined": 3},
+             check="pipelined"),
+        dict(name="2d_box_periodic_pod", work=w2["2d_box_periodic_pod"],
+             grid=(16384, 16384), steps=10, variant="pipelined",
+             expect={"padded_pipelined": 3, "wrap_halo": 6},
+             check="pipelined", reduced=box_cut),
+        dict(name="2d_r4_paper", work=w2["2d_r4_paper"], backend="cuda",
+             expect={"superstep": 1}, check="prepadded"),
         dict(name="3d_r4_paper", work=w3["3d_r4_paper"],
-             grid=w3["3d_r4_paper"].grid_shape, steps=3),
-        dict(name="2d_box_periodic_pod", work=box, grid=(16384, 16384),
-             steps=10,
-             reduced="grid 16384^2 instead of 65536^2: four float32 "
-                     "buffers of 17 GB would not fit 80 GB"),
+             backend="cuda-pipelined", expect={"pipelined_superstep": 1},
+             check="prepadded"),
     ]
 
 
 def drive_main_path(case, chip):
-    """One front-door run with zeroed launch counts, checked against the
-    oracle; returns the counts and the state the kernel checks reuse."""
+    """One run through the user's entry point with zeroed launch counts,
+    checked against the oracle; returns the counts and the state the
+    kernel checks reuse."""
     import torch
     import repro_torch
+    from repro_torch.backends import lower
     from repro_torch.core.reference import program_nsteps
     from repro_torch.kernels import cuda
 
-    work, shape, steps = case["work"], case["grid"], case["steps"]
-    prog, plan = work.spec, work.plan()
-    print(f"\n== main path: {case['name']} grid={shape} steps={steps} "
+    work = case["work"]
+    prog = work.spec
+    plan = case.get("plan") or work.plan()
+    shape = case.get("grid", work.grid_shape)
+    grid = random_grid(shape, seed=0)
+    if "backend" in case:
+        low = lower(prog, plan, backend=case["backend"])
+        steps = plan.par_time
+        coeffs = low.coeffs.to(grid.device)
+        run = lambda: low.superstep(grid)  # noqa: E731
+        how = f"lower(backend={case['backend']!r}).superstep"
+    else:
+        steps = case["steps"]
+        cs = repro_torch.stencil(prog).compile(
+            shape, steps=steps, plan=plan, variant=case.get("variant"))
+        coeffs = cs.coeffs
+        run = lambda: cs.run(grid)  # noqa: E731
+        how = f"compile(variant={cs.variant!r}).run"
+    print(f"\n== main path: {case['name']} {how} grid={shape} steps={steps} "
           f"block={plan.block_shape} par_time={plan.par_time} "
           f"{prog.shape} r={prog.radius} {prog.boundary}")
     if "reduced" in case:
         print(f"  reduced: {case['reduced']}")
-    grid = random_grid(shape, seed=0)
-    cs = repro_torch.stencil(prog).compile(shape, steps=steps, plan=plan)
     cuda.reset_launches()
-    out = cs.run(grid)
+    out = run()
     torch.cuda.synchronize()
     counts = cuda.launches()
-    full, rem = divmod(steps, plan.par_time)
-    supersteps = full + (1 if rem else 0)
-    want = {"padded_superstep": supersteps,
-            "wrap_halo": supersteps * prog.ndim
-            if prog.boundary == "periodic" else 0}
+    want = {k: case["expect"].get(k, 0) for k in counts}
     print(f"  launches {counts} (expected {want})")
     if counts != want:
         raise AssertionError(f"launch counts {counts} != {want}")
     if tuple(out.shape) != tuple(shape) or not bool(out.isfinite().all()):
-        raise AssertionError("run output has the wrong shape or non-finite "
+        raise AssertionError("output has the wrong shape or non-finite "
                              "values")
-    ref = program_nsteps(prog, cs.coeffs, grid, steps)
-    check_close("front door vs program_nsteps (float32, same card)",
+    ref = program_nsteps(prog, coeffs, grid, steps)
+    check_close("main path vs program_nsteps (float32, same card)",
                 out, ref, **ULP)
     del ref, out
     # wall time of one more run (host clock around a synchronised run)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    cs.run(grid)
+    run()
     torch.cuda.synchronize()  # lint-ok: RP302
     wall = time.perf_counter() - t0
     cells = math.prod(shape) * steps
     print(f"  run: {wall * 1e3!r} ms, {cells / wall / 1e6!r} MCell/s, "
           f"{cells * prog.flops_per_cell / wall / 1e9!r} GFLOP/s")
-    return dict(counts=counts, grid=grid, coeffs=cs.coeffs, prog=prog,
-                plan=plan)
+    return dict(counts=counts, grid=grid, coeffs=coeffs, prog=prog,
+                plan=plan, steps=steps)
 
 
-def check_and_time_kernels(case, state, chip):
-    """Each kernel's wrapper against its plain version on the path's
-    shapes, then the times.  Returns the ``kernels`` records."""
+#: library yardstick times already taken in this run, by (case, steps)
+_LIBRARY_MS = {}
+
+
+def library_ms(name, prog, coeffs, grid, steps):
+    """The time of ``library_step`` for ``steps`` steps, checked against
+    the oracle first; taken once per case name and step count."""
     import torch
     from repro_torch.core.reference import program_nsteps
-    from repro_torch.kernels import common, cuda
+    key = (name, tuple(grid.shape), steps)
+    if key not in _LIBRARY_MS:
+        torch.backends.cudnn.allow_tf32 = False
+        lib = library_step(prog, coeffs, grid, steps)
+        ref = program_nsteps(prog, coeffs, grid, steps)
+        check_close(f"library yardstick ({steps} steps) vs program_nsteps",
+                    lib, ref, atol=LIBRARY_TOL, rtol=0.0)
+        del lib, ref
+        _LIBRARY_MS[key] = median_ms(lambda: library_step(prog, coeffs, grid,
+                                                          steps))
+        print(f"  library yardstick: {_LIBRARY_MS[key]!r} ms "
+              f"(cudnn.allow_tf32={torch.backends.cudnn.allow_tf32})")
+    return _LIBRARY_MS[key]
 
-    prog, plan, grid, coeffs = (state["prog"], state["plan"], state["grid"],
-                                state["coeffs"])
-    sched = common.ring_schedule(prog, plan, tuple(grid.shape), plan.par_time)
-    layout = sched.layout
+
+def record(name, kernel, source, replaces, state, err, ms, plain_ms,
+           moved, flops, lib_ms, chip):
+    b_ms, b_by = bound(moved, flops, chip)
+    print(f"  {kernel}: {ms!r} ms/launch, plain {plain_ms!r} ms, library "
+          f"{lib_ms!r} ms, bound {b_ms!r} ms ({b_by}: {moved} bytes, "
+          f"{flops} flop)")
+    return dict(name=f"{kernel}@{name}", route="cuda",
+                source=f"src/repro_torch/kernels/csrc/{source}",
+                replaces=f"src/repro/kernels/common.py:{replaces}",
+                launches=state["counts"][kernel], max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms)
+
+
+def carried(state, variant):
+    """The padded carry of the case's grid in the variant's layout (ring
+    refreshed for periodic) and its interior index."""
+    from repro_torch.kernels import common
+    prog, plan, grid = state["prog"], state["plan"], state["grid"]
+    layout = common.ring_schedule(prog, plan, tuple(grid.shape),
+                                  plan.par_time, variant=variant).layout
     H, n = layout.halo, tuple(grid.shape)
     interior = (Ellipsis,) + tuple(slice(H, H + s) for s in n)
     src = grid.new_zeros(layout.padded_shape)
     src[interior] = grid
+    return layout, src, interior
+
+
+def check_carry(case, state, chip):
+    """B2 and B1 at a plain run's shape."""
+    import torch
+    from repro_torch.kernels import common, cuda
+
+    prog, plan, coeffs = state["prog"], state["plan"], state["coeffs"]
+    layout, src, interior = carried(state, "plain")
     records = []
     name = case["name"]
-    print(f"  kernels at {name}: padded {layout.padded_shape}, ring H={H}")
-
+    print(f"  kernels at {name}: padded {layout.padded_shape}, "
+          f"ring H={layout.halo}")
     if layout.wrap_axes:
         copies = common.wrap_copies(layout)
         got = src.clone()
@@ -227,104 +318,250 @@ def check_and_time_kernels(case, state, chip):
             buf, layout)) / naxes
         moved = sum(2 * 4 * c.width * math.prod(layout.padded_shape)
                     // layout.padded_shape[c.axis] for c in copies) / naxes
-        b_ms, b_by = bound(moved, 0.0, chip)
-        print(f"  wrap_halo: {ms!r} ms/launch, plain {plain_ms!r} ms, "
-              f"bound {b_ms!r} ms ({b_by})")
-        records.append(dict(
-            name=f"wrap_halo@{name}", route="cuda",
-            source="src/repro_torch/kernels/csrc/wrap_halo.cu",
-            replaces="src/repro/kernels/common.py:678",
-            launches=state["counts"]["wrap_halo"], max_abs_err=err, ms=ms,
-            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-            library_ms=None))
+        records.append(record(name, "wrap_halo", "wrap_halo.cu", 678,
+                              state, err, ms, plain_ms, moved, 0.0, None,
+                              chip))
         common.refresh_wrap_halo_plain(src, layout)
+    records.append(check_padded(case, state, chip, "plain", layout, src,
+                                interior))
+    return records
 
+
+def check_padded(case, state, chip, variant, layout=None, src=None,
+                 interior=None):
+    """B1, B3 or B4 against ``padded_superstep_plain`` on the case's padded
+    carry, then timed."""
+    import torch
+    from repro_torch.kernels import common, cuda
+
+    prog, plan, grid, coeffs = (state["prog"], state["plan"], state["grid"],
+                                state["coeffs"])
+    if layout is None:
+        layout, src, interior = carried(state, variant)
+        if layout.wrap_axes:
+            common.refresh_wrap_halo_plain(src, layout)
+        print(f"  kernels at {case['name']}: padded {layout.padded_shape}, "
+              f"ring H={layout.halo}")
+    kernel, launch, source, replaces = {
+        "plain": ("padded_superstep", cuda.padded_superstep,
+                  "padded_superstep.cu", 707),
+        "temporal": ("temporal_superstep", cuda.temporal_superstep,
+                     "padded_superstep.cu", 899),
+        "pipelined": ("padded_pipelined", cuda.padded_pipelined,
+                      "pipelined_superstep.cu", 785)}[variant]
+    eff = common.deep_plan(plan) if variant == "temporal" else plan
     center, taps = coeffs.center, coeffs.taps
     got = torch.zeros_like(src)
     want = torch.zeros_like(src)
-    cuda.padded_superstep(src, got, center, taps, program=prog, plan=plan,
-                          layout=layout)
+    launch(src, got, center, taps, program=prog, plan=plan, layout=layout)
     common.padded_superstep_plain(src, want, center, taps, program=prog,
-                                  plan=plan, layout=layout)
+                                  plan=eff, layout=layout)
     torch.cuda.synchronize()
-    err = check_close("padded_superstep vs padded_superstep_plain",
+    err = check_close(f"{kernel} vs padded_superstep_plain",
                       got[interior], want[interior], **ULP)
     del want
-    ms = median_ms(lambda: cuda.padded_superstep(
-        src, got, center, taps, program=prog, plan=plan, layout=layout))
+    ms = median_ms(lambda: launch(src, got, center, taps, program=prog,
+                                  plan=plan, layout=layout))
     plain_ms = median_ms(lambda: common.padded_superstep_plain(
-        src, got, center, taps, program=prog, plan=plan, layout=layout))
-    torch.backends.cudnn.allow_tf32 = False
-    lib = library_step(prog, coeffs, grid, plan.par_time)
-    ref = program_nsteps(prog, coeffs, grid, plan.par_time)
-    check_close("library yardstick vs program_nsteps", lib, ref,
-                atol=LIBRARY_TOL, rtol=0.0)
-    del lib, ref
-    library_ms = median_ms(lambda: library_step(prog, coeffs, grid,
-                                                plan.par_time))
-    cells = math.prod(n)
+        src, got, center, taps, program=prog, plan=eff, layout=layout))
+    lib = library_ms(case["name"], prog, coeffs, grid, eff.par_time)
+    cells = math.prod(grid.shape)
     moved = 4 * (math.prod(layout.padded_shape) + cells)
-    flops = cells * plan.par_time * prog.flops_per_cell
-    b_ms, b_by = bound(moved, flops, chip)
-    tile = cuda.pick_tile(prog.ndim, plan.halo, plan.par_time,
-                          prog.num_taps, cuda.smem_optin(grid.device.index))
-    print(f"  padded_superstep: CTA tile {tile}, {ms!r} ms/launch, plain "
-          f"{plain_ms!r} ms, library {library_ms!r} ms "
-          f"(cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}), bound "
-          f"{b_ms!r} ms ({b_by}: {moved} bytes, {flops} flop)")
-    records.append(dict(
-        name=f"padded_superstep@{name}", route="cuda",
-        source="src/repro_torch/kernels/csrc/padded_superstep.cu",
-        replaces="src/repro/kernels/common.py:707",
-        launches=state["counts"]["padded_superstep"], max_abs_err=err,
-        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=library_ms))
-    return records
+    flops = cells * eff.par_time * prog.flops_per_cell
+    tile = cuda.pick_tile(plan, variant, cuda.smem_optin(grid.device.index))
+    print(f"  {kernel}: CTA tile {tile}, "
+          f"{plan.smem_bytes_for(tile, variant)} bytes of shared memory, "
+          f"{eff.par_time} steps per launch")
+    return record(case["name"], kernel, source, replaces, state, err, ms,
+                  plain_ms, moved, flops, lib, chip)
+
+
+def check_prepadded(case, state, chip):
+    """B5 or B6 against ``superstep_plain`` on the case's grid padded by
+    ``boundary_pad``, then timed."""
+    import torch
+    from repro_torch.core.blocking import round_up
+    from repro_torch.core.codegen import boundary_pad
+    from repro_torch.kernels import common, cuda
+
+    prog, plan, grid, coeffs = (state["prog"], state["plan"], state["grid"],
+                                state["coeffs"])
+    pipelined = case["backend"].endswith("-pipelined")
+    kernel, launch, source, replaces = (
+        ("pipelined_superstep", cuda.pipelined_superstep,
+         "pipelined_superstep.cu", 223) if pipelined else
+        ("superstep", cuda.superstep, "padded_superstep.cu", 181))
+    n = tuple(grid.shape)
+    h = plan.halo
+    rounded = tuple(round_up(s, b) for s, b in zip(n, plan.block_shape))
+    padded = boundary_pad(prog, grid, [(h, r - s + h)
+                                       for s, r in zip(n, rounded)])
+    print(f"  kernels at {case['name']}: pre-padded {tuple(padded.shape)}")
+    center, taps = coeffs.center, coeffs.taps
+
+    def kernel_call():
+        return launch(padded, center, taps, program=prog, plan=plan,
+                      true_shape=n)
+
+    def plain_call():
+        return common.superstep_plain(padded, center, taps, program=prog,
+                                      plan=plan, true_shape=n)
+
+    got = kernel_call()
+    want = plain_call()
+    torch.cuda.synchronize()
+    true = (Ellipsis,) + tuple(slice(0, s) for s in n)
+    err = check_close(f"{kernel} vs superstep_plain", got[true], want[true],
+                      **ULP)
+    del got, want
+    ms = median_ms(kernel_call)
+    plain_ms = median_ms(plain_call)
+    lib = library_ms(case["name"], prog, coeffs, grid, plan.par_time)
+    moved = 4 * (math.prod(padded.shape) + math.prod(rounded))
+    flops = math.prod(n) * plan.par_time * prog.flops_per_cell
+    tile = cuda.pick_tile(plan, "pipelined" if pipelined else "plain",
+                          cuda.smem_optin(grid.device.index))
+    print(f"  {kernel}: CTA tile {tile}")
+    return record(case["name"], kernel, source, replaces, state, err, ms,
+                  plain_ms, moved, flops, lib, chip)
+
+
+def check_kernels(case, state, chip):
+    how = case["check"]
+    if how == "carry":
+        return check_carry(case, state, chip)
+    if how == "prepadded":
+        return [check_prepadded(case, state, chip)]
+    return [check_padded(case, state, chip, how)]
+
+
+def refuse_rp105(prog, plan, shape, variant):
+    """The front door must refuse ``plan`` under ``variant`` at compile."""
+    import repro_torch
+    from repro_torch.lint.diagnostics import DiagnosticError
+    from repro_torch.kernels import cuda
+    before = cuda.launches()
+    try:
+        repro_torch.stencil(prog).compile(shape, steps=3, plan=plan,
+                                          variant=variant)
+    except DiagnosticError as e:
+        if [d.code for d in e.diagnostics] != ["RP105"]:
+            raise
+        print(f"  refused as expected: {e}")
+    else:
+        raise AssertionError(f"{variant} plan {plan.block_shape} "
+                             f"par_time={plan.par_time} r={prog.radius} "
+                             f"{prog.ndim}D was not refused with RP105")
+    if cuda.launches() != before:
+        raise AssertionError("a refused compile launched a kernel")
+
+
+def expected_launches(prog, plan, steps, variant):
+    """The schedule's launch counts of a run that is not wrap-degenerate."""
+    from repro_torch.core.blocking import TEMPORAL_CHUNK
+    period = plan.par_time * (TEMPORAL_CHUNK if variant == "temporal"
+                              else 1)
+    full, rem = divmod(steps, period)
+    main = {"plain": "padded_superstep", "temporal": "temporal_superstep",
+            "pipelined": "padded_pipelined"}[variant]
+    want = {main: full}
+    if rem:
+        tail = "padded_superstep" if variant == "temporal" else main
+        want[tail] = want.get(tail, 0) + 1
+    if prog.boundary == "periodic":
+        want["wrap_halo"] = (full + (1 if rem else 0)) * prog.ndim
+    return want
 
 
 def exact_checks():
     """Small configurations through the front door against the float64
-    oracle on the card; a wrap-degenerate layout must refuse the card."""
-    import torch
+    oracle on the card, under each variant; the wrap-degenerate layout
+    under each variant; the RP105 refusals."""
     import repro_torch
+    from repro_torch.configs import stencil3d
+    from repro_torch.core.blocking import TEMPORAL_CHUNK
     from repro_torch.core.reference import program_nsteps
-    from repro_torch.kernels import cuda
+    from repro_torch.kernels import common, cuda
 
     print("\n== small exact checks vs the float64 oracle")
-    shapes = {2: ((37, 150), (16, 128)), 3: ((20, 18, 140), (8, 16, 128))}
-    cases = [(ndim, kind, 2, boundary) for ndim in (2, 3)
-             for boundary in ("clamp", "periodic", "constant")
-             for kind in ("star", "box")] + [(3, "box", 4, "clamp")]
-    for ndim, kind, radius, boundary in cases:
-        shape, block = shapes[ndim]
-        prog = repro_torch.StencilProgram(
-            ndim=ndim, radius=radius, shape=kind, boundary=boundary,
-            boundary_value=0.25)
-        plan = repro_torch.BlockPlan(spec=prog, block_shape=block,
-                                     par_time=2)
-        grid = random_grid((2,) + shape, seed=ndim)
-        cs = repro_torch.stencil(prog).compile(
-            shape, steps=3, batch=2, plan=plan)
-        before = cuda.launches()["padded_superstep"]
+    shapes = {2: ((37, 150), (16, 128)), 3: ((20, 32, 140), (8, 16, 128))}
+    configs = [(ndim, kind, 2, boundary) for ndim in (2, 3)
+               for boundary in ("clamp", "periodic", "constant")
+               for kind in ("star", "box")] + [(3, "box", 4, "clamp")]
+    worst = 0.0
+    for variant in ("plain", "pipelined", "temporal"):
+        for ndim, kind, radius, boundary in configs:
+            shape, block = shapes[ndim]
+            prog = repro_torch.StencilProgram(
+                ndim=ndim, radius=radius, shape=kind, boundary=boundary,
+                boundary_value=0.25)
+            # temporal in 3D: a deep halo of at most 8 fits a CTA tile
+            par_time = 1 if (variant == "temporal" and ndim == 3) else 2
+            plan = repro_torch.BlockPlan(spec=prog, block_shape=block,
+                                         par_time=par_time)
+            if variant == "temporal" and ndim == 3:
+                refuse_rp105(prog, repro_torch.BlockPlan(
+                    spec=prog, block_shape=block, par_time=2), shape,
+                    variant)
+                if radius == 4:
+                    refuse_rp105(prog, plan, shape, variant)
+                    continue
+            steps = TEMPORAL_CHUNK * par_time + par_time + 1
+            grid = random_grid((2,) + shape, seed=ndim)
+            cs = repro_torch.stencil(prog).compile(
+                shape, steps=steps, batch=2, plan=plan, variant=variant)
+            cuda.reset_launches()
+            out = cs.run(grid)
+            counts = {k: v for k, v in cuda.launches().items() if v}
+            want_counts = expected_launches(prog, plan, steps, variant)
+            if counts != want_counts:
+                raise AssertionError(f"launches {counts} != {want_counts}")
+            c64 = repro_torch.ProgramCoeffs(cs.coeffs.center.double(),
+                                            cs.coeffs.taps.double())
+            want = program_nsteps(prog, c64, grid.double(), steps)
+            worst = max(worst, check_close(
+                f"{variant} {ndim}D {kind} r={radius} {boundary} batch 2 "
+                f"steps {steps} {counts}", out, want, atol=TOL, rtol=0.0))
+    print(f"  worst error vs the float64 oracle: {worst!r}")
+
+    print("\n== wrap-degenerate periodic layout under each variant")
+    prog = repro_torch.StencilProgram(ndim=3, radius=2, boundary="periodic")
+    shape = (9, 18, 140)
+    for variant, kernel in (("plain", "superstep"),
+                            ("pipelined", "pipelined_superstep"),
+                            ("temporal", "superstep")):
+        par_time = 1 if variant == "temporal" else 2
+        plan = repro_torch.BlockPlan(spec=prog, block_shape=(8, 16, 128),
+                                     par_time=par_time)
+        steps = TEMPORAL_CHUNK * par_time + par_time + 1
+        if not common.ring_schedule(prog, plan, shape, steps,
+                                    variant=variant).fallback:
+            raise AssertionError("layout is not wrap-degenerate")
+        grid = random_grid(shape, seed=0)
+        cs = repro_torch.stencil(prog).compile(shape, steps=steps,
+                                               plan=plan, variant=variant)
+        # one pre-padded superstep per period of steps, the remainder's
+        # included (temporal: per chunk, with the chunk-deep plan)
+        period = par_time * (TEMPORAL_CHUNK if variant == "temporal" else 1)
+        want_counts = {kernel: -(-steps // period)}
+        cuda.reset_launches()
         out = cs.run(grid)
-        if cuda.launches()["padded_superstep"] - before != 2:
-            raise AssertionError("small run did not launch twice")
+        counts = {k: v for k, v in cuda.launches().items() if v}
+        if counts != want_counts:
+            raise AssertionError(f"wrap-degenerate {variant} launched "
+                                 f"{counts}, expected {want_counts}")
         c64 = repro_torch.ProgramCoeffs(cs.coeffs.center.double(),
                                         cs.coeffs.taps.double())
-        want = program_nsteps(prog, c64, grid.double(), 3)
-        check_close(f"{ndim}D {kind} r={radius} {boundary} batch 2 "
-                    f"steps 3",
-                    out, want, atol=TOL, rtol=0.0)
-    prog = repro_torch.StencilProgram(ndim=3, radius=2, boundary="periodic")
-    plan = repro_torch.BlockPlan(spec=prog, block_shape=(8, 16, 128),
-                                 par_time=2)
-    cs = repro_torch.stencil(prog).compile((9, 18, 140), steps=3, plan=plan)
-    try:
-        cs.run(random_grid((9, 18, 140), seed=0))
-    except NotImplementedError as e:
-        print(f"  wrap-degenerate periodic refuses the card: {e}")
-    else:
-        raise AssertionError("wrap-degenerate run did not refuse the card")
+        check_close(f"wrap-degenerate {variant} steps {steps} {counts}",
+                    out, program_nsteps(prog, c64, grid.double(), steps),
+                    atol=TOL, rtol=0.0)
+
+    print("\n== plans no CTA tile fits")
+    w3 = stencil3d.workloads()
+    for name in ("3d_r4_paper", "3d_r2_paper"):
+        work = w3[name]
+        print(f"  {name} (par_time {work.par_time}) under temporal:")
+        refuse_rp105(work.spec, work.plan(), work.grid_shape, "temporal")
 
 
 def main() -> int:
@@ -351,12 +588,15 @@ def main() -> int:
           f"({len(logs)} built in parallel)")
 
     records = []
-    for case in main_path_cases():
+    for case in cases():
         state = drive_main_path(case, chip)
-        records += check_and_time_kernels(case, state, chip)
+        records += check_kernels(case, state, chip)
         del state
         torch.cuda.empty_cache()
     exact_checks()
+    ported = {r["name"].split("@")[0] for r in records}
+    if len(ported) != 6:
+        raise AssertionError(f"kernel records cover {sorted(ported)}")
 
     print(json.dumps({"kernels": records}))
     print(smi)

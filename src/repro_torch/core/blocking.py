@@ -4,10 +4,12 @@ Paper eq. 2, unchanged: a block that goes through ``par_time`` fused time
 steps loses ``par_time * radius`` of valid output per side.
 
 There is no planner here.  The reference's planner sizes blocks against a
-TPU's VMEM; on the H100 the CUDA kernel picks its own CTA tile from the
+TPU's VMEM; on the H100 the CUDA kernels pick their own CTA tile from the
 shared-memory limit (``kernels/cuda.py``), and ``BlockPlan.block_shape``
 only fixes the padded layout (the round-up of the grid, and so the ring
-depth and wrap geometry), exactly as in the reference.
+depth and wrap geometry), exactly as in the reference.  What one CTA needs
+is ``BlockPlan.smem_bytes_for``, the counterpart of the reference's
+``vmem_bytes_for``.
 """
 
 from __future__ import annotations
@@ -20,8 +22,7 @@ import numpy as np
 
 from repro_torch.core.program import StencilProgram
 
-#: Kernel-variant names shared with the reference.  Only "plain" runs in
-#: the port so far (ROADMAP A6 adds the others).
+#: Kernel-variant names shared with the reference.
 VARIANTS = ("plain", "pipelined", "temporal")
 
 #: Supersteps fused per temporal-variant launch (the chunk depth).
@@ -96,6 +97,27 @@ class BlockPlan:
             for g, b in zip(grid_shape, self.block_shape))
         return nblocks * self.hbm_bytes_per_block() \
             + 2 * padded_carry * self.itemsize
+
+    def smem_bytes_for(self, tile: Tuple[int, ...],
+                       variant: str = "plain") -> int:
+        """Dynamic shared memory of one CTA of the port's superstep kernel
+        computing output tile ``tile`` under ``variant``.
+
+        One halo'd window (``tile + 2*halo`` per axis), a second when the
+        fused steps ping-pong, one more for the pipelined kernels'
+        prefetch, and the coefficient and offset tables (4 bytes each per
+        tap, center included).  The temporal kernel fuses
+        ``TEMPORAL_CHUNK * par_time`` steps, so its window is deepened by
+        the chunk's halo; that deep window also bounds the temporal run's
+        other launches (a shallower remainder, or the wrap-degenerate
+        fallback's pre-padded superstep with the chunk-deep plan).
+        """
+        v = normalize_variant(variant)
+        steps = self.par_time * (TEMPORAL_CHUNK if v == "temporal" else 1)
+        halo = steps * self.spec.halo_radius
+        window = math.prod(t + 2 * halo for t in tile)
+        windows = (2 if steps > 1 else 1) + (1 if v == "pipelined" else 0)
+        return self.itemsize * windows * window + 8 * self.spec.num_taps
 
     def flops_per_block(self) -> int:
         """Sum over the shrinking valid regions of each fused time step."""

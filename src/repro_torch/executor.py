@@ -6,11 +6,17 @@ its order (grid, steps, batch, placement, variant, plan), then binds it to
 a device; ``run`` checks the grid and hands it to the fused executor
 (``kernels/common.run_call``) through ``kernels/ops._stencil_run``.
 
+``backend``/``variant`` resolve through the registry
+(``backends.resolve_backend``): ``cuda`` (default), ``cuda-pipelined``,
+``cuda-temporal``, or the ``torch-reference`` oracle.  On a CUDA device
+the front door refuses a plan that no CTA tile of the variant fits (RP105,
+``lint/verify.smem_diagnostics``).
+
 What this port does not do yet, and says so when asked: plan search
-(``plan="auto"``/``"model"``, ROADMAP A5), the pipelined and temporal
-variants (A6), and meshes (``devices > 1``, A9).  Entry points run on the
-card: ``device=None`` means CUDA and raises when no GPU is visible; the CPU
-runs only when the caller passes ``device="cpu"``.
+(``plan="auto"``/``"model"``, ROADMAP A5) and meshes (``devices > 1``,
+A9).  Entry points run on the card: ``device=None`` means CUDA and raises
+when no GPU is visible; the CPU runs only when the caller passes
+``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -21,11 +27,15 @@ from typing import Optional, Tuple, Union
 
 import torch
 
-from repro_torch.core.blocking import BlockPlan, normalize_variant
+from repro_torch.analysis.hw import GpuChip
+from repro_torch.backends import lower, resolve_backend
+from repro_torch.backends.registry import LoweredStencil
+from repro_torch.core.blocking import BlockPlan
 from repro_torch.core.program import ProgramCoeffs, StencilProgram
 from repro_torch.kernels import ops
 from repro_torch.lint.diagnostics import DiagnosticError
 from repro_torch.lint.diagnostics import error as _diag
+from repro_torch.lint.verify import smem_diagnostics
 
 Devices = Union[None, int, Tuple[int, ...]]
 
@@ -125,6 +135,7 @@ class Stencil:
                 batch: Optional[int] = None,
                 devices: Devices = None,
                 plan: Union[str, BlockPlan] = "auto",
+                backend: Optional[str] = None,
                 variant: Optional[str] = None,
                 device=None) -> "CompiledStencil":
         """Validate the run and bind it to ``device``.
@@ -135,10 +146,13 @@ class Stencil:
         devices     None or 1; more is RP110 (ROADMAP A9).
         plan        a pinned ``BlockPlan``; "auto"/"model" are RP112
                     (ROADMAP A5).
-        variant     None/"auto"/"plain"; "pipelined" and "temporal" raise
-                    NotImplementedError (ROADMAP A6).
+        backend     a registered name (default ``cuda``).
+        variant     None/"auto" keeps the backend as named; "plain",
+                    "pipelined" or "temporal" picks that sibling, and
+                    raises where the backend has none.
         device      None = CUDA (RP110 without a GPU); "cpu" runs the
-                    plain versions of the kernels.
+                    plain versions of the kernels.  On CUDA a plan no CTA
+                    tile of the variant fits is RP105.
         """
         prog = self.program
         try:
@@ -172,11 +186,8 @@ class Stencil:
                          "independent grids along a leading axis")])
             batch = b
         _check_devices(prog, devices)
-        v = normalize_variant(None if variant == "auto" else variant)
-        if v != "plain":
-            raise NotImplementedError(
-                f"variant {v!r} is not ported yet (ROADMAP A6); use "
-                f"variant='plain'")
+        name, version, traits = resolve_backend(
+            backend, variant=None if variant == "auto" else variant)
         if isinstance(plan, str) and plan in ("auto", "model"):
             raise DiagnosticError([_diag(
                 "RP112",
@@ -204,26 +215,44 @@ class Stencil:
                 f"float32",
                 hint="use float32")])
         dev = _resolve_device(device)
-        return CompiledStencil(program=prog, coeffs=self.coeffs.to(dev),
+        if traits.fused_run and dev.type == "cuda":
+            found = smem_diagnostics(plan, traits.variant,
+                                     GpuChip.from_device(dev.index))
+            if found:
+                raise DiagnosticError(found)
+        coeffs = self.coeffs.to(dev)
+        # a backend whose run is not the fused executor (the oracle) runs
+        # through its own lowering
+        lowered = None if traits.fused_run else lower(
+            prog, plan, coeffs=coeffs, backend=name, version=version)
+        return CompiledStencil(program=prog, coeffs=coeffs,
                                grid_shape=grid_shape, steps=steps,
-                               batch=batch, plan=plan, variant=v, device=dev)
+                               batch=batch, plan=plan, backend=name,
+                               backend_version=version,
+                               variant=traits.variant, device=dev,
+                               lowered=lowered)
 
 
 class CompiledStencil:
-    """A validated run bound to one device; ``run`` dispatches it."""
+    """A validated run bound to one device and one backend; ``run``
+    dispatches it."""
 
     def __init__(self, *, program: StencilProgram, coeffs: ProgramCoeffs,
                  grid_shape: Tuple[int, ...], steps: int,
-                 batch: Optional[int], plan: BlockPlan, variant: str,
-                 device: torch.device):
+                 batch: Optional[int], plan: BlockPlan, backend: str,
+                 backend_version: int, variant: str, device: torch.device,
+                 lowered: Optional[LoweredStencil] = None):
         self.program = program
         self.coeffs = coeffs
         self.grid_shape = grid_shape
         self.steps = steps
         self.batch = batch
         self.plan = plan
+        self.backend = backend
+        self.backend_version = backend_version
         self.variant = variant
         self.device = device
+        self._lowered = lowered
 
     def _check_grid(self, grid: torch.Tensor) -> None:
         if not isinstance(grid, torch.Tensor):
@@ -279,5 +308,7 @@ class CompiledStencil:
         return self._dispatch(grid, steps)
 
     def _dispatch(self, grid: torch.Tensor, steps: int) -> torch.Tensor:
+        if self._lowered is not None:
+            return self._lowered.run(grid, steps)
         return ops._stencil_run(grid, self.program, self.coeffs, self.plan,
                                 steps, variant=self.variant)

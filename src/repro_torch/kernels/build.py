@@ -2,8 +2,9 @@
 
 Each ``csrc/*.cu`` file has a plain C interface and compiles on its own
 with ``nvcc`` into ``build/repro_torch/<name>-<hash>.so`` under the repo
-root; the hash covers the source and the flags, so an edited source
-rebuilds and an unchanged one loads.  :func:`build` starts one ``nvcc``
+root; the hash covers the source, every ``csrc`` header it includes, and
+the flags, so an edited source or header rebuilds and an unchanged one
+loads.  :func:`build` starts one ``nvcc``
 per missing library, all at once.  Nothing but the sources in the repo and
 the CUDA toolkit is used.
 """
@@ -13,14 +14,15 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("padded_superstep.cu", "wrap_halo.cu")
+SOURCES = ("padded_superstep.cu", "pipelined_superstep.cu", "wrap_halo.cu")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -39,9 +41,26 @@ def nvcc() -> str:
                        "the CUDA toolkit is installed")
 
 
+def includes(source: str) -> Tuple[str, ...]:
+    """The ``csrc`` files that ``source`` includes by ``#include "…"``,
+    directly or through another included file, in first-seen order."""
+    seen = []
+    todo = [source]
+    while todo:
+        text = (CSRC / todo.pop()).read_text(encoding="utf-8")
+        for name in re.findall(r'^\s*#\s*include\s+"([^"]+)"', text, re.M):
+            if name not in seen and (CSRC / name).exists():
+                seen.append(name)
+                todo.append(name)
+    return tuple(seen)
+
+
 def library_path(source: str) -> Path:
-    digest = hashlib.sha256((CSRC / source).read_bytes()
-                            + " ".join(FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256()
+    for name in (source,) + includes(source):
+        h.update(name.encode() + b"\0" + (CSRC / name).read_bytes())
+    h.update(" ".join(FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"{Path(source).stem}-{digest}.so"
 
 

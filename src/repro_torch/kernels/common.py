@@ -6,15 +6,21 @@ advanced interior into the other.  The boundary ring is healed by
 O(surface) work: a t=0 ``boundary_fixup`` of every loaded window for
 clamp/constant, a wrap refresh of the source's ring for periodic.
 
-Two kernels carry a superstep, each with a plain PyTorch version here:
+The kernels of a superstep, each with a plain PyTorch version here:
 
-* ``padded_superstep`` (reference ``build_padded_superstep_kernel``):
-  window load at ring offset ``H - h``, t=0 fixup, ``par_time`` tap
-  updates over a shrinking region with fixups between, tile write.
+* ``padded_superstep`` (reference ``build_padded_superstep_kernel``; with
+  ``variant="temporal"`` ``build_temporal_kernel``, with "pipelined"
+  ``build_padded_pipelined_kernel``): window load at ring offset ``H - h``,
+  t=0 fixup, ``par_time`` tap updates over a shrinking region with fixups
+  between, tile write.  All three share ``padded_superstep_plain``.
 * ``refresh_wrap_halo`` (reference ``_refresh_wrap_halo``): same-buffer
   periodic ring copies following ``wrap_copies``, axis by axis.
+* ``superstep_call`` (reference ``build_superstep_kernel``, with
+  "pipelined" ``build_pipelined_kernel``): the pre-padded superstep over
+  a grid ``boundary_pad`` already padded, returning the rounded grid.
+  Plain version ``superstep_plain``.
 
-Both dispatch on where the tensor lies: a CUDA tensor launches the
+Each dispatches on where the tensor lies: a CUDA tensor launches the
 hand-written kernel (``kernels/cuda.py``), a CPU tensor takes the plain
 version, and any other device raises.
 
@@ -33,7 +39,6 @@ import itertools
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.core.blocking import (BlockPlan, TEMPORAL_CHUNK,
                                        normalize_variant, round_up)
@@ -335,18 +340,31 @@ def _on_cuda(t: torch.Tensor) -> bool:
                      f"plain version here (cuda or cpu)")
 
 
+def deep_plan(plan: BlockPlan) -> BlockPlan:
+    """The chunk-deep plan of the temporal variant: ``TEMPORAL_CHUNK``
+    supersteps fused into one (reference ``build_temporal_kernel``)."""
+    return dataclasses.replace(plan, par_time=plan.par_time * TEMPORAL_CHUNK)
+
+
 def padded_superstep(src: torch.Tensor, dst: torch.Tensor,
                      center: torch.Tensor, taps: torch.Tensor, *,
                      program: StencilProgram, plan: BlockPlan,
-                     layout: PaddedLayout) -> torch.Tensor:
-    """One superstep ``src`` -> ``dst``: the CUDA kernel for a CUDA tensor,
-    the plain version for a CPU tensor."""
+                     layout: PaddedLayout,
+                     variant: Optional[str] = None) -> torch.Tensor:
+    """One superstep ``src`` -> ``dst`` (for "temporal", one chunk of
+    ``TEMPORAL_CHUNK`` supersteps): the variant's CUDA kernel for a CUDA
+    tensor, the plain version for a CPU tensor."""
+    v = normalize_variant(variant)
     if _on_cuda(src):
-        cuda.padded_superstep(src, dst, center, taps, program=program,
-                              plan=plan, layout=layout)
+        launch = {"plain": cuda.padded_superstep,
+                  "temporal": cuda.temporal_superstep,
+                  "pipelined": cuda.padded_pipelined}[v]
+        launch(src, dst, center, taps, program=program, plan=plan,
+               layout=layout)
         return dst
-    return padded_superstep_plain(src, dst, center, taps, program=program,
-                                  plan=plan, layout=layout)
+    return padded_superstep_plain(
+        src, dst, center, taps, program=program,
+        plan=deep_plan(plan) if v == "temporal" else plan, layout=layout)
 
 
 def refresh_wrap_halo(src: torch.Tensor,
@@ -365,55 +383,95 @@ def refresh_wrap_halo(src: torch.Tensor,
 
 def superstep_plain(padded: torch.Tensor, center: torch.Tensor,
                     taps: torch.Tensor, *, program: StencilProgram,
-                    plan: BlockPlan,
-                    true_shape: Tuple[int, ...]) -> torch.Tensor:
-    """Plain version of the reference's pre-padded superstep
-    (``build_superstep_kernel``, ROADMAP B5): ``par_time`` fused steps over
-    a grid ``boundary_pad`` already padded by ``plan.halo``; no t=0
-    fixup.  Returns the rounded grid."""
+                    plan: BlockPlan, true_shape: Tuple[int, ...],
+                    offsets: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """Plain version of the pre-padded superstep (B5 and B6):
+    ``par_time`` fused steps over a grid ``boundary_pad`` already padded by
+    ``plan.halo``; no t=0 fixup; fixups between steps at global
+    coordinates, ``offsets`` being the shard origin (zeros on one device)
+    and ``true_shape`` the global grid.  Returns the rounded grid."""
     h = plan.halo
+    offs = [0] * program.ndim if offsets is None else [int(o)
+                                                       for o in offsets]
     return _fused_steps(program, ProgramCoeffs(center, taps), padded,
-                        [-h] * program.ndim, true_shape, plan.par_time)
+                        [o - h for o in offs], true_shape, plan.par_time)
+
+
+def superstep_call(padded: torch.Tensor, center: torch.Tensor,
+                   taps: torch.Tensor, *, program: StencilProgram,
+                   plan: BlockPlan, true_shape: Tuple[int, ...],
+                   offsets: Optional[Sequence[int]] = None,
+                   variant: Optional[str] = None) -> torch.Tensor:
+    """The pre-padded superstep (reference ``superstep_call``).
+
+    ``padded`` is ``rounded + 2*plan.halo`` per axis, optionally behind one
+    batch axis, already halo-filled by the program's boundary.  Returns the
+    rounded grid after ``par_time`` steps (caller slices back); on the card
+    the cells of the round-up slack are unspecified.  ``offsets`` is the
+    shard origin in the global ``true_shape``.  A CUDA tensor launches B5
+    ("plain") or B6 ("pipelined"), a CPU tensor runs ``superstep_plain``.
+    """
+    v = normalize_variant(variant)
+    # The reference's own semantics, not a fallback: a lone superstep has
+    # no chunk to fuse, so "temporal" runs the plain kernel
+    # (repro/kernels/common.py:superstep_call).
+    if v == "temporal":
+        v = "plain"
+    batch_dims(program, padded.ndim)
+    if _on_cuda(padded):
+        launch = cuda.pipelined_superstep if v == "pipelined" \
+            else cuda.superstep
+        return launch(padded, center, taps, program=program, plan=plan,
+                      true_shape=tuple(true_shape), offsets=offsets)
+    return superstep_plain(padded, center, taps, program=program, plan=plan,
+                           true_shape=tuple(true_shape), offsets=offsets)
+
+
+def pad_superstep(grid: torch.Tensor, center: torch.Tensor,
+                  taps: torch.Tensor, *, program: StencilProgram,
+                  plan: BlockPlan,
+                  variant: Optional[str] = None) -> torch.Tensor:
+    """One superstep of a true-shaped grid (optionally batched):
+    ``boundary_pad`` by ``plan.halo`` plus the round-up to the block,
+    :func:`superstep_call`, and the true region back (a new tensor)."""
+    ndim = program.ndim
+    nb = batch_dims(program, grid.ndim)
+    true_shape = tuple(grid.shape[nb:])
+    h = plan.halo
+    padded = boundary_pad(program, grid, [(0, 0)] * nb + [
+        (h, round_up(true_shape[d], plan.block_shape[d]) - true_shape[d] + h)
+        for d in range(ndim)])
+    out = superstep_call(padded, center, taps, program=program, plan=plan,
+                         true_shape=true_shape, variant=variant)
+    return out[_interior([0] * ndim, true_shape)].contiguous()
 
 
 def run_call_padfallback(grid: torch.Tensor, center: torch.Tensor,
                          taps: torch.Tensor, full: int, *,
-                         program: StencilProgram, plan: BlockPlan,
-                         true_shape: Tuple[int, ...],
-                         rem: int) -> torch.Tensor:
+                         program: StencilProgram, plan: BlockPlan, rem: int,
+                         variant: Optional[str] = None) -> torch.Tensor:
     """Re-pad the true region every superstep: the path of wrap-degenerate
     periodic layouts, where one-lap ring copies cannot refresh the ring.
+    Each superstep is one pre-padded superstep (B5, or B6 for
+    "pipelined").
 
-    It runs the pre-padded superstep, whose CUDA kernel (ROADMAP B5) is not
-    ported yet, so only CPU tensors take it.
+    ``variant`` must be "plain" or "pipelined": ``run_call`` lowers a
+    wrap-degenerate temporal run as the chunk-deep plan with the plain
+    kernel, as the reference does.
     """
-    if grid.device.type != "cpu":
-        raise NotImplementedError(
-            "this periodic layout is wrap-degenerate (an axis is smaller "
-            "than the ring depth or the round-up slack) and runs the "
-            "pre-padded superstep kernel, which is not ported to CUDA yet "
-            "(ROADMAP B5); grow the axis, shrink par_time, or pick a "
-            "block that divides the grid")
-    ndim = program.ndim
-    nb = grid.ndim - ndim
-    rounded = tuple(round_up(true_shape[d], plan.block_shape[d])
-                    for d in range(ndim))
-    g = F.pad(grid, [w for d in reversed(range(ndim))
-                     for w in (0, rounded[d] - true_shape[d])])
-    true_ix = _interior([0] * ndim, true_shape)
-
-    def superstep(g, step_plan):
-        h = step_plan.halo
-        padded = boundary_pad(program, g[true_ix], [(0, 0)] * nb + [
-            (h, rounded[d] - true_shape[d] + h) for d in range(ndim)])
-        return superstep_plain(padded, center, taps, program=program,
-                               plan=step_plan, true_shape=true_shape)
-
+    v = normalize_variant(variant)
+    if v == "temporal":
+        raise ValueError(
+            "pass the chunk-deep plan with variant='plain' instead of "
+            "variant='temporal' to run_call_padfallback")
     for _ in range(full):
-        g = superstep(g, plan)
+        grid = pad_superstep(grid, center, taps, program=program, plan=plan,
+                             variant=v)
     if rem:
-        g = superstep(g, dataclasses.replace(plan, par_time=rem))
-    return g[true_ix].contiguous()
+        grid = pad_superstep(grid, center, taps, program=program,
+                             plan=dataclasses.replace(plan, par_time=rem),
+                             variant=v)
+    return grid.contiguous()
 
 
 def run_call(grid: torch.Tensor, center: torch.Tensor, taps: torch.Tensor,
@@ -425,22 +483,26 @@ def run_call(grid: torch.Tensor, center: torch.Tensor, taps: torch.Tensor,
     ``grid`` is the true-shaped grid, optionally behind one batch axis; it
     is copied into the padded layout once and never written.  Each
     superstep refreshes the periodic ring of the source (if any), runs the
-    superstep kernel into the other buffer, and swaps the two.  ``full``
-    supersteps of ``par_time`` steps run first, then one shallower
-    superstep of ``rem`` steps whose windows read at ring offset
-    ``H - rem * radius``.  Returns a new tensor holding the true interior.
+    variant's superstep kernel into the other buffer, and swaps the two.
+    ``full`` supersteps run first, then one shallower superstep of ``rem``
+    steps whose windows read at ring offset ``H - rem * radius``.
+
+    Under "temporal" the ring is ``TEMPORAL_CHUNK`` times deeper, each of
+    the ``full`` launches is one chunk of ``TEMPORAL_CHUNK * par_time``
+    steps, and ``rem`` counts leftover steps.  A wrap-degenerate layout
+    takes :func:`run_call_padfallback`, for temporal with the chunk-deep
+    plan and the plain kernel.  Returns a new tensor holding the true
+    interior.
     """
     v = normalize_variant(variant)
-    if v != "plain":
-        raise NotImplementedError(
-            f"variant {v!r} is not ported yet (ROADMAP A6); use "
-            f"variant='plain'")
-    sched = ring_schedule(program, plan, true_shape,
-                          full * plan.par_time + rem)
+    period = plan.par_time * (TEMPORAL_CHUNK if v == "temporal" else 1)
+    sched = ring_schedule(program, plan, true_shape, full * period + rem,
+                          variant=v)
     if sched.fallback:
-        return run_call_padfallback(grid, center, taps, full,
-                                    program=program, plan=plan,
-                                    true_shape=true_shape, rem=rem)
+        return run_call_padfallback(
+            grid, center, taps, full, program=program,
+            plan=deep_plan(plan) if v == "temporal" else plan, rem=rem,
+            variant="plain" if v == "temporal" else v)
     layout = sched.layout
     nb = grid.ndim - program.ndim
     src = grid.new_zeros(tuple(grid.shape[:nb]) + layout.padded_shape)
@@ -448,16 +510,21 @@ def run_call(grid: torch.Tensor, center: torch.Tensor, taps: torch.Tensor,
     src[interior] = grid
     dst = torch.zeros_like(src)
 
-    def superstep(src, dst, step_plan):
+    def superstep(src, dst, step_plan, step_variant):
         if layout.wrap_axes:
             refresh_wrap_halo(src, layout)
         padded_superstep(src, dst, center, taps, program=program,
-                         plan=step_plan, layout=layout)
+                         plan=step_plan, layout=layout, variant=step_variant)
         return dst, src
 
     for _ in range(full):
-        src, dst = superstep(src, dst, plan)
+        src, dst = superstep(src, dst, plan, v)
     if rem:
+        # The reference's own semantics, not a fallback: the temporal
+        # remainder (fewer than TEMPORAL_CHUNK * par_time steps) runs as
+        # one plain superstep of `rem` steps inside the same deep ring
+        # (repro/kernels/common.py:run_call).
         src, dst = superstep(src, dst,
-                             dataclasses.replace(plan, par_time=rem))
+                             dataclasses.replace(plan, par_time=rem),
+                             "plain" if v == "temporal" else v)
     return src[interior].contiguous()

@@ -6,15 +6,24 @@ non-zero ``cudaError_t``, and adds one to its kernel's ``launches`` count
 per launch.  Nothing here runs at import: the library is built and loaded
 at the first launch (``kernels/build.py``).
 
-* ``padded_superstep`` -> ``csrc/padded_superstep.cu`` replaces the TPU
-  kernel ``repro/kernels/common.py:build_padded_superstep_kernel``.  Bound
-  by device-memory bytes at the paper's shapes; the fused steps stay in
-  shared memory, and :func:`pick_tile` sizes the CTA tile by the opt-in
-  shared-memory limit (see the source's header note).
-* ``refresh_wrap_halo`` -> ``csrc/wrap_halo.cu`` replaces
-  ``repro/kernels/common.py:_refresh_wrap_halo``.  Bound by bytes
-  (O(surface) copies); one launch per wrap axis, ordered before the
-  superstep on the same stream instead of running inside it.
+Which TPU kernel of ``repro/kernels/common.py`` each one replaces (the
+source headers say what bounds each on the card and what its design does
+about it):
+
+* ``padded_superstep`` (B1, ``build_padded_superstep_kernel``),
+  ``temporal_superstep`` (B3, ``build_temporal_kernel``) and ``superstep``
+  (B5, ``build_superstep_kernel``) -> ``csrc/padded_superstep.cu``, one
+  CTA per output tile;
+* ``padded_pipelined`` (B4, ``build_padded_pipelined_kernel``) and
+  ``pipelined_superstep`` (B6, ``build_pipelined_kernel``) ->
+  ``csrc/pipelined_superstep.cu``, persistent CTAs that prefetch the next
+  tile's window with ``cp.async``;
+* ``refresh_wrap_halo`` (B2, ``_refresh_wrap_halo``) -> ``csrc/wrap_halo.cu``,
+  one launch per wrap axis, ordered before the superstep on the same
+  stream instead of running inside it.
+
+The CTA tile is not the plan's block: :func:`pick_tile` sizes it by the
+card's opt-in shared-memory limit (``BlockPlan.smem_bytes_for``).
 """
 
 from __future__ import annotations
@@ -23,11 +32,12 @@ import ctypes
 import functools
 import itertools
 import math
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.analysis.hw import GpuChip
+from repro_torch.core.blocking import TEMPORAL_CHUNK
 from repro_torch.kernels import build
 
 _P = ctypes.c_void_p
@@ -41,6 +51,13 @@ BOUNDARY_CODES = {"clamp": 0, "periodic": 1, "constant": 2}
 TILE_X = (128, 64, 32)
 TILE_Y = (64, 32, 16, 8, 4)
 TILE_Z = (16, 8, 4, 2, 1)
+
+#: Rows of the geometry array, in the order of ``superstep_common.cuh:Field``.
+GEOMETRY_FIELDS = ("true", "src", "load", "origin", "dst", "store",
+                   "written", "tile", "radius")
+#: What a 2D grid's missing z axis holds in each row (one plane, no halo).
+_LEAD = dict(true=1, src=1, load=0, origin=0, dst=1, store=0, written=1,
+             tile=1, radius=0)
 
 
 class Kernel:
@@ -71,16 +88,34 @@ class Kernel:
         self.launches += 1
 
 
-PADDED_SUPERSTEP = Kernel(
-    "padded_superstep.cu", "padded_superstep_launch",
-    [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I,
-     _L, _L, _L, _L, _L, _L, _L, _I, _I, _I, _I, _I, _P])
+#: (src, dst, coef, offs, ntaps, steps, boundary, bval, geometry, batch,
+#: device, stream), shared by every superstep launcher
+_SUPERSTEP_ARGS = [_P, _P, _P, _P, _I, _I, _I, ctypes.c_float,
+                   ctypes.POINTER(_L), _I, _I, _P]
+
+PADDED_SUPERSTEP = Kernel("padded_superstep.cu", "padded_superstep_launch",
+                          _SUPERSTEP_ARGS)
+TEMPORAL_SUPERSTEP = Kernel("padded_superstep.cu",
+                            "temporal_superstep_launch", _SUPERSTEP_ARGS)
+SUPERSTEP = Kernel("padded_superstep.cu", "superstep_launch",
+                   _SUPERSTEP_ARGS)
+PADDED_PIPELINED = Kernel("pipelined_superstep.cu",
+                          "padded_pipelined_launch", _SUPERSTEP_ARGS)
+PIPELINED_SUPERSTEP = Kernel("pipelined_superstep.cu",
+                             "pipelined_superstep_launch", _SUPERSTEP_ARGS)
 
 WRAP_HALO = Kernel(
     "wrap_halo.cu", "wrap_halo_launch",
     [_P, _L, _L, _L, _L, _L, _L, _L, _L, _L, _I, _P])
 
-KERNELS = {"padded_superstep": PADDED_SUPERSTEP, "wrap_halo": WRAP_HALO}
+KERNELS = {
+    "padded_superstep": PADDED_SUPERSTEP,
+    "wrap_halo": WRAP_HALO,
+    "temporal_superstep": TEMPORAL_SUPERSTEP,
+    "padded_pipelined": PADDED_PIPELINED,
+    "superstep": SUPERSTEP,
+    "pipelined_superstep": PIPELINED_SUPERSTEP,
+}
 
 
 def reset_launches() -> None:
@@ -106,38 +141,43 @@ def tap_table(program, device: torch.device) -> torch.Tensor:
     return torch.tensor(rows, dtype=torch.int32, device=device)
 
 
-def smem_bytes(tile: Sequence[int], halo: int, steps: int,
-               ntaps: int) -> int:
-    """Dynamic shared memory of one CTA: one window (two when the steps
-    ping-pong) plus the coefficient and offset tables."""
-    window = math.prod(t + 2 * halo for t in tile)
-    return 4 * window * (2 if steps > 1 else 1) + 8 * ntaps
+def smallest_tile(ndim: int) -> Tuple[int, ...]:
+    """The candidate with the least shared memory: the least extent on
+    every axis."""
+    axes = (TILE_Y, TILE_X) if ndim == 2 else (TILE_Z, TILE_Y, TILE_X)
+    return tuple(min(a) for a in axes)
 
 
-def pick_tile(ndim: int, halo: int, steps: int, ntaps: int,
-              smem_limit: int) -> Tuple[int, ...]:
-    """The CTA output tile of the superstep kernel.
+def pick_tile(plan, variant: str, smem_limit: int) -> Tuple[int, ...]:
+    """The CTA output tile of ``plan``'s superstep kernel under
+    ``variant``.
 
-    Among the candidates whose shared memory fits a third of the limit
-    (three CTAs per SM), or else the whole limit, take the least window
-    volume per output cell, then the widest x.  Raises when none fits.
+    Among the candidates whose shared memory
+    (``BlockPlan.smem_bytes_for``) fits a third of the limit (three CTAs
+    per SM), or else the whole limit, take the least window volume per
+    output cell, then the widest x.  Raises when none fits, which is when
+    :func:`smallest_tile` does not.
     """
+    ndim = plan.program.ndim
     axes = (TILE_Y, TILE_X) if ndim == 2 else (TILE_Z, TILE_Y, TILE_X)
     cands = list(itertools.product(*axes))
+    steps = plan.par_time * (TEMPORAL_CHUNK if variant == "temporal" else 1)
+    halo = steps * plan.program.halo_radius
 
     def cost(t):
         return (math.prod(s + 2 * halo for s in t) / math.prod(t), -t[-1])
 
     for budget in (smem_limit // 3, smem_limit):
         fits = [t for t in cands
-                if smem_bytes(t, halo, steps, ntaps) <= budget]
+                if plan.smem_bytes_for(t, variant) <= budget]
         if fits:
             return min(fits, key=cost)
-    smallest = min(cands, key=math.prod)
+    smallest = smallest_tile(ndim)
     raise ValueError(
         f"no CTA tile fits: the smallest, {smallest}, needs "
-        f"{smem_bytes(smallest, halo, steps, ntaps)} bytes of shared memory "
-        f"for halo {halo} and {steps} steps, the card allows {smem_limit}")
+        f"{plan.smem_bytes_for(smallest, variant)} bytes of shared memory "
+        f"for the {variant} kernel ({steps} steps, halo {halo}), the card "
+        f"allows {smem_limit}")
 
 
 def _check(t: torch.Tensor, name: str, shape: Tuple[int, ...]) -> None:
@@ -154,41 +194,120 @@ def _check(t: torch.Tensor, name: str, shape: Tuple[int, ...]) -> None:
                          f"{tuple(shape)} behind at most one batch axis")
 
 
-def padded_superstep(src: torch.Tensor, dst: torch.Tensor,
-                     center: torch.Tensor, taps: torch.Tensor, *,
-                     program, plan, layout) -> None:
-    """Launch one superstep ``src`` -> ``dst`` (true interior of ``dst``
-    only; see ``common.padded_superstep_plain`` for the contract)."""
+def _launch(kernel: Kernel, grid_in: torch.Tensor, grid_out: torch.Tensor,
+            center: torch.Tensor, taps: torch.Tensor, *, program,
+            steps: int, **rows: Sequence[int]) -> None:
+    """One superstep launch ``grid_in`` -> ``grid_out``; ``rows`` are the
+    geometry rows of :data:`GEOMETRY_FIELDS` over the spatial axes."""
+    nd = program.ndim
+    dev = grid_in.device
+    batch = grid_in.shape[0] if grid_in.ndim > nd else 1
+    coef = torch.cat([center.reshape(1), taps.reshape(-1)]).to(
+        device=dev, dtype=torch.float32).contiguous()
+    offs = tap_table(program, dev)
+    lead = 3 - nd
+    flat = [v for f in GEOMETRY_FIELDS
+            for v in (_LEAD[f],) * lead + tuple(int(x) for x in rows[f])]
+    geometry = (_L * len(flat))(*flat)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    kernel(grid_in.data_ptr(), grid_out.data_ptr(), coef.data_ptr(),
+           offs.data_ptr(), coef.numel(), steps,
+           BOUNDARY_CODES[program.boundary], float(program.boundary_value),
+           geometry, batch, dev.index, stream)
+
+
+def _carry(kernel: Kernel, variant: str, src: torch.Tensor,
+           dst: torch.Tensor, center: torch.Tensor, taps: torch.Tensor, *,
+           program, plan, layout) -> None:
+    """A superstep of the padded carry ``src`` -> ``dst`` (true interior
+    of ``dst`` only; see ``common.padded_superstep_plain``)."""
     P = layout.padded_shape
     _check(src, "src", P)
     _check(dst, "dst", P)
     if dst.shape != src.shape or dst.device != src.device:
         raise ValueError(f"dst {tuple(dst.shape)} on {dst.device} does not "
                          f"match src {tuple(src.shape)} on {src.device}")
-    nd = program.ndim
-    batch = src.shape[0] if src.ndim > nd else 1
-    coef = torch.cat([center.reshape(1), taps.reshape(-1)]).to(
-        device=src.device, dtype=torch.float32).contiguous()
-    offs = tap_table(program, src.device)
-    ntaps = coef.numel()
-    steps = plan.par_time
+    steps = plan.par_time * (TEMPORAL_CHUNK if variant == "temporal" else 1)
     r = program.halo_radius
-    tile = pick_tile(nd, steps * r, steps, ntaps,
-                     smem_optin(src.device.index))
-    lead = (1,) * (3 - nd)
-    n3 = lead + tuple(layout.local_shape)
-    P3 = lead + tuple(P)
-    t3 = lead + tuple(tile)
-    tiles = [-(-n // t) for n, t in zip(n3, t3)]
-    if tiles[1] > 65535 or tiles[0] * batch > 65535:
-        raise ValueError(f"{tiles} CTA tiles x batch {batch} exceed the "
-                         f"launch grid's y/z limit of 65535")
-    stream = torch.cuda.current_stream(src.device).cuda_stream
-    PADDED_SUPERSTEP(src.data_ptr(), dst.data_ptr(), coef.data_ptr(),
-                     offs.data_ptr(), ntaps, steps, r,
-                     BOUNDARY_CODES[program.boundary],
-                     float(program.boundary_value), nd, *n3, *P3,
-                     layout.halo, *t3, batch, src.device.index, stream)
+    h = steps * r
+    H = layout.halo
+    if h > H:
+        raise ValueError(f"a {steps}-step window needs a ring of {h}, the "
+                         f"layout has {H}")
+    nd = program.ndim
+    n = tuple(layout.local_shape)
+    tile = pick_tile(plan, variant, smem_optin(src.device.index))
+    _launch(kernel, src, dst, center, taps, program=program, steps=steps,
+            true=n, src=P, load=(H - h,) * nd, origin=(0,) * nd, dst=P,
+            store=(H,) * nd, written=n, tile=tile, radius=(r,) * nd)
+
+
+def padded_superstep(src, dst, center, taps, *, program, plan,
+                     layout) -> None:
+    """B1: one superstep of ``plan.par_time`` steps."""
+    _carry(PADDED_SUPERSTEP, "plain", src, dst, center, taps,
+           program=program, plan=plan, layout=layout)
+
+
+def temporal_superstep(src, dst, center, taps, *, program, plan,
+                       layout) -> None:
+    """B3: one superstep-chunk of ``TEMPORAL_CHUNK * plan.par_time`` steps
+    over the chunk-deep ring (``plan`` is the run's plan, not the deep
+    one)."""
+    _carry(TEMPORAL_SUPERSTEP, "temporal", src, dst, center, taps,
+           program=program, plan=plan, layout=layout)
+
+
+def padded_pipelined(src, dst, center, taps, *, program, plan,
+                     layout) -> None:
+    """B4: B1 with the next tile's window prefetched."""
+    _carry(PADDED_PIPELINED, "pipelined", src, dst, center, taps,
+           program=program, plan=plan, layout=layout)
+
+
+def _prepadded(kernel: Kernel, variant: str, padded: torch.Tensor,
+               center: torch.Tensor, taps: torch.Tensor, *, program, plan,
+               true_shape: Tuple[int, ...],
+               offsets: Optional[Sequence[int]]) -> torch.Tensor:
+    """A superstep of a grid ``boundary_pad`` already padded by
+    ``plan.halo``; returns a new tensor of the rounded grid.  Cells of the
+    round-up slack are finite but unspecified (callers slice the true
+    region back, see ``superstep_common.cuh:boundary_fixup``)."""
+    nd = program.ndim
+    h = plan.halo
+    spatial = tuple(padded.shape[-nd:])
+    rounded = tuple(s - 2 * h for s in spatial)
+    if any(s < 1 for s in rounded):
+        raise ValueError(f"padded grid {spatial} is not larger than twice "
+                         f"the halo {h}")
+    _check(padded, "padded", spatial)
+    offsets = (0,) * nd if offsets is None else tuple(int(o)
+                                                       for o in offsets)
+    out = torch.empty(tuple(padded.shape[:-nd]) + rounded,
+                      device=padded.device, dtype=padded.dtype)
+    tile = pick_tile(plan, variant, smem_optin(padded.device.index))
+    _launch(kernel, padded, out, center, taps, program=program,
+            steps=plan.par_time, true=true_shape, src=spatial,
+            load=(0,) * nd, origin=offsets, dst=rounded, store=(0,) * nd,
+            written=rounded, tile=tile,
+            radius=(program.halo_radius,) * nd)
+    return out
+
+
+def superstep(padded, center, taps, *, program, plan, true_shape,
+              offsets=None) -> torch.Tensor:
+    """B5: the pre-padded superstep."""
+    return _prepadded(SUPERSTEP, "plain", padded, center, taps,
+                      program=program, plan=plan, true_shape=true_shape,
+                      offsets=offsets)
+
+
+def pipelined_superstep(padded, center, taps, *, program, plan, true_shape,
+                        offsets=None) -> torch.Tensor:
+    """B6: B5 with the next tile's window prefetched."""
+    return _prepadded(PIPELINED_SUPERSTEP, "pipelined", padded, center,
+                      taps, program=program, plan=plan,
+                      true_shape=true_shape, offsets=offsets)
 
 
 def refresh_wrap_halo(src: torch.Tensor, copies, padded_shape) -> None:

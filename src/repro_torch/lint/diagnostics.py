@@ -11,6 +11,8 @@ CODES = {
     "RP101": "grid shape does not describe the program's spatial rank",
     "RP102": "step count must be an integer >= 1",
     "RP103": "batch must be None or an integer >= 1 (and match at run)",
+    "RP105": "kernel shared memory of one CTA exceeds the card's "
+             "per-block limit",
     "RP109": "program dtype outside the kernels' supported set",
     "RP110": "device placement invalid for this backend/host",
     "RP111": "plan block rank does not match the program rank",

@@ -14,8 +14,11 @@ import pytest
 import torch
 
 import repro_torch
+from repro_torch.core.blocking import TEMPORAL_CHUNK
+from repro_torch.core.codegen import boundary_pad
 from repro_torch.core.reference import program_nsteps
 from repro_torch.kernels import common, cuda
+from repro_torch.lint.diagnostics import DiagnosticError
 
 pytestmark = pytest.mark.gpu
 
@@ -31,12 +34,14 @@ def cuda_device():
     return torch.device("cuda", torch.cuda.current_device())
 
 
-def _config(ndim, boundary, shape="box", par_time=2):
+def _config(ndim, boundary, shape="box", par_time=2, variant="plain",
+            grid=None):
     prog = repro_torch.StencilProgram(ndim=ndim, radius=2, shape=shape,
                                       boundary=boundary, boundary_value=0.25)
     plan = repro_torch.BlockPlan(spec=prog, block_shape=BLOCKS[ndim],
                                  par_time=par_time)
-    layout = common.ring_schedule(prog, plan, GRIDS[ndim], par_time).layout
+    layout = common.ring_schedule(prog, plan, grid or GRIDS[ndim], par_time,
+                                  variant=variant).layout
     return prog, plan, layout
 
 
@@ -104,7 +109,8 @@ def test_main_path_counts_launches(cuda_device):
     cuda.reset_launches()
     cs.run(g)
     torch.cuda.synchronize()
-    assert cuda.launches() == {"padded_superstep": 3, "wrap_halo": 6}
+    launched = {k: v for k, v in cuda.launches().items() if v}
+    assert launched == {"padded_superstep": 3, "wrap_halo": 6}
 
 
 def test_wrappers_refuse_bad_tensors_on_the_card(cuda_device):
@@ -124,10 +130,147 @@ def test_wrappers_refuse_bad_tensors_on_the_card(cuda_device):
     assert cuda.launches() == before
 
 
-def test_wrap_degenerate_layout_refuses_the_card(cuda_device):
-    prog = repro_torch.StencilProgram(ndim=3, radius=2, boundary="periodic")
-    plan = repro_torch.BlockPlan(spec=prog, block_shape=BLOCKS[3],
-                                 par_time=2)
-    cs = repro_torch.stencil(prog).compile((9, 18, 140), steps=3, plan=plan)
-    with pytest.raises(NotImplementedError, match="ROADMAP B5"):
-        cs.run(torch.zeros((9, 18, 140), device=cuda_device))
+@pytest.mark.parametrize("variant,kernel", [
+    ("plain", "superstep"), ("pipelined", "pipelined_superstep"),
+    ("temporal", "superstep")])
+def test_wrap_degenerate_layout_runs_on_the_card(cuda_device, variant,
+                                                 kernel):
+    """The re-pad fallback launches the pre-padded superstep (B5, B6 for
+    pipelined, B5 with the chunk-deep plan for temporal) and matches the
+    CPU."""
+    par_time = 1 if variant == "temporal" else 2
+    prog, plan, _ = _config(3, "periodic", par_time=par_time)
+    shape = (9, 18, 140)
+    steps = TEMPORAL_CHUNK * par_time + par_time + 1
+    assert common.ring_schedule(prog, plan, shape, steps,
+                                variant=variant).fallback
+    g = torch.from_numpy(np.random.RandomState(3).uniform(
+        -1, 1, shape).astype(np.float32))
+    on_cpu = repro_torch.stencil(prog).compile(
+        shape, steps=steps, plan=plan, variant=variant, device="cpu").run(g)
+    cs = repro_torch.stencil(prog).compile(shape, steps=steps, plan=plan,
+                                           variant=variant)
+    cuda.reset_launches()
+    on_card = cs.run(g.to(cuda_device))
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in cuda.launches().items() if v}
+    # one launch per period, the remainder's included: 5 + 1 at par_time
+    # 2, or for temporal 1 chunk of 4 + 1
+    assert counts == {kernel: 6 if par_time == 2 else 2}, counts
+    torch.testing.assert_close(on_card.cpu(), on_cpu, **ULP)
+
+
+def _random(shape, device, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.rand(shape, generator=gen, device=device) * 2 - 1
+
+
+@pytest.mark.parametrize("ndim", [2, 3])
+@pytest.mark.parametrize("boundary", ["clamp", "periodic", "constant"])
+@pytest.mark.parametrize("phase", ["full", "remainder"])
+@pytest.mark.parametrize("variant", ["temporal", "pipelined"])
+def test_variant_kernels_match_plain_versions(cuda_device, ndim, boundary,
+                                              phase, variant):
+    """B3 (temporal, the chunk-deep ring) and B4 (pipelined) against
+    ``padded_superstep_plain`` on random padded sources, batch 2; the
+    remainder phase runs at par_time 1 (B3: a chunk of 4 steps)."""
+    par_time = 2 if phase == "full" else 1
+    if variant == "temporal" and ndim == 3:
+        par_time = 1        # a deep halo of 8 keeps a 3D tile in 227 KB
+    prog, plan, layout = _config(ndim, boundary, par_time=par_time,
+                                 variant=variant, grid=(20, 32, 140)
+                                 if ndim == 3 else None)
+    src = _random((2,) + layout.padded_shape, cuda_device, ndim)
+    coeffs = prog.default_coeffs(seed=1).to(cuda_device)
+    if layout.wrap_axes:
+        common.refresh_wrap_halo(src, layout)
+    got, want = torch.zeros_like(src), torch.zeros_like(src)
+    before = cuda.launches()
+    common.padded_superstep(src, got, coeffs.center, coeffs.taps,
+                            program=prog, plan=plan, layout=layout,
+                            variant=variant)
+    name = {"temporal": "temporal_superstep",
+            "pipelined": "padded_pipelined"}[variant]
+    assert cuda.launches()[name] == before[name] + 1
+    deep = common.deep_plan(plan) if variant == "temporal" else plan
+    common.padded_superstep_plain(src, want, coeffs.center, coeffs.taps,
+                                  program=prog, plan=deep, layout=layout)
+    ix = _interior(layout)
+    torch.testing.assert_close(got[ix], want[ix], **ULP)
+
+
+@pytest.mark.parametrize("ndim", [2, 3])
+@pytest.mark.parametrize("boundary", ["clamp", "periodic", "constant"])
+@pytest.mark.parametrize("par_time", [2, 1])
+@pytest.mark.parametrize("variant", ["plain", "pipelined"])
+def test_prepadded_kernels_match_plain_versions(cuda_device, ndim, boundary,
+                                                par_time, variant):
+    """B5 and B6 against ``superstep_plain`` on the same padded grid
+    (batch 2, non-zero shard offsets in a larger global grid): the true
+    cells agree."""
+    prog, plan, _ = _config(ndim, boundary, par_time=par_time)
+    shape = GRIDS[ndim]
+    h = plan.halo
+    rounded = tuple(common.round_up(n, b) for n, b in zip(shape,
+                                                           BLOCKS[ndim]))
+    g = _random((2,) + shape, cuda_device, ndim)
+    padded = boundary_pad(prog, g, [(0, 0)] + [
+        (h, r - n + h) for n, r in zip(shape, rounded)]).contiguous()
+    coeffs = prog.default_coeffs(seed=2).to(cuda_device)
+    offsets = (3,) * ndim
+    global_shape = tuple(n + 7 for n in shape)
+    kernel = "pipelined_superstep" if variant == "pipelined" \
+        else "superstep"
+    before = cuda.launches()[kernel]
+    got = common.superstep_call(padded, coeffs.center, coeffs.taps,
+                                program=prog, plan=plan,
+                                true_shape=global_shape, offsets=offsets,
+                                variant=variant)
+    assert cuda.launches()[kernel] == before + 1
+    assert tuple(got.shape) == (2,) + rounded
+    want = common.superstep_plain(padded, coeffs.center, coeffs.taps,
+                                  program=prog, plan=plan,
+                                  true_shape=global_shape, offsets=offsets)
+    ix = (Ellipsis,) + tuple(slice(0, n) for n in shape)
+    torch.testing.assert_close(got[ix], want[ix], **ULP)
+
+
+@pytest.mark.parametrize("variant,want", [
+    ("plain", {"padded_superstep": 3, "wrap_halo": 6}),
+    ("pipelined", {"padded_pipelined": 3, "wrap_halo": 6}),
+    ("temporal", {"temporal_superstep": 1, "padded_superstep": 1,
+                  "wrap_halo": 4}),
+])
+def test_variant_launch_counts(cuda_device, variant, want):
+    """par_time 2 on a periodic grid: plain and pipelined at steps 5 run
+    two full supersteps and a remainder; temporal at steps 11 one chunk of
+    8 and a plain remainder of 3; a wrap launch per axis before each."""
+    prog, plan, _ = _config(2, "periodic")
+    steps = 11 if variant == "temporal" else 5
+    cs = repro_torch.stencil(prog).compile(GRIDS[2], steps=steps, plan=plan,
+                                           variant=variant)
+    g = torch.rand(GRIDS[2], device=cuda_device)
+    cuda.reset_launches()
+    out = cs.run(g)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in cuda.launches().items() if v}
+    assert counts == want
+    on_cpu = repro_torch.stencil(prog).compile(
+        GRIDS[2], steps=steps, plan=plan, variant=variant,
+        device="cpu").run(g.cpu())
+    torch.testing.assert_close(out.cpu(), on_cpu, **ULP)
+
+
+def test_compile_refuses_a_plan_no_tile_fits(cuda_device):
+    """RP105 at compile, before any launch: a 3D radius-4 plan under
+    temporal has a deep halo of 16 per side."""
+    prog = repro_torch.StencilProgram(ndim=3, radius=4)
+    plan = repro_torch.BlockPlan(spec=prog, block_shape=(32, 64, 704),
+                                 par_time=1)
+    before = cuda.launches()
+    with pytest.raises(DiagnosticError, match="RP105"):
+        repro_torch.stencil(prog).compile((512, 1024, 704), steps=3,
+                                          plan=plan, variant="temporal")
+    assert repro_torch.stencil(prog).compile(
+        (512, 1024, 704), steps=3, plan=plan).device == cuda_device
+    assert cuda.launches() == before

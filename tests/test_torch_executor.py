@@ -168,12 +168,22 @@ def test_rejections_follow_reference_order_and_text():
 
 
 def test_variant_and_rank_and_dtype_rejections():
+    """Every variant compiles to its cuda sibling; an unknown variant, a
+    wrong block rank and a wrong dtype are refused."""
     _, _, _, tp, tplan, _ = _both(2, "clamp")
     for v in ("pipelined", "temporal"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-            _compile(tp, tplan, variant=v)
+        cs = _compile(tp, tplan, variant=v)
+        assert (cs.variant, cs.backend) == (v, f"cuda-{v}")
+        named = _compile(tp, tplan, backend=f"cuda-{v}")
+        assert (named.variant, named.backend) == (v, f"cuda-{v}")
+        assert _compile(tp, tplan, backend=f"cuda-{v}",
+                        variant="auto").variant == v
+    assert _compile(tp, tplan, backend="cuda-temporal",
+                    variant="plain").backend == "cuda"
     with pytest.raises(ValueError, match="unknown kernel variant"):
         _compile(tp, tplan, variant="fast")
+    with pytest.raises(KeyError, match="unknown backend"):
+        _compile(tp, tplan, backend="pallas-tpu")
     assert _compile(tp, tplan, variant="auto").variant == "plain"
     with pytest.raises(DiagnosticError, match="RP111"):
         _compile(tp, dataclasses.replace(tplan, block_shape=(16,)))
@@ -213,7 +223,9 @@ def test_compile_defaults_to_cuda_and_raises_without_a_gpu(monkeypatch):
 
 def test_import_does_not_load_jax_or_the_reference():
     code = ("import sys, repro_torch, repro_torch.convert, "
-            "repro_torch.kernels.ops, repro_torch.configs.stencil3d; "
+            "repro_torch.kernels.ops, repro_torch.configs.stencil3d, "
+            "repro_torch.backends, repro_torch.kernels.stencil2d, "
+            "repro_torch.kernels.stencil3d, repro_torch.lint.verify; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -229,7 +241,7 @@ def test_port_sources_import_no_jax_or_reference():
                                                   "repro_torch")):
         files += [os.path.join(dirpath, n) for n in names
                   if n.endswith(".py")]
-    assert len(files) > 15
+    assert len(files) > 22
     for path in files:
         tree = ast.parse(open(path, encoding="utf-8").read(), path)
         for node in ast.walk(tree):

@@ -176,12 +176,46 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
 @pytest.mark.parametrize("ndim,halo,steps,taps", [
     (2, 8, 2, 17), (3, 4, 1, 25), (3, 8, 2, 729)])
 def test_pick_tile_fits_shared_memory(ndim, halo, steps, taps):
+    """The plans of a 2D star r4, a 3D star r4 and a 3D box r4 under every
+    variant (halo and taps as named for the plain kernel)."""
+    radius = halo // steps
+    shape = "box" if taps == (2 * radius + 1) ** ndim else "star"
+    prog = RefProgram(ndim=ndim, radius=radius, shape=shape)
+    plan = convert.plan_from_fields(**dataclasses.asdict(RefPlan(
+        spec=prog, block_shape=BLOCKS[ndim], par_time=steps)))
+    assert (plan.halo, plan.program.num_taps) == (halo, taps)
     limit = 232448
-    tile = cuda.pick_tile(ndim, halo, steps, taps, limit)
-    assert len(tile) == ndim and tile[-1] % 32 == 0
-    assert cuda.smem_bytes(tile, halo, steps, taps) <= limit
-    with pytest.raises(ValueError, match="no CTA tile fits"):
-        cuda.pick_tile(ndim, halo, steps, taps, 1024)
+    for variant in ("plain", "pipelined", "temporal"):
+        if plan.smem_bytes_for(cuda.smallest_tile(ndim), variant) > limit:
+            assert variant == "temporal" and ndim == 3
+            continue
+        tile = cuda.pick_tile(plan, variant, limit)
+        assert len(tile) == ndim and tile[-1] % 32 == 0
+        assert plan.smem_bytes_for(tile, variant) <= limit
+        with pytest.raises(ValueError, match="no CTA tile fits"):
+            cuda.pick_tile(plan, variant, 1024)
+
+
+
+def test_kernel_build_key_covers_included_headers(tmp_path, monkeypatch):
+    """An edited header changes the library path of every source that
+    includes it, and only of those."""
+    for src in build.SOURCES:
+        for name in (src,) + build.includes(src):
+            (tmp_path / name).write_bytes((build.CSRC / name).read_bytes())
+    assert build.includes("padded_superstep.cu") == ("superstep_common.cuh",)
+    assert build.includes("pipelined_superstep.cu") == \
+        ("superstep_common.cuh",)
+    assert build.includes("wrap_halo.cu") == ()
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    before = {s: build.library_path(s) for s in build.SOURCES}
+    header = tmp_path / "superstep_common.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {s: build.library_path(s) for s in build.SOURCES}
+    assert after["padded_superstep.cu"] != before["padded_superstep.cu"]
+    assert after["pipelined_superstep.cu"] != \
+        before["pipelined_superstep.cu"]
+    assert after["wrap_halo.cu"] == before["wrap_halo.cu"]
 
 
 def test_kernel_build_is_keyed_by_source_hash():
@@ -192,4 +226,3 @@ def test_kernel_build_is_keyed_by_source_hash():
         assert path == build.library_path(src)
         assert (build.CSRC / src).exists()
     assert "arch=compute_90a,code=sm_90a" in build.FLAGS
-
