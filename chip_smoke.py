@@ -22,8 +22,10 @@ Phases (any failure raises, so the exit code is non-zero):
    version's time and a PyTorch convolution yardstick (``library_ms``);
 4. small exact checks: 2D/3D x clamp/periodic/constant x star/box x batch
    2 x each variant against the float64 oracle on the card, the
-   wrap-degenerate layout under each variant (the pre-padded kernels), and
-   the RP105 refusals of plans no CTA tile fits.
+   wrap-degenerate layout under each variant (the pre-padded kernels), the
+   streamed kernels (B3, B4) at a segment shorter than twice the halo and
+   a column tile that does not divide the grid, and the RP105 refusals of
+   plans no CTA tile fits.
 
 The last lines are the ``{"kernels": [...]}`` record, the ``nvidia-smi``
 line, and ``{"ok": true, "device": {...}}``.
@@ -130,9 +132,21 @@ def library_step(program, coeffs, grid, steps: int):
     return x.reshape(grid.shape)
 
 
-TEMPORAL_CUT = ("par_time 1 instead of the paper plan's 2: under temporal "
-                "that plan's window has a halo of 16 per side, which no CTA "
-                "tile fits (RP105, checked)")
+#: The streamed kernels' records carry their design's name.
+DESIGN = "streamed"
+#: The time of the whole-window kernel each streamed one replaced at that
+#: shape, quoted from PERF.md's kernel table (measured on NVIDIA H100 80GB
+#: HBM3, 700.00 W by an earlier version of this script); printed on a line
+#: of its own, never in the ``{"kernels": ...}`` record.
+EARLIER_MS = {
+    ("temporal_superstep", "2d_r4_paper"): 77.01376342773438,
+    ("temporal_superstep", "3d_r2_paper_par_time_1"): 195.2475128173828,
+    ("padded_pipelined", "3d_r4_paper"): 28.526304244995117,
+    ("padded_pipelined", "2d_box_periodic_pod"): 9.370240211486816,
+}
+#: FP32 without FMA contraction: a multiply and an add are two
+#: instructions, so counted flops run at half the data sheet's FMA rate.
+NO_FMA = 0.5
 
 
 def cases():
@@ -160,9 +174,15 @@ def cases():
              expect={"temporal_superstep": 2, "padded_superstep": 1},
              check="temporal"),
         dict(name="3d_r2_paper", work=r2, steps=9, variant="temporal",
+             expect={"temporal_superstep": 1, "padded_superstep": 1},
+             check="temporal"),
+        # the shape the whole-window B3 ran at, whose paper plan fitted no
+        # tile (its time is in EARLIER_MS)
+        dict(name="3d_r2_paper_par_time_1", work=r2, steps=9,
+             variant="temporal",
              plan=dataclasses.replace(r2.plan(), par_time=1),
              expect={"temporal_superstep": 2, "padded_superstep": 1},
-             check="temporal", reduced=TEMPORAL_CUT),
+             check="temporal"),
         dict(name="3d_r4_paper", work=w3["3d_r4_paper"], steps=3,
              variant="pipelined", expect={"padded_pipelined": 3},
              check="pipelined"),
@@ -269,12 +289,18 @@ def record(name, kernel, source, replaces, state, err, ms, plain_ms,
     print(f"  {kernel}: {ms!r} ms/launch, plain {plain_ms!r} ms, library "
           f"{lib_ms!r} ms, bound {b_ms!r} ms ({b_by}: {moved} bytes, "
           f"{flops} flop)")
-    return dict(name=f"{kernel}@{name}", route="cuda",
-                source=f"src/repro_torch/kernels/csrc/{source}",
-                replaces=f"src/repro/kernels/common.py:{replaces}",
-                launches=state["counts"][kernel], max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib_ms)
+    if b_by == "operations":
+        print(f"  {kernel}: without FMA the same flops take at least "
+              f"{flops / (chip.peak_fp32_flops * NO_FMA) * 1e3!r} ms")
+    rec = dict(name=f"{kernel}@{name}", route="cuda",
+               source=f"src/repro_torch/kernels/csrc/{source}",
+               replaces=f"src/repro/kernels/common.py:{replaces}",
+               launches=state["counts"][kernel], max_abs_err=err, ms=ms,
+               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+               library_ms=lib_ms)
+    if kernel in ("temporal_superstep", "padded_pipelined"):
+        rec["design"] = DESIGN
+    return rec
 
 
 def carried(state, variant):
@@ -346,9 +372,9 @@ def check_padded(case, state, chip, variant, layout=None, src=None,
         "plain": ("padded_superstep", cuda.padded_superstep,
                   "padded_superstep.cu", 707),
         "temporal": ("temporal_superstep", cuda.temporal_superstep,
-                     "padded_superstep.cu", 899),
+                     "streamed_superstep.cu", 899),
         "pipelined": ("padded_pipelined", cuda.padded_pipelined,
-                      "pipelined_superstep.cu", 785)}[variant]
+                      "streamed_superstep.cu", 785)}[variant]
     eff = common.deep_plan(plan) if variant == "temporal" else plan
     center, taps = coeffs.center, coeffs.taps
     got = torch.zeros_like(src)
@@ -357,8 +383,10 @@ def check_padded(case, state, chip, variant, layout=None, src=None,
     common.padded_superstep_plain(src, want, center, taps, program=prog,
                                   plan=eff, layout=layout)
     torch.cuda.synchronize()
+    # the streamed kernels are held to bit equality, B1 to the repo's ULP
+    tol = ULP if variant == "plain" else dict(atol=0.0, rtol=0.0)
     err = check_close(f"{kernel} vs padded_superstep_plain",
-                      got[interior], want[interior], **ULP)
+                      got[interior], want[interior], **tol)
     del want
     ms = median_ms(lambda: launch(src, got, center, taps, program=prog,
                                   plan=plan, layout=layout))
@@ -368,9 +396,9 @@ def check_padded(case, state, chip, variant, layout=None, src=None,
     cells = math.prod(grid.shape)
     moved = 4 * (math.prod(layout.padded_shape) + cells)
     flops = cells * eff.par_time * prog.flops_per_cell
-    tile = cuda.pick_tile(plan, variant, cuda.smem_optin(grid.device.index))
+    tile = cuda.pick_tile(plan, kernel, cuda.smem_optin(grid.device.index))
     print(f"  {kernel}: CTA tile {tile}, "
-          f"{plan.smem_bytes_for(tile, variant)} bytes of shared memory, "
+          f"{plan.smem_bytes_for(tile, kernel)} bytes of shared memory, "
           f"{eff.par_time} steps per launch")
     return record(case["name"], kernel, source, replaces, state, err, ms,
                   plain_ms, moved, flops, lib, chip)
@@ -419,8 +447,7 @@ def check_prepadded(case, state, chip):
     lib = library_ms(case["name"], prog, coeffs, grid, plan.par_time)
     moved = 4 * (math.prod(padded.shape) + math.prod(rounded))
     flops = math.prod(n) * plan.par_time * prog.flops_per_cell
-    tile = cuda.pick_tile(plan, "pipelined" if pipelined else "plain",
-                          cuda.smem_optin(grid.device.index))
+    tile = cuda.pick_tile(plan, kernel, cuda.smem_optin(grid.device.index))
     print(f"  {kernel}: CTA tile {tile}")
     return record(case["name"], kernel, source, replaces, state, err, ms,
                   plain_ms, moved, flops, lib, chip)
@@ -435,14 +462,18 @@ def check_kernels(case, state, chip):
     return [check_padded(case, state, chip, how)]
 
 
-def refuse_rp105(prog, plan, shape, variant):
-    """The front door must refuse ``plan`` under ``variant`` at compile."""
+def refuse_rp105(prog, plan, shape, variant, steps=None):
+    """The front door must refuse ``plan`` under ``variant`` at compile
+    (by default for enough steps to launch one full superstep or chunk)."""
     import repro_torch
+    from repro_torch.core.blocking import TEMPORAL_CHUNK
     from repro_torch.lint.diagnostics import DiagnosticError
     from repro_torch.kernels import cuda
     before = cuda.launches()
+    if steps is None:
+        steps = plan.par_time * TEMPORAL_CHUNK + 1
     try:
-        repro_torch.stencil(prog).compile(shape, steps=3, plan=plan,
+        repro_torch.stencil(prog).compile(shape, steps=steps, plan=plan,
                                           variant=variant)
     except DiagnosticError as e:
         if [d.code for d in e.diagnostics] != ["RP105"]:
@@ -495,17 +526,19 @@ def exact_checks():
             prog = repro_torch.StencilProgram(
                 ndim=ndim, radius=radius, shape=kind, boundary=boundary,
                 boundary_value=0.25)
-            # temporal in 3D: a deep halo of at most 8 fits a CTA tile
-            par_time = 1 if (variant == "temporal" and ndim == 3) else 2
-            plan = repro_torch.BlockPlan(spec=prog, block_shape=block,
-                                         par_time=par_time)
-            if variant == "temporal" and ndim == 3:
+            # temporal in 3D: the box's rings and offset tables fit 4 fused
+            # steps of radius 2 (par_time 1), not 8 nor radius 4
+            par_time = 2
+            if variant == "temporal" and ndim == 3 and kind == "box":
                 refuse_rp105(prog, repro_torch.BlockPlan(
                     spec=prog, block_shape=block, par_time=2), shape,
                     variant)
-                if radius == 4:
-                    refuse_rp105(prog, plan, shape, variant)
-                    continue
+                par_time = 1
+            plan = repro_torch.BlockPlan(spec=prog, block_shape=block,
+                                         par_time=par_time)
+            if variant == "temporal" and ndim == 3 and radius == 4:
+                refuse_rp105(prog, plan, shape, variant)
+                continue
             steps = TEMPORAL_CHUNK * par_time + par_time + 1
             grid = random_grid((2,) + shape, seed=ndim)
             cs = repro_torch.stencil(prog).compile(
@@ -557,11 +590,87 @@ def exact_checks():
                     atol=TOL, rtol=0.0)
 
     print("\n== plans no CTA tile fits")
-    w3 = stencil3d.workloads()
-    for name in ("3d_r4_paper", "3d_r2_paper"):
-        work = w3[name]
-        print(f"  {name} (par_time {work.par_time}) under temporal:")
-        refuse_rp105(work.spec, work.plan(), work.grid_shape, "temporal")
+    work = stencil3d.workloads()["3d_r4_paper"]
+    print("  3d_r4_paper under temporal, 3 steps: only a remainder of 3 "
+          "steps (B1), whose window fits no tile")
+    refuse_rp105(work.spec, work.plan(), work.grid_shape, "temporal",
+                 steps=3)
+
+
+def streamed_corners():
+    """B3 and B4 at a segment shorter than twice the halo, a column tile
+    that divides neither blocked axis, batch 2, against
+    ``padded_superstep_plain`` (exact)."""
+    import torch
+    import repro_torch
+    from repro_torch.kernels import common, cuda
+
+    print("\n== streamed kernels at short segments and ragged column tiles")
+    cases = [
+        # B3: 2D star r4, par_time 2 (8 fused steps, h = 32)
+        ("temporal", 2, "star", 4, "clamp", (150, 200), 2, (64,), 20),
+        ("temporal", 2, "box", 1, "periodic", (150, 200), 2, (96,), 5),
+        # B4: 3D star r4, par_time 2 (h = 8)
+        ("pipelined", 3, "star", 4, "clamp", (40, 50, 150), 2, (8, 64), 5),
+        ("pipelined", 3, "diamond", 2, "constant", (21, 30, 70), 1, (4, 32),
+         3),
+    ]
+    for variant, ndim, kind, radius, boundary, shape, par_time, tile, seg \
+            in cases:
+        prog = repro_torch.StencilProgram(
+            ndim=ndim, radius=radius, shape=kind, boundary=boundary,
+            boundary_value=0.25)
+        block = (16, 128) if ndim == 2 else (8, 16, 128)
+        plan = repro_torch.BlockPlan(spec=prog, block_shape=block,
+                                     par_time=par_time)
+        layout = common.ring_schedule(prog, plan, shape, par_time,
+                                      variant=variant).layout
+        src = random_grid((2,) + layout.padded_shape, seed=5)
+        if layout.wrap_axes:
+            common.refresh_wrap_halo_plain(src, layout)
+        coeffs = prog.default_coeffs(seed=3).to(src.device)
+        kernel, launch = {
+            "temporal": ("temporal_superstep", cuda.temporal_superstep),
+            "pipelined": ("padded_pipelined", cuda.padded_pipelined)}[variant]
+        h = plan.kernel_steps(kernel) * radius
+        assert seg < 2 * h and any(n % t for n, t in zip(shape[1:], tile))
+        got, want = torch.zeros_like(src), torch.zeros_like(src)
+        launch(src, got, coeffs.center, coeffs.taps, program=prog,
+               plan=plan, layout=layout, tile=tile, segment=seg)
+        eff = common.deep_plan(plan) if variant == "temporal" else plan
+        common.padded_superstep_plain(src, want, coeffs.center, coeffs.taps,
+                                      program=prog, plan=eff, layout=layout)
+        torch.cuda.synchronize()
+        ix = (Ellipsis,) + tuple(slice(layout.halo, layout.halo + n)
+                                 for n in shape)
+        check_close(f"{kernel} {ndim}D {kind} r={radius} {boundary} "
+                    f"grid {shape} tile {tile} segment {seg} (h {h})",
+                    got[ix], want[ix], atol=0.0, rtol=0.0)
+
+
+def ptxas_report():
+    """The ``-Xptxas=-v`` lines of each streamed kernel, from the build's
+    log of the library this run loaded; raises when one has a stack frame
+    or the log reports none."""
+    from repro_torch.kernels import build
+    log = build.build_log("streamed_superstep.cu")
+    entry = None
+    found = 0
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line if "streamed_kernel" in line else None
+            if entry:
+                print(f"ptxas streamed: {entry.strip()}")
+            continue
+        if entry and ("stack frame" in line or "Used " in line):
+            print(f"ptxas streamed:   {line.strip()}")
+            if "stack frame" in line:
+                found += 1
+                if not line.strip().startswith("0 bytes stack frame"):
+                    raise AssertionError(f"streamed kernel has a stack "
+                                         f"frame: {line.strip()}")
+    if found == 0:
+        raise AssertionError("no ptxas report for the streamed kernels")
 
 
 def main() -> int:
@@ -594,9 +703,14 @@ def main() -> int:
         del state
         torch.cuda.empty_cache()
     exact_checks()
+    streamed_corners()
+    ptxas_report()
     ported = {r["name"].split("@")[0] for r in records}
     if len(ported) != 6:
         raise AssertionError(f"kernel records cover {sorted(ported)}")
+    for (kernel, name), ms in EARLIER_MS.items():
+        print(f"whole-window {kernel}@{name}, quoted from PERF.md's "
+              f"earlier ms, not measured in this run: {ms!r} ms/launch")
 
     print(json.dumps({"kernels": records}))
     print(smi)

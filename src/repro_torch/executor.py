@@ -9,8 +9,8 @@ a device; ``run`` checks the grid and hands it to the fused executor
 ``backend``/``variant`` resolve through the registry
 (``backends.resolve_backend``): ``cuda`` (default), ``cuda-pipelined``,
 ``cuda-temporal``, or the ``torch-reference`` oracle.  On a CUDA device
-the front door refuses a plan that no CTA tile of the variant fits (RP105,
-``lint/verify.smem_diagnostics``).
+the front door refuses a plan when a kernel the run would launch fits no
+CTA tile (RP105, ``lint/verify.smem_diagnostics``).
 
 What this port does not do yet, and says so when asked: plan search
 (``plan="auto"``/``"model"``, ROADMAP A5) and meshes (``devices > 1``,
@@ -217,7 +217,8 @@ class Stencil:
         dev = _resolve_device(device)
         if traits.fused_run and dev.type == "cuda":
             found = smem_diagnostics(plan, traits.variant,
-                                     GpuChip.from_device(dev.index))
+                                     GpuChip.from_device(dev.index),
+                                     grid_shape=grid_shape, steps=steps)
             if found:
                 raise DiagnosticError(found)
         coeffs = self.coeffs.to(dev)

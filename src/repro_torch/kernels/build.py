@@ -4,9 +4,11 @@ Each ``csrc/*.cu`` file has a plain C interface and compiles on its own
 with ``nvcc`` into ``build/repro_torch/<name>-<hash>.so`` under the repo
 root; the hash covers the source, every ``csrc`` header it includes, and
 the flags, so an edited source or header rebuilds and an unchanged one
-loads.  :func:`build` starts one ``nvcc``
-per missing library, all at once.  Nothing but the sources in the repo and
-the CUDA toolkit is used.
+loads.  The compiler's output (the ``-Xptxas=-v`` register, shared-memory
+and stack report) is kept beside the library as ``<name>-<hash>.log``, so
+:func:`build_log` reads it whether or not this process built the library.
+:func:`build` starts one ``nvcc`` per missing library, all at once.
+Nothing but the sources in the repo and the CUDA toolkit is used.
 """
 
 from __future__ import annotations
@@ -22,7 +24,8 @@ from typing import Dict, Iterable, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("padded_superstep.cu", "pipelined_superstep.cu", "wrap_halo.cu")
+SOURCES = ("padded_superstep.cu", "pipelined_superstep.cu",
+           "streamed_superstep.cu", "wrap_halo.cu")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -64,16 +67,28 @@ def library_path(source: str) -> Path:
     return BUILD_DIR / f"{Path(source).stem}-{digest}.so"
 
 
+def log_path(source: str) -> Path:
+    return library_path(source).with_suffix(".log")
+
+
+def build_log(source: str) -> str:
+    """The compiler's output for the library of ``source`` as it stands,
+    built first if missing."""
+    if not log_path(source).exists():
+        build([source])
+    return log_path(source).read_text(encoding="utf-8")
+
+
 def build(sources: Iterable[str] = SOURCES) -> Dict[str, str]:
-    """Compile every source whose library is missing, one ``nvcc`` each,
-    in parallel.  Returns the compiler's output (``-Xptxas=-v`` register
-    and shared-memory report) per source it built; raises on a failure."""
+    """Compile every source whose library or log is missing, one ``nvcc``
+    each, in parallel.  Returns the compiler's output (also kept in
+    :func:`log_path`) per source it built; raises on a failure."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = {}
     try:
         for source in sources:
             out = library_path(source)
-            if out.exists():
+            if out.exists() and log_path(source).exists():
                 continue
             tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
             proc = subprocess.Popen(
@@ -84,7 +99,10 @@ def build(sources: Iterable[str] = SOURCES) -> Dict[str, str]:
         for source, (proc, tmp, out) in jobs.items():
             logs[source] = proc.communicate()[0]
             if proc.returncode == 0:
+                log = out.with_name(f"{tmp.name}.log")
+                log.write_text(logs[source], encoding="utf-8")
                 os.replace(tmp, out)
+                os.replace(log, out.with_suffix(".log"))
             else:
                 failed.append(f"{source}:\n{logs[source]}")
     finally:
@@ -102,7 +120,7 @@ def load(source: str) -> ctypes.CDLL:
     lib = _LIBS.get(source)
     if lib is None:
         path = library_path(source)
-        if not path.exists():
+        if not (path.exists() and log_path(source).exists()):
             build([source])
         lib = _LIBS[source] = ctypes.CDLL(str(path))
     return lib

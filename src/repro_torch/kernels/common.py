@@ -279,6 +279,69 @@ def ring_schedule(program: StencilProgram, plan: BlockPlan,
                        supersteps=tuple(supersteps))
 
 
+#: The padded-carry superstep kernel of each variant, by the name
+#: ``kernels/cuda.py`` counts its launches under.
+CARRY_KERNELS = {"plain": "padded_superstep",
+                 "temporal": "temporal_superstep",
+                 "pipelined": "padded_pipelined"}
+
+
+def run_launches(sched: RunSchedule
+                 ) -> Tuple[Tuple[str, str, BlockPlan, int], ...]:
+    """The superstep launches of the run ``sched`` describes, in order, as
+    ``(kernel, variant, plan, count)``: ``count`` launches of ``kernel``,
+    each the ``variant`` superstep of ``plan`` (a remainder's plan has
+    ``par_time`` = its steps, a temporal chunk's is the run's plan).
+    :func:`run_call` launches exactly these; RP105 sizes them.
+
+    A scheduled superstep of ``s`` steps is one launch of its variant's
+    carry kernel.  A wrap-degenerate run (``sched.fallback``, which the
+    schedule does not model) re-pads every superstep
+    (:func:`run_call_padfallback`): B6 for "pipelined", else B5, a
+    temporal run with the chunk-deep plan."""
+    plan = sched.plan
+    if sched.fallback:
+        base = deep_plan(plan) if sched.variant == "temporal" else plan
+        v = "pipelined" if sched.variant == "pipelined" else "plain"
+        kernel = "pipelined_superstep" if v == "pipelined" else "superstep"
+        full, rem = divmod(sched.steps, base.par_time)
+        out = [(kernel, v, base, full),
+               (kernel, v, dataclasses.replace(base, par_time=rem),
+                int(rem > 0))]
+    else:
+        scheduled = sched.supersteps
+        out = [(scheduled[0], sched.full)] if sched.full else []
+        if sched.rem:
+            out.append((scheduled[-1], 1))
+        out = [(CARRY_KERNELS[ss.variant], ss.variant,
+                dataclasses.replace(plan, par_time=ss.steps // (
+                    TEMPORAL_CHUNK if ss.variant == "temporal" else 1)),
+                count) for ss, count in out]
+    return tuple(o for o in out if o[3])
+
+
+def run_kernels(program: StencilProgram, plan: BlockPlan,
+                true_shape: Optional[Tuple[int, ...]] = None,
+                steps: Optional[int] = None,
+                variant: Optional[str] = None
+                ) -> Tuple[Tuple[str, BlockPlan], ...]:
+    """The distinct ``(kernel, plan)`` of :func:`run_launches` for a run
+    of ``steps`` on ``true_shape``.  Without them: a run of a full
+    superstep (or chunk) and the longest remainder on a grid that is not
+    wrap-degenerate."""
+    v = normalize_variant(variant)
+    if true_shape is None or steps is None:
+        chunk = TEMPORAL_CHUNK if v == "temporal" else 1
+        steps = 2 * chunk * plan.par_time - 1
+        # one whole block at least as wide as the deepest ring per axis
+        true_shape = tuple(round_up(chunk * plan.halo, b)
+                           for b in plan.block_shape)
+    sched = ring_schedule(program, plan, tuple(true_shape), steps,
+                          variant=v)
+    return tuple(dict.fromkeys((kernel, kplan) for kernel, _, kplan, _
+                               in run_launches(sched)))
+
+
 # ---- the two kernels of a superstep: plain versions and dispatch ------------
 
 
@@ -490,41 +553,38 @@ def run_call(grid: torch.Tensor, center: torch.Tensor, taps: torch.Tensor,
     Under "temporal" the ring is ``TEMPORAL_CHUNK`` times deeper, each of
     the ``full`` launches is one chunk of ``TEMPORAL_CHUNK * par_time``
     steps, and ``rem`` counts leftover steps.  A wrap-degenerate layout
-    takes :func:`run_call_padfallback`, for temporal with the chunk-deep
-    plan and the plain kernel.  Returns a new tensor holding the true
-    interior.
+    re-pads every superstep as :func:`run_call_padfallback` does, for
+    temporal with the chunk-deep plan and the plain kernel.  The launches
+    are those of :func:`run_launches`.  Returns a new tensor holding the
+    true interior.
     """
     v = normalize_variant(variant)
     period = plan.par_time * (TEMPORAL_CHUNK if v == "temporal" else 1)
     sched = ring_schedule(program, plan, true_shape, full * period + rem,
                           variant=v)
+    launches = run_launches(sched)
     if sched.fallback:
-        return run_call_padfallback(
-            grid, center, taps, full, program=program,
-            plan=deep_plan(plan) if v == "temporal" else plan, rem=rem,
-            variant="plain" if v == "temporal" else v)
+        for _, step_variant, step_plan, count in launches:
+            for _ in range(count):
+                grid = pad_superstep(grid, center, taps, program=program,
+                                     plan=step_plan, variant=step_variant)
+        return grid.contiguous()
     layout = sched.layout
     nb = grid.ndim - program.ndim
     src = grid.new_zeros(tuple(grid.shape[:nb]) + layout.padded_shape)
     interior = _interior([layout.halo] * program.ndim, true_shape)
     src[interior] = grid
     dst = torch.zeros_like(src)
-
-    def superstep(src, dst, step_plan, step_variant):
-        if layout.wrap_axes:
-            refresh_wrap_halo(src, layout)
-        padded_superstep(src, dst, center, taps, program=program,
-                         plan=step_plan, layout=layout, variant=step_variant)
-        return dst, src
-
-    for _ in range(full):
-        src, dst = superstep(src, dst, plan, v)
-    if rem:
-        # The reference's own semantics, not a fallback: the temporal
-        # remainder (fewer than TEMPORAL_CHUNK * par_time steps) runs as
-        # one plain superstep of `rem` steps inside the same deep ring
-        # (repro/kernels/common.py:run_call).
-        src, dst = superstep(src, dst,
-                             dataclasses.replace(plan, par_time=rem),
-                             "plain" if v == "temporal" else v)
+    # The temporal remainder (fewer than TEMPORAL_CHUNK * par_time steps)
+    # is the reference's own semantics, not a fallback: one plain
+    # superstep of `rem` steps inside the same deep ring
+    # (repro/kernels/common.py:run_call).
+    for _, step_variant, step_plan, count in launches:
+        for _ in range(count):
+            if layout.wrap_axes:
+                refresh_wrap_halo(src, layout)
+            padded_superstep(src, dst, center, taps, program=program,
+                             plan=step_plan, layout=layout,
+                             variant=step_variant)
+            src, dst = dst, src
     return src[interior].contiguous()

@@ -1,6 +1,6 @@
 // One-shot superstep kernels, for sm_90a: one CTA per output tile.
 //
-// Three entry points share one template (device code in
+// Two entry points share one template (device code in
 // superstep_common.cuh):
 //
 // * padded_superstep_launch replaces the TPU kernel
@@ -9,11 +9,6 @@
 //   ring offset H - h of `src`, t = 0 fixup, tile into the other carry
 //   buffer `dst` at H.  Only true cells are stored.  Plain PyTorch version:
 //   repro_torch/kernels/common.py:padded_superstep_plain.
-// * temporal_superstep_launch replaces build_temporal_kernel, which is
-//   build_padded_superstep_kernel built for the chunk-deep plan: the same
-//   launch with steps = TEMPORAL_CHUNK * par_time over a ring TEMPORAL_CHUNK
-//   times deeper.  Its plain version is padded_superstep_plain with that
-//   plan.  It has its own entry point so that its launches count apart.
 // * superstep_launch replaces build_superstep_kernel (launched by
 //   _superstep_pallas): one superstep of a grid that boundary_pad already
 //   padded by h.  Window at the tile origin, no t = 0 fixup, fixups between
@@ -30,9 +25,8 @@
 // shared memory (one device-memory round trip per superstep, as on the TPU)
 // and takes the CTA tile from the wrapper (kernels/cuda.py), which sizes it
 // by the opt-in shared-memory limit: a TPU block of 1024x1024 needs
-// megabytes, a CTA window at most 227 KB.  The temporal launch trades a
-// window 4x deeper in halo (so a smaller tile and more recomputed halo
-// cells) for one carry round trip per four supersteps.
+// megabytes, a CTA window at most 227 KB.  The temporal variant's chunk
+// (B3) streams planes instead: streamed_superstep.cu.
 
 #include "superstep_common.cuh"
 
@@ -99,15 +93,6 @@ int padded_superstep_launch(const void* src, void* dst, const void* coef,
                             int boundary, float bval,
                             const long long* geometry, int batch, int device,
                             void* stream) {
-  return launch<true>(src, dst, coef, offs, ntaps, steps, boundary, bval,
-                      geometry, batch, device, stream);
-}
-
-int temporal_superstep_launch(const void* src, void* dst, const void* coef,
-                              const void* offs, int ntaps, int steps,
-                              int boundary, float bval,
-                              const long long* geometry, int batch,
-                              int device, void* stream) {
   return launch<true>(src, dst, coef, offs, ntaps, steps, boundary, bval,
                       geometry, batch, device, stream);
 }

@@ -1,18 +1,13 @@
-// Persistent, double-buffered superstep kernels, for sm_90a.
+// Persistent, double-buffered pre-padded superstep kernel, for sm_90a
+// (device code in superstep_common.cuh).
 //
-// Two entry points share one template (device code in
-// superstep_common.cuh):
-//
-// * padded_pipelined_launch replaces the TPU kernel
-//   repro/kernels/common.py:build_padded_pipelined_kernel: the padded-carry
-//   superstep of padded_superstep.cu (window at ring offset H - h, t = 0
-//   fixup, tile into the other carry buffer at H) with the window of the
-//   next tile prefetched while the current one computes.  Plain PyTorch
-//   version: repro_torch/kernels/common.py:padded_superstep_plain
-//   (prefetching changes no value).
-// * pipelined_superstep_launch replaces build_pipelined_kernel: the
-//   pre-padded superstep of padded_superstep.cu:superstep_launch with the
-//   same prefetch.  Plain version: common.py:superstep_plain.
+// pipelined_superstep_launch replaces the TPU kernel
+// repro/kernels/common.py:build_pipelined_kernel: the pre-padded superstep
+// of padded_superstep.cu:superstep_launch with the window of the next tile
+// prefetched while the current one computes.  Plain PyTorch version:
+// repro_torch/kernels/common.py:superstep_plain (prefetching changes no
+// value).  The padded-carry sibling (build_padded_pipelined_kernel) streams
+// planes instead: streamed_superstep.cu.
 //
 // The TPU kernels carry two VMEM windows across the sequential grid steps
 // of one core and start block g+1's DMA before block g computes.  CTAs
@@ -22,8 +17,7 @@
 // it computes tile lin, a CTA issues cp.async copies of tile lin +
 // gridDim.x into its other window (cells past the source's end are zeroed
 // by plain stores), commits them, and waits only for the group of the
-// current tile.  The periodic ring of the carry is refreshed by
-// wrap_halo.cu's launches ahead of this one on the same stream.
+// current tile.
 //
 // What bounds it on the H100: as for padded_superstep.cu, device-memory
 // bytes at the data-sheet rates and shared-memory reads inside the CTA.
@@ -37,7 +31,6 @@ namespace {
 
 using namespace superstep;
 
-template <bool kCarry>
 __global__ void __launch_bounds__(kThreads)
 pipelined_kernel(const float* __restrict__ src, float* __restrict__ dst,
                  const float* __restrict__ coef, const int* __restrict__ offs,
@@ -62,14 +55,12 @@ pipelined_kernel(const float* __restrict__ src, float* __restrict__ dst,
     __syncthreads();
     float* cur = smem + p * g.wvol;
     const Tile t = tile_of(g, lin);
-    if (kCarry) fixup_window(cur, g, boundary, bval, t);
     fused_steps(cur, partner, s_coef, s_lin, ntaps, steps, boundary, bval, g,
                 t, dst);
     __syncthreads();  // `cur` and `partner` are free for the next tiles
   }
 }
 
-template <bool kCarry>
 int launch(const void* src, void* dst, const void* coef, const void* offs,
            int ntaps, int steps, int boundary, float bval,
            const long long* geometry, int batch, int device, void* stream) {
@@ -79,20 +70,20 @@ int launch(const void* src, void* dst, const void* coef, const void* offs,
   if (!make_geometry(geometry, steps, batch, &g))
     return cudaErrorInvalidConfiguration;
   const size_t smem = smem_bytes(g, steps > 1 ? 3 : 2, ntaps);
-  err = cudaFuncSetAttribute(pipelined_kernel<kCarry>,
+  err = cudaFuncSetAttribute(pipelined_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return err;
   int per_sm = 0, sms = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, pipelined_kernel<kCarry>, kThreads, smem);
+      &per_sm, pipelined_kernel, kThreads, smem);
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   const long long resident = (long long)per_sm * sms;
   const long long blocks = g.total < resident ? g.total : resident;
-  pipelined_kernel<kCarry><<<(unsigned)blocks, dim3(kThreadsX, kThreadsY),
+  pipelined_kernel<<<(unsigned)blocks, dim3(kThreadsX, kThreadsY),
                              smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(src), static_cast<float*>(dst),
       static_cast<const float*>(coef), static_cast<const int*>(offs), ntaps,
@@ -108,24 +99,15 @@ const char* pipelined_superstep_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Each launcher runs one launch on `stream` and returns a cudaError_t (0 on
-// success); arguments as in padded_superstep.cu.
-
-int padded_pipelined_launch(const void* src, void* dst, const void* coef,
-                            const void* offs, int ntaps, int steps,
-                            int boundary, float bval,
-                            const long long* geometry, int batch, int device,
-                            void* stream) {
-  return launch<true>(src, dst, coef, offs, ntaps, steps, boundary, bval,
-                      geometry, batch, device, stream);
-}
+// Runs one launch on `stream` and returns a cudaError_t (0 on success);
+// arguments as in padded_superstep.cu.
 
 int pipelined_superstep_launch(const void* src, void* dst, const void* coef,
                                const void* offs, int ntaps, int steps,
                                int boundary, float bval,
                                const long long* geometry, int batch,
                                int device, void* stream) {
-  return launch<false>(src, dst, coef, offs, ntaps, steps, boundary, bval,
+  return launch(src, dst, coef, offs, ntaps, steps, boundary, bval,
                        geometry, batch, device, stream);
 }
 

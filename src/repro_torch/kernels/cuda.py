@@ -10,20 +10,26 @@ Which TPU kernel of ``repro/kernels/common.py`` each one replaces (the
 source headers say what bounds each on the card and what its design does
 about it):
 
-* ``padded_superstep`` (B1, ``build_padded_superstep_kernel``),
-  ``temporal_superstep`` (B3, ``build_temporal_kernel``) and ``superstep``
-  (B5, ``build_superstep_kernel``) -> ``csrc/padded_superstep.cu``, one
-  CTA per output tile;
-* ``padded_pipelined`` (B4, ``build_padded_pipelined_kernel``) and
-  ``pipelined_superstep`` (B6, ``build_pipelined_kernel``) ->
+* ``padded_superstep`` (B1, ``build_padded_superstep_kernel``) and
+  ``superstep`` (B5, ``build_superstep_kernel``) ->
+  ``csrc/padded_superstep.cu``, one CTA per output tile and its halo'd
+  window;
+* ``pipelined_superstep`` (B6, ``build_pipelined_kernel``) ->
   ``csrc/pipelined_superstep.cu``, persistent CTAs that prefetch the next
   tile's window with ``cp.async``;
+* ``temporal_superstep`` (B3, ``build_temporal_kernel``) and
+  ``padded_pipelined`` (B4, ``build_padded_pipelined_kernel``) ->
+  ``csrc/streamed_superstep.cu``, CTAs that stream a column tile plane by
+  plane through one ring of planes per fused step, copying the next plane
+  group while the current one computes (geometry in
+  ``kernels/streamed.py``; B4's CTAs are persistent);
 * ``refresh_wrap_halo`` (B2, ``_refresh_wrap_halo``) -> ``csrc/wrap_halo.cu``,
   one launch per wrap axis, ordered before the superstep on the same
   stream instead of running inside it.
 
-The CTA tile is not the plan's block: :func:`pick_tile` sizes it by the
-card's opt-in shared-memory limit (``BlockPlan.smem_bytes_for``).
+The CTA tile is not the plan's block: :func:`pick_tile` sizes it per
+kernel by the card's opt-in shared-memory limit
+(``BlockPlan.smem_bytes_for``).
 """
 
 from __future__ import annotations
@@ -37,8 +43,8 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from repro_torch.analysis.hw import GpuChip
-from repro_torch.core.blocking import TEMPORAL_CHUNK
-from repro_torch.kernels import build
+from repro_torch.core.blocking import STREAMED_KERNELS, check_kernel
+from repro_torch.kernels import build, streamed
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -95,11 +101,11 @@ _SUPERSTEP_ARGS = [_P, _P, _P, _P, _I, _I, _I, ctypes.c_float,
 
 PADDED_SUPERSTEP = Kernel("padded_superstep.cu", "padded_superstep_launch",
                           _SUPERSTEP_ARGS)
-TEMPORAL_SUPERSTEP = Kernel("padded_superstep.cu",
+TEMPORAL_SUPERSTEP = Kernel("streamed_superstep.cu",
                             "temporal_superstep_launch", _SUPERSTEP_ARGS)
 SUPERSTEP = Kernel("padded_superstep.cu", "superstep_launch",
                    _SUPERSTEP_ARGS)
-PADDED_PIPELINED = Kernel("pipelined_superstep.cu",
+PADDED_PIPELINED = Kernel("streamed_superstep.cu",
                           "padded_pipelined_launch", _SUPERSTEP_ARGS)
 PIPELINED_SUPERSTEP = Kernel("pipelined_superstep.cu",
                              "pipelined_superstep_launch", _SUPERSTEP_ARGS)
@@ -141,27 +147,45 @@ def tap_table(program, device: torch.device) -> torch.Tensor:
     return torch.tensor(rows, dtype=torch.int32, device=device)
 
 
-def smallest_tile(ndim: int) -> Tuple[int, ...]:
-    """The candidate with the least shared memory: the least extent on
-    every axis."""
+@functools.lru_cache(maxsize=None)
+def streamed_tap_table(program, device: torch.device) -> torch.Tensor:
+    """:func:`streamed.streamed_taps` as int32 rows on ``device``."""
+    return torch.tensor(streamed.streamed_taps(program), dtype=torch.int32,
+                        device=device)
+
+
+def smallest_tile(plan, kernel: str) -> Tuple[int, ...]:
+    """The CTA tile candidate of ``kernel`` with the least shared memory:
+    the least extent on every axis for a window kernel, the least ring
+    memory for a streamed one."""
+    check_kernel(kernel)
+    if kernel in STREAMED_KERNELS:
+        return streamed.smallest_streamed_tile(plan.program,
+                                               plan.kernel_steps(kernel))
+    ndim = plan.program.ndim
     axes = (TILE_Y, TILE_X) if ndim == 2 else (TILE_Z, TILE_Y, TILE_X)
     return tuple(min(a) for a in axes)
 
 
-def pick_tile(plan, variant: str, smem_limit: int) -> Tuple[int, ...]:
-    """The CTA output tile of ``plan``'s superstep kernel under
-    ``variant``.
+def pick_tile(plan, kernel: str, smem_limit: int) -> Tuple[int, ...]:
+    """The CTA tile of ``kernel`` (a name of ``blocking.KERNELS``) under
+    ``plan``.
 
-    Among the candidates whose shared memory
+    A streamed kernel takes an in-plane column tile
+    (``streamed.pick_streamed_tile``).  A window kernel takes an output
+    tile per axis: among the candidates whose shared memory
     (``BlockPlan.smem_bytes_for``) fits a third of the limit (three CTAs
-    per SM), or else the whole limit, take the least window volume per
-    output cell, then the widest x.  Raises when none fits, which is when
+    per SM), or else the whole limit, the least window volume per output
+    cell, then the widest x.  Raises when none fits, which is when
     :func:`smallest_tile` does not.
     """
+    check_kernel(kernel)
+    steps = plan.kernel_steps(kernel)
+    if kernel in STREAMED_KERNELS:
+        return streamed.pick_streamed_tile(plan.program, steps, smem_limit)
     ndim = plan.program.ndim
     axes = (TILE_Y, TILE_X) if ndim == 2 else (TILE_Z, TILE_Y, TILE_X)
     cands = list(itertools.product(*axes))
-    steps = plan.par_time * (TEMPORAL_CHUNK if variant == "temporal" else 1)
     halo = steps * plan.program.halo_radius
 
     def cost(t):
@@ -169,15 +193,15 @@ def pick_tile(plan, variant: str, smem_limit: int) -> Tuple[int, ...]:
 
     for budget in (smem_limit // 3, smem_limit):
         fits = [t for t in cands
-                if plan.smem_bytes_for(t, variant) <= budget]
+                if plan.smem_bytes_for(t, kernel) <= budget]
         if fits:
             return min(fits, key=cost)
-    smallest = smallest_tile(ndim)
+    smallest = smallest_tile(plan, kernel)
     raise ValueError(
         f"no CTA tile fits: the smallest, {smallest}, needs "
-        f"{plan.smem_bytes_for(smallest, variant)} bytes of shared memory "
-        f"for the {variant} kernel ({steps} steps, halo {halo}), the card "
-        f"allows {smem_limit}")
+        f"{plan.smem_bytes_for(smallest, kernel)} bytes of shared memory "
+        f"for {kernel} ({steps} steps, halo {halo}), the card allows "
+        f"{smem_limit}")
 
 
 def _check(t: torch.Tensor, name: str, shape: Tuple[int, ...]) -> None:
@@ -216,18 +240,22 @@ def _launch(kernel: Kernel, grid_in: torch.Tensor, grid_out: torch.Tensor,
            geometry, batch, dev.index, stream)
 
 
-def _carry(kernel: Kernel, variant: str, src: torch.Tensor,
-           dst: torch.Tensor, center: torch.Tensor, taps: torch.Tensor, *,
-           program, plan, layout) -> None:
-    """A superstep of the padded carry ``src`` -> ``dst`` (true interior
-    of ``dst`` only; see ``common.padded_superstep_plain``)."""
+def _check_pair(src: torch.Tensor, dst: torch.Tensor, layout) -> None:
     P = layout.padded_shape
     _check(src, "src", P)
     _check(dst, "dst", P)
     if dst.shape != src.shape or dst.device != src.device:
         raise ValueError(f"dst {tuple(dst.shape)} on {dst.device} does not "
                          f"match src {tuple(src.shape)} on {src.device}")
-    steps = plan.par_time * (TEMPORAL_CHUNK if variant == "temporal" else 1)
+
+
+def padded_superstep(src, dst, center, taps, *, program, plan,
+                     layout) -> None:
+    """B1: one superstep of ``plan.par_time`` steps of the padded carry
+    ``src`` -> ``dst`` (true interior of ``dst`` only; see
+    ``common.padded_superstep_plain``)."""
+    _check_pair(src, dst, layout)
+    steps = plan.par_time
     r = program.halo_radius
     h = steps * r
     H = layout.halo
@@ -236,36 +264,55 @@ def _carry(kernel: Kernel, variant: str, src: torch.Tensor,
                          f"layout has {H}")
     nd = program.ndim
     n = tuple(layout.local_shape)
-    tile = pick_tile(plan, variant, smem_optin(src.device.index))
-    _launch(kernel, src, dst, center, taps, program=program, steps=steps,
-            true=n, src=P, load=(H - h,) * nd, origin=(0,) * nd, dst=P,
-            store=(H,) * nd, written=n, tile=tile, radius=(r,) * nd)
+    tile = pick_tile(plan, "padded_superstep", smem_optin(src.device.index))
+    _launch(PADDED_SUPERSTEP, src, dst, center, taps, program=program,
+            steps=steps, true=n, src=layout.padded_shape, load=(H - h,) * nd,
+            origin=(0,) * nd, dst=layout.padded_shape, store=(H,) * nd,
+            written=n, tile=tile, radius=(r,) * nd)
 
 
-def padded_superstep(src, dst, center, taps, *, program, plan,
-                     layout) -> None:
-    """B1: one superstep of ``plan.par_time`` steps."""
-    _carry(PADDED_SUPERSTEP, "plain", src, dst, center, taps,
-           program=program, plan=plan, layout=layout)
+def _streamed(kernel: Kernel, name: str, src, dst, center, taps, *,
+              program, plan, layout, tile, segment) -> None:
+    """A streamed superstep of the padded carry (B3 or B4): geometry from
+    ``streamed.carry_geometry``, taps as (streamed, y, x) rows."""
+    _check_pair(src, dst, layout)
+    nd = program.ndim
+    dev = src.device
+    batch = src.shape[0] if src.ndim > nd else 1
+    steps = plan.kernel_steps(name)
+    geo = streamed.carry_geometry(
+        program, steps, layout, batch=batch,
+        smem_limit=smem_optin(dev.index), tile=tile, segment=segment)
+    coef = torch.cat([center.reshape(1), taps.reshape(-1)]).to(
+        device=dev, dtype=torch.float32).contiguous()
+    flat = geo.array()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    kernel(src.data_ptr(), dst.data_ptr(), coef.data_ptr(),
+           streamed_tap_table(program, dev).data_ptr(), coef.numel(), steps,
+           BOUNDARY_CODES[program.boundary], float(program.boundary_value),
+           (_L * len(flat))(*flat), batch, dev.index, stream)
 
 
-def temporal_superstep(src, dst, center, taps, *, program, plan,
-                       layout) -> None:
+def temporal_superstep(src, dst, center, taps, *, program, plan, layout,
+                       tile=None, segment=None) -> None:
     """B3: one superstep-chunk of ``TEMPORAL_CHUNK * plan.par_time`` steps
     over the chunk-deep ring (``plan`` is the run's plan, not the deep
-    one)."""
-    _carry(TEMPORAL_SUPERSTEP, "temporal", src, dst, center, taps,
-           program=program, plan=plan, layout=layout)
+    one).  ``tile`` (in-plane) and ``segment`` override the geometry's
+    picks."""
+    _streamed(TEMPORAL_SUPERSTEP, "temporal_superstep", src, dst, center,
+              taps, program=program, plan=plan, layout=layout, tile=tile,
+              segment=segment)
 
 
-def padded_pipelined(src, dst, center, taps, *, program, plan,
-                     layout) -> None:
-    """B4: B1 with the next tile's window prefetched."""
-    _carry(PADDED_PIPELINED, "pipelined", src, dst, center, taps,
-           program=program, plan=plan, layout=layout)
+def padded_pipelined(src, dst, center, taps, *, program, plan, layout,
+                     tile=None, segment=None) -> None:
+    """B4: one superstep of ``plan.par_time`` steps, persistent CTAs."""
+    _streamed(PADDED_PIPELINED, "padded_pipelined", src, dst, center, taps,
+              program=program, plan=plan, layout=layout, tile=tile,
+              segment=segment)
 
 
-def _prepadded(kernel: Kernel, variant: str, padded: torch.Tensor,
+def _prepadded(kernel: Kernel, name: str, padded: torch.Tensor,
                center: torch.Tensor, taps: torch.Tensor, *, program, plan,
                true_shape: Tuple[int, ...],
                offsets: Optional[Sequence[int]]) -> torch.Tensor:
@@ -285,7 +332,7 @@ def _prepadded(kernel: Kernel, variant: str, padded: torch.Tensor,
                                                        for o in offsets)
     out = torch.empty(tuple(padded.shape[:-nd]) + rounded,
                       device=padded.device, dtype=padded.dtype)
-    tile = pick_tile(plan, variant, smem_optin(padded.device.index))
+    tile = pick_tile(plan, name, smem_optin(padded.device.index))
     _launch(kernel, padded, out, center, taps, program=program,
             steps=plan.par_time, true=true_shape, src=spatial,
             load=(0,) * nd, origin=offsets, dst=rounded, store=(0,) * nd,
@@ -297,7 +344,7 @@ def _prepadded(kernel: Kernel, variant: str, padded: torch.Tensor,
 def superstep(padded, center, taps, *, program, plan, true_shape,
               offsets=None) -> torch.Tensor:
     """B5: the pre-padded superstep."""
-    return _prepadded(SUPERSTEP, "plain", padded, center, taps,
+    return _prepadded(SUPERSTEP, "superstep", padded, center, taps,
                       program=program, plan=plan, true_shape=true_shape,
                       offsets=offsets)
 
@@ -305,7 +352,7 @@ def superstep(padded, center, taps, *, program, plan, true_shape,
 def pipelined_superstep(padded, center, taps, *, program, plan, true_shape,
                         offsets=None) -> torch.Tensor:
     """B6: B5 with the next tile's window prefetched."""
-    return _prepadded(PIPELINED_SUPERSTEP, "pipelined", padded, center,
+    return _prepadded(PIPELINED_SUPERSTEP, "pipelined_superstep", padded, center,
                       taps, program=program, plan=plan,
                       true_shape=true_shape, offsets=offsets)
 

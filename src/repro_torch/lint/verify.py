@@ -2,47 +2,62 @@
 ``repro/lint/verify.py`` that the port's front door runs.
 
 RP105 there asks whether the kernel's VMEM scratch fits the TPU's budget;
-here it asks whether one CTA of the variant's superstep kernel fits the
-card's opt-in shared memory per block with the smallest CTA tile.
+here it asks whether one CTA of every superstep kernel the run launches
+(``kernels/common.run_kernels``) fits the card's opt-in shared memory per
+block at that kernel's smallest CTA tile.
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional, Tuple
 
 from repro_torch.analysis.hw import GpuChip, H100_SXM
-from repro_torch.core.blocking import (BlockPlan, TEMPORAL_CHUNK,
-                                       normalize_variant)
+from repro_torch.core.blocking import BlockPlan, normalize_variant
+from repro_torch.kernels.common import run_kernels
 from repro_torch.kernels.cuda import smallest_tile
 from repro_torch.lint.diagnostics import Diagnostic, error
 
+#: How each kernel holds its data, for the message.
+_HOLDS = {
+    "padded_superstep": "a halo'd window",
+    "superstep": "a halo'd window",
+    "pipelined_superstep": "a computing and a prefetch window",
+    "temporal_superstep": "a ring of planes per fused step",
+    "padded_pipelined": "a ring of planes per fused step",
+}
+
 
 def smem_diagnostics(plan: BlockPlan, variant: str = "plain",
-                     chip: GpuChip = H100_SXM) -> List[Diagnostic]:
-    """RP105 when no CTA tile of ``variant`` fits ``chip.smem_optin``.
+                     chip: GpuChip = H100_SXM,
+                     grid_shape: Optional[Tuple[int, ...]] = None,
+                     steps: Optional[int] = None) -> List[Diagnostic]:
+    """RP105 when some kernel the run launches fits no CTA tile in
+    ``chip.smem_optin``.
 
-    The smallest tile candidate needs the least shared memory, so it alone
-    decides.  Under "temporal" the chunk-deep window binds both the fused
-    launch (B3) and a wrap-degenerate run's pre-padded superstep (B5 with
-    the chunk-deep plan); the shallower remainder needs less.
+    The kernels are those of :func:`run_kernels` for ``grid_shape`` and
+    ``steps`` (without them: the variant's main kernel and its longest
+    remainder).  Each kernel's smallest tile candidate needs the least
+    shared memory, so it alone decides.  One diagnostic names every kernel
+    that does not fit.
     """
     v = normalize_variant(variant)
-    tile = smallest_tile(plan.program.ndim)
-    need = plan.smem_bytes_for(tile, v)
-    if need <= chip.smem_optin:
+    over = []
+    for kernel, kplan in run_kernels(plan.program, plan, grid_shape, steps,
+                                     v):
+        tile = smallest_tile(kplan, kernel)
+        need = kplan.smem_bytes_for(tile, kernel)
+        if need > chip.smem_optin:
+            over.append(f"{kernel} ({kplan.kernel_steps(kernel)} fused "
+                        f"steps, {_HOLDS[kernel]}) needs {need} bytes even "
+                        f"at its smallest tile {tile}")
+    if not over:
         return []
-    described = {
-        "pipelined": "pipelined (a computing and a prefetch window)",
-        "temporal": (f"temporal (one window deepened by the "
-                     f"{TEMPORAL_CHUNK}-superstep chunk halo)"),
-    }.get(v, "plain (one window)")
     return [error(
         "RP105",
-        f"the {described} kernel needs {need} bytes of shared memory per "
-        f"CTA even at the smallest tile {tile} for block="
-        f"{plan.block_shape} par_time={plan.par_time}, but {chip.name} "
-        f"allows {chip.smem_optin} bytes per block",
-        hint="shrink par_time (the halo'd window is tile + 2*par_time*"
-             "halo_radius per axis, the temporal variant's halo "
-             f"{TEMPORAL_CHUNK}x deeper), or pick variant='plain' for the "
-             "smallest footprint")]
+        f"the {v} run of block={plan.block_shape} par_time="
+        f"{plan.par_time} does not fit {chip.name}'s "
+        f"{chip.smem_optin} bytes of shared memory per block: "
+        + "; ".join(over),
+        hint="shrink par_time (every kernel holds par_time*halo_radius of "
+             "halo per blocked axis, the temporal chunk 4x that), or pick "
+             "variant='plain' for the smallest footprint")]

@@ -165,38 +165,89 @@ def _random(shape, device, seed):
     return torch.rand(shape, generator=gen, device=device) * 2 - 1
 
 
+#: Corner cases of the streamed geometry (``kernels/streamed.py``), box
+#: taps unless named: the picked geometry; a segment shorter than 2h (and
+#: a ragged last one); a column tile that divides neither blocked axis;
+#: diamond taps; star taps (the kernel's fixed-offset path) of radius 2
+#: and 4.
+CORNERS = ["picked", "short-segment", "ragged-tile", "diamond", "star",
+           "r4"]
+
+
 @pytest.mark.parametrize("ndim", [2, 3])
 @pytest.mark.parametrize("boundary", ["clamp", "periodic", "constant"])
 @pytest.mark.parametrize("phase", ["full", "remainder"])
 @pytest.mark.parametrize("variant", ["temporal", "pipelined"])
+@pytest.mark.parametrize("corner", CORNERS)
 def test_variant_kernels_match_plain_versions(cuda_device, ndim, boundary,
-                                              phase, variant):
+                                              phase, variant, corner):
     """B3 (temporal, the chunk-deep ring) and B4 (pipelined) against
     ``padded_superstep_plain`` on random padded sources, batch 2; the
-    remainder phase runs at par_time 1 (B3: a chunk of 4 steps)."""
+    remainder phase runs at par_time 1 (B3: a chunk of
+    4 steps).  Exact: the same mul-then-add order."""
     par_time = 2 if phase == "full" else 1
     if variant == "temporal" and ndim == 3:
-        par_time = 1        # a deep halo of 8 keeps a 3D tile in 227 KB
-    prog, plan, layout = _config(ndim, boundary, par_time=par_time,
-                                 variant=variant, grid=(20, 32, 140)
-                                 if ndim == 3 else None)
+        par_time = 1        # 4 steps of radius 2: the box's rings fit
+    radius = 4 if corner == "r4" else 2
+    if radius == 4 and variant == "temporal":
+        par_time = 1
+    shape = {"diamond": "diamond", "star": "star", "r4": "star"}.get(
+        corner, "box")
+    prog = repro_torch.StencilProgram(ndim=ndim, radius=radius, shape=shape,
+                                      boundary=boundary, boundary_value=0.25)
+    plan = repro_torch.BlockPlan(spec=prog, block_shape=BLOCKS[ndim],
+                                 par_time=par_time)
+    grid = (20, 32, 140) if ndim == 3 else GRIDS[2]
+    layout = common.ring_schedule(prog, plan, grid, par_time,
+                                  variant=variant).layout
     src = _random((2,) + layout.padded_shape, cuda_device, ndim)
     coeffs = prog.default_coeffs(seed=1).to(cuda_device)
     if layout.wrap_axes:
         common.refresh_wrap_halo(src, layout)
-    got, want = torch.zeros_like(src), torch.zeros_like(src)
-    before = cuda.launches()
-    common.padded_superstep(src, got, coeffs.center, coeffs.taps,
-                            program=prog, plan=plan, layout=layout,
-                            variant=variant)
     name = {"temporal": "temporal_superstep",
             "pipelined": "padded_pipelined"}[variant]
+    steps = plan.kernel_steps(name)
+    geometry = {}
+    if corner == "short-segment":
+        geometry["segment"] = max(1, steps * radius - 1)
+    elif corner == "ragged-tile":
+        geometry["tile"] = (32,) if ndim == 2 else (3, 32)
+    got, want = torch.zeros_like(src), torch.zeros_like(src)
+    before = cuda.launches()
+    launch = {"temporal": cuda.temporal_superstep,
+              "pipelined": cuda.padded_pipelined}[variant]
+    launch(src, got, coeffs.center, coeffs.taps, program=prog, plan=plan,
+           layout=layout, **geometry)
     assert cuda.launches()[name] == before[name] + 1
     deep = common.deep_plan(plan) if variant == "temporal" else plan
     common.padded_superstep_plain(src, want, coeffs.center, coeffs.taps,
                                   program=prog, plan=deep, layout=layout)
     ix = _interior(layout)
-    torch.testing.assert_close(got[ix], want[ix], **ULP)
+    torch.testing.assert_close(got[ix], want[ix], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("variant", ["temporal", "pipelined"])
+def test_streamed_launcher_refuses_a_different_ring_count(
+        cuda_device, monkeypatch, variant):
+    """The launcher sizes its rings itself and refuses a geometry whose
+    shared-memory count (``StreamedGeometry.smem_bytes``, the one the tile
+    pick and RP105 use) differs by one float; nothing launches."""
+    from repro_torch.kernels import streamed
+    prog, plan, layout = _config(2, "clamp", shape="star", par_time=1,
+                                 variant=variant)
+    src = _random(layout.padded_shape, cuda_device, 0)
+    coeffs = prog.default_coeffs(seed=1).to(cuda_device)
+    launch = {"temporal": cuda.temporal_superstep,
+              "pipelined": cuda.padded_pipelined}[variant]
+    launch(src, torch.zeros_like(src), coeffs.center, coeffs.taps,
+           program=prog, plan=plan, layout=layout)
+    monkeypatch.setattr(streamed.StreamedGeometry, "smem_bytes", property(
+        lambda geo: geo.rings.bytes(geo.ntaps) + 4))
+    before = cuda.launches()
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        launch(src, torch.zeros_like(src), coeffs.center, coeffs.taps,
+               program=prog, plan=plan, layout=layout)
+    assert cuda.launches() == before
 
 
 @pytest.mark.parametrize("ndim", [2, 3])

@@ -21,6 +21,7 @@ from repro.lint.dataflow import verify_dataflow
 from repro.tuning.space import enumerate_space
 
 from repro_torch import convert
+from repro_torch.core.blocking import KERNELS, STREAMED_KERNELS
 from repro_torch.kernels import build, common, cuda
 
 ULP = dict(atol=1e-6, rtol=1e-5)
@@ -176,8 +177,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
 @pytest.mark.parametrize("ndim,halo,steps,taps", [
     (2, 8, 2, 17), (3, 4, 1, 25), (3, 8, 2, 729)])
 def test_pick_tile_fits_shared_memory(ndim, halo, steps, taps):
-    """The plans of a 2D star r4, a 3D star r4 and a 3D box r4 under every
-    variant (halo and taps as named for the plain kernel)."""
+    """The plans of a 2D star r4, a 3D star r4 and a 3D box r4, for every
+    kernel: the window kernels' tile per axis, the streamed kernels'
+    in-plane column tile (halo and taps as named for B1)."""
     radius = halo // steps
     shape = "box" if taps == (2 * radius + 1) ** ndim else "star"
     prog = RefProgram(ndim=ndim, radius=radius, shape=shape)
@@ -185,16 +187,19 @@ def test_pick_tile_fits_shared_memory(ndim, halo, steps, taps):
         spec=prog, block_shape=BLOCKS[ndim], par_time=steps)))
     assert (plan.halo, plan.program.num_taps) == (halo, taps)
     limit = 232448
-    for variant in ("plain", "pipelined", "temporal"):
-        if plan.smem_bytes_for(cuda.smallest_tile(ndim), variant) > limit:
-            assert variant == "temporal" and ndim == 3
+    for kernel in KERNELS:
+        small = cuda.smallest_tile(plan, kernel)
+        if plan.smem_bytes_for(small, kernel) > limit:
+            assert kernel == "temporal_superstep" and ndim == 3
+            with pytest.raises(ValueError, match="no CTA tile fits"):
+                cuda.pick_tile(plan, kernel, limit)
             continue
-        tile = cuda.pick_tile(plan, variant, limit)
-        assert len(tile) == ndim and tile[-1] % 32 == 0
-        assert plan.smem_bytes_for(tile, variant) <= limit
+        tile = cuda.pick_tile(plan, kernel, limit)
+        want = ndim - 1 if kernel in STREAMED_KERNELS else ndim
+        assert len(tile) == want and tile[-1] % 32 == 0
+        assert plan.smem_bytes_for(tile, kernel) <= limit
         with pytest.raises(ValueError, match="no CTA tile fits"):
-            cuda.pick_tile(plan, variant, 1024)
-
+            cuda.pick_tile(plan, kernel, 1024)
 
 
 def test_kernel_build_key_covers_included_headers(tmp_path, monkeypatch):
@@ -207,6 +212,7 @@ def test_kernel_build_key_covers_included_headers(tmp_path, monkeypatch):
     assert build.includes("pipelined_superstep.cu") == \
         ("superstep_common.cuh",)
     assert build.includes("wrap_halo.cu") == ()
+    assert build.includes("streamed_superstep.cu") == ()
     monkeypatch.setattr(build, "CSRC", tmp_path)
     before = {s: build.library_path(s) for s in build.SOURCES}
     header = tmp_path / "superstep_common.cuh"
@@ -216,6 +222,29 @@ def test_kernel_build_key_covers_included_headers(tmp_path, monkeypatch):
     assert after["pipelined_superstep.cu"] != \
         before["pipelined_superstep.cu"]
     assert after["wrap_halo.cu"] == before["wrap_halo.cu"]
+    assert after["streamed_superstep.cu"] == \
+        before["streamed_superstep.cu"]
+
+
+def test_kernel_build_keeps_each_compiler_log(tmp_path, monkeypatch):
+    """A library counts as built only with its compiler log beside it, so
+    the ``ptxas`` report can be read whichever process built it."""
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    src = "streamed_superstep.cu"
+    lib, log = build.library_path(src), build.log_path(src)
+    assert log == lib.with_suffix(".log") and log.parent == tmp_path
+    lib.write_bytes(b"")
+    log.write_text("ptxas info    : 0 bytes stack frame\n")
+    assert build.build([src]) == {}      # both there: nothing to compile
+    assert build.build_log(src).startswith("ptxas info")
+    log.unlink()
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(build, "nvcc", no_nvcc)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.build_log(src)             # a library without its log rebuilds
 
 
 def test_kernel_build_is_keyed_by_source_hash():

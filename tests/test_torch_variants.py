@@ -230,39 +230,81 @@ def test_run_call_padfallback_refuses_temporal():
 
 
 def test_smem_check_refuses_what_no_tile_fits():
-    """RP105 with the H100 default: the paper's 3D r4 plan under temporal
-    (a halo of 16 per side) needs 608,456 bytes even at the (1, 4, 32)
-    tile; plain and pipelined fit, and so does temporal at radius 2 and
-    par_time 1 (a deep halo of 8), but not at par_time 2."""
-    plan = stencil3d.workloads()["3d_r4_paper"].plan()
-    found = smem_diagnostics(plan, "temporal", H100_SXM)
-    assert [d.code for d in found] == ["RP105"]
-    assert "608456 bytes" in found[0].message
-    assert "(1, 4, 32)" in found[0].message
+    """RP105 with the H100 default, per kernel the run launches.  The
+    paper's 3D temporal plans now fit B3 (its plane rings shrink with the
+    stages): 3D star r4 at 4 fused steps and r2 at 8 both at the column
+    tile (2, 32).  What still does not fit is the window kernel B1 at a
+    long remainder: 3 steps of radius 4 need 313,800 bytes even at
+    (1, 4, 32), so a temporal 3d_r4_paper run of 3 steps (or of unknown
+    steps, whose remainder may be 3) is refused, and one of 9 steps
+    (remainder 1) is not.  A 3D box of radius 2 at 8 fused steps fits no
+    column tile (its offset tables)."""
+    work = stencil3d.workloads()["3d_r4_paper"]
+    plan = work.plan()
+    for steps in (None, 3):
+        found = smem_diagnostics(plan, "temporal", H100_SXM,
+                                 grid_shape=work.grid_shape, steps=steps)
+        assert [d.code for d in found] == ["RP105"]
+        assert "padded_superstep (3 fused steps" in found[0].message
+        assert "313800 bytes" in found[0].message
+        assert "(1, 4, 32)" in found[0].message
+        assert "temporal_superstep" not in found[0].message
+    assert smem_diagnostics(plan, "temporal", H100_SXM,
+                            grid_shape=work.grid_shape, steps=9) == []
     assert smem_diagnostics(plan, "plain", H100_SXM) == []
     assert smem_diagnostics(plan, "pipelined", H100_SXM) == []
     r2 = stencil3d.workloads()["3d_r2_paper"].plan()
     assert r2.par_time == 2
+    assert smem_diagnostics(r2, "temporal", H100_SXM,
+                            grid_shape=(512, 1024, 704), steps=9) == []
+    # unknown steps: the longest remainder, 7 steps of radius 2 in B1
     assert [d.code for d in smem_diagnostics(r2, "temporal")] == ["RP105"]
     r2_one = dataclasses.replace(r2, par_time=1)
     assert smem_diagnostics(r2_one, "temporal") == []
-    # the kernels' own tile pick agrees with the pre-flight
+    # the kernels' own tile picks agree with the pre-flight
+    for p in (plan, r2):
+        tile = cuda.pick_tile(p, "temporal_superstep", H100_SXM.smem_optin)
+        assert tile == (2, 32)
+        assert p.smem_bytes_for(tile, "temporal_superstep") <= \
+            H100_SXM.smem_optin
+    three = dataclasses.replace(plan, par_time=3)
     with pytest.raises(ValueError, match="no CTA tile fits"):
-        cuda.pick_tile(plan, "temporal", H100_SXM.smem_optin)
-    tile = cuda.pick_tile(r2_one, "temporal", H100_SXM.smem_optin)
-    assert r2_one.smem_bytes_for(tile, "temporal") <= H100_SXM.smem_optin
+        cuda.pick_tile(three, "padded_superstep", H100_SXM.smem_optin)
+    box = dataclasses.replace(r2, spec=dataclasses.replace(
+        r2.spec, shape="box"))
+    found = smem_diagnostics(box, "temporal", H100_SXM,
+                             grid_shape=(512, 1024, 704), steps=9)
+    assert [d.code for d in found] == ["RP105"]
+    assert "temporal_superstep (8 fused steps" in found[0].message
+    with pytest.raises(ValueError, match="no CTA tile fits"):
+        cuda.pick_tile(box, "temporal_superstep", H100_SXM.smem_optin)
 
 
 def test_smem_bytes_for_counts_windows_by_variant():
+    """Window kernels (B1, B5, B6) count halo'd windows; the streamed
+    kernels (B3, B4) count plane rings (``blocking.streamed_rings``)."""
     _, _, _, _, tplan, _ = _both(2, "clamp", radius=4)
     tile = (32, 32)
     h = tplan.halo
     window = (32 + 2 * h) ** 2
     tables = 8 * tplan.program.num_taps
     assert tplan.smem_bytes_for(tile) == 4 * 2 * window + tables
-    assert tplan.smem_bytes_for(tile, "pipelined") == \
+    assert tplan.smem_bytes_for(tile, "superstep") == 4 * 2 * window + tables
+    assert tplan.smem_bytes_for(tile, "pipelined_superstep") == \
         4 * 3 * window + tables
-    deep = (32 + 2 * TEMPORAL_CHUNK * h) ** 2
-    assert tplan.smem_bytes_for(tile, "temporal") == 4 * 2 * deep + tables
+    ntaps = tplan.program.num_taps
+    # B3: 8 stages, ring s of 2r + 4 rows of 32 + 2*32 - 2*4*s cells (the
+    # loaded ring 4 rows more: the next group's copy in flight), and a
+    # tap-offset table row per ring row
+    def rings(steps):
+        rows = [2 * 4 + 4 + (4 if s == 0 else 0) for s in range(steps)]
+        cells = sum(n * (32 + 2 * 4 * steps - 2 * 4 * s)
+                    for s, n in enumerate(rows))
+        return 4 * cells + 4 * ntaps * (sum(rows) + 1)
+
+    assert tplan.smem_bytes_for((32,), "temporal_superstep") == rings(8)
+    assert tplan.smem_bytes_for((32,), "padded_pipelined") == rings(2)
     one = dataclasses.replace(tplan, par_time=1)
     assert one.smem_bytes_for(tile) == 4 * (32 + 8) ** 2 + tables
+    with pytest.raises(ValueError, match="unknown superstep kernel"):
+        tplan.smem_bytes_for(tile, "temporal")
