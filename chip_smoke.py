@@ -17,15 +17,18 @@ Phases (any failure raises, so the exit code is non-zero):
    with the port's oracle (``core/reference.program_nsteps``) on the same
    card tensors;
 3. each kernel's wrapper against its plain version on the same inputs at
-   the shapes the main path gives it, then its time: CUDA events, two
-   warm-ups, the median of 7 runs, beside the card's bound, the plain
-   version's time and a PyTorch convolution yardstick (``library_ms``);
+   the shapes the main path gives it (bit for bit), then its time: CUDA
+   events, two warm-ups, the median of 7 runs, with the card's SM clock,
+   power draw and temperature sampled before and after, beside the card's
+   bound, the plain version's time and a PyTorch convolution yardstick
+   (``library_ms``);
 4. small exact checks: 2D/3D x clamp/periodic/constant x star/box x batch
    2 x each variant against the float64 oracle on the card, the
    wrap-degenerate layout under each variant (the pre-padded kernels), the
-   streamed kernels (B3, B4) at a segment shorter than twice the halo and
-   a column tile that does not divide the grid, and the RP105 refusals of
-   plans no CTA tile fits.
+   kernels that stream planes (B1, B3, B4, B6) at a segment shorter than
+   twice the halo and a column tile that does not divide the grid, a plan
+   the whole-window B1 could not run, and the RP105 refusal of a plan no
+   CTA tile fits.
 
 The last lines are the ``{"kernels": [...]}`` record, the ``nvidia-smi``
 line, and ``{"ok": true, "device": {...}}``.
@@ -76,10 +79,20 @@ def check_close(what: str, got, want, atol: float, rtol: float) -> float:
     return err
 
 
-def median_ms(fn, runs: int = RUNS) -> float:
+def card_state() -> str:
+    """SM clock, power draw and temperature, as ``nvidia-smi`` reads them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
+def median_ms(fn, runs: int = RUNS, label: str = "") -> float:
     """Median over ``runs`` of one call's device time (CUDA events), after
-    two warm-up calls."""
+    two warm-up calls; the card's clock, power and temperature are printed
+    before and after the window."""
     import torch
+    before = card_state()
     for _ in range(2):
         fn()
     times = []
@@ -91,6 +104,8 @@ def median_ms(fn, runs: int = RUNS) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    print(f"  card (clocks.sm, power.draw, temperature.gpu) around "
+          f"{label or 'the timing'}: before {before}; after {card_state()}")
     return statistics.median(times)
 
 
@@ -132,17 +147,33 @@ def library_step(program, coeffs, grid, steps: int):
     return x.reshape(grid.shape)
 
 
-#: The streamed kernels' records carry their design's name.
-DESIGN = "streamed"
-#: The time of the whole-window kernel each streamed one replaced at that
+#: The design each kernel record names, by ``BlockPlan.body``: B1 and B6
+#: on the register queues of ``csrc/queued_superstep.cu``; for tap sets
+#: without one B1 on the streamed kernel, B6 on that source's ring path;
+#: B3/B4 on the streamed kernel, B5 on the whole-window body; B2's ring
+#: copies.
+DESIGNS = {"queue": "register-queued", "streamed": "streamed",
+           "ring": "queued source, ring path", "window": "whole-window",
+           "copy": "wrap copies"}
+#: The source each body is in.
+BODY_SOURCES = {"queue": "queued_superstep.cu",
+                "ring": "queued_superstep.cu",
+                "streamed": "streamed_superstep.cu",
+                "window": "padded_superstep.cu"}
+#: Times of the whole-window kernels the redesigned ones replaced at that
 #: shape, quoted from PERF.md's kernel table (measured on NVIDIA H100 80GB
-#: HBM3, 700.00 W by an earlier version of this script); printed on a line
-#: of its own, never in the ``{"kernels": ...}`` record.
+#: HBM3, 700.00 W by earlier versions of this script); printed on lines of
+#: their own, never in the
+#: ``{"kernels": ...}`` record.
 EARLIER_MS = {
     ("temporal_superstep", "2d_r4_paper"): 77.01376342773438,
     ("temporal_superstep", "3d_r2_paper_par_time_1"): 195.2475128173828,
     ("padded_pipelined", "3d_r4_paper"): 28.526304244995117,
     ("padded_pipelined", "2d_box_periodic_pod"): 9.370240211486816,
+    ("padded_superstep", "2d_r4_paper"): 6.28166389465332,
+    ("padded_superstep", "3d_r4_paper"): 14.99120044708252,
+    ("padded_superstep", "2d_box_periodic_pod"): 7.736576080322266,
+    ("pipelined_superstep", "3d_r4_paper"): 17.478944778442383,
 }
 #: FP32 without FMA contraction: a multiply and an add are two
 #: instructions, so counted flops run at half the data sheet's FMA rate.
@@ -283,8 +314,8 @@ def library_ms(name, prog, coeffs, grid, steps):
     return _LIBRARY_MS[key]
 
 
-def record(name, kernel, source, replaces, state, err, ms, plain_ms,
-           moved, flops, lib_ms, chip):
+def record(name, kernel, source, replaces, design, state, err, ms,
+           plain_ms, moved, flops, lib_ms, chip):
     b_ms, b_by = bound(moved, flops, chip)
     print(f"  {kernel}: {ms!r} ms/launch, plain {plain_ms!r} ms, library "
           f"{lib_ms!r} ms, bound {b_ms!r} ms ({b_by}: {moved} bytes, "
@@ -297,9 +328,7 @@ def record(name, kernel, source, replaces, state, err, ms, plain_ms,
                replaces=f"src/repro/kernels/common.py:{replaces}",
                launches=state["counts"][kernel], max_abs_err=err, ms=ms,
                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-               library_ms=lib_ms)
-    if kernel in ("temporal_superstep", "padded_pipelined"):
-        rec["design"] = DESIGN
+               library_ms=lib_ms, design=DESIGNS[design])
     return rec
 
 
@@ -339,14 +368,14 @@ def check_carry(case, state, chip):
         naxes = len(layout.wrap_axes)
         buf = src.clone()
         ms = median_ms(lambda: cuda.refresh_wrap_halo(
-            buf, copies, layout.padded_shape)) / naxes
+            buf, copies, layout.padded_shape), label="wrap_halo") / naxes
         plain_ms = median_ms(lambda: common.refresh_wrap_halo_plain(
             buf, layout)) / naxes
         moved = sum(2 * 4 * c.width * math.prod(layout.padded_shape)
                     // layout.padded_shape[c.axis] for c in copies) / naxes
         records.append(record(name, "wrap_halo", "wrap_halo.cu", 678,
-                              state, err, ms, plain_ms, moved, 0.0, None,
-                              chip))
+                              "copy", state, err, ms, plain_ms, moved, 0.0,
+                              None, chip))
         common.refresh_wrap_halo_plain(src, layout)
     records.append(check_padded(case, state, chip, "plain", layout, src,
                                 interior))
@@ -356,7 +385,7 @@ def check_carry(case, state, chip):
 def check_padded(case, state, chip, variant, layout=None, src=None,
                  interior=None):
     """B1, B3 or B4 against ``padded_superstep_plain`` on the case's padded
-    carry, then timed."""
+    carry (bit for bit), then timed."""
     import torch
     from repro_torch.kernels import common, cuda
 
@@ -368,13 +397,12 @@ def check_padded(case, state, chip, variant, layout=None, src=None,
             common.refresh_wrap_halo_plain(src, layout)
         print(f"  kernels at {case['name']}: padded {layout.padded_shape}, "
               f"ring H={layout.halo}")
-    kernel, launch, source, replaces = {
-        "plain": ("padded_superstep", cuda.padded_superstep,
-                  "padded_superstep.cu", 707),
-        "temporal": ("temporal_superstep", cuda.temporal_superstep,
-                     "streamed_superstep.cu", 899),
-        "pipelined": ("padded_pipelined", cuda.padded_pipelined,
-                      "streamed_superstep.cu", 785)}[variant]
+    kernel, launch, replaces = {
+        "plain": ("padded_superstep", cuda.padded_superstep, 707),
+        "temporal": ("temporal_superstep", cuda.temporal_superstep, 899),
+        "pipelined": ("padded_pipelined", cuda.padded_pipelined, 785)}[variant]
+    design = plan.body(kernel)
+    source = BODY_SOURCES[design]
     eff = common.deep_plan(plan) if variant == "temporal" else plan
     center, taps = coeffs.center, coeffs.taps
     got = torch.zeros_like(src)
@@ -383,13 +411,11 @@ def check_padded(case, state, chip, variant, layout=None, src=None,
     common.padded_superstep_plain(src, want, center, taps, program=prog,
                                   plan=eff, layout=layout)
     torch.cuda.synchronize()
-    # the streamed kernels are held to bit equality, B1 to the repo's ULP
-    tol = ULP if variant == "plain" else dict(atol=0.0, rtol=0.0)
     err = check_close(f"{kernel} vs padded_superstep_plain",
-                      got[interior], want[interior], **tol)
+                      got[interior], want[interior], atol=0.0, rtol=0.0)
     del want
     ms = median_ms(lambda: launch(src, got, center, taps, program=prog,
-                                  plan=plan, layout=layout))
+                                  plan=plan, layout=layout), label=kernel)
     plain_ms = median_ms(lambda: common.padded_superstep_plain(
         src, got, center, taps, program=prog, plan=eff, layout=layout))
     lib = library_ms(case["name"], prog, coeffs, grid, eff.par_time)
@@ -399,9 +425,9 @@ def check_padded(case, state, chip, variant, layout=None, src=None,
     tile = cuda.pick_tile(plan, kernel, cuda.smem_optin(grid.device.index))
     print(f"  {kernel}: CTA tile {tile}, "
           f"{plan.smem_bytes_for(tile, kernel)} bytes of shared memory, "
-          f"{eff.par_time} steps per launch")
-    return record(case["name"], kernel, source, replaces, state, err, ms,
-                  plain_ms, moved, flops, lib, chip)
+          f"{eff.par_time} steps per launch, {DESIGNS[design]}")
+    return record(case["name"], kernel, source, replaces, design, state,
+                  err, ms, plain_ms, moved, flops, lib, chip)
 
 
 def check_prepadded(case, state, chip):
@@ -415,10 +441,11 @@ def check_prepadded(case, state, chip):
     prog, plan, grid, coeffs = (state["prog"], state["plan"], state["grid"],
                                 state["coeffs"])
     pipelined = case["backend"].endswith("-pipelined")
-    kernel, launch, source, replaces = (
-        ("pipelined_superstep", cuda.pipelined_superstep,
-         "pipelined_superstep.cu", 223) if pipelined else
-        ("superstep", cuda.superstep, "padded_superstep.cu", 181))
+    kernel, launch, replaces = (
+        ("pipelined_superstep", cuda.pipelined_superstep, 223) if pipelined
+        else ("superstep", cuda.superstep, 181))
+    design = plan.body(kernel)
+    source = BODY_SOURCES[design]
     n = tuple(grid.shape)
     h = plan.halo
     rounded = tuple(round_up(s, b) for s, b in zip(n, plan.block_shape))
@@ -439,18 +466,22 @@ def check_prepadded(case, state, chip):
     want = plain_call()
     torch.cuda.synchronize()
     true = (Ellipsis,) + tuple(slice(0, s) for s in n)
+    # B6 is held to bit equality, B5 to the repo's ULP
+    tol = dict(atol=0.0, rtol=0.0) if pipelined else ULP
     err = check_close(f"{kernel} vs superstep_plain", got[true], want[true],
-                      **ULP)
+                      **tol)
     del got, want
-    ms = median_ms(kernel_call)
+    ms = median_ms(kernel_call, label=kernel)
     plain_ms = median_ms(plain_call)
     lib = library_ms(case["name"], prog, coeffs, grid, plan.par_time)
     moved = 4 * (math.prod(padded.shape) + math.prod(rounded))
     flops = math.prod(n) * plan.par_time * prog.flops_per_cell
     tile = cuda.pick_tile(plan, kernel, cuda.smem_optin(grid.device.index))
-    print(f"  {kernel}: CTA tile {tile}")
-    return record(case["name"], kernel, source, replaces, state, err, ms,
-                  plain_ms, moved, flops, lib, chip)
+    print(f"  {kernel}: CTA tile {tile}, "
+          f"{plan.smem_bytes_for(tile, kernel)} bytes of shared memory, "
+          f"{DESIGNS[design]}")
+    return record(case["name"], kernel, source, replaces, design, state,
+                  err, ms, plain_ms, moved, flops, lib, chip)
 
 
 def check_kernels(case, state, chip):
@@ -508,6 +539,7 @@ def exact_checks():
     """Small configurations through the front door against the float64
     oracle on the card, under each variant; the wrap-degenerate layout
     under each variant; the RP105 refusals."""
+    import dataclasses
     import repro_torch
     from repro_torch.configs import stencil3d
     from repro_torch.core.blocking import TEMPORAL_CHUNK
@@ -589,88 +621,156 @@ def exact_checks():
                     out, program_nsteps(prog, c64, grid.double(), steps),
                     atol=TOL, rtol=0.0)
 
-    print("\n== plans no CTA tile fits")
+    print("\n== a plan the whole-window B1 could not run")
     work = stencil3d.workloads()["3d_r4_paper"]
-    print("  3d_r4_paper under temporal, 3 steps: only a remainder of 3 "
-          "steps (B1), whose window fits no tile")
-    refuse_rp105(work.spec, work.plan(), work.grid_shape, "temporal",
-                 steps=3)
+    print("  3d_r4_paper under temporal, 3 steps: a B1 remainder of 3 "
+          "steps, whose window fitted no tile; B1 streams it now")
+    grid = random_grid(work.grid_shape, seed=0)
+    cs = repro_torch.stencil(work.spec).compile(
+        work.grid_shape, steps=3, plan=work.plan(), variant="temporal")
+    cuda.reset_launches()
+    out = cs.run(grid)
+    counts = {k: v for k, v in cuda.launches().items() if v}
+    if counts != {"padded_superstep": 1}:
+        raise AssertionError(f"launches {counts}")
+    check_close("3d_r4_paper temporal 3 steps vs program_nsteps (float32, "
+                "same card)", out, program_nsteps(work.spec, cs.coeffs, grid,
+                                                  3), **ULP)
+    del grid, out
+
+    print("\n== plans no CTA tile fits")
+    r2 = stencil3d.workloads()["3d_r2_paper"]
+    box = dataclasses.replace(r2.spec, shape="box")
+    print("  3d_r2_paper's plan with box taps under temporal: 8 fused "
+          "steps of radius 2, whose plane rings and offset tables fit no "
+          "column tile")
+    refuse_rp105(box, dataclasses.replace(r2.plan(), spec=box),
+                 r2.grid_shape, "temporal", steps=9)
 
 
-def streamed_corners():
-    """B3 and B4 at a segment shorter than twice the halo, a column tile
-    that divides neither blocked axis, batch 2, against
-    ``padded_superstep_plain`` (exact)."""
+def plane_corners():
+    """The kernels that stream planes at a segment shorter than twice the
+    halo and a column tile that divides neither blocked axis, batch 2,
+    against their plain versions (exact): B3 and B4; B1 on its register
+    queues and on the streamed route; B6 on its queues and its ring path,
+    as a shard at non-zero offsets."""
     import torch
     import repro_torch
+    from repro_torch.core.codegen import boundary_pad
     from repro_torch.kernels import common, cuda
 
-    print("\n== streamed kernels at short segments and ragged column tiles")
+    print("\n== kernels that stream planes, at short segments and ragged "
+          "column tiles")
     cases = [
         # B3: 2D star r4, par_time 2 (8 fused steps, h = 32)
-        ("temporal", 2, "star", 4, "clamp", (150, 200), 2, (64,), 20),
-        ("temporal", 2, "box", 1, "periodic", (150, 200), 2, (96,), 5),
+        ("temporal", 2, "star", 4, "clamp", (150, 200), 2, (64,), 20, {}),
+        ("temporal", 2, "box", 1, "periodic", (150, 200), 2, (96,), 5, {}),
         # B4: 3D star r4, par_time 2 (h = 8)
-        ("pipelined", 3, "star", 4, "clamp", (40, 50, 150), 2, (8, 64), 5),
+        ("pipelined", 3, "star", 4, "clamp", (40, 50, 150), 2, (8, 64), 5,
+         {}),
         ("pipelined", 3, "diamond", 2, "constant", (21, 30, 70), 1, (4, 32),
-         3),
+         3, {}),
+        # B1 queues: 2D star r4 at par_time 2 (h = 8), 3D star r4 and r2
+        ("plain", 2, "star", 4, "clamp", (150, 200), 2, (48,), 7, {}),
+        ("plain", 2, "star", 4, "constant", (150, 200), 2, (88,), 5, {}),
+        ("plain", 3, "star", 4, "clamp", (40, 50, 150), 1, (12, 40), 5, {}),
+        ("plain", 3, "star", 2, "periodic", (40, 50, 150), 2, (6, 56), 7,
+         {}),
+        # B1 on the streamed kernel: the box, a star deeper than its queues
+        # (a temporal remainder of 3d_r4_paper), a diamond
+        ("plain", 2, "box", 1, "periodic", (150, 200), 4, (96,), 5, {}),
+        ("plain", 3, "star", 4, "clamp", (40, 50, 150), 2, (6, 24), 11, {}),
+        ("plain", 3, "diamond", 2, "constant", (21, 30, 70), 2, (4, 32), 5,
+         {}),
+        # B6: 3D star r4 (queues), 2D box r1 at 4 steps (ring path)
+        ("prepadded", 3, "star", 4, "clamp", (40, 50, 150), 1, (12, 40), 5,
+         {}),
+        ("prepadded", 2, "box", 1, "constant", (150, 200), 4, (96,), 5, {}),
     ]
-    for variant, ndim, kind, radius, boundary, shape, par_time, tile, seg \
-            in cases:
+    for variant, ndim, kind, radius, boundary, shape, par_time, tile, seg, \
+            extra in cases:
         prog = repro_torch.StencilProgram(
             ndim=ndim, radius=radius, shape=kind, boundary=boundary,
             boundary_value=0.25)
         block = (16, 128) if ndim == 2 else (8, 16, 128)
         plan = repro_torch.BlockPlan(spec=prog, block_shape=block,
                                      par_time=par_time)
+        coeffs = prog.default_coeffs(seed=3).to("cuda")
+        h = par_time * radius * (4 if variant == "temporal" else 1)
+        assert seg < 2 * h and any(n % t for n, t in zip(shape[1:], tile))
+        what = (f"{variant} {ndim}D {kind} r={radius} {boundary} grid "
+                f"{shape} tile {tile} segment {seg} (h {h}) {extra}")
+        if variant == "prepadded":
+            rounded = tuple(common.round_up(n, b) for n, b in zip(shape,
+                                                                   block))
+            grid = random_grid((2,) + shape, seed=5)
+            padded = boundary_pad(prog, grid, [(0, 0)] + [
+                (h, r - n + h) for n, r in zip(shape, rounded)]).contiguous()
+            offsets, global_shape = (3,) * ndim, tuple(n + 7 for n in shape)
+            got = cuda.pipelined_superstep(
+                padded, coeffs.center, coeffs.taps, program=prog, plan=plan,
+                true_shape=global_shape, offsets=offsets, tile=tile,
+                segment=seg)
+            want = common.superstep_plain(
+                padded, coeffs.center, coeffs.taps, program=prog, plan=plan,
+                true_shape=global_shape, offsets=offsets)
+            torch.cuda.synchronize()
+            ix = (Ellipsis,) + tuple(slice(0, n) for n in shape)
+            check_close(f"pipelined_superstep {what}", got[ix], want[ix],
+                        atol=0.0, rtol=0.0)
+            continue
         layout = common.ring_schedule(prog, plan, shape, par_time,
                                       variant=variant).layout
         src = random_grid((2,) + layout.padded_shape, seed=5)
         if layout.wrap_axes:
             common.refresh_wrap_halo_plain(src, layout)
-        coeffs = prog.default_coeffs(seed=3).to(src.device)
         kernel, launch = {
+            "plain": ("padded_superstep", cuda.padded_superstep),
             "temporal": ("temporal_superstep", cuda.temporal_superstep),
             "pipelined": ("padded_pipelined", cuda.padded_pipelined)}[variant]
-        h = plan.kernel_steps(kernel) * radius
-        assert seg < 2 * h and any(n % t for n, t in zip(shape[1:], tile))
         got, want = torch.zeros_like(src), torch.zeros_like(src)
         launch(src, got, coeffs.center, coeffs.taps, program=prog,
-               plan=plan, layout=layout, tile=tile, segment=seg)
+               plan=plan, layout=layout, tile=tile, segment=seg, **extra)
         eff = common.deep_plan(plan) if variant == "temporal" else plan
         common.padded_superstep_plain(src, want, coeffs.center, coeffs.taps,
                                       program=prog, plan=eff, layout=layout)
         torch.cuda.synchronize()
         ix = (Ellipsis,) + tuple(slice(layout.halo, layout.halo + n)
                                  for n in shape)
-        check_close(f"{kernel} {ndim}D {kind} r={radius} {boundary} "
-                    f"grid {shape} tile {tile} segment {seg} (h {h})",
-                    got[ix], want[ix], atol=0.0, rtol=0.0)
+        check_close(f"{kernel} {what}", got[ix], want[ix], atol=0.0,
+                    rtol=0.0)
+
+
+#: The kernels ``ptxas_report`` reads, by source: each instantiation's
+#: name in the log, and how many instantiations the source has.
+PTXAS = {"streamed_superstep.cu": (("streamed_kernel",), 12),
+         "queued_superstep.cu": (("queue_kernel", "ring_kernel"), 23)}
 
 
 def ptxas_report():
-    """The ``-Xptxas=-v`` lines of each streamed kernel, from the build's
-    log of the library this run loaded; raises when one has a stack frame
-    or the log reports none."""
+    """The ``-Xptxas=-v`` lines of every instantiation of the sources that
+    stream planes, from the build's log of the library this run loaded;
+    raises when one has a stack frame or an instantiation has no report."""
     from repro_torch.kernels import build
-    log = build.build_log("streamed_superstep.cu")
-    entry = None
-    found = 0
-    for line in log.splitlines():
-        if "Compiling entry function" in line:
-            entry = line if "streamed_kernel" in line else None
-            if entry:
-                print(f"ptxas streamed: {entry.strip()}")
-            continue
-        if entry and ("stack frame" in line or "Used " in line):
-            print(f"ptxas streamed:   {line.strip()}")
-            if "stack frame" in line:
-                found += 1
-                if not line.strip().startswith("0 bytes stack frame"):
-                    raise AssertionError(f"streamed kernel has a stack "
-                                         f"frame: {line.strip()}")
-    if found == 0:
-        raise AssertionError("no ptxas report for the streamed kernels")
+    for source, (names, count) in PTXAS.items():
+        entry = None
+        found = 0
+        for line in build.build_log(source).splitlines():
+            if "Compiling entry function" in line:
+                entry = line if any(n in line for n in names) else None
+                if entry:
+                    print(f"ptxas {source}: {entry.strip()}")
+                continue
+            if entry and ("stack frame" in line or "Used " in line):
+                print(f"ptxas {source}:   {line.strip()}")
+                if "stack frame" in line:
+                    found += 1
+                    if not line.strip().startswith("0 bytes stack frame"):
+                        raise AssertionError(f"{source}: a kernel has a "
+                                             f"stack frame: {line.strip()}")
+        if found != count:
+            raise AssertionError(f"{source}: ptxas reported {found} "
+                                 f"instantiations, expected {count}")
 
 
 def main() -> int:
@@ -703,7 +803,7 @@ def main() -> int:
         del state
         torch.cuda.empty_cache()
     exact_checks()
-    streamed_corners()
+    plane_corners()
     ptxas_report()
     ported = {r["name"].split("@")[0] for r in records}
     if len(ported) != 6:

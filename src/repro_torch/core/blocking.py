@@ -36,9 +36,29 @@ KERNELS = ("padded_superstep", "temporal_superstep", "padded_pipelined",
 #: The kernels that stream a column tile plane by plane
 #: (``csrc/streamed_superstep.cu``); the others hold a whole window.
 STREAMED_KERNELS = ("temporal_superstep", "padded_pipelined")
+#: The kernels of ``csrc/queued_superstep.cu`` (B1 and B6): an in-plane
+#: column tile too, register queues for stars (for every other tap set B1
+#: runs the streamed kernel, B6 the ring path of its own source).
+QUEUED_KERNELS = ("padded_superstep", "pipelined_superstep")
 #: Planes per group of a streamed CTA, by grid rank: the planes one
 #: thread computes per in-plane cell (``csrc/streamed_superstep.cu``).
 COLUMN_PLANES = {2: 4, 3: 2}
+#: Fused steps the register-queue path takes for a star, by grid rank and
+#: radius: a thread's queues (``3r`` values per stage and cell, x4 cells)
+#: and its strip's taps stay within 128 registers without spilling
+#: (``queued_superstep.cu:choose_queue`` instantiates these; a 3D star of
+#: radius 4 at 2 steps spilled 168 bytes).
+QUEUE_STEPS = {2: {1: 4, 2: 3, 3: 2, 4: 2}, 3: {1: 4, 2: 3, 3: 2, 4: 1}}
+#: Queue values per cell a thread keeps in registers over all stages: each
+#: stage's queue holds ``3r`` planes (a group of ``r`` computed in a step
+#: and ``r`` on either side); a star with ``steps*3r > QUEUE_REGS`` leaves
+#: stage 0's values in the loaded ring instead.
+QUEUE_REGS = 14
+#: Threads of a queued CTA (each owns a strip of 4 x cells).
+QUEUE_THREADS = 256
+#: Bytes of stage-0 planes a queued CTA keeps in flight (at least one and
+#: at most 8 groups ahead): about 16 KB a CTA, 32 KB an SM.
+QUEUE_INFLIGHT = 16384
 
 
 def check_kernel(kernel: str) -> str:
@@ -113,6 +133,153 @@ def streamed_smem_bytes(ndim: int, radius: int, ntaps: int, steps: int,
                         tile: Tuple[int, ...], itemsize: int = 4) -> int:
     return streamed_rings(ndim, radius, steps, tile).bytes(
         ntaps, itemsize)
+
+
+def queue_path(program: StencilProgram, steps: int) -> bool:
+    """Whether ``steps`` fused steps of ``program`` take the register-queue
+    path of ``csrc/queued_superstep.cu`` (a star of radius 1..4 and at
+    most :data:`QUEUE_STEPS` steps)."""
+    return program.shape == "star" and \
+        steps <= QUEUE_STEPS[program.ndim].get(program.halo_radius, 0)
+
+
+def kernel_body(program: StencilProgram, kernel: str, steps: int) -> str:
+    """The body that runs ``steps`` fused steps of ``program`` for
+    ``kernel``: "queue" (B1, B6 with a star within :data:`QUEUE_STEPS`:
+    the register queues of ``csrc/queued_superstep.cu``), "ring" (B6
+    otherwise: the ring path of that source), "streamed" (B3, B4, and B1
+    otherwise: ``csrc/streamed_superstep.cu``, which ran the periodic box
+    faster than the ring path, ``PERF.md``), "window" (B5).  Shared
+    memory, the tile pick and RP105 all size a kernel by it."""
+    check_kernel(kernel)
+    if kernel in QUEUED_KERNELS and queue_path(program, steps):
+        return "queue"
+    if kernel == "pipelined_superstep":
+        return "ring"
+    if kernel in STREAMED_KERNELS or kernel == "padded_superstep":
+        return "streamed"
+    return "window"
+
+
+@dataclasses.dataclass(frozen=True)
+class QueuedPlanes:
+    """Shared-memory layout of one CTA of ``csrc/queued_superstep.cu`` at
+    in-plane column tile ``tile`` (``(tx,)`` in 2D, ``(ty, tx)`` in 3D).
+
+    Planes have the stage-0 extent (tile + 2h per blocked axis, one row in
+    2D), rows :attr:`pitch` floats apart (the stage-0 extent rounded to 4
+    floats plus 12: room for the 4..7-float shift that aligns a shared row
+    with its source row, and the strips' 16-byte reads past it).  Stage-0
+    planes arrive in groups of :attr:`group` planes (``r`` on the queue
+    path, one on the ring path), one barrier a group, into a ring of
+    :attr:`groups` groups: those read behind the current group (the centre
+    planes of stage 1, ``r`` back, or all its streamed-axis taps, ``2r``
+    back), the current one and :attr:`ahead` in flight.  Each later stage
+    holds two groups of centre planes (queue path) or ``2r + 2`` planes
+    (ring path, which also keeps a tap table: an in-plane offset and a
+    plane delta per tap).  Then a guard of 16 floats and an 8-byte
+    mbarrier per loaded group."""
+
+    ndim: int
+    radius: int
+    steps: int
+    tile: Tuple[int, ...]
+    queue: bool
+    ntaps: int
+
+    @property
+    def extent(self) -> Tuple[int, int]:
+        h = self.steps * self.radius
+        if self.ndim == 2:
+            return 1, self.tile[0] + 2 * h
+        return self.tile[0] + 2 * h, self.tile[1] + 2 * h
+
+    @property
+    def pitch(self) -> int:
+        return round_up(self.extent[1], 4) + 12
+
+    @property
+    def plane(self) -> int:
+        return self.extent[0] * self.pitch
+
+    @property
+    def group(self) -> int:
+        return self.radius if self.queue else 1
+
+    @property
+    def ahead(self) -> int:
+        """Groups in flight: :data:`QUEUE_INFLIGHT` bytes, 1 to 8."""
+        return min(8, max(1, -(-QUEUE_INFLIGHT //
+                               (4 * self.group * self.plane))))
+
+    @property
+    def stage0_in_registers(self) -> bool:
+        return self.queue and self.steps * 3 * self.radius <= QUEUE_REGS
+
+    @property
+    def groups(self) -> int:
+        r, b = self.radius, self.group
+        back = r if self.stage0_in_registers else 2 * r
+        return -(-back // b) + 1 + self.ahead
+
+    @property
+    def depth0(self) -> int:
+        """Loaded planes."""
+        return self.groups * self.group
+
+    @property
+    def planes(self) -> int:
+        later = 2 * self.group if self.queue else 2 * self.radius + 2
+        return self.depth0 + (self.steps - 1) * later
+
+    def bytes(self) -> int:
+        tables = 0 if self.queue else 8 * self.ntaps
+        return 4 * (self.plane * self.planes + 16) + tables + 8 * self.groups
+
+    def strips(self, pad: int) -> Tuple[int, int, int]:
+        """(rows, strips per row, first strip) of the queue path's threads
+        at x shift ``pad``: strips of 4 cells at 16-byte aligned shared
+        columns over the stage-1 region."""
+        r = self.radius
+        E1, E2 = self.extent
+        rows = E1 - (0 if self.ndim == 2 else 2 * r)
+        first = (r + pad) // 4
+        return rows, (E2 - r + pad + 3) // 4 - first, first
+
+    @property
+    def cost(self) -> float:
+        """Cells loaded and computed per output cell.  Loaded: the stage-0
+        extent.  Computed, on the queue path: every thread's strip in each
+        stage (a warp issues for its idle lanes too), at the widest x
+        shift; on the ring path each stage's region, the last one the
+        tile."""
+        E1, E2 = self.extent
+        h, r = self.steps * self.radius, self.radius
+        if self.queue:
+            computed = self.steps * 4 * max(
+                rows * nx for rows, nx, _ in
+                (self.strips(pad) for pad in range(4, 8)))
+        else:
+            computed = sum(math.prod(t + 2 * (h - s * r) for t in self.tile)
+                           for s in range(1, self.steps + 1))
+        return (E1 * E2 + computed) / math.prod(self.tile)
+
+    @property
+    def threads_fit(self) -> bool:
+        """Every x shift leaves at most one strip per thread."""
+        return all(rows * nx <= QUEUE_THREADS for rows, nx, _ in
+                   (self.strips(pad) for pad in range(4, 8)))
+
+
+def queued_planes(program: StencilProgram, steps: int, tile: Tuple[int, ...],
+                  queue: bool) -> QueuedPlanes:
+    nd = program.ndim
+    tile = tuple(int(t) for t in tile)
+    if len(tile) != nd - 1 or min(tile) < 1:
+        raise ValueError(f"a queued {nd}D tile has {nd - 1} positive "
+                         f"in-plane extents (got {tile})")
+    return QueuedPlanes(ndim=nd, radius=program.halo_radius, steps=steps,
+                        tile=tile, queue=queue, ntaps=program.num_taps)
 
 
 def normalize_variant(variant=None) -> str:
@@ -197,25 +364,33 @@ class BlockPlan:
         """Dynamic shared memory of one CTA of ``kernel`` (a name of
         :data:`KERNELS`) at CTA tile ``tile`` under this plan.
 
-        The window kernels (B1 ``padded_superstep``, B5 ``superstep``, B6
-        ``pipelined_superstep``) take an output tile per grid axis and
-        hold one halo'd window (``tile + 2*halo`` per axis), a second when
-        the fused steps ping-pong, one more for B6's prefetch, and the
-        coefficient and offset tables (4 bytes each per tap).  The streamed
-        kernels (B3 ``temporal_superstep``, B4 ``padded_pipelined``) take
-        an in-plane column tile and hold plane rings
-        (:func:`streamed_smem_bytes`).
+        B5 (``superstep``) takes an output tile per grid axis and holds
+        one halo'd window (``tile + 2*halo`` per axis), a second when the
+        fused steps ping-pong, and the coefficient and offset tables (4
+        bytes each per tap).  Every other kernel takes an in-plane column
+        tile: the streamed kernels (B3 ``temporal_superstep``, B4
+        ``padded_pipelined``) hold plane rings (:func:`streamed_smem_bytes`);
+        B1 (``padded_superstep``) and B6 (``pipelined_superstep``) hold the
+        :class:`QueuedPlanes` of their register-queue path, B6 that of its
+        ring path otherwise, B1 the streamed rings (:meth:`body`).
         """
         steps = self.kernel_steps(kernel)
-        if kernel in STREAMED_KERNELS:
+        body = self.body(kernel)
+        if body == "streamed":
             return streamed_smem_bytes(
                 self.spec.ndim, self.spec.halo_radius, self.spec.num_taps,
                 steps, tile, itemsize=self.itemsize)
+        if body in ("queue", "ring"):
+            return queued_planes(self.spec, steps, tile,
+                                 body == "queue").bytes()
         halo = steps * self.spec.halo_radius
         window = math.prod(t + 2 * halo for t in tile)
-        windows = (2 if steps > 1 else 1) + (
-            1 if kernel == "pipelined_superstep" else 0)
+        windows = 2 if steps > 1 else 1
         return self.itemsize * windows * window + 8 * self.spec.num_taps
+
+    def body(self, kernel: str) -> str:
+        """:func:`kernel_body` of ``kernel`` under this plan."""
+        return kernel_body(self.spec, kernel, self.kernel_steps(kernel))
 
     def flops_per_block(self) -> int:
         """Sum over the shrinking valid regions of each fused time step."""

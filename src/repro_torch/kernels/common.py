@@ -12,7 +12,9 @@ The kernels of a superstep, each with a plain PyTorch version here:
   ``variant="temporal"`` ``build_temporal_kernel``, with "pipelined"
   ``build_padded_pipelined_kernel``): window load at ring offset ``H - h``,
   t=0 fixup, ``par_time`` tap updates over a shrinking region with fixups
-  between, tile write.  All three share ``padded_superstep_plain``.
+  between, tile write.  All three share ``padded_superstep_plain``; on the
+  card they stream planes through the window instead of holding it
+  (``csrc/queued_superstep.cu``, ``csrc/streamed_superstep.cu``).
 * ``refresh_wrap_halo`` (reference ``_refresh_wrap_halo``): same-buffer
   periodic ring copies following ``wrap_copies``, axis by axis.
 * ``superstep_call`` (reference ``build_superstep_kernel``, with

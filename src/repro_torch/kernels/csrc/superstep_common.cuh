@@ -1,17 +1,15 @@
-// Device code shared by the superstep kernels (padded_superstep.cu,
-// pipelined_superstep.cu), for sm_90a.
+// Device code of the whole-window superstep kernel (padded_superstep.cu,
+// B5), for sm_90a.
 //
 // One CTA advances one output tile by `steps` fused time steps:
 //   1. load the tile's halo'd window (tile + 2h per axis, h = steps*radius)
-//      from the source into shared memory, synchronously or with cp.async;
-//   2. (padded carry only) a t = 0 boundary fixup of the whole window;
-//   3. `steps` tap updates over a region that shrinks by `radius` per side
+//      from the source into shared memory;
+//   2. `steps` tap updates over a region that shrinks by `radius` per side
 //      per step, ping-ponging two shared buffers with a fixup between steps;
 //      the last step writes the tile into the output.
-// The source is either the padded carry (window at ring offset H - h, the
-// output is the other carry buffer at H) or a grid that boundary_pad already
-// padded by h (window at the tile origin, the output a separate grid of the
-// rounded shape).  `Geometry` holds both cases as offsets.
+// The source is a grid that boundary_pad already padded by h (window at the
+// tile origin, the output a separate grid of the rounded shape); `Geometry`
+// holds it as offsets.
 //
 // Taps and coefficients are runtime arrays (up to 729 for a 3D box of
 // radius 4) in canonical order, the center first; the sum is taken in that
@@ -22,7 +20,6 @@
 
 #pragma once
 
-#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 namespace superstep {
@@ -114,9 +111,7 @@ __device__ __forceinline__ void load_tables(const float* coef, const int* offs,
 }
 
 // Window of tile `t` into `buf`.  Cells past the source's end feed no
-// output that is stored and are zero-filled.  With kAsync the copies are
-// cp.async (the caller commits and waits); zero cells are plain stores.
-template <bool kAsync>
+// output that is stored and are zero-filled.
 __device__ __forceinline__ void load_window(const float* __restrict__ src,
                                             float* buf, const Geometry& g,
                                             const Tile& t) {
@@ -131,15 +126,7 @@ __device__ __forceinline__ void load_window(const float* __restrict__ src,
     for (int ix = threadIdx.x; ix < W2; ix += kThreadsX) {
       const long long px = g.load[2] + t.at[2] + ix;
       float* cell = buf + q * W2 + ix;
-      if (row_ok && px < g.src[2]) {
-        if (kAsync) {
-          __pipeline_memcpy_async(cell, src + row + px, sizeof(float));
-        } else {
-          *cell = src[row + px];
-        }
-      } else {
-        *cell = 0.0f;
-      }
+      *cell = row_ok && px < g.src[2] ? src[row + px] : 0.0f;
     }
   }
 }
@@ -186,16 +173,6 @@ __device__ void boundary_fixup(float* buf, const Geometry& g, int boundary,
     }
     __syncthreads();
   }
-}
-
-// The t = 0 fixup of the padded carry: its ring holds last superstep's
-// values, not the boundary's.
-__device__ __forceinline__ void fixup_window(float* buf, const Geometry& g,
-                                             int boundary, float bval,
-                                             const Tile& t) {
-  const int lo[3] = {0, 0, 0};
-  const int hi[3] = {g.win[0], g.win[1], g.win[2]};
-  boundary_fixup(buf, g, boundary, bval, lo, hi, t.start);
 }
 
 // `steps` tap updates of the window in `cur` (loaded and visible to the

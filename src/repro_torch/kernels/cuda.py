@@ -11,12 +11,16 @@ source headers say what bounds each on the card and what its design does
 about it):
 
 * ``padded_superstep`` (B1, ``build_padded_superstep_kernel``) and
-  ``superstep`` (B5, ``build_superstep_kernel``) ->
+  ``pipelined_superstep`` (B6, ``build_pipelined_kernel``) ->
+  ``csrc/queued_superstep.cu``, CTAs that stream a column tile plane by
+  plane with a star's streamed-axis neighbours in per-thread register
+  queues (geometry in ``kernels/queued.py``; B6's CTAs are persistent).
+  For every other tap set B1 runs the one-shot launcher of
+  ``csrc/streamed_superstep.cu`` (the same function of the padded carry),
+  B6 the ring path of its own source;
+* ``superstep`` (B5, ``build_superstep_kernel``) ->
   ``csrc/padded_superstep.cu``, one CTA per output tile and its halo'd
   window;
-* ``pipelined_superstep`` (B6, ``build_pipelined_kernel``) ->
-  ``csrc/pipelined_superstep.cu``, persistent CTAs that prefetch the next
-  tile's window with ``cp.async``;
 * ``temporal_superstep`` (B3, ``build_temporal_kernel``) and
   ``padded_pipelined`` (B4, ``build_padded_pipelined_kernel``) ->
   ``csrc/streamed_superstep.cu``, CTAs that stream a column tile plane by
@@ -43,8 +47,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from repro_torch.analysis.hw import GpuChip
-from repro_torch.core.blocking import STREAMED_KERNELS, check_kernel
-from repro_torch.kernels import build, streamed
+from repro_torch.kernels import build, queued, streamed
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -77,7 +80,7 @@ class Kernel:
         self._fn = None
         self._errstr = None
 
-    def __call__(self, *args) -> None:
+    def _bound(self):
         if self._fn is None:
             lib = build.load(self.source)
             fn = getattr(lib, self.symbol)
@@ -87,10 +90,17 @@ class Kernel:
             errstr.argtypes = [ctypes.c_int]
             errstr.restype = ctypes.c_char_p
             self._fn, self._errstr = fn, errstr
-        code = self._fn(*args)
+        return self._fn, self._errstr
+
+    def __call__(self, *args, route: Optional["Kernel"] = None) -> None:
+        """Launch through this kernel's C launcher, or through ``route``'s
+        (another source's launcher computing the same function); the
+        launch counts as this kernel's."""
+        fn, errstr = (route or self)._bound()
+        code = fn(*args)
         if code != 0:
-            raise RuntimeError(f"{self.symbol}: CUDA error {code} "
-                               f"({self._errstr(code).decode()})")
+            raise RuntimeError(f"{fn.__name__}: CUDA error {code} "
+                               f"({errstr(code).decode()})")
         self.launches += 1
 
 
@@ -99,7 +109,7 @@ class Kernel:
 _SUPERSTEP_ARGS = [_P, _P, _P, _P, _I, _I, _I, ctypes.c_float,
                    ctypes.POINTER(_L), _I, _I, _P]
 
-PADDED_SUPERSTEP = Kernel("padded_superstep.cu", "padded_superstep_launch",
+PADDED_SUPERSTEP = Kernel("queued_superstep.cu", "padded_superstep_launch",
                           _SUPERSTEP_ARGS)
 TEMPORAL_SUPERSTEP = Kernel("streamed_superstep.cu",
                             "temporal_superstep_launch", _SUPERSTEP_ARGS)
@@ -107,7 +117,7 @@ SUPERSTEP = Kernel("padded_superstep.cu", "superstep_launch",
                    _SUPERSTEP_ARGS)
 PADDED_PIPELINED = Kernel("streamed_superstep.cu",
                           "padded_pipelined_launch", _SUPERSTEP_ARGS)
-PIPELINED_SUPERSTEP = Kernel("pipelined_superstep.cu",
+PIPELINED_SUPERSTEP = Kernel("queued_superstep.cu",
                              "pipelined_superstep_launch", _SUPERSTEP_ARGS)
 
 WRAP_HALO = Kernel(
@@ -156,12 +166,15 @@ def streamed_tap_table(program, device: torch.device) -> torch.Tensor:
 
 def smallest_tile(plan, kernel: str) -> Tuple[int, ...]:
     """The CTA tile candidate of ``kernel`` with the least shared memory:
-    the least extent on every axis for a window kernel, the least ring
-    memory for a streamed one."""
-    check_kernel(kernel)
-    if kernel in STREAMED_KERNELS:
-        return streamed.smallest_streamed_tile(plan.program,
-                                               plan.kernel_steps(kernel))
+    the least extent on every axis for B5's window, the least ring or
+    plane memory for the kernels that stream planes."""
+    steps = plan.kernel_steps(kernel)
+    body = plan.body(kernel)
+    if body == "streamed":
+        return streamed.smallest_streamed_tile(plan.program, steps)
+    if body in ("queue", "ring"):
+        return queued.smallest_queued_tile(plan.program, steps,
+                                           body == "queue")
     ndim = plan.program.ndim
     axes = (TILE_Y, TILE_X) if ndim == 2 else (TILE_Z, TILE_Y, TILE_X)
     return tuple(min(a) for a in axes)
@@ -171,18 +184,23 @@ def pick_tile(plan, kernel: str, smem_limit: int) -> Tuple[int, ...]:
     """The CTA tile of ``kernel`` (a name of ``blocking.KERNELS``) under
     ``plan``.
 
-    A streamed kernel takes an in-plane column tile
-    (``streamed.pick_streamed_tile``).  A window kernel takes an output
-    tile per axis: among the candidates whose shared memory
+    The streamed kernels take an in-plane column tile
+    (``streamed.pick_streamed_tile``), and so do B1 and B6
+    (``queued.pick_queued_tile``; B1 without register queues the streamed
+    pick, :meth:`BlockPlan.body`).  B5 takes an output tile per axis:
+    among the candidates whose shared memory
     (``BlockPlan.smem_bytes_for``) fits a third of the limit (three CTAs
     per SM), or else the whole limit, the least window volume per output
     cell, then the widest x.  Raises when none fits, which is when
     :func:`smallest_tile` does not.
     """
-    check_kernel(kernel)
     steps = plan.kernel_steps(kernel)
-    if kernel in STREAMED_KERNELS:
+    body = plan.body(kernel)
+    if body == "streamed":
         return streamed.pick_streamed_tile(plan.program, steps, smem_limit)
+    if body in ("queue", "ring"):
+        return queued.pick_queued_tile(plan.program, steps, smem_limit,
+                                       body == "queue")
     ndim = plan.program.ndim
     axes = (TILE_Y, TILE_X) if ndim == 2 else (TILE_Z, TILE_Y, TILE_X)
     cands = list(itertools.product(*axes))
@@ -249,32 +267,55 @@ def _check_pair(src: torch.Tensor, dst: torch.Tensor, layout) -> None:
                          f"match src {tuple(src.shape)} on {src.device}")
 
 
-def padded_superstep(src, dst, center, taps, *, program, plan,
-                     layout) -> None:
+def _host_array(geo):
+    """The geometry's host array as the C launchers take it (the
+    geometries themselves are cached, so a launch's host work stays a
+    small part of the kernel's time)."""
+    flat = geo.array()
+    return (_L * len(flat))(*flat)
+
+
+def _queued_launch(kernel: Kernel, src, dst, center, taps, geo,
+                   program) -> None:
+    dev = src.device
+    coef = torch.cat([center.reshape(1), taps.reshape(-1)]).to(
+        device=dev, dtype=torch.float32).contiguous()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    kernel(src.data_ptr(), dst.data_ptr(), coef.data_ptr(),
+           streamed_tap_table(program, dev).data_ptr(), coef.numel(),
+           geo.steps, BOUNDARY_CODES[program.boundary],
+           float(program.boundary_value), _host_array(geo), geo.batch,
+           dev.index, stream)
+
+
+def padded_superstep(src, dst, center, taps, *, program, plan, layout,
+                     tile=None, segment=None) -> None:
     """B1: one superstep of ``plan.par_time`` steps of the padded carry
     ``src`` -> ``dst`` (true interior of ``dst`` only; see
-    ``common.padded_superstep_plain``)."""
+    ``common.padded_superstep_plain``), a one-shot grid: the register
+    queues for a star within ``QUEUE_STEPS``, the streamed kernel's
+    one-shot launcher (B3's, at ``par_time`` steps) for every other tap
+    set.  ``tile`` (in-plane) and ``segment`` override the picks."""
     _check_pair(src, dst, layout)
-    steps = plan.par_time
-    r = program.halo_radius
-    h = steps * r
-    H = layout.halo
-    if h > H:
-        raise ValueError(f"a {steps}-step window needs a ring of {h}, the "
-                         f"layout has {H}")
-    nd = program.ndim
-    n = tuple(layout.local_shape)
-    tile = pick_tile(plan, "padded_superstep", smem_optin(src.device.index))
-    _launch(PADDED_SUPERSTEP, src, dst, center, taps, program=program,
-            steps=steps, true=n, src=layout.padded_shape, load=(H - h,) * nd,
-            origin=(0,) * nd, dst=layout.padded_shape, store=(H,) * nd,
-            written=n, tile=tile, radius=(r,) * nd)
+    if plan.body("padded_superstep") == "streamed":
+        _streamed(PADDED_SUPERSTEP, "padded_superstep", src, dst, center,
+                  taps, program=program, plan=plan, layout=layout,
+                  tile=tile, segment=segment, route=TEMPORAL_SUPERSTEP)
+        return
+    batch = src.shape[0] if src.ndim > program.ndim else 1
+    geo = queued.carry_geometry(
+        program, plan.par_time, layout, batch=batch,
+        smem_limit=smem_optin(src.device.index), tile=tile,
+        segment=segment)
+    _queued_launch(PADDED_SUPERSTEP, src, dst, center, taps, geo, program)
 
 
 def _streamed(kernel: Kernel, name: str, src, dst, center, taps, *,
-              program, plan, layout, tile, segment) -> None:
-    """A streamed superstep of the padded carry (B3 or B4): geometry from
-    ``streamed.carry_geometry``, taps as (streamed, y, x) rows."""
+              program, plan, layout, tile, segment,
+              route: Optional[Kernel] = None) -> None:
+    """A streamed superstep of the padded carry (B3, B4, or B1 through
+    ``route``): geometry from ``streamed.carry_geometry``, taps as
+    (streamed, y, x) rows."""
     _check_pair(src, dst, layout)
     nd = program.ndim
     dev = src.device
@@ -285,12 +326,11 @@ def _streamed(kernel: Kernel, name: str, src, dst, center, taps, *,
         smem_limit=smem_optin(dev.index), tile=tile, segment=segment)
     coef = torch.cat([center.reshape(1), taps.reshape(-1)]).to(
         device=dev, dtype=torch.float32).contiguous()
-    flat = geo.array()
     stream = torch.cuda.current_stream(dev).cuda_stream
     kernel(src.data_ptr(), dst.data_ptr(), coef.data_ptr(),
            streamed_tap_table(program, dev).data_ptr(), coef.numel(), steps,
            BOUNDARY_CODES[program.boundary], float(program.boundary_value),
-           (_L * len(flat))(*flat), batch, dev.index, stream)
+           _host_array(geo), batch, dev.index, stream, route=route)
 
 
 def temporal_superstep(src, dst, center, taps, *, program, plan, layout,
@@ -312,49 +352,62 @@ def padded_pipelined(src, dst, center, taps, *, program, plan, layout,
               segment=segment)
 
 
-def _prepadded(kernel: Kernel, name: str, padded: torch.Tensor,
-               center: torch.Tensor, taps: torch.Tensor, *, program, plan,
-               true_shape: Tuple[int, ...],
-               offsets: Optional[Sequence[int]]) -> torch.Tensor:
-    """A superstep of a grid ``boundary_pad`` already padded by
-    ``plan.halo``; returns a new tensor of the rounded grid.  Cells of the
-    round-up slack are finite but unspecified (callers slice the true
-    region back, see ``superstep_common.cuh:boundary_fixup``)."""
+def _rounded(padded: torch.Tensor, program, plan) -> Tuple[int, ...]:
     nd = program.ndim
-    h = plan.halo
     spatial = tuple(padded.shape[-nd:])
-    rounded = tuple(s - 2 * h for s in spatial)
+    rounded = tuple(s - 2 * plan.halo for s in spatial)
     if any(s < 1 for s in rounded):
         raise ValueError(f"padded grid {spatial} is not larger than twice "
-                         f"the halo {h}")
+                         f"the halo {plan.halo}")
     _check(padded, "padded", spatial)
-    offsets = (0,) * nd if offsets is None else tuple(int(o)
-                                                       for o in offsets)
-    out = torch.empty(tuple(padded.shape[:-nd]) + rounded,
-                      device=padded.device, dtype=padded.dtype)
-    tile = pick_tile(plan, name, smem_optin(padded.device.index))
-    _launch(kernel, padded, out, center, taps, program=program,
-            steps=plan.par_time, true=true_shape, src=spatial,
-            load=(0,) * nd, origin=offsets, dst=rounded, store=(0,) * nd,
-            written=rounded, tile=tile,
-            radius=(program.halo_radius,) * nd)
-    return out
+    return rounded
+
+
+def _offsets(program, offsets) -> Tuple[int, ...]:
+    return (0,) * program.ndim if offsets is None else tuple(
+        int(o) for o in offsets)
 
 
 def superstep(padded, center, taps, *, program, plan, true_shape,
               offsets=None) -> torch.Tensor:
-    """B5: the pre-padded superstep."""
-    return _prepadded(SUPERSTEP, "superstep", padded, center, taps,
-                      program=program, plan=plan, true_shape=true_shape,
-                      offsets=offsets)
+    """B5: the pre-padded superstep: a grid ``boundary_pad`` already padded
+    by ``plan.halo`` -> a new tensor of the rounded grid.  Cells of the
+    round-up slack are finite but unspecified (callers slice the true
+    region back, see ``superstep_common.cuh:boundary_fixup``)."""
+    nd = program.ndim
+    rounded = _rounded(padded, program, plan)
+    out = torch.empty(tuple(padded.shape[:-nd]) + rounded,
+                      device=padded.device, dtype=padded.dtype)
+    tile = pick_tile(plan, "superstep", smem_optin(padded.device.index))
+    _launch(SUPERSTEP, padded, out, center, taps, program=program,
+            steps=plan.par_time, true=true_shape,
+            src=tuple(padded.shape[-nd:]), load=(0,) * nd,
+            origin=_offsets(program, offsets), dst=rounded,
+            store=(0,) * nd, written=rounded, tile=tile,
+            radius=(program.halo_radius,) * nd)
+    return out
 
 
 def pipelined_superstep(padded, center, taps, *, program, plan, true_shape,
-                        offsets=None) -> torch.Tensor:
-    """B6: B5 with the next tile's window prefetched."""
-    return _prepadded(PIPELINED_SUPERSTEP, "pipelined_superstep", padded, center,
-                      taps, program=program, plan=plan,
-                      true_shape=true_shape, offsets=offsets)
+                        offsets=None, tile=None,
+                        segment=None) -> torch.Tensor:
+    """B6: B5's function on persistent register-queued CTAs
+    (``queued.prepadded_geometry``), the first planes of a CTA's next work
+    item in flight while the current one computes.  ``tile`` (in-plane)
+    and ``segment`` override the picks."""
+    nd = program.ndim
+    rounded = _rounded(padded, program, plan)
+    out = torch.empty(tuple(padded.shape[:-nd]) + rounded,
+                      device=padded.device, dtype=padded.dtype)
+    batch = padded.shape[0] if padded.ndim > nd else 1
+    geo = queued.prepadded_geometry(
+        program, plan.par_time, padded.shape[-nd:], true_shape,
+        _offsets(program, offsets), batch=batch,
+        smem_limit=smem_optin(padded.device.index), tile=tile,
+        segment=segment)
+    _queued_launch(PIPELINED_SUPERSTEP, padded, out, center, taps, geo,
+                   program)
+    return out
 
 
 def refresh_wrap_halo(src: torch.Tensor, copies, padded_shape) -> None:

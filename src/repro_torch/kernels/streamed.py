@@ -22,6 +22,7 @@ nothing.  Everything here is host arithmetic, so the CPU tests check it.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import itertools
 import math
 from typing import List, Optional, Tuple
@@ -44,7 +45,7 @@ SHAPE_CODES = {"star": 1, "box": 2}
 THREADS = 256
 
 
-def _axes3(ndim: int, values) -> Tuple[int, int, int]:
+def axes3(ndim: int, values) -> Tuple[int, int, int]:
     """(streamed, y, x) of per-axis grid ``values``: a 2D grid's y slot
     is 1."""
     v = tuple(int(x) for x in values)
@@ -178,6 +179,7 @@ def smallest_streamed_tile(program, steps: int) -> Tuple[int, ...]:
                key=lambda t: streamed_need(program, steps, t))
 
 
+@functools.lru_cache(maxsize=None)
 def pick_streamed_tile(program, steps: int,
                        smem_limit: int) -> Tuple[int, ...]:
     """In-plane column tile of a streamed launch: the least
@@ -197,16 +199,18 @@ def pick_streamed_tile(program, steps: int,
     return min(fits, key=lambda t: (column_cost(nd, r, steps, t), -t[-1]))
 
 
-def segment_length(planes: int, columns: int, halo: int) -> int:
+def segment_length(planes: int, columns: int, halo: int,
+                   target: int = TARGET_ITEMS) -> int:
     """Output planes per segment: the whole streamed extent when the
-    column tiles alone give :data:`TARGET_ITEMS` work items, else short
-    enough to reach it, but not below ``2*halo`` (the overlap each
-    segment pays twice)."""
-    segs = max(1, -(-TARGET_ITEMS // max(1, columns)))
+    column tiles alone give ``target`` work items, else short enough to
+    reach it, but not below ``2*halo`` (the overlap each segment pays
+    twice)."""
+    segs = max(1, -(-target // max(1, columns)))
     length = -(-planes // segs)
     return max(1, min(planes, max(length, 2 * halo)))
 
 
+@functools.lru_cache(maxsize=256)
 def carry_geometry(program, steps: int, layout, *, batch: int,
                    smem_limit: int,
                    tile: Optional[Tuple[int, ...]] = None,
@@ -229,8 +233,8 @@ def carry_geometry(program, steps: int, layout, *, batch: int,
         raise ValueError(f"a streamed {nd}D column tile has {nd - 1} "
                          f"positive extents (got {tile})")
     tile2 = (1, tile[0]) if nd == 2 else tile
-    n = _axes3(nd, layout.local_shape)
-    P = _axes3(nd, layout.padded_shape)
+    n = axes3(nd, layout.local_shape)
+    P = axes3(nd, layout.padded_shape)
     off = (H, 0, H) if nd == 2 else (H, H, H)
     columns = batch * (-(-n[1] // tile2[0])) * (-(-n[2] // tile2[1]))
     if segment is None:

@@ -19,9 +19,9 @@ from repro_torch.lint.diagnostics import Diagnostic, error
 
 #: How each kernel holds its data, for the message.
 _HOLDS = {
-    "padded_superstep": "a halo'd window",
+    "padded_superstep": "planes of its column tile",
     "superstep": "a halo'd window",
-    "pipelined_superstep": "a computing and a prefetch window",
+    "pipelined_superstep": "planes of its column tile",
     "temporal_superstep": "a ring of planes per fused step",
     "padded_pipelined": "a ring of planes per fused step",
 }

@@ -313,15 +313,159 @@ def test_variant_launch_counts(cuda_device, variant, want):
 
 
 def test_compile_refuses_a_plan_no_tile_fits(cuda_device):
-    """RP105 at compile, before any launch: a 3D radius-4 plan under
-    temporal has a deep halo of 16 per side."""
-    prog = repro_torch.StencilProgram(ndim=3, radius=4)
+    """RP105 at compile, before any launch: a 3D box of radius 2 under
+    temporal fuses 8 steps per chunk, and its plane rings and offset tables
+    fit no column tile.  The 3D radius-4 plan whose B1 remainder of 3
+    steps the whole-window kernel refused now compiles."""
+    prog = repro_torch.StencilProgram(ndim=3, radius=2, shape="box")
     plan = repro_torch.BlockPlan(spec=prog, block_shape=(32, 64, 704),
-                                 par_time=1)
+                                 par_time=2)
     before = cuda.launches()
     with pytest.raises(DiagnosticError, match="RP105"):
-        repro_torch.stencil(prog).compile((512, 1024, 704), steps=3,
+        repro_torch.stencil(prog).compile((512, 1024, 704), steps=9,
                                           plan=plan, variant="temporal")
-    assert repro_torch.stencil(prog).compile(
-        (512, 1024, 704), steps=3, plan=plan).device == cuda_device
+    star = repro_torch.StencilProgram(ndim=3, radius=4)
+    plan4 = repro_torch.BlockPlan(spec=star, block_shape=(32, 64, 704),
+                                  par_time=1)
+    assert repro_torch.stencil(star).compile(
+        (512, 1024, 704), steps=3, plan=plan4,
+        variant="temporal").device == cuda_device
+    assert repro_torch.stencil(star).compile(
+        (512, 1024, 704), steps=3, plan=plan4).device == cuda_device
     assert cuda.launches() == before
+
+
+#: Register-queued kernels (B1, B6; ``kernels/queued.py``): (shape,
+#: radius, fused steps).  Stars within ``QUEUE_STEPS`` take the queue
+#: path; the star of 6 steps, the 3D star of radius 4 at 2 steps, the box
+#: and the diamond take B1's streamed route or B6's ring path.
+QUEUED = [("star", 1, 4), ("star", 2, 3), ("star", 3, 1), ("star", 4, 2),
+          ("star", 1, 6), ("box", 1, 2), ("diamond", 2, 1)]
+#: The picked geometry; a segment shorter than 2h; a column tile that
+#: divides neither blocked axis.
+QUEUED_CORNERS = ["picked", "short-segment", "ragged-tile"]
+
+
+def _queued_geometry(corner, ndim, steps, radius):
+    if corner == "short-segment":
+        return {"segment": max(1, steps * radius - 1)}
+    if corner == "ragged-tile":
+        return {"tile": (40,) if ndim == 2 else (3, 40)}
+    return {}
+
+
+@pytest.mark.parametrize("ndim", [2, 3])
+@pytest.mark.parametrize("boundary", ["clamp", "periodic", "constant"])
+@pytest.mark.parametrize("shape,radius,steps", QUEUED)
+@pytest.mark.parametrize("corner", QUEUED_CORNERS)
+def test_padded_superstep_matches_plain_version(cuda_device, ndim,
+                                                boundary, shape, radius,
+                                                steps, corner):
+    """B1 against ``padded_superstep_plain`` on a random padded carry
+    (ring and slack random too), batch 2: exact."""
+    prog = repro_torch.StencilProgram(ndim=ndim, radius=radius, shape=shape,
+                                      boundary=boundary, boundary_value=0.25)
+    plan = repro_torch.BlockPlan(spec=prog, block_shape=BLOCKS[ndim],
+                                 par_time=steps)
+    grid = (23, 30, 150) if ndim == 3 else (37, 150)
+    layout = common.ring_schedule(prog, plan, grid, steps).layout
+    src = _random((2,) + layout.padded_shape, cuda_device, ndim)
+    if layout.wrap_axes:
+        common.refresh_wrap_halo_plain(src, layout)
+    coeffs = prog.default_coeffs(seed=1).to(cuda_device)
+    geometry = _queued_geometry(corner, ndim, steps, radius)
+    got, want = torch.zeros_like(src), torch.zeros_like(src)
+    before = cuda.launches()
+    cuda.padded_superstep(src, got, coeffs.center, coeffs.taps, program=prog,
+                          plan=plan, layout=layout, **geometry)
+    assert cuda.launches()["padded_superstep"] == \
+        before["padded_superstep"] + 1
+    common.padded_superstep_plain(src, want, coeffs.center, coeffs.taps,
+                                  program=prog, plan=plan, layout=layout)
+    ix = _interior(layout)
+    torch.testing.assert_close(got[ix], want[ix], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("ndim", [2, 3])
+@pytest.mark.parametrize("boundary", ["clamp", "periodic", "constant"])
+@pytest.mark.parametrize("shape,radius,steps", QUEUED)
+@pytest.mark.parametrize("corner", QUEUED_CORNERS)
+def test_pipelined_superstep_matches_plain_version(cuda_device, ndim,
+                                                   boundary, shape, radius,
+                                                   steps, corner):
+    """B6 against ``superstep_plain``, batch 2, a shard at non-zero
+    offsets in a larger global grid (its low side past the global edge):
+    exact on the shard's true cells."""
+    prog = repro_torch.StencilProgram(ndim=ndim, radius=radius, shape=shape,
+                                      boundary=boundary, boundary_value=0.25)
+    plan = repro_torch.BlockPlan(spec=prog, block_shape=BLOCKS[ndim],
+                                 par_time=steps)
+    shape_ = (23, 30, 150) if ndim == 3 else (37, 150)
+    h = plan.halo
+    rounded = tuple(common.round_up(n, b) for n, b in zip(shape_,
+                                                           BLOCKS[ndim]))
+    g = _random((2,) + shape_, cuda_device, ndim)
+    padded = boundary_pad(prog, g, [(0, 0)] + [
+        (h, r - n + h) for n, r in zip(shape_, rounded)]).contiguous()
+    coeffs = prog.default_coeffs(seed=2).to(cuda_device)
+    offsets = (2,) * ndim
+    global_shape = tuple(n + 5 for n in shape_)
+    before = cuda.launches()["pipelined_superstep"]
+    got = cuda.pipelined_superstep(
+        padded, coeffs.center, coeffs.taps, program=prog, plan=plan,
+        true_shape=global_shape, offsets=offsets,
+        **_queued_geometry(corner, ndim, steps, radius))
+    assert cuda.launches()["pipelined_superstep"] == before + 1
+    want = common.superstep_plain(padded, coeffs.center, coeffs.taps,
+                                  program=prog, plan=plan,
+                                  true_shape=global_shape, offsets=offsets)
+    ix = (Ellipsis,) + tuple(slice(0, n) for n in shape_)
+    torch.testing.assert_close(got[ix], want[ix], rtol=0, atol=0)
+
+
+def test_queued_launches_on_two_streams_keep_their_coefficients(
+        cuda_device):
+    """``csrc/queued_superstep.cu`` holds a launch's coefficients in one
+    constant bank per device.  B1 with a star (its register queues) on one
+    stream and B6 with a box and other coefficients (its ring path) on a
+    second, interleaved four times each: every output equals its plain
+    version exactly."""
+    star = repro_torch.StencilProgram(ndim=3, radius=1, boundary="clamp")
+    box = dataclasses.replace(star, shape="box")
+    plan = repro_torch.BlockPlan(spec=star, block_shape=(8, 16, 128),
+                                 par_time=2)
+    plan_box = dataclasses.replace(plan, spec=box)
+    grid = (64, 96, 512)
+    layout = common.ring_schedule(star, plan, grid, 2).layout
+    src = _random(layout.padded_shape, cuda_device, 3)
+    h = plan.halo
+    rounded = tuple(common.round_up(n, b) for n, b in zip(grid, BLOCKS[3]))
+    padded = boundary_pad(box, src[_interior(layout)], [
+        (h, r - n + h) for n, r in zip(grid, rounded)]).contiguous()
+    c1 = star.default_coeffs(seed=1).to(cuda_device)
+    c2 = box.default_coeffs(seed=2).to(cuda_device)
+    streams = (torch.cuda.Stream(cuda_device), torch.cuda.Stream(cuda_device))
+    torch.cuda.synchronize()
+    carried, prepadded = [], []
+    for _ in range(4):
+        with torch.cuda.stream(streams[0]):
+            out = torch.zeros_like(src)
+            cuda.padded_superstep(src, out, c1.center, c1.taps, program=star,
+                                  plan=plan, layout=layout)
+            carried.append(out)
+        with torch.cuda.stream(streams[1]):
+            prepadded.append(cuda.pipelined_superstep(
+                padded, c2.center, c2.taps, program=box, plan=plan_box,
+                true_shape=grid))
+    torch.cuda.synchronize()
+    want = torch.zeros_like(src)
+    common.padded_superstep_plain(src, want, c1.center, c1.taps,
+                                  program=star, plan=plan, layout=layout)
+    want6 = common.superstep_plain(padded, c2.center, c2.taps, program=box,
+                                   plan=plan_box, true_shape=grid)
+    ix = _interior(layout)
+    true = tuple(slice(0, n) for n in grid)
+    for got in carried:
+        torch.testing.assert_close(got[ix], want[ix], rtol=0, atol=0)
+    for got in prepadded:
+        torch.testing.assert_close(got[true], want6[true], rtol=0, atol=0)

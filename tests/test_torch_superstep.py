@@ -21,7 +21,7 @@ from repro.lint.dataflow import verify_dataflow
 from repro.tuning.space import enumerate_space
 
 from repro_torch import convert
-from repro_torch.core.blocking import KERNELS, STREAMED_KERNELS
+from repro_torch.core.blocking import KERNELS
 from repro_torch.kernels import build, common, cuda
 
 ULP = dict(atol=1e-6, rtol=1e-5)
@@ -178,8 +178,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     (2, 8, 2, 17), (3, 4, 1, 25), (3, 8, 2, 729)])
 def test_pick_tile_fits_shared_memory(ndim, halo, steps, taps):
     """The plans of a 2D star r4, a 3D star r4 and a 3D box r4, for every
-    kernel: the window kernels' tile per axis, the streamed kernels'
-    in-plane column tile (halo and taps as named for B1)."""
+    kernel: B5's window tile per axis, every other kernel's in-plane
+    column tile (halo and taps as named for B1); x a multiple of 32, or
+    of 8 for the queued kernels (B1, B6) on their own source."""
     radius = halo // steps
     shape = "box" if taps == (2 * radius + 1) ** ndim else "star"
     prog = RefProgram(ndim=ndim, radius=radius, shape=shape)
@@ -195,8 +196,9 @@ def test_pick_tile_fits_shared_memory(ndim, halo, steps, taps):
                 cuda.pick_tile(plan, kernel, limit)
             continue
         tile = cuda.pick_tile(plan, kernel, limit)
-        want = ndim - 1 if kernel in STREAMED_KERNELS else ndim
-        assert len(tile) == want and tile[-1] % 32 == 0
+        want = ndim if kernel == "superstep" else ndim - 1
+        queued = plan.body(kernel) in ("queue", "ring")
+        assert len(tile) == want and tile[-1] % (8 if queued else 32) == 0
         assert plan.smem_bytes_for(tile, kernel) <= limit
         with pytest.raises(ValueError, match="no CTA tile fits"):
             cuda.pick_tile(plan, kernel, 1024)
@@ -209,8 +211,7 @@ def test_kernel_build_key_covers_included_headers(tmp_path, monkeypatch):
         for name in (src,) + build.includes(src):
             (tmp_path / name).write_bytes((build.CSRC / name).read_bytes())
     assert build.includes("padded_superstep.cu") == ("superstep_common.cuh",)
-    assert build.includes("pipelined_superstep.cu") == \
-        ("superstep_common.cuh",)
+    assert build.includes("queued_superstep.cu") == ()
     assert build.includes("wrap_halo.cu") == ()
     assert build.includes("streamed_superstep.cu") == ()
     monkeypatch.setattr(build, "CSRC", tmp_path)
@@ -219,8 +220,7 @@ def test_kernel_build_key_covers_included_headers(tmp_path, monkeypatch):
     header.write_text(header.read_text() + "\n// edited\n")
     after = {s: build.library_path(s) for s in build.SOURCES}
     assert after["padded_superstep.cu"] != before["padded_superstep.cu"]
-    assert after["pipelined_superstep.cu"] != \
-        before["pipelined_superstep.cu"]
+    assert after["queued_superstep.cu"] == before["queued_superstep.cu"]
     assert after["wrap_halo.cu"] == before["wrap_halo.cu"]
     assert after["streamed_superstep.cu"] == \
         before["streamed_superstep.cu"]

@@ -28,7 +28,7 @@ from repro_torch.analysis.hw import H100_SXM
 from repro_torch.configs import stencil3d
 from repro_torch.core.blocking import TEMPORAL_CHUNK
 from repro_torch.core.codegen import boundary_pad
-from repro_torch.kernels import common, cuda, ops
+from repro_torch.kernels import common, cuda, ops, streamed
 from repro_torch.lint.verify import smem_diagnostics
 
 TOL = dict(atol=5e-4, rtol=5e-4)
@@ -231,26 +231,20 @@ def test_run_call_padfallback_refuses_temporal():
 
 def test_smem_check_refuses_what_no_tile_fits():
     """RP105 with the H100 default, per kernel the run launches.  The
-    paper's 3D temporal plans now fit B3 (its plane rings shrink with the
+    paper's 3D temporal plans fit B3 (its plane rings shrink with the
     stages): 3D star r4 at 4 fused steps and r2 at 8 both at the column
-    tile (2, 32).  What still does not fit is the window kernel B1 at a
-    long remainder: 3 steps of radius 4 need 313,800 bytes even at
-    (1, 4, 32), so a temporal 3d_r4_paper run of 3 steps (or of unknown
-    steps, whose remainder may be 3) is refused, and one of 9 steps
-    (remainder 1) is not.  A 3D box of radius 2 at 8 fused steps fits no
-    column tile (its offset tables)."""
+    tile (2, 32).  B1 streams planes too, so its long remainders fit: a
+    temporal 3d_r4_paper run of 3 steps (a B1 remainder of 3 steps of
+    radius 4, on the streamed kernel: the whole window needed 313,800
+    bytes even at (1, 4, 32)) and one of unknown steps now compile.  A 3D
+    box of radius 2 at 8 fused steps still fits no column tile (its
+    offset tables)."""
     work = stencil3d.workloads()["3d_r4_paper"]
     plan = work.plan()
-    for steps in (None, 3):
-        found = smem_diagnostics(plan, "temporal", H100_SXM,
-                                 grid_shape=work.grid_shape, steps=steps)
-        assert [d.code for d in found] == ["RP105"]
-        assert "padded_superstep (3 fused steps" in found[0].message
-        assert "313800 bytes" in found[0].message
-        assert "(1, 4, 32)" in found[0].message
-        assert "temporal_superstep" not in found[0].message
-    assert smem_diagnostics(plan, "temporal", H100_SXM,
-                            grid_shape=work.grid_shape, steps=9) == []
+    for steps in (None, 3, 9):
+        assert smem_diagnostics(plan, "temporal", H100_SXM,
+                                grid_shape=work.grid_shape,
+                                steps=steps) == []
     assert smem_diagnostics(plan, "plain", H100_SXM) == []
     assert smem_diagnostics(plan, "pipelined", H100_SXM) == []
     r2 = stencil3d.workloads()["3d_r2_paper"].plan()
@@ -258,7 +252,7 @@ def test_smem_check_refuses_what_no_tile_fits():
     assert smem_diagnostics(r2, "temporal", H100_SXM,
                             grid_shape=(512, 1024, 704), steps=9) == []
     # unknown steps: the longest remainder, 7 steps of radius 2 in B1
-    assert [d.code for d in smem_diagnostics(r2, "temporal")] == ["RP105"]
+    assert smem_diagnostics(r2, "temporal") == []
     r2_one = dataclasses.replace(r2, par_time=1)
     assert smem_diagnostics(r2_one, "temporal") == []
     # the kernels' own tile picks agree with the pre-flight
@@ -268,30 +262,35 @@ def test_smem_check_refuses_what_no_tile_fits():
         assert p.smem_bytes_for(tile, "temporal_superstep") <= \
             H100_SXM.smem_optin
     three = dataclasses.replace(plan, par_time=3)
-    with pytest.raises(ValueError, match="no CTA tile fits"):
-        cuda.pick_tile(three, "padded_superstep", H100_SXM.smem_optin)
+    tile = cuda.pick_tile(three, "padded_superstep", H100_SXM.smem_optin)
+    assert tile == streamed.pick_streamed_tile(three.program, 3,
+                                               H100_SXM.smem_optin)
+    assert three.smem_bytes_for(tile, "padded_superstep") <= \
+        H100_SXM.smem_optin
     box = dataclasses.replace(r2, spec=dataclasses.replace(
         r2.spec, shape="box"))
     found = smem_diagnostics(box, "temporal", H100_SXM,
                              grid_shape=(512, 1024, 704), steps=9)
     assert [d.code for d in found] == ["RP105"]
     assert "temporal_superstep (8 fused steps" in found[0].message
+    assert "240924 bytes" in found[0].message
+    assert "padded_superstep" not in found[0].message
     with pytest.raises(ValueError, match="no CTA tile fits"):
         cuda.pick_tile(box, "temporal_superstep", H100_SXM.smem_optin)
 
 
 def test_smem_bytes_for_counts_windows_by_variant():
-    """Window kernels (B1, B5, B6) count halo'd windows; the streamed
-    kernels (B3, B4) count plane rings (``blocking.streamed_rings``)."""
+    """B5 counts halo'd windows; B3 and B4 count plane rings
+    (``blocking.streamed_rings``); B1 and B6 count the planes of
+    ``csrc/queued_superstep.cu`` (``blocking.QueuedPlanes``), except that
+    B1 hands a box to the streamed kernel and so counts its rings."""
     _, _, _, _, tplan, _ = _both(2, "clamp", radius=4)
+    assert tplan.program.shape == "box"
     tile = (32, 32)
     h = tplan.halo
     window = (32 + 2 * h) ** 2
     tables = 8 * tplan.program.num_taps
-    assert tplan.smem_bytes_for(tile) == 4 * 2 * window + tables
     assert tplan.smem_bytes_for(tile, "superstep") == 4 * 2 * window + tables
-    assert tplan.smem_bytes_for(tile, "pipelined_superstep") == \
-        4 * 3 * window + tables
     ntaps = tplan.program.num_taps
     # B3: 8 stages, ring s of 2r + 4 rows of 32 + 2*32 - 2*4*s cells (the
     # loaded ring 4 rows more: the next group's copy in flight), and a
@@ -304,7 +303,24 @@ def test_smem_bytes_for_counts_windows_by_variant():
 
     assert tplan.smem_bytes_for((32,), "temporal_superstep") == rings(8)
     assert tplan.smem_bytes_for((32,), "padded_pipelined") == rings(2)
+    assert tplan.smem_bytes_for((32,), "padded_superstep") == rings(2)
+    # B6's ring path: rows of 32 + 16 cells, pitch 48 + 12; 8 planes in
+    # flight (16 KB of 240-byte rows caps at 8); 2r + 1 + 8 loaded planes,
+    # 2r + 2 for the second stage; the tap table, the guard, an mbarrier
+    # per loaded plane
+    pitch, depth0 = 60, 9 + 8
+    assert tplan.smem_bytes_for((32,), "pipelined_superstep") == \
+        4 * (pitch * (depth0 + 10) + 16) + 8 * ntaps + 8 * depth0
+    # a star of radius 4 at 2 steps takes the queue path: groups of 4
+    # rows, its 2 x 12 queue values per cell leave stage 0 in the ring (2
+    # groups behind the current one, 8 in flight: 11 groups), and stage 1
+    # has two groups of centre rows
+    star = dataclasses.replace(tplan, spec=dataclasses.replace(
+        tplan.spec, shape="star"))
+    for kernel in ("padded_superstep", "pipelined_superstep"):
+        assert star.smem_bytes_for((32,), kernel) == \
+            4 * (pitch * (11 * 4 + 2 * 4) + 16) + 8 * 11
     one = dataclasses.replace(tplan, par_time=1)
-    assert one.smem_bytes_for(tile) == 4 * (32 + 8) ** 2 + tables
+    assert one.smem_bytes_for(tile, "superstep") == 4 * (32 + 8) ** 2 + tables
     with pytest.raises(ValueError, match="unknown superstep kernel"):
         tplan.smem_bytes_for(tile, "temporal")

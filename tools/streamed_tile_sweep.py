@@ -1,14 +1,20 @@
-"""Time the streamed kernels (B3, B4) at several column tiles on one card.
+"""Time the kernels that stream planes (B1, B3, B4, B6) at several column
+tiles on one card.
 
-    python3 tools/streamed_tile_sweep.py      # from the repo root
+    python3 tools/streamed_tile_sweep.py          # from the repo root
+    python3 tools/streamed_tile_sweep.py B1 B6    # only those kernels
 
-For the paper shapes that ``chip_smoke.py`` gives B3 and B4, prints each
-candidate in-plane tile's shared memory, column cost
-(``repro_torch.kernels.streamed.column_cost``, what
-``pick_streamed_tile`` minimises) and median ms of 7 launches after 2
-warm-ups (CUDA events), beside the tile ``cuda.pick_tile`` takes: it
-shows where the column cost and the time disagree.  Needs a CUDA card;
-exits non-zero without one.
+For the paper shapes that ``chip_smoke.py`` gives them, prints each
+candidate in-plane tile's shared memory, its cost (B3/B4:
+``streamed.column_cost``, what ``pick_streamed_tile`` minimises; B1/B6:
+``QueuedPlanes.cost``, what ``pick_queued_tile`` minimises), the CTAs one
+SM holds by shared memory and registers, and the median ms of 7 launches
+after 2 warm-ups (CUDA events), beside the tile ``cuda.pick_tile`` takes:
+it shows where the cost and the time disagree.  At the periodic box B1
+and B4 run the streamed kernel (one-shot and persistent) and B6 the ring
+path of ``queued_superstep.cu``: the two bodies for tap sets without a
+register-queue form, on one function of the same grid.  Needs a CUDA
+card; exits non-zero without one.
 """
 
 from __future__ import annotations
@@ -38,6 +44,17 @@ def median_ms(fn, runs: int = 7) -> float:
     return statistics.median(times)
 
 
+#: Shared memory of one SM; the queued and streamed kernels' register
+#: budget allows two CTAs per SM.
+SM_SMEM = 233472
+REGISTER_CTAS = 2
+
+
+def ctas_per_sm(smem: int) -> int:
+    from repro_torch.kernels.queued import CTA_RESERVED
+    return min(REGISTER_CTAS, SM_SMEM // (smem + CTA_RESERVED))
+
+
 def cases():
     """(label, program, plan, kernel, grid, tiles)."""
     from repro_torch.configs import stencil2d, stencil3d
@@ -61,6 +78,23 @@ def cases():
         ("B4 2d_box_periodic_pod 16384^2", box, box.plan(),
          "padded_pipelined", (16384, 16384),
          [(224,), (480,), (736,), (992,)]),
+        ("B1 2d_r4_paper", w2["2d_r4_paper"], w2["2d_r4_paper"].plan(),
+         "padded_superstep", (16384, 16384),
+         [(496,), (744,), (992,), (1008,)]),
+        ("B1 2d_box_periodic_pod 16384^2", box, box.plan(),
+         "padded_superstep", (16384, 16384),
+         [(224,), (480,), (736,), (992,)]),
+        ("B6 2d_box_periodic_pod 16384^2", box, box.plan(),
+         "pipelined_superstep", (16384, 16384),
+         [(224,), (480,), (736,), (992,), (1024,)]),
+        ("B1 3d_r4_paper", w3["3d_r4_paper"], w3["3d_r4_paper"].plan(),
+         "padded_superstep", w3["3d_r4_paper"].grid_shape,
+         [(10, 96), (10, 72), (12, 64), (14, 56), (16, 48), (20, 40),
+          (24, 32)]),
+        ("B6 3d_r4_paper", w3["3d_r4_paper"], w3["3d_r4_paper"].plan(),
+         "pipelined_superstep", w3["3d_r4_paper"].grid_shape,
+         [(10, 96), (10, 72), (12, 64), (14, 56), (16, 48), (20, 40),
+          (24, 32)]),
     ]
 
 
@@ -70,38 +104,64 @@ def main() -> int:
         print("streamed_tile_sweep: no CUDA device visible",
               file=sys.stderr)
         return 2
+    from repro_torch.core.blocking import queued_planes
     from repro_torch.kernels import common, cuda, streamed
 
     limit = cuda.smem_optin(0)
     print(f"{torch.cuda.get_device_name(0)}; {limit} bytes of shared "
           f"memory per block")
+    only = sys.argv[1:]
     for label, work, plan, kernel, shape, tiles in cases():
+        if only and label.split()[0] not in only:
+            continue
         prog = work.spec
-        variant = "temporal" if kernel == "temporal_superstep" \
-            else "pipelined"
-        layout = common.ring_schedule(prog, plan, shape, plan.par_time,
-                                      variant=variant).layout
-        gen = torch.Generator(device="cuda").manual_seed(0)
-        src = torch.rand(layout.padded_shape, generator=gen, device="cuda")
-        dst = torch.zeros_like(src)
-        coeffs = prog.default_coeffs().to("cuda")
-        launch = {"temporal_superstep": cuda.temporal_superstep,
-                  "padded_pipelined": cuda.padded_pipelined}[kernel]
+        variant = {"temporal_superstep": "temporal",
+                   "padded_pipelined": "pipelined"}.get(kernel, "plain")
         steps = plan.kernel_steps(kernel)
-        print(f"{label}: pick {cuda.pick_tile(plan, kernel, limit)}")
+        coeffs = prog.default_coeffs().to("cuda")
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        if kernel == "pipelined_superstep":
+            h = plan.halo
+            src = torch.rand(tuple(n + 2 * h for n in shape),
+                             generator=gen, device="cuda")
+            runs = {"": lambda t: cuda.pipelined_superstep(
+                src, coeffs.center, coeffs.taps, program=prog, plan=plan,
+                true_shape=shape, tile=t)}
+        else:
+            layout = common.ring_schedule(prog, plan, shape, plan.par_time,
+                                          variant=variant).layout
+            src = torch.rand(layout.padded_shape, generator=gen,
+                             device="cuda")
+            dst = torch.zeros_like(src)
+            launch = {"temporal_superstep": cuda.temporal_superstep,
+                      "padded_pipelined": cuda.padded_pipelined,
+                      "padded_superstep": cuda.padded_superstep}[kernel]
+
+            def run(t, **kw):
+                return launch(src, dst, coeffs.center, coeffs.taps,
+                              program=prog, plan=plan, layout=layout,
+                              tile=t, **kw)
+
+            runs = {"": run}
+        print(f"{label}: {plan.body(kernel)} body, pick "
+              f"{cuda.pick_tile(plan, kernel, limit)}")
         for tile in tiles:
-            need = streamed.streamed_need(prog, steps, tile)
-            cost = streamed.column_cost(prog.ndim, prog.halo_radius, steps,
-                                        tile)
+            need = plan.smem_bytes_for(tile, kernel)
+            if plan.body(kernel) == "streamed":
+                cost = streamed.column_cost(prog.ndim, prog.halo_radius,
+                                            steps, tile)
+            else:
+                cost = queued_planes(prog, steps, tile,
+                                     plan.body(kernel) == "queue").cost
             if need > limit:
                 print(f"  {tile}: {need} bytes, does not fit")
                 continue
-            ms = median_ms(lambda: launch(
-                src, dst, coeffs.center, coeffs.taps, program=prog,
-                plan=plan, layout=layout, tile=tile))
-            print(f"  {tile}: {need} bytes, column cost {cost!r}, "
-                  f"{ms!r} ms")
-        del src, dst
+            times = ", ".join(
+                f"{median_ms(lambda: fn(tile))!r} ms{how}"
+                for how, fn in runs.items())
+            print(f"  {tile}: {need} bytes, {ctas_per_sm(need)} CTAs per "
+                  f"SM, cost {cost!r}, {times}")
+        del src
         torch.cuda.empty_cache()
     return 0
 
