@@ -17,7 +17,8 @@ Phases (any failure raises, so the exit code is non-zero):
    with the port's oracle (``core/reference.program_nsteps``) on the same
    card tensors;
 3. each kernel's wrapper against its plain version on the same inputs at
-   the shapes the main path gives it (bit for bit), then its time: CUDA
+   the shapes the main path gives it (bit for bit; B2 per refresh, every
+   wrap axis in one launch), then its time: CUDA
    events, two warm-ups, the median of 7 runs, with the card's SM clock,
    power draw and temperature sampled before and after, beside the card's
    bound, the plain version's time and a PyTorch convolution yardstick
@@ -25,10 +26,11 @@ Phases (any failure raises, so the exit code is non-zero):
 4. small exact checks: 2D/3D x clamp/periodic/constant x star/box x batch
    2 x each variant against the float64 oracle on the card, the
    wrap-degenerate layout under each variant (the pre-padded kernels), the
-   kernels that stream planes (B1, B3, B4, B6) at a segment shorter than
-   twice the halo and a column tile that does not divide the grid, a plan
-   the whole-window B1 could not run, and the RP105 refusal of a plan no
-   CTA tile fits.
+   superstep kernels (B1, B3, B4, B5, B6, on each body they run) at a
+   segment shorter than twice the halo and a column tile that does not
+   divide the grid, a plan the whole-window B1 could not run, and the
+   RP105 refusal of a plan no CTA tile fits;
+5. the ``ptxas`` report of every instantiation: no stack frame.
 
 The last lines are the ``{"kernels": [...]}`` record, the ``nvidia-smi``
 line, and ``{"ok": true, "device": {...}}``.
@@ -47,9 +49,10 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
 
-#: kernel vs plain version, and front door vs oracle, in float32: both sides
-#: multiply then add in the same order without FMA contraction, so 0 is
-#: expected; the tolerance is the repo's ULP (tests/test_padded_carry.py).
+#: front door vs the port's oracle in float32: both multiply then add in
+#: the same order without FMA contraction, so 0 is expected; the tolerance
+#: is the repo's ULP (tests/test_padded_carry.py).  Kernels are held to
+#: their plain versions at atol = rtol = 0.
 ULP = dict(atol=1e-6, rtol=1e-5)
 #: float32 run vs the float64 oracle (the repo's TOL).
 TOL = 5e-4
@@ -147,24 +150,20 @@ def library_step(program, coeffs, grid, steps: int):
     return x.reshape(grid.shape)
 
 
-#: The design each kernel record names, by ``BlockPlan.body``: B1 and B6
-#: on the register queues of ``csrc/queued_superstep.cu``; for tap sets
-#: without one B1 on the streamed kernel, B6 on that source's ring path;
-#: B3/B4 on the streamed kernel, B5 on the whole-window body; B2's ring
-#: copies.
+#: The design each kernel record names, by ``BlockPlan.body``: B1, B5 and
+#: B6 on the register queues of ``csrc/queued_superstep.cu`` for stars,
+#: on the streamed kernel for every other tap set; B3/B4 on the streamed
+#: kernel; B2's single-launch wrap map.
 DESIGNS = {"queue": "register-queued", "streamed": "streamed",
-           "ring": "queued source, ring path", "window": "whole-window",
-           "copy": "wrap copies"}
+           "copy": "one-launch wrap map"}
 #: The source each body is in.
 BODY_SOURCES = {"queue": "queued_superstep.cu",
-                "ring": "queued_superstep.cu",
-                "streamed": "streamed_superstep.cu",
-                "window": "padded_superstep.cu"}
-#: Times of the whole-window kernels the redesigned ones replaced at that
-#: shape, quoted from PERF.md's kernel table (measured on NVIDIA H100 80GB
-#: HBM3, 700.00 W by earlier versions of this script); printed on lines of
-#: their own, never in the
-#: ``{"kernels": ...}`` record.
+                "streamed": "streamed_superstep.cu"}
+#: Times of the kernels the redesigned ones replaced at that shape, quoted
+#: from PERF.md's kernel table (measured on NVIDIA H100 80GB HBM3,
+#: 700.00 W by earlier versions of this script); printed on lines of their
+#: own, never in the ``{"kernels": ...}`` record.  B2's is per refresh:
+#: two launches (one per wrap axis) of 0.01969599910080433 ms.
 EARLIER_MS = {
     ("temporal_superstep", "2d_r4_paper"): 77.01376342773438,
     ("temporal_superstep", "3d_r2_paper_par_time_1"): 195.2475128173828,
@@ -174,6 +173,8 @@ EARLIER_MS = {
     ("padded_superstep", "3d_r4_paper"): 14.99120044708252,
     ("padded_superstep", "2d_box_periodic_pod"): 7.736576080322266,
     ("pipelined_superstep", "3d_r4_paper"): 17.478944778442383,
+    ("superstep", "2d_r4_paper"): 7.307007789611816,
+    ("wrap_halo", "2d_box_periodic_pod"): 2 * 0.01969599910080433,
 }
 #: FP32 without FMA contraction: a multiply and an add are two
 #: instructions, so counted flops run at half the data sheet's FMA rate.
@@ -198,7 +199,7 @@ def cases():
              expect={"padded_superstep": 3}, check="carry"),
         dict(name="2d_box_periodic_pod", work=w2["2d_box_periodic_pod"],
              grid=(16384, 16384), steps=10,
-             expect={"padded_superstep": 3, "wrap_halo": 6},
+             expect={"padded_superstep": 3, "wrap_halo": 3},
              check="carry", reduced=box_cut),
         dict(name="2d_r4_paper", work=w2["2d_r4_paper"], steps=19,
              variant="temporal",
@@ -219,13 +220,22 @@ def cases():
              check="pipelined"),
         dict(name="2d_box_periodic_pod", work=w2["2d_box_periodic_pod"],
              grid=(16384, 16384), steps=10, variant="pipelined",
-             expect={"padded_pipelined": 3, "wrap_halo": 6},
+             expect={"padded_pipelined": 3, "wrap_halo": 3},
              check="pipelined", reduced=box_cut),
         dict(name="2d_r4_paper", work=w2["2d_r4_paper"], backend="cuda",
              expect={"superstep": 1}, check="prepadded"),
+        dict(name="3d_r4_paper", work=w3["3d_r4_paper"], backend="cuda",
+             expect={"superstep": 1}, check="prepadded"),
+        dict(name="2d_box_periodic_pod", work=w2["2d_box_periodic_pod"],
+             grid=(16384, 16384), backend="cuda", expect={"superstep": 1},
+             check="prepadded", reduced=box_cut),
         dict(name="3d_r4_paper", work=w3["3d_r4_paper"],
              backend="cuda-pipelined", expect={"pipelined_superstep": 1},
              check="prepadded"),
+        dict(name="2d_box_periodic_pod", work=w2["2d_box_periodic_pod"],
+             grid=(16384, 16384), backend="cuda-pipelined",
+             expect={"pipelined_superstep": 1}, check="prepadded",
+             reduced=box_cut),
     ]
 
 
@@ -317,7 +327,8 @@ def library_ms(name, prog, coeffs, grid, steps):
 def record(name, kernel, source, replaces, design, state, err, ms,
            plain_ms, moved, flops, lib_ms, chip):
     b_ms, b_by = bound(moved, flops, chip)
-    print(f"  {kernel}: {ms!r} ms/launch, plain {plain_ms!r} ms, library "
+    unit = "ms/refresh" if kernel == "wrap_halo" else "ms/launch"
+    print(f"  {kernel}: {ms!r} {unit}, plain {plain_ms!r} ms, library "
           f"{lib_ms!r} ms, bound {b_ms!r} ms ({b_by}: {moved} bytes, "
           f"{flops} flop)")
     if b_by == "operations":
@@ -347,7 +358,8 @@ def carried(state, variant):
 
 
 def check_carry(case, state, chip):
-    """B2 and B1 at a plain run's shape."""
+    """B2 (per refresh: every wrap axis in one launch) and B1 at a plain
+    run's shape."""
     import torch
     from repro_torch.kernels import common, cuda
 
@@ -358,21 +370,28 @@ def check_carry(case, state, chip):
     print(f"  kernels at {name}: padded {layout.padded_shape}, "
           f"ring H={layout.halo}")
     if layout.wrap_axes:
-        copies = common.wrap_copies(layout)
+        # random values in the ring and slack, so that every copy shows
+        src = random_grid(layout.padded_shape, seed=1)
+        src[interior] = state["grid"]
         got = src.clone()
-        cuda.refresh_wrap_halo(got, copies, layout.padded_shape)
+        cuda.refresh_wrap_halo(got, layout)
         want = common.refresh_wrap_halo_plain(src.clone(), layout)
         torch.cuda.synchronize()
         err = check_close("wrap_halo vs refresh_wrap_halo_plain", got, want,
-                          **ULP)
-        naxes = len(layout.wrap_axes)
+                          atol=0.0, rtol=0.0)
+        del got, want
         buf = src.clone()
-        ms = median_ms(lambda: cuda.refresh_wrap_halo(
-            buf, copies, layout.padded_shape), label="wrap_halo") / naxes
+        ms = median_ms(lambda: cuda.refresh_wrap_halo(buf, layout),
+                       label="wrap_halo")
         plain_ms = median_ms(lambda: common.refresh_wrap_halo_plain(
-            buf, layout)) / naxes
-        moved = sum(2 * 4 * c.width * math.prod(layout.padded_shape)
-                    // layout.padded_shape[c.axis] for c in copies) / naxes
+            buf, layout))
+        del buf
+        # every shell cell written once and its interior source read once
+        shell = math.prod(layout.padded_shape) - math.prod(
+            layout.local_shape)
+        moved = 2 * 4 * shell
+        print(f"  wrap_halo: one launch per refresh, "
+              f"{len(cuda.wrap_boxes(layout))} boxes, {shell} shell cells")
         records.append(record(name, "wrap_halo", "wrap_halo.cu", 678,
                               "copy", state, err, ms, plain_ms, moved, 0.0,
                               None, chip))
@@ -440,9 +459,9 @@ def check_prepadded(case, state, chip):
 
     prog, plan, grid, coeffs = (state["prog"], state["plan"], state["grid"],
                                 state["coeffs"])
-    pipelined = case["backend"].endswith("-pipelined")
     kernel, launch, replaces = (
-        ("pipelined_superstep", cuda.pipelined_superstep, 223) if pipelined
+        ("pipelined_superstep", cuda.pipelined_superstep, 223)
+        if case["backend"].endswith("-pipelined")
         else ("superstep", cuda.superstep, 181))
     design = plan.body(kernel)
     source = BODY_SOURCES[design]
@@ -466,10 +485,8 @@ def check_prepadded(case, state, chip):
     want = plain_call()
     torch.cuda.synchronize()
     true = (Ellipsis,) + tuple(slice(0, s) for s in n)
-    # B6 is held to bit equality, B5 to the repo's ULP
-    tol = dict(atol=0.0, rtol=0.0) if pipelined else ULP
     err = check_close(f"{kernel} vs superstep_plain", got[true], want[true],
-                      **tol)
+                      atol=0.0, rtol=0.0)
     del got, want
     ms = median_ms(kernel_call, label=kernel)
     plain_ms = median_ms(plain_call)
@@ -531,7 +548,7 @@ def expected_launches(prog, plan, steps, variant):
         tail = "padded_superstep" if variant == "temporal" else main
         want[tail] = want.get(tail, 0) + 1
     if prog.boundary == "periodic":
-        want["wrap_halo"] = (full + (1 if rem else 0)) * prog.ndim
+        want["wrap_halo"] = full + (1 if rem else 0)
     return want
 
 
@@ -649,11 +666,11 @@ def exact_checks():
 
 
 def plane_corners():
-    """The kernels that stream planes at a segment shorter than twice the
-    halo and a column tile that divides neither blocked axis, batch 2,
-    against their plain versions (exact): B3 and B4; B1 on its register
-    queues and on the streamed route; B6 on its queues and its ring path,
-    as a shard at non-zero offsets."""
+    """The superstep kernels at a segment shorter than twice the halo and
+    a column tile that divides neither blocked axis, batch 2, against their
+    plain versions (exact): B3 and B4; B1 on its register queues and on
+    the streamed kernel; B5 and B6 on the queues and on the streamed
+    kernel's pre-padded mode, as a shard at non-zero offsets."""
     import torch
     import repro_torch
     from repro_torch.core.codegen import boundary_pad
@@ -682,10 +699,22 @@ def plane_corners():
         ("plain", 3, "star", 4, "clamp", (40, 50, 150), 2, (6, 24), 11, {}),
         ("plain", 3, "diamond", 2, "constant", (21, 30, 70), 2, (4, 32), 5,
          {}),
-        # B6: 3D star r4 (queues), 2D box r1 at 4 steps (ring path)
-        ("prepadded", 3, "star", 4, "clamp", (40, 50, 150), 1, (12, 40), 5,
+        # B5 and B6: 3D star r4 (queues); the streamed kernel's
+        # pre-padded mode: a 2D box r1 at 4 steps, a 3D diamond, a 2D star
+        # deeper than its queues
+        ("superstep", 3, "star", 4, "clamp", (40, 50, 150), 1, (12, 40), 5,
          {}),
-        ("prepadded", 2, "box", 1, "constant", (150, 200), 4, (96,), 5, {}),
+        ("superstep", 2, "box", 1, "constant", (150, 200), 4, (96,), 5, {}),
+        ("superstep", 3, "diamond", 2, "clamp", (21, 30, 70), 2, (4, 32),
+         3, {}),
+        ("superstep", 2, "star", 1, "periodic", (150, 200), 5, (96,), 7,
+         {}),
+        ("pipelined_superstep", 3, "star", 4, "clamp", (40, 50, 150), 1,
+         (12, 40), 5, {}),
+        ("pipelined_superstep", 2, "box", 1, "constant", (150, 200), 4,
+         (96,), 5, {}),
+        ("pipelined_superstep", 3, "diamond", 2, "clamp", (21, 30, 70), 2,
+         (4, 32), 3, {}),
     ]
     for variant, ndim, kind, radius, boundary, shape, par_time, tile, seg, \
             extra in cases:
@@ -700,24 +729,25 @@ def plane_corners():
         assert seg < 2 * h and any(n % t for n, t in zip(shape[1:], tile))
         what = (f"{variant} {ndim}D {kind} r={radius} {boundary} grid "
                 f"{shape} tile {tile} segment {seg} (h {h}) {extra}")
-        if variant == "prepadded":
+        if variant in ("superstep", "pipelined_superstep"):
+            launch = {"superstep": cuda.superstep,
+                      "pipelined_superstep": cuda.pipelined_superstep}[variant]
             rounded = tuple(common.round_up(n, b) for n, b in zip(shape,
                                                                    block))
             grid = random_grid((2,) + shape, seed=5)
             padded = boundary_pad(prog, grid, [(0, 0)] + [
                 (h, r - n + h) for n, r in zip(shape, rounded)]).contiguous()
             offsets, global_shape = (3,) * ndim, tuple(n + 7 for n in shape)
-            got = cuda.pipelined_superstep(
-                padded, coeffs.center, coeffs.taps, program=prog, plan=plan,
-                true_shape=global_shape, offsets=offsets, tile=tile,
-                segment=seg)
+            got = launch(padded, coeffs.center, coeffs.taps, program=prog,
+                         plan=plan, true_shape=global_shape, offsets=offsets,
+                         tile=tile, segment=seg)
             want = common.superstep_plain(
                 padded, coeffs.center, coeffs.taps, program=prog, plan=plan,
                 true_shape=global_shape, offsets=offsets)
             torch.cuda.synchronize()
             ix = (Ellipsis,) + tuple(slice(0, n) for n in shape)
-            check_close(f"pipelined_superstep {what}", got[ix], want[ix],
-                        atol=0.0, rtol=0.0)
+            check_close(f"{variant} ({plan.body(variant)}) {what}", got[ix],
+                        want[ix], atol=0.0, rtol=0.0)
             continue
         layout = common.ring_schedule(prog, plan, shape, par_time,
                                       variant=variant).layout
@@ -743,14 +773,15 @@ def plane_corners():
 
 #: The kernels ``ptxas_report`` reads, by source: each instantiation's
 #: name in the log, and how many instantiations the source has.
-PTXAS = {"streamed_superstep.cu": (("streamed_kernel",), 12),
-         "queued_superstep.cu": (("queue_kernel", "ring_kernel"), 23)}
+PTXAS = {"streamed_superstep.cu": (("streamed_kernel",), 24),
+         "queued_superstep.cu": (("queue_kernel",), 21),
+         "wrap_halo.cu": (("wrap_halo_kernel",), 1)}
 
 
 def ptxas_report():
-    """The ``-Xptxas=-v`` lines of every instantiation of the sources that
-    stream planes, from the build's log of the library this run loaded;
-    raises when one has a stack frame or an instantiation has no report."""
+    """The ``-Xptxas=-v`` lines of every kernel instantiation, from the
+    build's log of the library this run loaded; raises when one has a
+    stack frame or an instantiation has no report."""
     from repro_torch.kernels import build
     for source, (names, count) in PTXAS.items():
         entry = None
@@ -809,8 +840,9 @@ def main() -> int:
     if len(ported) != 6:
         raise AssertionError(f"kernel records cover {sorted(ported)}")
     for (kernel, name), ms in EARLIER_MS.items():
-        print(f"whole-window {kernel}@{name}, quoted from PERF.md's "
-              f"earlier ms, not measured in this run: {ms!r} ms/launch")
+        unit = "ms/refresh" if kernel == "wrap_halo" else "ms/launch"
+        print(f"earlier design of {kernel}@{name}, quoted from PERF.md's "
+              f"earlier ms, not measured in this run: {ms!r} {unit}")
 
     print(json.dumps({"kernels": records}))
     print(smi)

@@ -33,13 +33,11 @@ TEMPORAL_CHUNK = 4
 #: counts their launches under (B1, B3, B4, B5, B6).
 KERNELS = ("padded_superstep", "temporal_superstep", "padded_pipelined",
            "superstep", "pipelined_superstep")
-#: The kernels that stream a column tile plane by plane
-#: (``csrc/streamed_superstep.cu``); the others hold a whole window.
-STREAMED_KERNELS = ("temporal_superstep", "padded_pipelined")
-#: The kernels of ``csrc/queued_superstep.cu`` (B1 and B6): an in-plane
-#: column tile too, register queues for stars (for every other tap set B1
-#: runs the streamed kernel, B6 the ring path of its own source).
-QUEUED_KERNELS = ("padded_superstep", "pipelined_superstep")
+#: The kernels that run ``csrc/queued_superstep.cu``'s register queues for
+#: a star within :data:`QUEUE_STEPS` (B1, B5, B6) and the streamed kernel
+#: (``csrc/streamed_superstep.cu``) for every other tap set, as B3 and B4
+#: always do.  Every kernel takes an in-plane column tile.
+QUEUED_KERNELS = ("padded_superstep", "superstep", "pipelined_superstep")
 #: Planes per group of a streamed CTA, by grid rank: the planes one
 #: thread computes per in-plane cell (``csrc/streamed_superstep.cu``).
 COLUMN_PLANES = {2: 4, 3: 2}
@@ -145,20 +143,16 @@ def queue_path(program: StencilProgram, steps: int) -> bool:
 
 def kernel_body(program: StencilProgram, kernel: str, steps: int) -> str:
     """The body that runs ``steps`` fused steps of ``program`` for
-    ``kernel``: "queue" (B1, B6 with a star within :data:`QUEUE_STEPS`:
-    the register queues of ``csrc/queued_superstep.cu``), "ring" (B6
-    otherwise: the ring path of that source), "streamed" (B3, B4, and B1
-    otherwise: ``csrc/streamed_superstep.cu``, which ran the periodic box
-    faster than the ring path, ``PERF.md``), "window" (B5).  Shared
-    memory, the tile pick and RP105 all size a kernel by it."""
+    ``kernel``: "queue" (B1, B5, B6 with a star within
+    :data:`QUEUE_STEPS`: the register queues of
+    ``csrc/queued_superstep.cu``) or "streamed" (B3, B4, and B1, B5, B6
+    otherwise: ``csrc/streamed_superstep.cu``, on the padded carry or in
+    its pre-padded mode).  Shared memory, the tile pick and RP105 all size
+    a kernel by it."""
     check_kernel(kernel)
     if kernel in QUEUED_KERNELS and queue_path(program, steps):
         return "queue"
-    if kernel == "pipelined_superstep":
-        return "ring"
-    if kernel in STREAMED_KERNELS or kernel == "padded_superstep":
-        return "streamed"
-    return "window"
+    return "streamed"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -170,22 +164,17 @@ class QueuedPlanes:
     2D), rows :attr:`pitch` floats apart (the stage-0 extent rounded to 4
     floats plus 12: room for the 4..7-float shift that aligns a shared row
     with its source row, and the strips' 16-byte reads past it).  Stage-0
-    planes arrive in groups of :attr:`group` planes (``r`` on the queue
-    path, one on the ring path), one barrier a group, into a ring of
-    :attr:`groups` groups: those read behind the current group (the centre
-    planes of stage 1, ``r`` back, or all its streamed-axis taps, ``2r``
-    back), the current one and :attr:`ahead` in flight.  Each later stage
-    holds two groups of centre planes (queue path) or ``2r + 2`` planes
-    (ring path, which also keeps a tap table: an in-plane offset and a
-    plane delta per tap).  Then a guard of 16 floats and an 8-byte
-    mbarrier per loaded group."""
+    planes arrive in groups of :attr:`group` = ``r`` planes, one barrier a
+    group, into a ring of :attr:`groups` groups: those read behind the
+    current group (the centre planes of stage 1, ``r`` back, or all its
+    streamed-axis taps, ``2r`` back), the current one and :attr:`ahead` in
+    flight.  Each later stage holds two groups of centre planes.  Then a
+    guard of 16 floats and an 8-byte mbarrier per loaded group."""
 
     ndim: int
     radius: int
     steps: int
     tile: Tuple[int, ...]
-    queue: bool
-    ntaps: int
 
     @property
     def extent(self) -> Tuple[int, int]:
@@ -204,7 +193,7 @@ class QueuedPlanes:
 
     @property
     def group(self) -> int:
-        return self.radius if self.queue else 1
+        return self.radius
 
     @property
     def ahead(self) -> int:
@@ -214,7 +203,7 @@ class QueuedPlanes:
 
     @property
     def stage0_in_registers(self) -> bool:
-        return self.queue and self.steps * 3 * self.radius <= QUEUE_REGS
+        return self.steps * 3 * self.radius <= QUEUE_REGS
 
     @property
     def groups(self) -> int:
@@ -229,17 +218,15 @@ class QueuedPlanes:
 
     @property
     def planes(self) -> int:
-        later = 2 * self.group if self.queue else 2 * self.radius + 2
-        return self.depth0 + (self.steps - 1) * later
+        return self.depth0 + (self.steps - 1) * 2 * self.group
 
     def bytes(self) -> int:
-        tables = 0 if self.queue else 8 * self.ntaps
-        return 4 * (self.plane * self.planes + 16) + tables + 8 * self.groups
+        return 4 * (self.plane * self.planes + 16) + 8 * self.groups
 
     def strips(self, pad: int) -> Tuple[int, int, int]:
-        """(rows, strips per row, first strip) of the queue path's threads
-        at x shift ``pad``: strips of 4 cells at 16-byte aligned shared
-        columns over the stage-1 region."""
+        """(rows, strips per row, first strip) of the threads at x shift
+        ``pad``: strips of 4 cells at 16-byte aligned shared columns over
+        the stage-1 region."""
         r = self.radius
         E1, E2 = self.extent
         rows = E1 - (0 if self.ndim == 2 else 2 * r)
@@ -249,19 +236,12 @@ class QueuedPlanes:
     @property
     def cost(self) -> float:
         """Cells loaded and computed per output cell.  Loaded: the stage-0
-        extent.  Computed, on the queue path: every thread's strip in each
-        stage (a warp issues for its idle lanes too), at the widest x
-        shift; on the ring path each stage's region, the last one the
-        tile."""
+        extent.  Computed: every thread's strip in each stage (a warp
+        issues for its idle lanes too), at the widest x shift."""
         E1, E2 = self.extent
-        h, r = self.steps * self.radius, self.radius
-        if self.queue:
-            computed = self.steps * 4 * max(
-                rows * nx for rows, nx, _ in
-                (self.strips(pad) for pad in range(4, 8)))
-        else:
-            computed = sum(math.prod(t + 2 * (h - s * r) for t in self.tile)
-                           for s in range(1, self.steps + 1))
+        computed = self.steps * 4 * max(
+            rows * nx for rows, nx, _ in
+            (self.strips(pad) for pad in range(4, 8)))
         return (E1 * E2 + computed) / math.prod(self.tile)
 
     @property
@@ -271,15 +251,15 @@ class QueuedPlanes:
                    (self.strips(pad) for pad in range(4, 8)))
 
 
-def queued_planes(program: StencilProgram, steps: int, tile: Tuple[int, ...],
-                  queue: bool) -> QueuedPlanes:
+def queued_planes(program: StencilProgram, steps: int,
+                  tile: Tuple[int, ...]) -> QueuedPlanes:
     nd = program.ndim
     tile = tuple(int(t) for t in tile)
     if len(tile) != nd - 1 or min(tile) < 1:
         raise ValueError(f"a queued {nd}D tile has {nd - 1} positive "
                          f"in-plane extents (got {tile})")
     return QueuedPlanes(ndim=nd, radius=program.halo_radius, steps=steps,
-                        tile=tile, queue=queue, ntaps=program.num_taps)
+                        tile=tile)
 
 
 def normalize_variant(variant=None) -> str:
@@ -362,31 +342,16 @@ class BlockPlan:
     def smem_bytes_for(self, tile: Tuple[int, ...],
                        kernel: str = "padded_superstep") -> int:
         """Dynamic shared memory of one CTA of ``kernel`` (a name of
-        :data:`KERNELS`) at CTA tile ``tile`` under this plan.
-
-        B5 (``superstep``) takes an output tile per grid axis and holds
-        one halo'd window (``tile + 2*halo`` per axis), a second when the
-        fused steps ping-pong, and the coefficient and offset tables (4
-        bytes each per tap).  Every other kernel takes an in-plane column
-        tile: the streamed kernels (B3 ``temporal_superstep``, B4
-        ``padded_pipelined``) hold plane rings (:func:`streamed_smem_bytes`);
-        B1 (``padded_superstep``) and B6 (``pipelined_superstep``) hold the
-        :class:`QueuedPlanes` of their register-queue path, B6 that of its
-        ring path otherwise, B1 the streamed rings (:meth:`body`).
-        """
+        :data:`KERNELS`) at in-plane column tile ``tile`` under this plan,
+        for the body it runs (:meth:`body`): the :class:`QueuedPlanes` of
+        the register queues, or the plane rings of the streamed kernel
+        (:func:`streamed_smem_bytes`)."""
         steps = self.kernel_steps(kernel)
-        body = self.body(kernel)
-        if body == "streamed":
+        if self.body(kernel) == "streamed":
             return streamed_smem_bytes(
                 self.spec.ndim, self.spec.halo_radius, self.spec.num_taps,
                 steps, tile, itemsize=self.itemsize)
-        if body in ("queue", "ring"):
-            return queued_planes(self.spec, steps, tile,
-                                 body == "queue").bytes()
-        halo = steps * self.spec.halo_radius
-        window = math.prod(t + 2 * halo for t in tile)
-        windows = 2 if steps > 1 else 1
-        return self.itemsize * windows * window + 8 * self.spec.num_taps
+        return queued_planes(self.spec, steps, tile).bytes()
 
     def body(self, kernel: str) -> str:
         """:func:`kernel_body` of ``kernel`` under this plan."""

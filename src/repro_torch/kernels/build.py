@@ -24,8 +24,7 @@ from typing import Dict, Iterable, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("padded_superstep.cu", "queued_superstep.cu",
-           "streamed_superstep.cu", "wrap_halo.cu")
+SOURCES = ("queued_superstep.cu", "streamed_superstep.cu", "wrap_halo.cu")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

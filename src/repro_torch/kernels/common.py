@@ -16,7 +16,8 @@ The kernels of a superstep, each with a plain PyTorch version here:
   card they stream planes through the window instead of holding it
   (``csrc/queued_superstep.cu``, ``csrc/streamed_superstep.cu``).
 * ``refresh_wrap_halo`` (reference ``_refresh_wrap_halo``): same-buffer
-  periodic ring copies following ``wrap_copies``, axis by axis.
+  periodic ring copies following ``wrap_copies``, axis by axis (on the
+  card their composition, every wrap axis in one launch).
 * ``superstep_call`` (reference ``build_superstep_kernel``, with
   "pipelined" ``build_pipelined_kernel``): the pre-padded superstep over
   a grid ``boundary_pad`` already padded, returning the rounded grid.
@@ -434,11 +435,10 @@ def padded_superstep(src: torch.Tensor, dst: torch.Tensor,
 
 def refresh_wrap_halo(src: torch.Tensor,
                       layout: PaddedLayout) -> torch.Tensor:
-    """Periodic ring refresh of ``src`` in place: one CUDA launch per wrap
-    axis for a CUDA tensor, the plain version for a CPU tensor."""
+    """Periodic ring refresh of ``src`` in place: one CUDA launch for a
+    CUDA tensor, the plain version for a CPU tensor."""
     if _on_cuda(src):
-        cuda.refresh_wrap_halo(src, wrap_copies(layout),
-                               layout.padded_shape)
+        cuda.refresh_wrap_halo(src, layout)
         return src
     return refresh_wrap_halo_plain(src, layout)
 

@@ -1,59 +1,46 @@
 // Register-queued superstep kernels, for sm_90a.
 //
-// Two entry points share one kernel skeleton:
+// One launcher (queued_superstep_launch) runs three TPU kernels of
+// repro/kernels/common.py for stars within QUEUE_STEPS (core/blocking.py);
+// every other tap set runs streamed_superstep.cu (kernels/cuda.py):
 //
-// * padded_superstep_launch replaces the TPU kernel
-//   repro/kernels/common.py:build_padded_superstep_kernel (`:707`, launched
-//   by _padded_superstep_pallas at `:1012`/`:1024`): one superstep of T
-//   fused steps of the padded carry, read at ring offset H - h of `src`,
-//   the t = 0 boundary applied plane by plane on load, the true cells
-//   written into the other carry buffer `dst` at H.  Plain PyTorch
-//   version: repro_torch/kernels/common.py:padded_superstep_plain.
-// * pipelined_superstep_launch replaces build_pipelined_kernel (`:223`,
-//   launched by _superstep_pallas at `:362`): one superstep of a grid that
-//   boundary_pad already padded by h.  Window at the tile origin, no t = 0
-//   mapping, fixups between steps at global coordinates origin + local
-//   (origin: the shard offsets), every cell of the rounded output written
-//   into a separate grid.  Persistent CTAs: the first planes of a CTA's
-//   next work item are in flight while the current one computes.  Plain
-//   version: common.py:superstep_plain.
-//
-// Tap sets without a register-queue form here (boxes, diamonds, stars
-// with more fused steps than the queues hold) take the ring path of this
-// source in the pre-padded case; the padded carry sends them to
-// streamed_superstep.cu instead (kernels/cuda.py), whose fixed box taps
-// ran the periodic box at 16384^2 faster than any ring path of this
-// source (PERF.md, H100 80GB HBM3, 700 W).  The streamed kernel has no
-// shard origin and maps the t = 0 boundary on load, so B6's pre-padded
-// shards keep the ring path here.
+// * B1, build_padded_superstep_kernel (`:707`, launched by
+//   _padded_superstep_pallas at `:1012`/`:1024`): one superstep of T fused
+//   steps of the padded carry, read at ring offset H - h of `src`, the
+//   t = 0 boundary applied plane by plane on load, the true cells written
+//   into the other carry buffer `dst` at H; a one-shot grid.  Plain
+//   PyTorch version: repro_torch/kernels/common.py:padded_superstep_plain.
+// * B5, build_superstep_kernel (`:181`), and B6, build_pipelined_kernel
+//   (`:223`), both launched by _superstep_pallas at `:362`: one superstep
+//   of a grid that boundary_pad already padded by h.  Window at the tile
+//   origin, no t = 0 mapping, fixups between steps at global coordinates
+//   origin + local (origin: the shard offsets), every cell of the rounded
+//   output written into a separate grid.  B5 runs a one-shot grid, B6
+//   persistent CTAs: the first planes of a CTA's next work item are in
+//   flight while the current one computes.  Plain version:
+//   common.py:superstep_plain.
 //
 // Geometry (kernels/queued.py builds the host array): axes (streamed, y,
 // x), a 2D grid streaming along y with a dummy y of extent 1.  A work item
 // is a column tile (ty, tx) of output cells and a segment [a, e) of output
 // planes.  Stage 0 is the source planes [a - h, e + h) (h = T*r), copied
-// in groups of B planes into a ring of G groups of the stage-0 extent
+// in groups of B = R planes into a ring of G groups of the stage-0 extent
 // (ty + 2h, tx + 2h), rows P floats apart, stage-0 column c at shared
 // column c + pad (pad in 4..7, so that a source row and its shared row
 // are 16-byte aligned together).  One barrier per group.
 //
-// The queue path (stars of radius R <= 4, T <= QUEUE_STEPS[R]; groups of
-// B = R planes).  A thread owns one strip of 4 consecutive x cells of the
-// stage-1 region (tile + 2(h - r) per blocked axis).  For each stage s it
-// keeps 3R values of its cells along the streamed axis in registers, q[s]
-// (stage 0's only where T*3R <= 14: else those stay in the loaded ring).
-// At step k (stage-0 planes Z .. Z + R - 1 land, Z = a - h + kR), stage
-// s >= 1 computes planes Z - sR .. Z - sR + R - 1: their streamed-axis
-// taps come from q[s-1], their in-plane taps from stage s-1's planes in
-// shared memory: the loaded ring for s = 1, else a double-buffered group
-// of centre planes that the threads write from q[s-1] at the start of the
+// A thread owns one strip of 4 consecutive x cells of the stage-1 region
+// (tile + 2(h - r) per blocked axis).  For each stage s it keeps 3R values
+// of its cells along the streamed axis in registers, q[s] (stage 0's only
+// where T*3R <= 14: else those stay in the loaded ring).  At step k
+// (stage-0 planes Z .. Z + R - 1 land, Z = a - h + kR), stage s >= 1
+// computes planes Z - sR .. Z - sR + R - 1: their streamed-axis taps come
+// from q[s-1], their in-plane taps from stage s-1's planes in shared
+// memory: the loaded ring for s = 1, else a double-buffered group of
+// centre planes that the threads write from q[s-1] at the start of the
 // step.  So one barrier per group of R planes publishes the loaded group
 // and every centre group.  A thread reads the 4 + 2R x values its strip
 // needs with three 16-byte loads and each y row with one.
-//
-// The ring path (any other tap set, runtime taps from a shared table;
-// groups of one plane): stage s keeps 2r + 2 planes in shared memory and
-// computes plane z - s*r - (s - 1), one plane behind what the barrier has
-// published.
 //
 // Copies: warp 0 issues one cp.async.bulk per row of a group's planes,
 // completing on the ring slot's mbarrier, `ahead` groups ahead of the step
@@ -76,13 +63,11 @@
 //   - clamp: a cell outside is the cell at the clamped coordinate on every
 //     axis (the axis-ordered copies compose to that), clipped into the
 //     stage's region as the plain version clips it.  The carry loads the
-//     clamped source cell.  Between steps the queue path copies in-plane
-//     ghost cells of a centre plane from their clamped cell (one more
-//     barrier, on tiles that touch the in-plane boundary), pushes a copy of
-//     plane n-1 for planes above the grid and, when a stage computes plane
-//     0, overwrites the queue entries of planes -R..-1 with it; the ring
-//     path computes an in-plane ghost at its clamped coordinate and copies
-//     ghost planes, as streamed_superstep.cu does.
+//     clamped source cell.  Between steps the threads copy in-plane ghost
+//     cells of a centre plane from their clamped cell (one more barrier,
+//     on tiles that touch the in-plane boundary), push a copy of plane n-1
+//     for planes above the grid and, when a stage computes plane 0,
+//     overwrite the queue entries of planes -R..-1 with it.
 //
 // Arithmetic: acc = c0*v0, then acc = acc + ck*vk in canonical tap order
 // with __fmul_rn/__fadd_rn (no FMA contraction), so every output equals
@@ -102,7 +87,8 @@
 // output, a y tap a quarter; index arithmetic is paid once per strip and
 // step; coefficients are constant-bank operands.  What is left is the
 // FP32 issue rate (33 to 49 instructions per output per step) and the
-// queue shifts (2R moves per cell and stage).
+// queue shifts (2R moves per cell and stage).  B5 runs the one-shot grid
+// because persistent CTAs measured slower for B1 in 3D (PERF.md).
 
 #include <cuda_runtime.h>
 
@@ -130,7 +116,6 @@ __host__ __device__ constexpr bool stage0_in_registers(int r, int t) {
 }
 
 enum Boundary { kClamp = 0, kPeriodic = 1, kConstant = 2 };
-enum Path { kPathRing = 0, kPathQueue = 1 };
 
 // Rows of the host geometry array, three (streamed, y, x) values each
 // (kernels/queued.py:QueuedGeometry.array builds it).
@@ -145,7 +130,7 @@ enum Field {
   kRadius,   // shrink per step (0 on a 2D grid's dummy y)
   kBlock,    // (segment length L, tile y, tile x)
   kPlanes,   // (fused steps T, planes per group B, groups ahead)
-  kMode,     // (Path, padded carry?, persistent?)
+  kMode,     // (padded carry?, persistent?, 0)
   kBytes,    // (shared-memory bytes, 0, 0)
   kFields
 };
@@ -168,10 +153,12 @@ struct Geo {
   int r0, r1, r2, h0, h1, h2;
   int L, ty, tx, T, B, ahead;
   int E1, E2, P, pad, plane;  // stage-0 extent, row pitch, x shift
-  int G, D0, depth;  // loaded groups and planes; computed rings (ring path)
-  int path, carry, persistent;
-  int Y1, NX, j0;  // queue path: strip rows, strips per row, first strip
-  int ntaps;
+  int G, D0;  // loaded groups and planes
+  // all planes (plane_count), from the host: with the count inlined into
+  // the kernel, ptxas spilled the 1-step radius-4 instantiations
+  int carry, persistent;
+  int Y1, NX, j0;  // strip rows, strips per row, first strip
+  int planes;
   int bulk;  // rows may be copied with cp.async.bulk
 };
 
@@ -183,21 +170,18 @@ __host__ __device__ inline long long flat(int b, int z, int y, int x, int e0,
   return (((long long)b * e0 + z) * e1 + y) * e2 + x;
 }
 
-// Planes before the tables, the guard and the mbarriers: the loaded ring
-// and, per later stage, two groups of centre planes (queue path) or a ring
-// of 2r + 2 planes (ring path).
-__host__ __device__ inline int plane_count(const Geo& g) {
-  return g.path == kPathQueue ? g.D0 + 2 * g.B * (g.T - 1)
-                              : g.D0 + (g.T - 1) * g.depth;
+// Planes before the guard and the mbarriers: the loaded ring and, per
+// later stage, two groups of centre planes.
+inline int plane_count(const Geo& g) {
+  return g.D0 + 2 * g.B * (g.T - 1);
 }
 
-// Dynamic shared memory: the planes, the ring path's tap table (offsets
-// and plane deltas), a guard, one mbarrier per loaded group.  The host
-// counts the same bytes (core/blocking.py:QueuedPlanes.bytes).
+// Dynamic shared memory: the planes, a guard, one mbarrier per loaded
+// group.  The host counts the same bytes
+// (core/blocking.py:QueuedPlanes.bytes).
 inline size_t smem_bytes(const Geo& g) {
-  size_t b = sizeof(float) * ((size_t)g.plane * plane_count(g) + kGuard);
-  if (g.path == kPathRing) b += 2 * sizeof(int) * (size_t)g.ntaps;
-  return b + sizeof(unsigned long long) * g.G;
+  return sizeof(float) * ((size_t)g.plane * plane_count(g) + kGuard) +
+         sizeof(unsigned long long) * g.G;
 }
 
 inline bool make_geo(const long long* a, int steps, int batch, int ntaps,
@@ -215,15 +199,13 @@ inline bool make_geo(const long long* a, int steps, int batch, int ntaps,
   g->r0 = f(kRadius, 0), g->r1 = f(kRadius, 1), g->r2 = f(kRadius, 2);
   g->L = f(kBlock, 0), g->ty = f(kBlock, 1), g->tx = f(kBlock, 2);
   g->T = f(kPlanes, 0), g->B = f(kPlanes, 1), g->ahead = f(kPlanes, 2);
-  g->path = f(kMode, 0), g->carry = f(kMode, 1), g->persistent = f(kMode, 2);
-  g->ntaps = ntaps;
-  const bool queue = g->path == kPathQueue;
+  g->carry = f(kMode, 0), g->persistent = f(kMode, 1);
   if (g->T != steps || steps < 1 || batch < 1 || g->L < 1 || g->ty < 1 ||
       g->tx < 1 || g->tx % 4 != 0 || g->ahead < 1 || g->w0 < 1 ||
       g->w1 < 1 || g->w2 < 1 || g->r0 < 1 || g->r2 < 1 ||
       g->so2 < steps * g->r2 || ntaps < 1 || ntaps > kMaxTaps ||
-      (g->path != kPathRing && g->path != kPathQueue) ||
-      g->B != (queue ? g->r0 : 1))
+      (g->carry != 0 && g->carry != 1) ||
+      (g->persistent != 0 && g->persistent != 1) || g->B != g->r0)
     return false;
   g->h0 = steps * g->r0, g->h1 = steps * g->r1, g->h2 = steps * g->r2;
   g->E1 = g->ty + 2 * g->h1;
@@ -231,11 +213,9 @@ inline bool make_geo(const long long* a, int steps, int batch, int ntaps,
   g->pad = 4 + ((g->so2 - g->h2) & 3);
   g->P = round4(g->E2) + 12;
   g->plane = g->E1 * g->P;
-  g->depth = 2 * g->r0 + 2;
   // loaded planes read behind the current group's first: the centre
   // planes of stage 1 (R), or all its streamed-axis taps (2R)
-  const int back = queue && stage0_in_registers(g->r0, g->T) ? g->r0
-                                                             : 2 * g->r0;
+  const int back = stage0_in_registers(g->r0, g->T) ? g->r0 : 2 * g->r0;
   g->G = (back + g->B - 1) / g->B + 1 + g->ahead;
   g->D0 = g->G * g->B;
   g->Y1 = g->E1 - 2 * g->r1;
@@ -246,7 +226,8 @@ inline bool make_geo(const long long* a, int steps, int batch, int ntaps,
   g->txs = (g->w2 + g->tx - 1) / g->tx;
   const long long total = (long long)batch * g->segs * g->tys * g->txs;
   g->total = (int)total;
-  if (queue && g->NX * g->Y1 > kThreads) return false;
+  if (g->NX * g->Y1 > kThreads) return false;
+  g->planes = plane_count(*g);
   return (long long)g->plane * plane_count(*g) < (1LL << 26) &&
          total < (1LL << 31);
 }
@@ -657,7 +638,7 @@ queue_kernel(const float* __restrict__ src, float* __restrict__ dst,
   // centre plane j of stage s at parity p: group 2(s-1) + p
   float* cbuf = smem + g.D0 * g.plane;
   unsigned long long* bars = reinterpret_cast<unsigned long long*>(
-      smem + g.plane * plane_count(g) + kGuard);
+      smem + g.plane * g.planes + kGuard);
   init_barriers(bars, g.G);
 
   const int tid = threadIdx.x;
@@ -834,128 +815,6 @@ queue_kernel(const float* __restrict__ src, float* __restrict__ dst,
   }
 }
 
-// ---- the ring path -------------------------------------------------------------
-
-template <int ND>
-__global__ void __launch_bounds__(kThreads, 2)
-ring_kernel(const float* __restrict__ src, float* __restrict__ dst,
-            const int* __restrict__ offs, Geo g, int boundary, float bval) {
-  extern __shared__ __align__(16) float smem[];
-  float* ring0 = smem;
-  float* rings = smem + g.D0 * g.plane;  // stage s: (s-1)*depth planes on
-  int* tab_off = reinterpret_cast<int*>(smem + g.plane * plane_count(g));
-  int* tab_dz = tab_off + g.ntaps;
-  unsigned long long* bars = reinterpret_cast<unsigned long long*>(
-      smem + g.plane * plane_count(g) + kGuard + 2 * g.ntaps);
-  // the ring path loads groups of one plane: slots are planes
-  for (int k = threadIdx.x; k < g.ntaps; k += kThreads) {
-    tab_dz[k] = offs[3 * k];
-    tab_off[k] = offs[3 * k + 1] * g.P + offs[3 * k + 2];
-  }
-  init_barriers(bars, g.G);
-
-  const bool clamp = boundary == kClamp, constant = boundary == kConstant;
-  const int r = g.r0;
-  issue_first(src, ring0, bars, g, boundary, bval);
-  unsigned step = 0;  // planes consumed by this CTA
-  for (int lin = blockIdx.x; lin < g.total; lin += gridDim.x) {
-    const Item it = item_of(g, lin);
-    const Frame fr(g, it);
-    const int base = it.a - g.h0;  // the item's first stage-0 plane
-    const unsigned first = step;
-    const int nload = it.e - it.a + 2 * g.h0;  // = it.steps: groups of 1
-    const int th = it.y0 + g.ty < g.w1 ? g.ty : g.w1 - it.y0;
-    const int tw = it.x0 + g.tx < g.w2 ? g.tx : g.w2 - it.x0;
-    for (int k = 0; k < nload + g.T - 1; ++k) {
-      const int z = base + k;
-      if (k < nload) {
-        mbar_wait(bars + step % g.G, (step / g.G) & 1);
-        __syncthreads();
-        issue_at(src, ring0, bars, g, lin, it, k + g.ahead, step + g.ahead,
-                 boundary, bval);
-        ++step;
-      } else {
-        __syncthreads();
-      }
-      for (int s = 1; s <= g.T; ++s) {
-        // stage s reads what the barrier published: one plane behind
-        // stage s-1's newest from s = 2 on
-        const int p = z - s * r - (s - 1);
-        const int grow = (g.T - s) * r;
-        if (p < it.a - grow || p >= it.e + grow) continue;
-        const bool last = s == g.T;
-        const int gp = g.o0 + p;
-        // ghost planes of a computed stage: constant fills, clamp copies
-        // plane n-1 above the grid and skips planes below (plane 0 fills
-        // them when it is computed)
-        if (!last && clamp && gp < 0) continue;
-        const bool above = !last && clamp && gp >= g.n0;
-        const bool fill = !last && constant && (gp < 0 || gp >= g.n0);
-        const float* in = s == 1 ? ring0 : rings + (s - 2) * g.depth * g.plane;
-        const int din = s == 1 ? g.D0 : g.depth;
-        // ring slot of plane p in the stage's input ring, and in its own
-        const int sp = s == 1 ? (int)((first + (unsigned)(p - base)) % g.D0)
-                              : (p - base) % g.depth;
-        float* out = rings + (s - 1) * g.depth * g.plane;
-        const int so = (p - base) % g.depth;
-        const int sprev = (p - 1 - base + g.depth) % g.depth;
-        const int ylo = last ? g.h1 : s * g.r1;
-        const int yhi = last ? g.h1 + th : g.E1 - s * g.r1;
-        const int xlo = last ? g.h2 : s * g.r2;
-        const int xhi = last ? g.h2 + tw : g.E2 - s * g.r2;
-        const int nx = xhi - xlo, count = (yhi - ylo) * nx;
-        for (int f = threadIdx.x; f < count; f += kThreads) {
-          const int yy = f / nx;
-          const int iy = ylo + yy, c = xlo + (f - yy * nx);
-          float val;
-          if (fill) {
-            val = bval;
-          } else if (above) {
-            val = out[sprev * g.plane + iy * g.P + c + g.pad];
-          } else {
-            int my = iy, mc = c;
-            bool ghost_fill = false;
-            if (!last && boundary != kPeriodic && fr.edge &&
-                fr.outside(g, iy, c)) {
-              ghost_fill = constant;
-              my = fr.row(g, iy, ylo, yhi);
-              mc = fr.col(g, c, xlo, xhi);
-            }
-            if (ghost_fill) {
-              val = bval;
-            } else {
-              const int cell = my * g.P + mc + g.pad;
-              float acc = __fmul_rn(c_coef[0], in[sp * g.plane + cell]);
-              for (int t = 1; t < g.ntaps; ++t) {
-                int sl = sp + tab_dz[t];
-                sl += sl < 0 ? din : 0;
-                sl -= sl >= din ? din : 0;
-                acc = __fadd_rn(acc, __fmul_rn(c_coef[t],
-                                               in[sl * g.plane + cell +
-                                                  tab_off[t]]));
-              }
-              val = acc;
-            }
-          }
-          if (last) {
-            dst[flat(it.b, p + g.do0, it.y0 + iy - g.h1 + g.do1,
-                     it.x0 + c - g.h2 + g.do2, g.d0, g.d1, g.d2)] = val;
-          } else {
-            out[so * g.plane + iy * g.P + c + g.pad] = val;
-            if (clamp && gp == 0) {
-              // planes -r..-1 (those this stage holds) are copies of 0
-              const int bottom = it.a - grow > p - r ? it.a - grow : p - r;
-              for (int b = bottom; b < p; ++b)
-                out[((b - base) % g.depth) * g.plane + iy * g.P + c +
-                    g.pad] = val;
-            }
-          }
-        }
-      }
-    }
-  }
-}
-
 using QueueFn = void (*)(const float*, float*, Geo, int, float);
 
 // The queue path's instantiations: stars of radius 1..4 in 2D and 3D,
@@ -997,9 +856,9 @@ constexpr int kMaxDevices = 64;
 std::mutex g_bank_mutex;
 cudaEvent_t g_bank_free[kMaxDevices] = {};
 
-int launch(const void* src, void* dst, const void* coef, const void* offs,
-           int ntaps, int steps, int boundary, float bval,
-           const long long* geometry, int batch, int device, void* stream) {
+int launch(const void* src, void* dst, const void* coef, int ntaps,
+           int steps, int boundary, float bval, const long long* geometry,
+           int batch, int device, void* stream) {
   if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
@@ -1007,17 +866,9 @@ int launch(const void* src, void* dst, const void* coef, const void* offs,
   if (!make_geo(geometry, steps, batch, ntaps, &g))
     return cudaErrorInvalidConfiguration;
   g.bulk = g.s2 % 4 == 0 && reinterpret_cast<uintptr_t>(src) % 16 == 0;
-  const bool nd2 = g.r1 == 0;
-  const void* fn;
-  QueueFn q = nullptr;
-  if (g.path == kPathQueue) {
-    q = choose_queue(nd2 ? 2 : 3, g.r0, g.T);
-    if (q == nullptr) return cudaErrorInvalidConfiguration;
-    fn = reinterpret_cast<const void*>(q);
-  } else {
-    fn = nd2 ? reinterpret_cast<const void*>(ring_kernel<2>)
-             : reinterpret_cast<const void*>(ring_kernel<3>);
-  }
+  const QueueFn q = choose_queue(g.r1 == 0 ? 2 : 3, g.r0, g.T);
+  if (q == nullptr) return cudaErrorInvalidConfiguration;
+  const void* fn = reinterpret_cast<const void*>(q);
   const size_t smem = smem_bytes(g);
   if ((long long)smem != geometry[3 * kBytes])
     return cudaErrorInvalidValue;
@@ -1048,17 +899,9 @@ int launch(const void* src, void* dst, const void* coef, const void* offs,
   err = cudaMemcpyToSymbolAsync(c_coef, coef, sizeof(float) * ntaps, 0,
                                 cudaMemcpyDeviceToDevice, st);
   if (err != cudaSuccess) return err;
-  const float* s = static_cast<const float*>(src);
-  float* d = static_cast<float*>(dst);
-  if (q != nullptr) {
-    q<<<(unsigned)blocks, kThreads, smem, st>>>(s, d, g, boundary, bval);
-  } else if (nd2) {
-    ring_kernel<2><<<(unsigned)blocks, kThreads, smem, st>>>(
-        s, d, static_cast<const int*>(offs), g, boundary, bval);
-  } else {
-    ring_kernel<3><<<(unsigned)blocks, kThreads, smem, st>>>(
-        s, d, static_cast<const int*>(offs), g, boundary, bval);
-  }
+  q<<<(unsigned)blocks, kThreads, smem, st>>>(
+      static_cast<const float*>(src), static_cast<float*>(dst), g, boundary,
+      bval);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return cudaEventRecord(bank_free, st);
@@ -1072,28 +915,19 @@ const char* queued_superstep_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Each launcher runs one launch on `stream` and returns a cudaError_t (0 on
-// success).  `geometry` is the host array of Field, `steps` the fused
-// steps T, `coef` the device coefficients in canonical order, `offs` the
-// device tap table ((streamed, y, x) rows, the ring path's taps).
-
-int padded_superstep_launch(const void* src, void* dst, const void* coef,
+// One launch on `stream` of B1, B5 or B6 (the geometry says which);
+// returns a cudaError_t (0 on success).  `geometry` is the host array of
+// Field, `steps` the fused steps T, `coef` the device coefficients in
+// canonical order; `offs` (the other superstep launchers' tap table) is
+// not read: a star's taps are compile-time constants here.
+int queued_superstep_launch(const void* src, void* dst, const void* coef,
                             const void* offs, int ntaps, int steps,
                             int boundary, float bval,
                             const long long* geometry, int batch, int device,
                             void* stream) {
-  return launch(src, dst, coef, offs, ntaps, steps, boundary, bval, geometry,
+  (void)offs;
+  return launch(src, dst, coef, ntaps, steps, boundary, bval, geometry,
                 batch, device, stream);
 }
-
-int pipelined_superstep_launch(const void* src, void* dst, const void* coef,
-                               const void* offs, int ntaps, int steps,
-                               int boundary, float bval,
-                               const long long* geometry, int batch,
-                               int device, void* stream) {
-  return launch(src, dst, coef, offs, ntaps, steps, boundary, bval, geometry,
-                batch, device, stream);
-}
-
 
 }  // extern "C"

@@ -1,63 +1,77 @@
-// Streamed superstep kernels of the padded carry, for sm_90a.
+// Streamed superstep kernels, for sm_90a.
 //
-// Two entry points share one kernel:
+// Two launchers share one kernel: temporal_superstep_launch runs a one-shot
+// grid (one CTA per work item), padded_pipelined_launch persistent CTAs
+// (min(items, resident CTAs), each walking item += gridDim.x).  Each
+// launch runs one of two modes (kernels/streamed.py builds the geometry):
 //
-// * temporal_superstep_launch replaces the TPU kernel
-//   repro/kernels/common.py:build_temporal_kernel: one chunk of
-//   T = TEMPORAL_CHUNK * par_time fused steps over the chunk-deep ring of
-//   the padded carry, one CTA per work item.  Plain PyTorch version:
-//   repro_torch/kernels/common.py:padded_superstep_plain with
-//   deep_plan(plan).
-// * padded_pipelined_launch replaces build_padded_pipelined_kernel: one
-//   superstep of T = par_time steps with persistent CTAs (min(items,
-//   resident CTAs), each walking item += gridDim.x).  Plain version:
-//   padded_superstep_plain with the plan.  The TPU kernel's point, the
-//   next block's copy in flight while this one computes, is here at the
-//   plane level, and both launchers have it: the copy of plane group
-//   i + 1 is issued before group i computes.
+// * The padded carry: T fused steps read at ring offset H - h of the
+//   source carry, the t = 0 boundary mapped plane by plane on load, the
+//   true cells written into the other carry buffer at H.  Plain PyTorch
+//   version: repro_torch/kernels/common.py:padded_superstep_plain.
+//   - temporal_superstep_launch replaces the TPU kernel
+//     repro/kernels/common.py:build_temporal_kernel (B3): one chunk of
+//     T = TEMPORAL_CHUNK * par_time steps over the chunk-deep ring;
+//   - padded_pipelined_launch replaces build_padded_pipelined_kernel
+//     (B4): T = par_time steps.  The TPU kernel's point, the next block's
+//     copy in flight while this one computes, is here at the plane level,
+//     and both launchers have it: the copy of plane group i + 1 is issued
+//     before group i computes;
+//   - B1 (build_padded_superstep_kernel) runs tap sets that have no
+//     register queue (queued_superstep.cu) on the one-shot launcher.
+// * Pre-padded: T fused steps of a grid that boundary_pad already padded
+//   by h, copied as it is (no t = 0 mapping), fixups between steps at
+//   global coordinates origin + local (origin: the shard offsets), every
+//   cell of the rounded output stored into a separate grid.  Plain
+//   version: common.py:superstep_plain.  For the same tap sets B5
+//   (build_superstep_kernel) runs it on the one-shot launcher and B6
+//   (build_pipelined_kernel) on the persistent one.
 //
-// Both read the source carry at ring offset H - h and write the true
-// cells of the other carry buffer at H, as B1 (padded_superstep.cu) does.
-//
-// How a CTA works (geometry from kernels/streamed.py, axes (streamed, y,
-// x); a 2D grid streams along y and has a dummy y of extent 1).  A work
-// item is a column tile (ty, tx) of output cells over the blocked axes and
-// a segment [a, e) of output planes along the streamed axis.  The CTA
-// walks the segment in groups of B planes (4 in 2D, 2 in 3D).  Stage 0
-// copies the source planes [a - h, e + h) (h = T*r) into a ring; stage
-// s = 1..T computes, per group, the B planes r behind stage s-1's newest,
-// over an in-plane region that shrinks by r per side per stage, into a
-// ring of 2r + B planes clipped to that region (the loaded ring has B
-// more planes, for the next group's copy in flight); stage T writes its
-// planes straight into the output.  So the halo is recomputed only on the
-// blocked axes, and only 2r + B planes per stage are held instead of a
-// whole window.
+// How a CTA works (axes (streamed, y, x); a 2D grid streams along y and
+// has a dummy y of extent 1).  A work item is a column tile (ty, tx) of
+// output cells over the blocked axes and a segment [a, e) of output
+// planes along the streamed axis.  The CTA walks the segment in groups of
+// B planes (4 in 2D, 2 in 3D).  Stage 0 copies the source planes
+// [a - h, e + h) (h = T*r) into a ring; stage s = 1..T computes, per
+// group, the B planes r behind stage s-1's newest, over an in-plane region
+// that shrinks by r per side per stage, into a ring of 2r + B planes
+// clipped to that region (the loaded ring has B more planes, for the next
+// group's copy in flight); stage T writes its planes straight into the
+// output.  So the halo is recomputed only on the blocked axes, and only
+// 2r + B planes per stage are held instead of a whole window.
 //
 // The boundary, plane by plane, gives exactly the cells that
-// common.boundary_fixup gives a whole window (t = 0 and between steps):
-//   - periodic: nothing; wrap_halo.cu refreshed the ring before the launch.
+// common.boundary_fixup gives a whole window (t = 0 for the carry, and
+// between steps), at global coordinates:
+//   - periodic: nothing; wrap_halo.cu refreshed the carry's ring before
+//     the launch, or boundary_pad wrapped the pre-padded grid.
 //   - constant: a cell outside the grid on any axis is the boundary value.
 //   - clamp: a cell outside the grid is the cell at the clamped coordinate
-//     on every axis (the axis-ordered copies compose to that).  Stage 0
-//     copies the clamped source cell; a computed stage computes an
-//     in-plane ghost cell as the stencil at its clamped in-plane
-//     coordinate (the same inputs and arithmetic as that true cell, so the
-//     same bits).  A ghost plane below 0 is due before plane 0 exists, so
-//     when a stage emits plane 0 it copies it into the ring slots of planes
-//     -1..-r; a ghost plane above n - 1 is copied from plane n - 1 when it
-//     is due.
+//     on every axis (the axis-ordered copies compose to that), clipped into
+//     the stage's region as the plain version clips it into its window.
+//     The carry's stage 0 copies the clamped source cell; a computed stage
+//     computes an in-plane ghost cell as the stencil at its clamped
+//     in-plane coordinate (the same inputs and arithmetic as that true
+//     cell, so the same bits).  A ghost plane below 0 is due before plane
+//     0 exists, so when a stage emits plane 0 it copies it into the ring
+//     slots of planes -1..-r; a ghost plane above n - 1 is copied from the
+//     plane before it when it is due.
+//   A tile or segment of the pre-padded output that lies wholly past the
+//   grid holds no cell of the clamped coordinate: its cells (round-up slack
+//   only) are finite but unspecified, as the plain version's window is the
+//   whole grid.
 //
 // Arithmetic: every output is acc = c0*v0, then acc = acc + ck*vk in the
 // canonical tap order with __fmul_rn/__fadd_rn (no FMA contraction), so
 // the kernel equals its plain version bit for bit.
 //
-// What bounds it on the H100.  At the paper's shapes one read of the carry
-// and one write of the output is a few milliseconds of device memory;
-// inside the CTA the limit is issuing instructions: shared-memory reads,
-// one per tap per cell computed, the multiplies and adds, and the index
-// arithmetic around them.  The design cuts all three: the halo is
+// What bounds it on the H100.  At the paper's shapes one read of the
+// source and one write of the output is a few milliseconds of device
+// memory; inside the CTA the limit is issuing instructions: shared-memory
+// reads, one per tap per cell computed, the multiplies and adds, and the
+// index arithmetic around them.  The design cuts all three: the halo is
 // recomputed on the blocked axes only (2D r4 over 8 steps: about 1.3 cell
-// updates per output per step, against 3.4 for the whole-window kernel);
+// updates per output per step, against 3.4 for a whole-window kernel);
 // for the tap sets of the paper (stars, small boxes) the offsets are
 // compile-time constants and the coefficients registers, and a thread owns
 // one in-plane cell of a pass and computes it on all B planes of the
@@ -83,14 +97,15 @@ enum Boundary { kClamp = 0, kPeriodic = 1, kConstant = 2 };
 enum Field {
   kTrue,     // global true extent
   kSrc,      // source extent
-  kSrcOff,   // source index of global coordinate 0
+  kSrcOff,   // source index of local coordinate 0
   kDst,      // output extent
-  kDstOff,   // output index of global coordinate 0
-  kWritten,  // output cells [0, written) are stored
+  kDstOff,   // output index of local coordinate 0
+  kWritten,  // output cells [0, written) are stored (local)
+  kOrigin,   // global coordinate of local 0 (0 for the carry)
   kRadius,   // shrink per step (0 on a 2D grid's dummy y)
   kBlock,    // (segment length L, tile y, tile x)
   kRing,     // (planes per group B, fused steps T, shared-memory bytes)
-  kTaps,     // (fixed tap set: Shape code, or 0; unused; unused)
+  kMode,     // (fixed tap set: Shape code, or 0; pre-padded?; unused)
   kFields
 };
 
@@ -108,10 +123,11 @@ __host__ __device__ constexpr int column_planes() {
 struct Geo {
   long long n0, n1, n2;     // true extent
   long long s0, s1, s2;     // source extent
-  long long so0, so1, so2;  // source index of global 0
+  long long so0, so1, so2;  // source index of local 0
   long long d0, d1, d2;     // output extent
-  long long do0, do1, do2;  // output index of global 0
+  long long do0, do1, do2;  // output index of local 0
   long long w0, w1, w2;     // written extent
+  long long o0, o1, o2;     // global coordinate of local 0
   long long tys, txs, segs, total;
   int r0, r1, r2;  // radius per axis
   int h0, h1, h2;  // T * radius
@@ -120,6 +136,7 @@ struct Geo {
   int E1, E2;      // stage-0 (loaded) plane extent
   int D0, D;       // ring depth: loaded ring, computed rings
   int shape;       // fixed tap set (Shape) or kAny
+  int prepadded;   // the source is copied as it is (no t = 0 mapping)
 };
 
 // Ring s (stage s's output; 0: the loaded planes) is clipped to stage s's
@@ -171,17 +188,24 @@ inline bool make_geo(const long long* a, int steps, int batch, Geo* g) {
   g->d0 = f(kDst, 0), g->d1 = f(kDst, 1), g->d2 = f(kDst, 2);
   g->do0 = f(kDstOff, 0), g->do1 = f(kDstOff, 1), g->do2 = f(kDstOff, 2);
   g->w0 = f(kWritten, 0), g->w1 = f(kWritten, 1), g->w2 = f(kWritten, 2);
+  g->o0 = f(kOrigin, 0), g->o1 = f(kOrigin, 1), g->o2 = f(kOrigin, 2);
   g->r0 = (int)f(kRadius, 0), g->r1 = (int)f(kRadius, 1);
   g->r2 = (int)f(kRadius, 2);
   g->L = (int)f(kBlock, 0), g->ty = (int)f(kBlock, 1);
   g->tx = (int)f(kBlock, 2);
   g->B = (int)f(kRing, 0), g->T = (int)f(kRing, 1);
-  g->shape = (int)f(kTaps, 0);
+  g->shape = (int)f(kMode, 0);
+  g->prepadded = (int)f(kMode, 1);
   if (g->T != steps || steps < 1 || batch < 1 || g->L < 1 || g->ty < 1 ||
       g->tx < 1 || g->B < 1 || g->w0 < 1 || g->w1 < 1 || g->w2 < 1 ||
       g->r0 < 1 || g->r2 < 1 || g->shape < kAny || g->shape > kBox ||
-      g->n1 > (1LL << 30) || g->n2 > (1LL << 30))
+      (g->prepadded != 0 && g->prepadded != 1) || g->n1 > (1LL << 30) ||
+      g->n2 > (1LL << 30))
     return false;
+  for (int i = 0; i < 3; ++i)
+    if (f(kOrigin, i) < 0 || f(kOrigin, i) > (1LL << 30) ||
+        (!g->prepadded && f(kOrigin, i) != 0))
+      return false;
   g->h0 = steps * g->r0, g->h1 = steps * g->r1, g->h2 = steps * g->r2;
   g->E1 = g->ty + 2 * g->h1;
   g->E2 = g->tx + 2 * g->h2;
@@ -252,18 +276,19 @@ __device__ __forceinline__ int divmod(int f, int d, float inv, int* r) {
 // chunks: one 16-byte cp.async where the source chunk is aligned and needs
 // no boundary mapping, else per cell a 4-byte cp.async of the (clamped)
 // source cell, the boundary value (constant) or zero (past the source's
-// end, periodic only: such cells feed no true output).
+// end, unmapped loads only: such cells feed no stored output).  `raw`
+// copies the source as it is: a pre-padded source, or a periodic carry;
+// any other carry maps the t = 0 boundary.
 __device__ __forceinline__ void load_planes(
     const float* __restrict__ src, float* ring0, const Ring& r0,
     const Geo& g, const Item& it, long long z0, long long zlo,
-    long long zhi, int boundary, float bval) {
+    long long zhi, int boundary, float bval, bool raw) {
   const int nchunk = (g.E2 + 3) >> 2;
   const int rows = (int)(zhi - zlo) * g.E1;
   const int items = rows * nchunk;
   const long long gy0 = it.y0 - g.h1, gx0 = it.x0 - g.h2;
   const long long src_plane = g.s1 * g.s2;
   const float* batch_src = src + it.b * g.s0 * src_plane;
-  const bool periodic = boundary == kPeriodic;
   const int dz0 = (int)(zlo - z0);
   for (int w = threadIdx.x; w < items; w += kThreads) {
     const int row = w / nchunk, c = w - row * nchunk;
@@ -273,7 +298,7 @@ __device__ __forceinline__ void load_planes(
                  iy * r0.pitch + 4 * c;
     bool fill = false;  // the whole row is the boundary value
     long long zs = z, ys = gy;
-    if (!periodic) {
+    if (!raw) {
       if (boundary == kConstant)
         fill = z < 0 || z >= g.n0 || gy < 0 || gy >= g.n1;
       zs = clampll(z, 0, g.n0 - 1);
@@ -287,7 +312,7 @@ __device__ __forceinline__ void load_planes(
     const long long gx = gx0 + 4 * c;
     const long long px = gx + g.so2;
     bool vec = row_ok && 4 * c + 4 <= g.E2 && px >= 0 && px + 3 < g.s2;
-    if (vec && !periodic) vec = gx >= 0 && gx + 3 < g.n2;
+    if (vec && !raw) vec = gx >= 0 && gx + 3 < g.n2;
     if (vec) vec = (reinterpret_cast<size_t>(srow + px) & 15) == 0;
     if (vec) {
       __pipeline_memcpy_async(out, srow + px, 16);
@@ -300,7 +325,7 @@ __device__ __forceinline__ void load_planes(
         continue;
       }
       long long xs = gx + k;
-      if (!periodic) {
+      if (!raw) {
         if (boundary == kConstant && (xs < 0 || xs >= g.n2)) {
           *cell = bval;
           continue;
@@ -327,6 +352,7 @@ struct Pass {
   Ring ri, ro;
   long long qlo, qhi;
   int ylo, yhi, xlo, xhi;
+  int oy, ox;  // global coordinate of local (y, x) = 0: the shard origin
   bool last;
 };
 
@@ -340,15 +366,16 @@ struct Plane {
 
   __device__ __forceinline__ Plane(const Pass& p, const Geo& g,
                                    const Item& it, int boundary) {
-    gy0 = (int)(it.y0 - g.h1);
-    gx0 = (int)(it.x0 - g.h2);
+    const long long ly0 = it.y0 - g.h1, lx0 = it.x0 - g.h2;  // local
+    gy0 = (int)ly0 + p.oy;
+    gx0 = (int)lx0 + p.ox;
     n1 = (int)g.n1;
     n2 = (int)g.n2;
     edge = !p.last && boundary != kPeriodic &&
            (gy0 + p.ylo < 0 || gy0 + p.yhi > n1 || gx0 + p.xlo < 0 ||
             gx0 + p.xhi > n2);
-    dst0 = ((it.b * g.d0 + p.qlo + g.do0) * g.d1 + g.do1 + gy0) * g.d2 +
-           g.do2 + gx0;
+    dst0 = ((it.b * g.d0 + p.qlo + g.do0) * g.d1 + g.do1 + ly0) * g.d2 +
+           g.do2 + lx0;
   }
 
   // Cell (iy, ix) outside the grid: constant fills, clamp reads the cell
@@ -589,29 +616,33 @@ __device__ __forceinline__ void column_pass(
   }
 }
 
-// Plane `to` of computed ring `r` := plane `from` (or the boundary value
-// when from < 0) over the region [ylo, yhi) x [xlo, xhi) (stage-0
-// coordinates).
+// Plane `to` of computed ring `r` := plane `from` (or the boundary value,
+// `fill`) over the region [ylo, yhi) x [xlo, xhi) (stage-0 coordinates;
+// planes local, at or after the item's first loaded plane z0).  A thread
+// copies the same cells in every call, so a chain of copies, each from
+// the plane the one before wrote, needs no barrier.
 __device__ __forceinline__ void ghost_plane(float* ring, const Ring& r,
                                             long long z0, long long to,
-                                            long long from, float bval,
-                                            int ylo, int yhi, int xlo,
-                                            int xhi) {
+                                            long long from, bool fill,
+                                            float bval, int ylo, int yhi,
+                                            int xlo, int xhi) {
   const int nx = xhi - xlo;
   const int count = (yhi - ylo) * nx;
   float* dst = ring + (int)((to - z0) % r.depth) * r.plane;
-  const float* src = ring + (int)(((from < 0 ? to : from) - z0) % r.depth) *
-                                r.plane;
+  const float* src = ring + (int)((from - z0) % r.depth) * r.plane;
   for (int f = threadIdx.x; f < count; f += kThreads) {
     const int yy = f / nx;
     const int at = (ylo + yy - r.oy) * r.pitch + xlo + (f - yy * nx) - r.ox;
-    dst[at] = from < 0 ? bval : src[at];
+    dst[at] = fill ? bval : src[at];
   }
 }
 
 // At least two CTAs per SM: ptxas may then use up to 128 registers a
-// thread, which every instantiation fits without spilling.
-template <int S, int R, int ND>
+// thread, which every instantiation fits without spilling.  PRE is the
+// pre-padded mode: in the carry's instantiations the origin is 0 at
+// compile time (read at run time, it made the box runs 0.1-0.2 ms slower:
+// PERF.md, tools/box_run_walls.py).
+template <int S, int R, int ND, bool PRE>
 __global__ void __launch_bounds__(kThreads, 2)
 streamed_kernel(const float* __restrict__ src, float* __restrict__ dst,
                 const float* __restrict__ coef, const int* __restrict__ offs,
@@ -643,21 +674,24 @@ streamed_kernel(const float* __restrict__ src, float* __restrict__ dst,
   __syncthreads();
 
   const bool periodic = boundary == kPeriodic;
+  const bool raw = periodic || PRE;
   const Ring r0 = first_ring(g);
+  const long long zero = PRE ? -g.o0 : 0;  // local plane of global 0
   for (long long lin = blockIdx.x; lin < g.total; lin += gridDim.x) {
     const Item it = item_of(g, lin);
     const long long z0 = it.a - g.h0;        // first loaded plane
     const long long zend = it.e + g.h0;      // loaded planes end
     const int iters = (int)((it.e - it.a + 2 * g.h0 + g.B - 1) / g.B);
     load_planes(src, smem, r0, g, it, z0, z0,
-                z0 + g.B < zend ? z0 + g.B : zend, boundary, bval);
+                z0 + g.B < zend ? z0 + g.B : zend, boundary, bval, raw);
     __pipeline_commit();
     for (int i = 0; i < iters; ++i) {
       // the copy of group i + 1 is in flight while group i computes
       const long long glo = z0 + (long long)(i + 1) * g.B;
       const long long ghi = glo + g.B < zend ? glo + g.B : zend;
       if (glo < ghi)
-        load_planes(src, smem, r0, g, it, z0, glo, ghi, boundary, bval);
+        load_planes(src, smem, r0, g, it, z0, glo, ghi, boundary, bval,
+                    raw);
       __pipeline_commit();
       __pipeline_wait_prior(1);  // group i has landed
       __syncthreads();
@@ -672,11 +706,18 @@ streamed_kernel(const float* __restrict__ src, float* __restrict__ dst,
         if (lo < it.a - grow) lo = it.a - grow;
         if (hi > it.e + grow) hi = it.e + grow;
         if (lo >= hi) continue;
-        // the true planes are computed; ghost planes are filled below
+        // the true planes are computed; ghost planes are filled below.
+        // Planes from `top` on are ghosts above the grid: n0 on, or
+        // (clamp) past the stage's first plane where all its planes lie
+        // past the grid (that plane then stands in for plane n0 - 1, as
+        // the plain version clips n0 - 1 into its window)
+        long long top = g.n0 + zero;
+        if (PRE && boundary == kClamp && top <= it.a - grow)
+          top = it.a - grow + 1;
         long long clo = lo, chi = hi;
         if (!last && !periodic) {
-          clo = lo > 0 ? lo : 0;
-          chi = hi < g.n0 ? hi : g.n0;
+          clo = lo > zero ? lo : zero;
+          chi = hi < top ? hi : top;
         }
         Pass p;
         p.ri = ri;
@@ -686,6 +727,8 @@ streamed_kernel(const float* __restrict__ src, float* __restrict__ dst,
         p.out = smem + p.ro.base;
         p.qlo = clo;
         p.qhi = chi;
+        p.oy = PRE ? (int)g.o1 : 0;
+        p.ox = PRE ? (int)g.o2 : 0;
         p.last = last;
         if (last) {
           p.ylo = g.h1;
@@ -709,24 +752,30 @@ streamed_kernel(const float* __restrict__ src, float* __restrict__ dst,
         // ghost planes below it (due in an earlier group); uniform across
         // the CTA
         if (last || periodic ||
-            (clo == lo && chi == hi && !(lo <= 0 && 0 < hi && it.a < grow)))
+            (clo == lo && chi == hi &&
+             !(lo <= zero && zero < hi && it.a - grow < zero)))
           continue;
         if (boundary == kConstant) {
           for (long long q = lo; q < hi; ++q)
-            if (q < 0 || q >= g.n0)
-              ghost_plane(p.out, p.ro, z0, q, -1, bval, p.ylo, p.yhi, p.xlo,
-                          p.xhi);
+            if (q < zero || q >= top)
+              ghost_plane(p.out, p.ro, z0, q, q, true, bval, p.ylo, p.yhi,
+                          p.xlo, p.xhi);
         } else {
-          if (lo <= 0 && 0 < hi) {
-            const long long bottom = it.a - grow > -g.r0 ? it.a - grow
-                                                         : -g.r0;
-            for (long long q = bottom; q < 0; ++q)
-              ghost_plane(p.out, p.ro, z0, q, 0, bval, p.ylo, p.yhi, p.xlo,
-                          p.xhi);
+          if (lo <= zero && zero < hi) {
+            // the next stage reads r planes below 0 (the origin is >= 0,
+            // so no stage's planes lie wholly below the grid)
+            const long long bottom = it.a - grow > zero - g.r0
+                                         ? it.a - grow
+                                         : zero - g.r0;
+            for (long long q = bottom; q < zero; ++q)
+              ghost_plane(p.out, p.ro, z0, q, zero, false, bval, p.ylo,
+                          p.yhi, p.xlo, p.xhi);
           }
-          for (long long q = lo > g.n0 ? lo : g.n0;
-               q < hi && q < g.n0 + g.r0; ++q)
-            ghost_plane(p.out, p.ro, z0, q, g.n0 - 1, bval, p.ylo, p.yhi,
+          // the carry's next stage reads r planes above the grid; a
+          // pre-padded stage may store any of its planes
+          const long long qend = PRE || hi < top + g.r0 ? hi : top + g.r0;
+          for (long long q = lo > top ? lo : top; q < qend; ++q)
+            ghost_plane(p.out, p.ro, z0, q, q - 1, false, bval, p.ylo, p.yhi,
                         p.xlo, p.xhi);
         }
         __syncthreads();
@@ -740,25 +789,30 @@ using KernelFn = void (*)(const float*, float*, const float*, const int*,
 
 // The instantiation for the geometry: a fixed tap set (star of radius
 // 1..4, box of radius 1..2 in 2D or 1 in 3D) in groups of its column
-// planes, else the flat path.
-KernelFn choose(const Geo& g) {
+// planes, else the flat path; for the carry or the pre-padded mode.
+template <bool PRE>
+KernelFn choose_taps(const Geo& g) {
   const bool d2 = g.r1 == 0;
   if (g.B != (d2 ? column_planes<2>() : column_planes<3>()))
-    return streamed_kernel<kAny, 0, 3>;
+    return streamed_kernel<kAny, 0, 3, PRE>;
   switch (g.shape * 100 + g.r0 * 10 + (d2 ? 2 : 3)) {
-    case 112: return streamed_kernel<kStar, 1, 2>;
-    case 122: return streamed_kernel<kStar, 2, 2>;
-    case 132: return streamed_kernel<kStar, 3, 2>;
-    case 142: return streamed_kernel<kStar, 4, 2>;
-    case 113: return streamed_kernel<kStar, 1, 3>;
-    case 123: return streamed_kernel<kStar, 2, 3>;
-    case 133: return streamed_kernel<kStar, 3, 3>;
-    case 143: return streamed_kernel<kStar, 4, 3>;
-    case 212: return streamed_kernel<kBox, 1, 2>;
-    case 222: return streamed_kernel<kBox, 2, 2>;
-    case 213: return streamed_kernel<kBox, 1, 3>;
-    default: return streamed_kernel<kAny, 0, 3>;
+    case 112: return streamed_kernel<kStar, 1, 2, PRE>;
+    case 122: return streamed_kernel<kStar, 2, 2, PRE>;
+    case 132: return streamed_kernel<kStar, 3, 2, PRE>;
+    case 142: return streamed_kernel<kStar, 4, 2, PRE>;
+    case 113: return streamed_kernel<kStar, 1, 3, PRE>;
+    case 123: return streamed_kernel<kStar, 2, 3, PRE>;
+    case 133: return streamed_kernel<kStar, 3, 3, PRE>;
+    case 143: return streamed_kernel<kStar, 4, 3, PRE>;
+    case 212: return streamed_kernel<kBox, 1, 2, PRE>;
+    case 222: return streamed_kernel<kBox, 2, 2, PRE>;
+    case 213: return streamed_kernel<kBox, 1, 3, PRE>;
+    default: return streamed_kernel<kAny, 0, 3, PRE>;
   }
+}
+
+KernelFn choose(const Geo& g) {
+  return g.prepadded ? choose_taps<true>(g) : choose_taps<false>(g);
 }
 
 int launch(const void* src, void* dst, const void* coef, const void* offs,

@@ -8,28 +8,28 @@ at the first launch (``kernels/build.py``).
 
 Which TPU kernel of ``repro/kernels/common.py`` each one replaces (the
 source headers say what bounds each on the card and what its design does
-about it):
+about it).  Two bodies carry every superstep (``blocking.kernel_body``
+says which one a kernel and tap set run):
 
-* ``padded_superstep`` (B1, ``build_padded_superstep_kernel``) and
+* ``padded_superstep`` (B1, ``build_padded_superstep_kernel``),
+  ``superstep`` (B5, ``build_superstep_kernel``) and
   ``pipelined_superstep`` (B6, ``build_pipelined_kernel``) ->
-  ``csrc/queued_superstep.cu``, CTAs that stream a column tile plane by
-  plane with a star's streamed-axis neighbours in per-thread register
-  queues (geometry in ``kernels/queued.py``; B6's CTAs are persistent).
-  For every other tap set B1 runs the one-shot launcher of
-  ``csrc/streamed_superstep.cu`` (the same function of the padded carry),
-  B6 the ring path of its own source;
-* ``superstep`` (B5, ``build_superstep_kernel``) ->
-  ``csrc/padded_superstep.cu``, one CTA per output tile and its halo'd
-  window;
+  ``csrc/queued_superstep.cu`` for stars within ``QUEUE_STEPS``: CTAs
+  that stream a column tile plane by plane with a star's streamed-axis
+  neighbours in per-thread register queues (geometry in
+  ``kernels/queued.py``).  B1 and B5 run a one-shot grid, B6 persistent
+  CTAs;
 * ``temporal_superstep`` (B3, ``build_temporal_kernel``) and
   ``padded_pipelined`` (B4, ``build_padded_pipelined_kernel``) ->
   ``csrc/streamed_superstep.cu``, CTAs that stream a column tile plane by
   plane through one ring of planes per fused step, copying the next plane
   group while the current one computes (geometry in
-  ``kernels/streamed.py``; B4's CTAs are persistent);
+  ``kernels/streamed.py``); B3 one-shot, B4 persistent.  B1, B5 and B6
+  run every other tap set there too: B1 on the carry, B5 and B6 in its
+  pre-padded mode (B1 and B5 one-shot, B6 persistent);
 * ``refresh_wrap_halo`` (B2, ``_refresh_wrap_halo``) -> ``csrc/wrap_halo.cu``,
-  one launch per wrap axis, ordered before the superstep on the same
-  stream instead of running inside it.
+  one launch per refresh for every wrap axis, ordered before the
+  superstep on the same stream instead of running inside it.
 
 The CTA tile is not the plan's block: :func:`pick_tile` sizes it per
 kernel by the card's opt-in shared-memory limit
@@ -41,8 +41,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import itertools
-import math
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -54,19 +53,6 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 
 BOUNDARY_CODES = {"clamp": 0, "periodic": 1, "constant": 2}
-
-#: CTA output-tile candidates per axis; x (contiguous) is a multiple of 32
-#: so that a warp reads whole 128-byte rows.
-TILE_X = (128, 64, 32)
-TILE_Y = (64, 32, 16, 8, 4)
-TILE_Z = (16, 8, 4, 2, 1)
-
-#: Rows of the geometry array, in the order of ``superstep_common.cuh:Field``.
-GEOMETRY_FIELDS = ("true", "src", "load", "origin", "dst", "store",
-                   "written", "tile", "radius")
-#: What a 2D grid's missing z axis holds in each row (one plane, no halo).
-_LEAD = dict(true=1, src=1, load=0, origin=0, dst=1, store=0, written=1,
-             tile=1, radius=0)
 
 
 class Kernel:
@@ -109,20 +95,20 @@ class Kernel:
 _SUPERSTEP_ARGS = [_P, _P, _P, _P, _I, _I, _I, ctypes.c_float,
                    ctypes.POINTER(_L), _I, _I, _P]
 
-PADDED_SUPERSTEP = Kernel("queued_superstep.cu", "padded_superstep_launch",
+PADDED_SUPERSTEP = Kernel("queued_superstep.cu", "queued_superstep_launch",
                           _SUPERSTEP_ARGS)
 TEMPORAL_SUPERSTEP = Kernel("streamed_superstep.cu",
                             "temporal_superstep_launch", _SUPERSTEP_ARGS)
-SUPERSTEP = Kernel("padded_superstep.cu", "superstep_launch",
+SUPERSTEP = Kernel("queued_superstep.cu", "queued_superstep_launch",
                    _SUPERSTEP_ARGS)
 PADDED_PIPELINED = Kernel("streamed_superstep.cu",
                           "padded_pipelined_launch", _SUPERSTEP_ARGS)
 PIPELINED_SUPERSTEP = Kernel("queued_superstep.cu",
-                             "pipelined_superstep_launch", _SUPERSTEP_ARGS)
+                             "queued_superstep_launch", _SUPERSTEP_ARGS)
 
-WRAP_HALO = Kernel(
-    "wrap_halo.cu", "wrap_halo_launch",
-    [_P, _L, _L, _L, _L, _L, _L, _L, _L, _L, _I, _P])
+#: (buf, boxes, nbox, blocks, P0, P1, P2, device, stream)
+WRAP_HALO = Kernel("wrap_halo.cu", "wrap_halo_launch",
+                   [_P, _P, _I, _I, _L, _L, _L, _I, _P])
 
 KERNELS = {
     "padded_superstep": PADDED_SUPERSTEP,
@@ -149,15 +135,6 @@ def smem_optin(index: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def tap_table(program, device: torch.device) -> torch.Tensor:
-    """``((0,…,0),) + neighbor_taps`` as int32 (z, y, x) rows on ``device``
-    (a 2D tap gets z = 0)."""
-    rows = [(0,) * 3] + [(0,) * (3 - program.ndim) + tuple(o)
-                         for o in program.neighbor_taps]
-    return torch.tensor(rows, dtype=torch.int32, device=device)
-
-
-@functools.lru_cache(maxsize=None)
 def streamed_tap_table(program, device: torch.device) -> torch.Tensor:
     """:func:`streamed.streamed_taps` as int32 rows on ``device``."""
     return torch.tensor(streamed.streamed_taps(program), dtype=torch.int32,
@@ -165,61 +142,31 @@ def streamed_tap_table(program, device: torch.device) -> torch.Tensor:
 
 
 def smallest_tile(plan, kernel: str) -> Tuple[int, ...]:
-    """The CTA tile candidate of ``kernel`` with the least shared memory:
-    the least extent on every axis for B5's window, the least ring or
-    plane memory for the kernels that stream planes."""
+    """The in-plane column-tile candidate of ``kernel`` with the least
+    shared memory for the body it runs (:meth:`BlockPlan.body`)."""
     steps = plan.kernel_steps(kernel)
-    body = plan.body(kernel)
-    if body == "streamed":
+    if plan.body(kernel) == "streamed":
         return streamed.smallest_streamed_tile(plan.program, steps)
-    if body in ("queue", "ring"):
-        return queued.smallest_queued_tile(plan.program, steps,
-                                           body == "queue")
-    ndim = plan.program.ndim
-    axes = (TILE_Y, TILE_X) if ndim == 2 else (TILE_Z, TILE_Y, TILE_X)
-    return tuple(min(a) for a in axes)
+    return queued.smallest_queued_tile(plan.program, steps)
 
 
 def pick_tile(plan, kernel: str, smem_limit: int) -> Tuple[int, ...]:
-    """The CTA tile of ``kernel`` (a name of ``blocking.KERNELS``) under
-    ``plan``.
-
-    The streamed kernels take an in-plane column tile
-    (``streamed.pick_streamed_tile``), and so do B1 and B6
-    (``queued.pick_queued_tile``; B1 without register queues the streamed
-    pick, :meth:`BlockPlan.body`).  B5 takes an output tile per axis:
-    among the candidates whose shared memory
-    (``BlockPlan.smem_bytes_for``) fits a third of the limit (three CTAs
-    per SM), or else the whole limit, the least window volume per output
-    cell, then the widest x.  Raises when none fits, which is when
-    :func:`smallest_tile` does not.
-    """
+    """The in-plane column tile of ``kernel`` (a name of
+    ``blocking.KERNELS``) under ``plan``: ``streamed.pick_streamed_tile``
+    for the streamed body, ``queued.pick_queued_tile`` for the register
+    queues (:meth:`BlockPlan.body`).  Raises when none fits, which is when
+    :func:`smallest_tile` does not."""
     steps = plan.kernel_steps(kernel)
-    body = plan.body(kernel)
-    if body == "streamed":
+    if plan.body(kernel) == "streamed":
         return streamed.pick_streamed_tile(plan.program, steps, smem_limit)
-    if body in ("queue", "ring"):
-        return queued.pick_queued_tile(plan.program, steps, smem_limit,
-                                       body == "queue")
-    ndim = plan.program.ndim
-    axes = (TILE_Y, TILE_X) if ndim == 2 else (TILE_Z, TILE_Y, TILE_X)
-    cands = list(itertools.product(*axes))
-    halo = steps * plan.program.halo_radius
+    return queued.pick_queued_tile(plan.program, steps, smem_limit)
 
-    def cost(t):
-        return (math.prod(s + 2 * halo for s in t) / math.prod(t), -t[-1])
 
-    for budget in (smem_limit // 3, smem_limit):
-        fits = [t for t in cands
-                if plan.smem_bytes_for(t, kernel) <= budget]
-        if fits:
-            return min(fits, key=cost)
-    smallest = smallest_tile(plan, kernel)
-    raise ValueError(
-        f"no CTA tile fits: the smallest, {smallest}, needs "
-        f"{plan.smem_bytes_for(smallest, kernel)} bytes of shared memory "
-        f"for {kernel} ({steps} steps, halo {halo}), the card allows "
-        f"{smem_limit}")
+def _stream(dev: torch.device) -> int:
+    """PyTorch's current stream on ``dev`` as the launchers take it, looked
+    up by device index (by ``torch.device`` the lookup took most of a
+    wrap refresh's host time, ``PERF.md``)."""
+    return torch.cuda.current_stream(dev.index).cuda_stream
 
 
 def _check(t: torch.Tensor, name: str, shape: Tuple[int, ...]) -> None:
@@ -234,28 +181,6 @@ def _check(t: torch.Tensor, name: str, shape: Tuple[int, ...]) -> None:
             or t.ndim not in (len(shape), len(shape) + 1):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                          f"{tuple(shape)} behind at most one batch axis")
-
-
-def _launch(kernel: Kernel, grid_in: torch.Tensor, grid_out: torch.Tensor,
-            center: torch.Tensor, taps: torch.Tensor, *, program,
-            steps: int, **rows: Sequence[int]) -> None:
-    """One superstep launch ``grid_in`` -> ``grid_out``; ``rows`` are the
-    geometry rows of :data:`GEOMETRY_FIELDS` over the spatial axes."""
-    nd = program.ndim
-    dev = grid_in.device
-    batch = grid_in.shape[0] if grid_in.ndim > nd else 1
-    coef = torch.cat([center.reshape(1), taps.reshape(-1)]).to(
-        device=dev, dtype=torch.float32).contiguous()
-    offs = tap_table(program, dev)
-    lead = 3 - nd
-    flat = [v for f in GEOMETRY_FIELDS
-            for v in (_LEAD[f],) * lead + tuple(int(x) for x in rows[f])]
-    geometry = (_L * len(flat))(*flat)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    kernel(grid_in.data_ptr(), grid_out.data_ptr(), coef.data_ptr(),
-           offs.data_ptr(), coef.numel(), steps,
-           BOUNDARY_CODES[program.boundary], float(program.boundary_value),
-           geometry, batch, dev.index, stream)
 
 
 def _check_pair(src: torch.Tensor, dst: torch.Tensor, layout) -> None:
@@ -275,17 +200,20 @@ def _host_array(geo):
     return (_L * len(flat))(*flat)
 
 
-def _queued_launch(kernel: Kernel, src, dst, center, taps, geo,
-                   program) -> None:
+def _superstep_launch(kernel: Kernel, src, dst, center, taps, geo, program,
+                      route: Optional[Kernel] = None) -> None:
+    """One superstep launch of ``geo`` (a ``queued.QueuedGeometry`` or a
+    ``streamed.StreamedGeometry``) through ``kernel``'s launcher, or
+    through ``route``'s (the same function on another source): taps as
+    (streamed, y, x) rows."""
     dev = src.device
     coef = torch.cat([center.reshape(1), taps.reshape(-1)]).to(
         device=dev, dtype=torch.float32).contiguous()
-    stream = torch.cuda.current_stream(dev).cuda_stream
     kernel(src.data_ptr(), dst.data_ptr(), coef.data_ptr(),
            streamed_tap_table(program, dev).data_ptr(), coef.numel(),
            geo.steps, BOUNDARY_CODES[program.boundary],
            float(program.boundary_value), _host_array(geo), geo.batch,
-           dev.index, stream)
+           dev.index, _stream(dev), route=route)
 
 
 def padded_superstep(src, dst, center, taps, *, program, plan, layout,
@@ -297,40 +225,29 @@ def padded_superstep(src, dst, center, taps, *, program, plan, layout,
     one-shot launcher (B3's, at ``par_time`` steps) for every other tap
     set.  ``tile`` (in-plane) and ``segment`` override the picks."""
     _check_pair(src, dst, layout)
-    if plan.body("padded_superstep") == "streamed":
-        _streamed(PADDED_SUPERSTEP, "padded_superstep", src, dst, center,
-                  taps, program=program, plan=plan, layout=layout,
-                  tile=tile, segment=segment, route=TEMPORAL_SUPERSTEP)
-        return
     batch = src.shape[0] if src.ndim > program.ndim else 1
-    geo = queued.carry_geometry(
-        program, plan.par_time, layout, batch=batch,
-        smem_limit=smem_optin(src.device.index), tile=tile,
-        segment=segment)
-    _queued_launch(PADDED_SUPERSTEP, src, dst, center, taps, geo, program)
+    kw = dict(batch=batch, smem_limit=smem_optin(src.device.index),
+              tile=tile, segment=segment)
+    if plan.body("padded_superstep") == "streamed":
+        geo = streamed.carry_geometry(program, plan.par_time, layout, **kw)
+        route = TEMPORAL_SUPERSTEP
+    else:
+        geo = queued.carry_geometry(program, plan.par_time, layout, **kw)
+        route = None
+    _superstep_launch(PADDED_SUPERSTEP, src, dst, center, taps, geo, program,
+                      route)
 
 
 def _streamed(kernel: Kernel, name: str, src, dst, center, taps, *,
-              program, plan, layout, tile, segment,
-              route: Optional[Kernel] = None) -> None:
-    """A streamed superstep of the padded carry (B3, B4, or B1 through
-    ``route``): geometry from ``streamed.carry_geometry``, taps as
-    (streamed, y, x) rows."""
+              program, plan, layout, tile, segment) -> None:
+    """B3 or B4: a streamed superstep of the padded carry, geometry from
+    ``streamed.carry_geometry``."""
     _check_pair(src, dst, layout)
-    nd = program.ndim
-    dev = src.device
-    batch = src.shape[0] if src.ndim > nd else 1
-    steps = plan.kernel_steps(name)
+    batch = src.shape[0] if src.ndim > program.ndim else 1
     geo = streamed.carry_geometry(
-        program, steps, layout, batch=batch,
-        smem_limit=smem_optin(dev.index), tile=tile, segment=segment)
-    coef = torch.cat([center.reshape(1), taps.reshape(-1)]).to(
-        device=dev, dtype=torch.float32).contiguous()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    kernel(src.data_ptr(), dst.data_ptr(), coef.data_ptr(),
-           streamed_tap_table(program, dev).data_ptr(), coef.numel(), steps,
-           BOUNDARY_CODES[program.boundary], float(program.boundary_value),
-           _host_array(geo), batch, dev.index, stream, route=route)
+        program, plan.kernel_steps(name), layout, batch=batch,
+        smem_limit=smem_optin(src.device.index), tile=tile, segment=segment)
+    _superstep_launch(kernel, src, dst, center, taps, geo, program)
 
 
 def temporal_superstep(src, dst, center, taps, *, program, plan, layout,
@@ -363,63 +280,142 @@ def _rounded(padded: torch.Tensor, program, plan) -> Tuple[int, ...]:
     return rounded
 
 
-def _offsets(program, offsets) -> Tuple[int, ...]:
-    return (0,) * program.ndim if offsets is None else tuple(
-        int(o) for o in offsets)
-
-
-def superstep(padded, center, taps, *, program, plan, true_shape,
-              offsets=None) -> torch.Tensor:
-    """B5: the pre-padded superstep: a grid ``boundary_pad`` already padded
-    by ``plan.halo`` -> a new tensor of the rounded grid.  Cells of the
-    round-up slack are finite but unspecified (callers slice the true
-    region back, see ``superstep_common.cuh:boundary_fixup``)."""
+def _prepadded(kernel: Kernel, name: str, padded, center, taps, *, program,
+               plan, true_shape, offsets, tile, segment,
+               persistent: bool) -> torch.Tensor:
+    """A pre-padded superstep (B5 one-shot, B6 persistent) into a new
+    tensor of the rounded grid: the register queues for a star within
+    ``QUEUE_STEPS``, else the streamed kernel's pre-padded mode on its
+    one-shot (B3's) or persistent (B4's) launcher."""
     nd = program.ndim
     rounded = _rounded(padded, program, plan)
     out = torch.empty(tuple(padded.shape[:-nd]) + rounded,
                       device=padded.device, dtype=padded.dtype)
-    tile = pick_tile(plan, "superstep", smem_optin(padded.device.index))
-    _launch(SUPERSTEP, padded, out, center, taps, program=program,
-            steps=plan.par_time, true=true_shape,
-            src=tuple(padded.shape[-nd:]), load=(0,) * nd,
-            origin=_offsets(program, offsets), dst=rounded,
-            store=(0,) * nd, written=rounded, tile=tile,
-            radius=(program.halo_radius,) * nd)
+    offsets = (0,) * nd if offsets is None else tuple(int(o)
+                                                      for o in offsets)
+    args = (program, plan.par_time, tuple(padded.shape[-nd:]),
+            tuple(int(n) for n in true_shape), offsets)
+    kw = dict(batch=padded.shape[0] if padded.ndim > nd else 1,
+              smem_limit=smem_optin(padded.device.index), tile=tile,
+              segment=segment)
+    if plan.body(name) == "streamed":
+        geo = streamed.prepadded_geometry(*args, **kw)
+        route = PADDED_PIPELINED if persistent else TEMPORAL_SUPERSTEP
+    else:
+        geo = queued.prepadded_geometry(*args, persistent=persistent, **kw)
+        route = None
+    _superstep_launch(kernel, padded, out, center, taps, geo, program,
+                      route)
     return out
+
+
+def superstep(padded, center, taps, *, program, plan, true_shape,
+              offsets=None, tile=None, segment=None) -> torch.Tensor:
+    """B5: the pre-padded superstep, a grid ``boundary_pad`` already padded
+    by ``plan.halo`` -> a new tensor of the rounded grid, every cell
+    written (cells of the round-up slack in a tile or segment wholly past
+    the grid are finite but unspecified: callers slice the true region
+    back); ``offsets`` is the shard origin in the global ``true_shape``.
+    A one-shot grid.  ``tile`` (in-plane) and ``segment`` override the
+    picks."""
+    return _prepadded(SUPERSTEP, "superstep", padded, center, taps,
+                      program=program, plan=plan, true_shape=true_shape,
+                      offsets=offsets, tile=tile, segment=segment,
+                      persistent=False)
 
 
 def pipelined_superstep(padded, center, taps, *, program, plan, true_shape,
                         offsets=None, tile=None,
                         segment=None) -> torch.Tensor:
-    """B6: B5's function on persistent register-queued CTAs
-    (``queued.prepadded_geometry``), the first planes of a CTA's next work
-    item in flight while the current one computes.  ``tile`` (in-plane)
-    and ``segment`` override the picks."""
-    nd = program.ndim
-    rounded = _rounded(padded, program, plan)
-    out = torch.empty(tuple(padded.shape[:-nd]) + rounded,
-                      device=padded.device, dtype=padded.dtype)
-    batch = padded.shape[0] if padded.ndim > nd else 1
-    geo = queued.prepadded_geometry(
-        program, plan.par_time, padded.shape[-nd:], true_shape,
-        _offsets(program, offsets), batch=batch,
-        smem_limit=smem_optin(padded.device.index), tile=tile,
-        segment=segment)
-    _queued_launch(PIPELINED_SUPERSTEP, padded, out, center, taps, geo,
-                   program)
-    return out
+    """B6: B5's function on persistent CTAs, the first planes of a CTA's
+    next work item in flight while the current one computes."""
+    return _prepadded(PIPELINED_SUPERSTEP, "pipelined_superstep", padded,
+                      center, taps, program=program, plan=plan,
+                      true_shape=true_shape, offsets=offsets, tile=tile,
+                      segment=segment, persistent=True)
 
 
-def refresh_wrap_halo(src: torch.Tensor, copies, padded_shape) -> None:
-    """Run the wrap ``copies`` (``common.wrap_copies``: lo then hi per
-    axis) in place on ``src``, one launch per axis in order."""
-    P = tuple(padded_shape)
+#: Threads of a wrap-refresh CTA and the items each copies
+#: (``csrc/wrap_halo.cu``).
+WRAP_THREADS, WRAP_PER_THREAD = 256, 2
+
+
+@functools.lru_cache(maxsize=64)
+def wrap_boxes(layout) -> Tuple[Tuple[Tuple[int, int, int], ...], ...]:
+    """The shell of ``layout`` (``common.PaddedLayout``): the cells whose
+    coordinate on some wrap axis lies outside ``[H, H + n)``, as boxes of
+    ``(lo, extent, shift)`` per spatial axis; each cell of a box takes the
+    cell ``shift`` away (per axis), the interior cell at its wrapped
+    coordinate, which is what the axis-ordered ``common.wrap_copies``
+    leave there.  Slab ``d`` (one per wrap axis, in order) is ring on axis
+    ``d``, interior on the wrap axes before it and full on the axes after
+    it; it splits into boxes where the shift changes (the two sides of the
+    ring on ``d``; low ring, interior and high ring on a later wrap axis).
+    Raises on a wrap-degenerate layout, whose sources would not all be
+    interior."""
+    if layout.wrap_degenerate():
+        raise ValueError(f"a wrap-degenerate layout ({layout}) has no "
+                         f"one-lap ring refresh: the run re-pads instead")
+    H, P = layout.halo, layout.padded_shape
+    boxes = []
+    for i, d in enumerate(layout.wrap_axes):
+        axes = []
+        for a, (n, p) in enumerate(zip(layout.local_shape, P)):
+            low, mid, high = (0, H, n), (H, n, 0), (H + n, p - H - n, -n)
+            if a == d:
+                axes.append((low, high))
+            elif a in layout.wrap_axes[:i]:
+                axes.append((mid,))
+            elif a in layout.wrap_axes:
+                axes.append((low, mid, high))
+            else:
+                axes.append(((0, p, 0),))
+        boxes += [b for b in itertools.product(*axes)
+                  if all(ext > 0 for _, ext, _ in b)]
+    return tuple(boxes)
+
+
+def wrap_rows(layout, batch: int, aligned: bool):
+    """The ``wrap_halo.cu:BoxField`` rows of :func:`wrap_boxes` for a
+    ``batch`` of grids, the launch's CTAs and the padded extent as three
+    axes (a 2D grid's first is 1).  A box copies 16 bytes an item where its
+    rows are 16-byte aligned on both sides (``aligned``: the buffer is)."""
+    nd = len(layout.padded_shape)
+    P3 = (1,) * (3 - nd) + tuple(layout.padded_shape)
+    rows, blocks = [], 0
+    for box in wrap_boxes(layout):
+        (l0, e0, s0), (l1, e1, s1), (l2, e2, s2) = \
+            ((0, 1, 0),) * (3 - nd) + box
+        vec = aligned and all(v % 4 == 0 for v in (P3[2], l2, e2, s2))
+        ex = e2 // 4 if vec else e2
+        count = batch * e0 * e1 * ex
+        if count >= 1 << 31:
+            raise ValueError(f"a wrap box of {count} items needs 64-bit "
+                             f"item indices")
+        rows.append((blocks, count, l0, l1, l2, e0, e1, ex,
+                     (s0 * P3[1] + s1) * P3[2] + s2, int(vec)))
+        blocks += -(-count // (WRAP_THREADS * WRAP_PER_THREAD))
+    return tuple(rows), blocks, P3
+
+
+@functools.lru_cache(maxsize=64)
+def _wrap_launch(layout, batch: int, device: torch.device, aligned: bool):
+    """The launch arguments of :func:`wrap_rows` after the buffer:
+    ``(rows on the device, boxes, CTAs, P0, P1, P2)``, made once per
+    layout, batch and device (the device array is kept alive here)."""
+    rows, blocks, P3 = wrap_rows(layout, batch, aligned)
+    table = torch.tensor(rows, dtype=torch.int64, device=device)
+    torch.cuda.current_stream(device.index).synchronize()
+    return table, (table.data_ptr(), len(rows), blocks) + P3
+
+
+def refresh_wrap_halo(src: torch.Tensor, layout) -> None:
+    """B2: refresh every wrap axis of ``src`` in place in one launch
+    (:func:`wrap_boxes`; the launch arguments are cached per layout, so a
+    refresh is one ctypes call).  Refuses a wrap-degenerate layout."""
+    P = layout.padded_shape
     _check(src, "src", P)
-    nd = len(P)
-    batch = src.shape[0] if src.ndim > nd else 1
-    stream = torch.cuda.current_stream(src.device).cuda_stream
-    for lo, hi in zip(copies[0::2], copies[1::2]):
-        d = lo.axis
-        WRAP_HALO(src.data_ptr(), batch * math.prod(P[:d]), P[d],
-                  math.prod(P[d + 1:]), lo.src[0], lo.dst[0], lo.width,
-                  hi.src[0], hi.dst[0], hi.width, src.device.index, stream)
+    ptr, dev = src.data_ptr(), src.device
+    _, args = _wrap_launch(layout, src.shape[0] if src.ndim > len(P) else 1,
+                           dev, ptr % 16 == 0)
+    WRAP_HALO(ptr, *args, dev.index, _stream(dev))

@@ -1,17 +1,17 @@
 """Geometry of the register-queued superstep kernels
 (``csrc/queued_superstep.cu``).
 
-B1 (``padded_superstep``: the padded carry) and B6 (``pipelined_superstep``:
-a grid ``boundary_pad`` already padded) walk a column tile plane by plane
-along the streamed axis, as the streamed kernels do (axes (streamed, y, x);
-a 2D grid streams along y and has a dummy y of extent 1 and radius 0).  A
-work item is a column tile of in-plane output cells and a segment
-``[a, e)`` of output planes; its stage 0 is the source planes
-``[a - h, e + h)`` (``h = T*r``).  For a star of radius ``r <= 4`` and
-``T <= QUEUE_STEPS[ndim][r]`` fused steps each thread keeps ``3r`` values
-per stage and cell in registers (the queue path); every other tap set takes B6's
-ring path of the same source, or for B1 the streamed kernel.  The shared
-memory of both paths is :class:`repro_torch.core.blocking.QueuedPlanes`.
+B1 (``padded_superstep``: the padded carry), B5 (``superstep``) and B6
+(``pipelined_superstep``: a grid ``boundary_pad`` already padded) walk a
+column tile plane by plane along the streamed axis, as the streamed
+kernels do (axes (streamed, y, x); a 2D grid streams along y and has a
+dummy y of extent 1 and radius 0).  A work item is a column tile of
+in-plane output cells and a segment ``[a, e)`` of output planes; its
+stage 0 is the source planes ``[a - h, e + h)`` (``h = T*r``).  For a
+star of radius ``r <= 4`` and ``T <= QUEUE_STEPS[ndim][r]`` fused steps
+each thread keeps ``3r`` values per stage and cell in registers; every
+other tap set runs the streamed kernel (``kernels/streamed.py``).  The
+shared memory is :class:`repro_torch.core.blocking.QueuedPlanes`.
 Everything here is host arithmetic, so the CPU tests check it.
 """
 
@@ -62,7 +62,7 @@ class QueuedGeometry:
     coordinate 0; ``origin`` its global coordinate (the shard offsets:
     the boundary acts outside ``[0, true)`` in global coordinates).
     ``carry`` marks the padded carry (the t = 0 boundary applied on load),
-    ``queue`` the register-queue path (else the ring path)."""
+    ``persistent`` a grid of resident CTAs that walk the work items."""
 
     ndim: int
     steps: int
@@ -77,8 +77,6 @@ class QueuedGeometry:
     tile: Tuple[int, int]
     segment: int
     batch: int
-    ntaps: int
-    queue: bool
     carry: bool
     persistent: bool
 
@@ -95,8 +93,7 @@ class QueuedGeometry:
     def planes(self) -> QueuedPlanes:
         in_plane = (self.tile[1],) if self.ndim == 2 else self.tile
         return QueuedPlanes(ndim=self.ndim, radius=self.radius,
-                            steps=self.steps, tile=in_plane,
-                            queue=self.queue, ntaps=self.ntaps)
+                            steps=self.steps, tile=in_plane)
 
     @property
     def smem_bytes(self) -> int:
@@ -110,7 +107,7 @@ class QueuedGeometry:
 
     @property
     def strips(self) -> Tuple[int, int, int]:
-        """(rows, strips per row, first strip) of the queue path."""
+        """(rows, strips per row, first strip) of the threads."""
         return self.planes.strips(self.pad)
 
     @property
@@ -138,7 +135,7 @@ class QueuedGeometry:
                 self.written, self.origin, self.radii,
                 (self.segment, self.tile[0], self.tile[1]),
                 (self.steps, planes.group, planes.ahead),
-                (int(self.queue), int(self.carry), int(self.persistent)),
+                (int(self.carry), int(self.persistent), 0),
                 (planes.bytes(), 0, 0))
         return [int(v) for row in rows for v in row]
 
@@ -149,27 +146,22 @@ def _candidates(ndim: int):
 
 
 @functools.lru_cache(maxsize=None)
-def _fits(ndim, radius, steps, ntaps, queue, smem_limit):
-    planes = [QueuedPlanes(ndim=ndim, radius=radius, steps=steps, tile=t,
-                           queue=queue, ntaps=ntaps)
+def _fits(ndim, radius, steps, smem_limit):
+    planes = [QueuedPlanes(ndim=ndim, radius=radius, steps=steps, tile=t)
               for t in _candidates(ndim)]
-    usable = [p for p in planes if not queue or p.threads_fit]
+    usable = [p for p in planes if p.threads_fit]
     return usable, [p for p in usable if p.bytes() <= smem_limit]
 
 
-def smallest_queued_tile(program, steps: int,
-                         queue: Optional[bool] = None) -> Tuple[int, ...]:
+def smallest_queued_tile(program, steps: int) -> Tuple[int, ...]:
     """The usable candidate with the least shared memory."""
-    if queue is None:
-        queue = queue_path(program, steps)
-    usable, _ = _fits(program.ndim, program.halo_radius, steps,
-                      program.num_taps, queue, 1 << 62)
+    usable, _ = _fits(program.ndim, program.halo_radius, steps, 1 << 62)
     return min(usable, key=lambda p: p.bytes()).tile
 
 
 @functools.lru_cache(maxsize=None)
-def pick_queued_tile(program, steps: int, smem_limit: int,
-                     queue: Optional[bool] = None) -> Tuple[int, ...]:
+def pick_queued_tile(program, steps: int,
+                     smem_limit: int) -> Tuple[int, ...]:
     """In-plane column tile: the least ``QueuedPlanes.cost`` plus
     :data:`ROW_COPY_CELLS` per loaded row over the tile's cells (then the
     widest x) among the candidates whose threads cover the stage-1 region
@@ -177,13 +169,11 @@ def pick_queued_tile(program, steps: int, smem_limit: int,
     does, among those that fit ``smem_limit``.  The register budget
     (``__launch_bounds__(256, 2)``) allows two CTAs per SM, so a tile that
     allows only one halves the warps that hide the copies and barriers."""
-    if queue is None:
-        queue = queue_path(program, steps)
     nd, r = program.ndim, program.halo_radius
-    _, fits = _fits(nd, r, steps, program.num_taps, queue, smem_limit)
+    _, fits = _fits(nd, r, steps, smem_limit)
     if not fits:
-        small = smallest_queued_tile(program, steps, queue)
-        need = queued_planes(program, steps, small, queue).bytes()
+        small = smallest_queued_tile(program, steps)
+        need = queued_planes(program, steps, small).bytes()
         raise ValueError(
             f"no CTA tile fits: the smallest queued column tile, {small}, "
             f"needs {need} bytes of shared memory for {steps} fused steps "
@@ -202,9 +192,12 @@ def _geometry(program, steps, *, true, src, src_off, dst, dst_off, written,
               origin, batch, smem_limit, tile, segment, carry, persistent
               ) -> QueuedGeometry:
     nd = program.ndim
-    queue = queue_path(program, steps)
+    if not queue_path(program, steps):
+        raise ValueError(f"a {program.shape} of radius {program.radius} at "
+                         f"{steps} steps has no register-queue form: it "
+                         f"runs on the streamed kernel")
     if tile is None:
-        tile = pick_queued_tile(program, steps, smem_limit, queue)
+        tile = pick_queued_tile(program, steps, smem_limit)
     tile = tuple(int(t) for t in tile)
     if len(tile) != nd - 1 or min(tile) < 1 or tile[-1] % 4:
         raise ValueError(f"a queued {nd}D column tile has {nd - 1} "
@@ -221,10 +214,9 @@ def _geometry(program, steps, *, true, src, src_off, dst, dst_off, written,
         ndim=nd, steps=steps, radius=program.halo_radius, true=true, src=src,
         src_off=src_off, dst=dst, dst_off=dst_off, written=written,
         origin=origin, tile=tile2, segment=int(segment), batch=batch,
-        ntaps=program.num_taps, queue=queue, carry=carry,
-        persistent=persistent)
+        carry=carry, persistent=persistent)
     rows, nx, _ = geo.strips
-    if queue and rows * nx > QUEUE_THREADS:
+    if rows * nx > QUEUE_THREADS:
         raise ValueError(f"column tile {tile} needs {rows * nx} strips, a "
                          f"queued CTA has {QUEUE_THREADS} threads")
     return geo
@@ -239,10 +231,6 @@ def carry_geometry(program, steps: int, layout, *, batch: int,
     into the other carry buffer at ``H``, true cells only, on the register
     queues; a one-shot grid (persistent CTAs measured slower,
     ``PERF.md``)."""
-    if not queue_path(program, steps):
-        raise ValueError(f"a {program.shape} of radius {program.radius} at "
-                         f"{steps} steps has no register-queue form: B1 "
-                         f"runs it on the streamed kernel")
     nd = program.ndim
     h = steps * program.halo_radius
     H = layout.halo
@@ -262,19 +250,22 @@ def carry_geometry(program, steps: int, layout, *, batch: int,
 def prepadded_geometry(program, steps: int, spatial: Sequence[int],
                        true_shape: Sequence[int],
                        offsets: Sequence[int], *, batch: int,
-                       smem_limit: int,
+                       smem_limit: int, persistent: bool,
                        tile: Optional[Tuple[int, ...]] = None,
                        segment: Optional[int] = None) -> QueuedGeometry:
-    """B6: ``steps`` fused steps of a grid ``boundary_pad`` padded by
-    ``h`` (``spatial`` its padded extent), written into a separate grid of
-    the rounded extent, every cell; ``offsets`` is the shard origin in the
-    global ``true_shape``.  Persistent CTAs."""
+    """B5 (one-shot grid) and B6 (``persistent``): ``steps`` fused steps
+    of a grid ``boundary_pad`` padded by ``h`` (``spatial`` its padded
+    extent), written into a separate grid of the rounded extent, every
+    cell; ``offsets`` is the shard origin in the global ``true_shape``."""
     nd = program.ndim
     h = steps * program.halo_radius
     rounded = tuple(int(s) - 2 * h for s in spatial)
     if any(s < 1 for s in rounded):
         raise ValueError(f"padded grid {tuple(spatial)} is not larger than "
                          f"twice the halo {h}")
+    if len(offsets) != nd or min(offsets) < 0:
+        raise ValueError(f"shard offsets {tuple(offsets)} are {nd} "
+                         f"coordinates >= 0")
     R = streamed.axes3(nd, rounded)
     off = (h, 0, h) if nd == 2 else (h, h, h)
     return _geometry(program, steps, true=streamed.axes3(nd, true_shape),
@@ -283,4 +274,4 @@ def prepadded_geometry(program, steps: int, spatial: Sequence[int],
                      origin=tuple(offsets) if nd == 3 else
                      (offsets[0], 0, offsets[1]), batch=batch,
                      smem_limit=smem_limit, tile=tile, segment=segment,
-                     carry=False, persistent=True)
+                     carry=False, persistent=persistent)

@@ -1,7 +1,10 @@
 """Geometry of the streamed superstep kernels (``csrc/streamed_superstep.cu``).
 
-B3 (``temporal_superstep``) and B4 (``padded_pipelined``) advance the
-padded carry by ``T`` fused steps without holding a whole halo'd window.
+B3 (``temporal_superstep``) and B4 (``padded_pipelined``), and B1 for tap
+sets without register queues, advance the padded carry by ``T`` fused
+steps without holding a whole halo'd window (:func:`carry_geometry`); B5
+and B6 run the same tap sets on a grid ``boundary_pad`` already padded
+(:func:`prepadded_geometry`).
 Axes are (streamed, y, x): a 3D grid streams along z and blocks (y, x); a
 2D grid streams along y and blocks x (its y slot is a dummy of extent 1
 and radius 0).  One CTA owns
@@ -54,11 +57,15 @@ def axes3(ndim: int, values) -> Tuple[int, int, int]:
 
 @dataclasses.dataclass(frozen=True)
 class StreamedGeometry:
-    """One streamed launch over the padded carry, in (streamed, y, x)
-    axes.  ``src_off``/``dst_off`` are the source/output index of global
-    coordinate 0 (the ring depth ``H`` of the carry).  ``fixed`` is the
-    code of a tap set the kernel takes at fixed offsets with coefficients
-    in registers (:data:`FIXED_TAPS`), or 0 for the offset-table path."""
+    """One streamed launch, in (streamed, y, x) axes.  ``src_off`` /
+    ``dst_off`` are the source/output index of local coordinate 0 (the
+    ring depth ``H`` of the carry; ``h`` and 0 pre-padded), ``origin`` its
+    global coordinate (the shard offsets: the boundary acts outside
+    ``[0, true)`` in global coordinates; 0 for the carry).  ``fixed`` is
+    the code of a tap set the kernel takes at fixed offsets with
+    coefficients in registers (:data:`FIXED_TAPS`), or 0 for the
+    offset-table path.  ``prepadded`` loads the source as it is, without
+    the carry's t = 0 boundary mapping."""
 
     ndim: int
     steps: int
@@ -74,6 +81,8 @@ class StreamedGeometry:
     batch: int
     ntaps: int
     fixed: int = 0
+    origin: Tuple[int, int, int] = (0, 0, 0)
+    prepadded: bool = False
 
     @property
     def radii(self) -> Tuple[int, int, int]:
@@ -137,10 +146,10 @@ class StreamedGeometry:
     def array(self) -> List[int]:
         """The host geometry array of ``streamed_superstep.cu:Field``."""
         rows = (self.true, self.src, self.src_off, self.dst, self.dst_off,
-                self.written, self.radii,
+                self.written, self.origin, self.radii,
                 (self.segment, self.tile[0], self.tile[1]),
                 (self.rings.group, self.steps, self.smem_bytes),
-                (self.fixed, 0, 0))
+                (self.fixed, int(self.prepadded), 0))
         return [int(v) for row in rows for v in row]
 
 
@@ -210,6 +219,32 @@ def segment_length(planes: int, columns: int, halo: int,
     return max(1, min(planes, max(length, 2 * halo)))
 
 
+def _geometry(program, steps, *, true, src, src_off, dst, dst_off,
+              written, origin, batch, smem_limit, tile, segment,
+              prepadded) -> StreamedGeometry:
+    nd = program.ndim
+    if tile is None:
+        tile = pick_streamed_tile(program, steps, smem_limit)
+    tile = tuple(int(t) for t in tile)
+    if len(tile) != nd - 1 or min(tile) < 1:
+        raise ValueError(f"a streamed {nd}D column tile has {nd - 1} "
+                         f"positive extents (got {tile})")
+    tile2 = (1, tile[0]) if nd == 2 else tile
+    columns = batch * (-(-written[1] // tile2[0])) * \
+        (-(-written[2] // tile2[1]))
+    if segment is None:
+        segment = segment_length(written[0], columns,
+                                 steps * program.halo_radius)
+    if segment < 1:
+        raise ValueError(f"segment must be >= 1 (got {segment})")
+    return StreamedGeometry(
+        ndim=nd, steps=steps, radius=program.halo_radius, true=true,
+        src=src, src_off=src_off, dst=dst, dst_off=dst_off, written=written,
+        tile=tile2, segment=int(segment), batch=batch,
+        ntaps=program.num_taps, fixed=fixed_code(program), origin=origin,
+        prepadded=prepadded)
+
+
 @functools.lru_cache(maxsize=256)
 def carry_geometry(program, steps: int, layout, *, batch: int,
                    smem_limit: int,
@@ -221,31 +256,48 @@ def carry_geometry(program, steps: int, layout, *, batch: int,
     only.  ``tile`` (in-plane, as :func:`pick_streamed_tile` returns it)
     and ``segment`` override the picks."""
     nd = program.ndim
-    h = steps * program.halo_radius
     H = layout.halo
-    if h > H:
-        raise ValueError(f"a {steps}-step window needs a ring of {h}, the "
-                         f"layout has {H}")
-    if tile is None:
-        tile = pick_streamed_tile(program, steps, smem_limit)
-    tile = tuple(int(t) for t in tile)
-    if len(tile) != nd - 1 or min(tile) < 1:
-        raise ValueError(f"a streamed {nd}D column tile has {nd - 1} "
-                         f"positive extents (got {tile})")
-    tile2 = (1, tile[0]) if nd == 2 else tile
+    if steps * program.halo_radius > H:
+        raise ValueError(f"a {steps}-step window needs a ring of "
+                         f"{steps * program.halo_radius}, the layout has {H}")
     n = axes3(nd, layout.local_shape)
     P = axes3(nd, layout.padded_shape)
     off = (H, 0, H) if nd == 2 else (H, H, H)
-    columns = batch * (-(-n[1] // tile2[0])) * (-(-n[2] // tile2[1]))
-    if segment is None:
-        segment = segment_length(n[0], columns, h)
-    if segment < 1:
-        raise ValueError(f"segment must be >= 1 (got {segment})")
-    return StreamedGeometry(
-        ndim=nd, steps=steps, radius=program.halo_radius, true=n, src=P,
-        src_off=off, dst=P, dst_off=off, written=n, tile=tile2,
-        segment=int(segment), batch=batch, ntaps=program.num_taps,
-        fixed=fixed_code(program))
+    return _geometry(program, steps, true=n, src=P, src_off=off, dst=P,
+                     dst_off=off, written=n, origin=(0, 0, 0), batch=batch,
+                     smem_limit=smem_limit, tile=tile, segment=segment,
+                     prepadded=False)
+
+
+@functools.lru_cache(maxsize=256)
+def prepadded_geometry(program, steps: int, spatial: Tuple[int, ...],
+                       true_shape: Tuple[int, ...], offsets: Tuple[int, ...],
+                       *, batch: int, smem_limit: int,
+                       tile: Optional[Tuple[int, ...]] = None,
+                       segment: Optional[int] = None) -> StreamedGeometry:
+    """B5 and B6 for tap sets without register queues: ``steps`` fused
+    steps of a grid ``boundary_pad`` padded by ``h`` (``spatial`` its
+    padded extent), copied as it is, written into a separate grid of the
+    rounded extent, every cell; ``offsets`` is the shard origin in the
+    global ``true_shape`` (fixups between steps act outside it)."""
+    nd = program.ndim
+    h = steps * program.halo_radius
+    rounded = tuple(int(s) - 2 * h for s in spatial)
+    if any(s < 1 for s in rounded):
+        raise ValueError(f"padded grid {tuple(spatial)} is not larger than "
+                         f"twice the halo {h}")
+    if len(offsets) != nd or min(offsets) < 0:
+        raise ValueError(f"shard offsets {tuple(offsets)} are {nd} "
+                         f"coordinates >= 0")
+    R = axes3(nd, rounded)
+    return _geometry(program, steps, true=axes3(nd, true_shape),
+                     src=axes3(nd, spatial),
+                     src_off=(h, 0, h) if nd == 2 else (h, h, h), dst=R,
+                     dst_off=(0, 0, 0), written=R,
+                     origin=(offsets[0], 0, offsets[1]) if nd == 2
+                     else tuple(offsets), batch=batch,
+                     smem_limit=smem_limit, tile=tile, segment=segment,
+                     prepadded=True)
 
 
 def fixed_code(program) -> int:

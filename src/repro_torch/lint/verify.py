@@ -17,13 +17,10 @@ from repro_torch.kernels.common import run_kernels
 from repro_torch.kernels.cuda import smallest_tile
 from repro_torch.lint.diagnostics import Diagnostic, error
 
-#: How each kernel holds its data, for the message.
+#: How each body holds its data (``BlockPlan.body``), for the message.
 _HOLDS = {
-    "padded_superstep": "planes of its column tile",
-    "superstep": "a halo'd window",
-    "pipelined_superstep": "planes of its column tile",
-    "temporal_superstep": "a ring of planes per fused step",
-    "padded_pipelined": "a ring of planes per fused step",
+    "queue": "planes of its column tile",
+    "streamed": "a ring of planes per fused step",
 }
 
 
@@ -48,8 +45,8 @@ def smem_diagnostics(plan: BlockPlan, variant: str = "plain",
         need = kplan.smem_bytes_for(tile, kernel)
         if need > chip.smem_optin:
             over.append(f"{kernel} ({kplan.kernel_steps(kernel)} fused "
-                        f"steps, {_HOLDS[kernel]}) needs {need} bytes even "
-                        f"at its smallest tile {tile}")
+                        f"steps, {_HOLDS[kplan.body(kernel)]}) needs "
+                        f"{need} bytes even at its smallest tile {tile}")
     if not over:
         return []
     return [error(

@@ -102,7 +102,7 @@ def test_front_door_on_the_card_matches_cpu(cuda_device, ndim, boundary):
 
 def test_main_path_counts_launches(cuda_device):
     """steps 5 at par_time 2: three supersteps (the last a remainder), each
-    a wrap launch per axis and one superstep launch."""
+    one wrap launch (every axis) and one superstep launch."""
     prog, plan, _ = _config(2, "periodic")
     cs = repro_torch.stencil(prog).compile(GRIDS[2], steps=5, plan=plan)
     g = torch.rand(GRIDS[2], device=cuda_device)
@@ -110,7 +110,42 @@ def test_main_path_counts_launches(cuda_device):
     cs.run(g)
     torch.cuda.synchronize()
     launched = {k: v for k, v in cuda.launches().items() if v}
-    assert launched == {"padded_superstep": 3, "wrap_halo": 6}
+    assert launched == {"padded_superstep": 3, "wrap_halo": 3}
+
+
+#: (ndim, variant, radius, par_time, grid): periodic carries with
+#: round-up slack; the temporal ones have the chunk-deep ring.
+WRAP_LAYOUTS = [(2, "plain", 2, 2, (37, 150)), (3, "plain", 2, 2, GRIDS[3]),
+                (2, "temporal", 2, 2, (37, 150)),
+                (3, "temporal", 2, 1, (20, 32, 140)),
+                (2, "plain", 1, 4, (64, 256))]
+
+
+@pytest.mark.parametrize("layout_case", WRAP_LAYOUTS)
+@pytest.mark.parametrize("batch", [None, 3])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_wrap_refresh_is_one_launch_equal_to_plain(cuda_device, layout_case,
+                                                   batch, aligned):
+    """B2 refreshes every wrap axis in one launch and equals the
+    axis-ordered ``refresh_wrap_halo_plain`` on every cell, exactly; on a
+    buffer 4 bytes off 16-byte alignment it copies cell by cell."""
+    ndim, variant, radius, par_time, grid = layout_case
+    prog = repro_torch.StencilProgram(ndim=ndim, radius=radius,
+                                      boundary="periodic")
+    plan = repro_torch.BlockPlan(spec=prog, block_shape=BLOCKS[ndim],
+                                 par_time=par_time)
+    layout = common.ring_schedule(prog, plan, grid, par_time,
+                                  variant=variant).layout
+    shape = (() if batch is None else (batch,)) + layout.padded_shape
+    n = int(np.prod(shape))
+    store = _random((n + 1,), cuda_device, ndim)
+    src = (store[:n] if aligned else store[1:]).view(shape)
+    assert (src.data_ptr() % 16 == 0) == aligned
+    want = common.refresh_wrap_halo_plain(src.clone(), layout)
+    before = cuda.launches()["wrap_halo"]
+    common.refresh_wrap_halo(src, layout)
+    assert cuda.launches()["wrap_halo"] == before + 1
+    torch.testing.assert_close(src, want, rtol=0, atol=0)
 
 
 def test_wrappers_refuse_bad_tensors_on_the_card(cuda_device):
@@ -254,22 +289,25 @@ def test_streamed_launcher_refuses_a_different_ring_count(
 @pytest.mark.parametrize("boundary", ["clamp", "periodic", "constant"])
 @pytest.mark.parametrize("par_time", [2, 1])
 @pytest.mark.parametrize("variant", ["plain", "pipelined"])
+@pytest.mark.parametrize("shape", ["star", "box", "diamond"])
 def test_prepadded_kernels_match_plain_versions(cuda_device, ndim, boundary,
-                                                par_time, variant):
-    """B5 and B6 against ``superstep_plain`` on the same padded grid
-    (batch 2, non-zero shard offsets in a larger global grid): the true
-    cells agree."""
-    prog, plan, _ = _config(ndim, boundary, par_time=par_time)
-    shape = GRIDS[ndim]
+                                                par_time, variant, shape):
+    """B5 (plain) and B6 (pipelined) through ``superstep_call`` against
+    ``superstep_plain`` on the same padded grid (batch 2, non-zero shard
+    offsets in a larger global grid): the shard's true cells agree
+    exactly, on the register queues (the star) and on the streamed
+    kernel's pre-padded mode (the box, the diamond)."""
+    prog, plan, _ = _config(ndim, boundary, shape=shape, par_time=par_time)
+    grid = GRIDS[ndim]
     h = plan.halo
-    rounded = tuple(common.round_up(n, b) for n, b in zip(shape,
+    rounded = tuple(common.round_up(n, b) for n, b in zip(grid,
                                                            BLOCKS[ndim]))
-    g = _random((2,) + shape, cuda_device, ndim)
+    g = _random((2,) + grid, cuda_device, ndim)
     padded = boundary_pad(prog, g, [(0, 0)] + [
-        (h, r - n + h) for n, r in zip(shape, rounded)]).contiguous()
+        (h, r - n + h) for n, r in zip(grid, rounded)]).contiguous()
     coeffs = prog.default_coeffs(seed=2).to(cuda_device)
     offsets = (3,) * ndim
-    global_shape = tuple(n + 7 for n in shape)
+    global_shape = tuple(n + 7 for n in grid)
     kernel = "pipelined_superstep" if variant == "pipelined" \
         else "superstep"
     before = cuda.launches()[kernel]
@@ -282,20 +320,20 @@ def test_prepadded_kernels_match_plain_versions(cuda_device, ndim, boundary,
     want = common.superstep_plain(padded, coeffs.center, coeffs.taps,
                                   program=prog, plan=plan,
                                   true_shape=global_shape, offsets=offsets)
-    ix = (Ellipsis,) + tuple(slice(0, n) for n in shape)
-    torch.testing.assert_close(got[ix], want[ix], **ULP)
+    ix = (Ellipsis,) + tuple(slice(0, n) for n in grid)
+    torch.testing.assert_close(got[ix], want[ix], rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("variant,want", [
-    ("plain", {"padded_superstep": 3, "wrap_halo": 6}),
-    ("pipelined", {"padded_pipelined": 3, "wrap_halo": 6}),
+    ("plain", {"padded_superstep": 3, "wrap_halo": 3}),
+    ("pipelined", {"padded_pipelined": 3, "wrap_halo": 3}),
     ("temporal", {"temporal_superstep": 1, "padded_superstep": 1,
-                  "wrap_halo": 4}),
+                  "wrap_halo": 2}),
 ])
 def test_variant_launch_counts(cuda_device, variant, want):
     """par_time 2 on a periodic grid: plain and pipelined at steps 5 run
     two full supersteps and a remainder; temporal at steps 11 one chunk of
-    8 and a plain remainder of 3; a wrap launch per axis before each."""
+    8 and a plain remainder of 3; one wrap launch before each."""
     prog, plan, _ = _config(2, "periodic")
     steps = 11 if variant == "temporal" else 5
     cs = repro_torch.stencil(prog).compile(GRIDS[2], steps=steps, plan=plan,
@@ -335,10 +373,10 @@ def test_compile_refuses_a_plan_no_tile_fits(cuda_device):
     assert cuda.launches() == before
 
 
-#: Register-queued kernels (B1, B6; ``kernels/queued.py``): (shape,
-#: radius, fused steps).  Stars within ``QUEUE_STEPS`` take the queue
-#: path; the star of 6 steps, the 3D star of radius 4 at 2 steps, the box
-#: and the diamond take B1's streamed route or B6's ring path.
+#: B1 and B6 (``kernels/queued.py``): (shape, radius, fused steps).  Stars
+#: within ``QUEUE_STEPS`` take the register queues; the star of 6 steps,
+#: the 3D star of radius 4 at 2 steps, the box and the diamond run the
+#: streamed kernel (B1 on the carry, B6 in its pre-padded mode).
 QUEUED = [("star", 1, 4), ("star", 2, 3), ("star", 3, 1), ("star", 4, 2),
           ("star", 1, 6), ("box", 1, 2), ("diamond", 2, 1)]
 #: The picked geometry; a segment shorter than 2h; a column tile that
@@ -426,15 +464,18 @@ def test_pipelined_superstep_matches_plain_version(cuda_device, ndim,
 def test_queued_launches_on_two_streams_keep_their_coefficients(
         cuda_device):
     """``csrc/queued_superstep.cu`` holds a launch's coefficients in one
-    constant bank per device.  B1 with a star (its register queues) on one
-    stream and B6 with a box and other coefficients (its ring path) on a
-    second, interleaved four times each: every output equals its plain
-    version exactly."""
+    constant bank per device.  B1 with a star on one stream, and on a
+    second stream B6 with the same star and other coefficients (the same
+    source's bank) and B6 with a box (the streamed kernel's pre-padded
+    mode, coefficients in shared memory), interleaved four times each:
+    every output equals its plain version exactly."""
     star = repro_torch.StencilProgram(ndim=3, radius=1, boundary="clamp")
     box = dataclasses.replace(star, shape="box")
     plan = repro_torch.BlockPlan(spec=star, block_shape=(8, 16, 128),
                                  par_time=2)
     plan_box = dataclasses.replace(plan, spec=box)
+    assert plan.body("pipelined_superstep") == "queue"
+    assert plan_box.body("pipelined_superstep") == "streamed"
     grid = (64, 96, 512)
     layout = common.ring_schedule(star, plan, grid, 2).layout
     src = _random(layout.padded_shape, cuda_device, 3)
@@ -443,10 +484,11 @@ def test_queued_launches_on_two_streams_keep_their_coefficients(
     padded = boundary_pad(box, src[_interior(layout)], [
         (h, r - n + h) for n, r in zip(grid, rounded)]).contiguous()
     c1 = star.default_coeffs(seed=1).to(cuda_device)
-    c2 = box.default_coeffs(seed=2).to(cuda_device)
+    c2 = star.default_coeffs(seed=2).to(cuda_device)
+    c3 = box.default_coeffs(seed=3).to(cuda_device)
     streams = (torch.cuda.Stream(cuda_device), torch.cuda.Stream(cuda_device))
     torch.cuda.synchronize()
-    carried, prepadded = [], []
+    carried, stars, boxes = [], [], []
     for _ in range(4):
         with torch.cuda.stream(streams[0]):
             out = torch.zeros_like(src)
@@ -454,18 +496,26 @@ def test_queued_launches_on_two_streams_keep_their_coefficients(
                                   plan=plan, layout=layout)
             carried.append(out)
         with torch.cuda.stream(streams[1]):
-            prepadded.append(cuda.pipelined_superstep(
-                padded, c2.center, c2.taps, program=box, plan=plan_box,
+            stars.append(cuda.pipelined_superstep(
+                padded, c2.center, c2.taps, program=star, plan=plan,
+                true_shape=grid))
+            boxes.append(cuda.pipelined_superstep(
+                padded, c3.center, c3.taps, program=box, plan=plan_box,
                 true_shape=grid))
     torch.cuda.synchronize()
     want = torch.zeros_like(src)
     common.padded_superstep_plain(src, want, c1.center, c1.taps,
                                   program=star, plan=plan, layout=layout)
-    want6 = common.superstep_plain(padded, c2.center, c2.taps, program=box,
-                                   plan=plan_box, true_shape=grid)
+    want_star = common.superstep_plain(padded, c2.center, c2.taps,
+                                       program=star, plan=plan,
+                                       true_shape=grid)
+    want_box = common.superstep_plain(padded, c3.center, c3.taps,
+                                      program=box, plan=plan_box,
+                                      true_shape=grid)
     ix = _interior(layout)
     true = tuple(slice(0, n) for n in grid)
     for got in carried:
         torch.testing.assert_close(got[ix], want[ix], rtol=0, atol=0)
-    for got in prepadded:
-        torch.testing.assert_close(got[true], want6[true], rtol=0, atol=0)
+    for got, w in [(g, want_star) for g in stars] + \
+            [(g, want_box) for g in boxes]:
+        torch.testing.assert_close(got[true], w[true], rtol=0, atol=0)

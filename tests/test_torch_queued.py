@@ -1,13 +1,13 @@
 """The register-queued superstep kernels' geometry and plane order, on the
 CPU.
 
-B1 (``padded_superstep``) and B6 (``pipelined_superstep``) stream a column
-tile plane by plane (``csrc/queued_superstep.cu``): stars keep each
+B1 (``padded_superstep``), B5 (``superstep``) and B6
+(``pipelined_superstep``) stream a column tile plane by plane
+(``csrc/queued_superstep.cu``) for stars within ``QUEUE_STEPS``: each
 stage's streamed-axis neighbours in per-thread register queues and only a
-centre plane per stage in shared memory; other tap sets take a ring of
-planes per stage.  A CUDA kernel has no CPU mode, so, as
-``tests/test_torch_streamed.py`` does for B3 and B4, this file checks what
-surrounds it:
+centre plane per stage in shared memory (every other tap set runs the
+streamed kernel, ``tests/test_torch_streamed.py``).  A CUDA kernel has no
+CPU mode, so this file checks what surrounds it:
 
 * the host geometry (``kernels/queued.py``, ``blocking.QueuedPlanes``):
   segments, tiles, the threads' strips, and the shared memory that the
@@ -15,13 +15,12 @@ surrounds it:
 * a torch replay of the kernel's schedule (a model kept here, not used by
   the package): the loader's ring slots ``ahead`` planes in front and
   across work items, the queues' pushes, the double-buffered centre
-  planes, the ghost-cell copies, the ghost-plane rules, the ring path's
-  lag.  Rings, queues and centre planes start as NaN and a stage's values
-  outside its region are NaN, so a read of anything the kernel leaves
-  unspecified shows.  On tiny grids it must equal
-  ``common.padded_superstep_plain`` (B1) or ``common.superstep_plain`` (B6)
-  bit for bit, and so the JAX reference's padded superstep (interpret
-  mode) at ``ULP``.
+  planes, the ghost-cell copies, the ghost-plane rules.  Rings, queues
+  and centre planes start as NaN and a stage's values outside its region
+  are NaN, so a read of anything the kernel leaves unspecified shows.  On
+  tiny grids it must equal ``common.padded_superstep_plain`` (B1) or
+  ``common.superstep_plain`` (B5, B6) bit for bit, and so the JAX
+  reference's padded superstep (interpret mode) at ``ULP``.
 """
 
 import dataclasses
@@ -83,7 +82,6 @@ class _Replay:
         planes = geo.planes
         self.E1, self.E2 = planes.extent
         self.D0, self.ahead = planes.depth0, planes.ahead
-        self.depth = 2 * geo.radius + 2
         self.bnd = program.boundary
         self.bval = float(program.boundary_value)
 
@@ -197,16 +195,9 @@ class _Replay:
         for cta in range(ctas):
             lins = list(range(cta, g.total, ctas))
             if lins:
-                (self.queue_cta if g.queue else self.ring_cta)(lins)
+                self.queue_cta(lins)
         out = self.out[:, :, 0, :] if self.p.ndim == 2 else self.out
         return out if self.batched else out[0]
-
-    def loader(self, lins):
-        """Yields the CTA's (item, k) loads in order, across items."""
-        for lin in lins:
-            it = self.item(lin)
-            for k in range(it["nload"]):
-                yield it, k
 
     def queue_cta(self, lins):
         g, D0, E1, E2 = self.geo, self.D0, self.E1, self.E2
@@ -311,108 +302,16 @@ class _Replay:
                     if s < T:
                         q[s] = new
 
-    def ring_cta(self, lins):
-        g, D0, E1, E2 = self.geo, self.D0, self.E1, self.E2
-        T, r, depth = g.steps, g.radius, self.depth
-        const, clamp = self.bnd == "constant", self.bnd == "clamp"
-        ring0 = [torch.full((E1, E2), NAN) for _ in range(D0)]
-        rings = [[torch.full((E1, E2), NAN) for _ in range(depth)]
-                 for _ in range(T - 1)]
-        loads = self.loader(lins)
-        issued = 0
-
-        def issue():
-            nonlocal issued
-            nxt = next(loads, None)
-            if nxt is not None:
-                ring0[issued % D0] = self.load(*nxt)
-                issued += 1
-
-        for _ in range(self.ahead):
-            issue()
-        step = 0
-        for lin in lins:
-            it = self.item(lin)
-            gy0, gx0, outside, edge = self.frame(it)
-            base, first = it["a"] - g.halo[0], step
-            th = min(g.tile[0], g.written[1] - it["y0"])
-            tw = min(g.tile[1], g.written[2] - it["x0"])
-            for k in range(it["nload"] + T - 1):
-                z = base + k
-                if k < it["nload"]:
-                    issue()
-                    step += 1
-                for s in range(1, T + 1):
-                    p = z - s * r - (s - 1)
-                    grow = (T - s) * r
-                    if not it["a"] - grow <= p < it["e"] + grow:
-                        continue
-                    last = s == T
-                    gp = g.origin[0] + p
-                    if last:
-                        (ylo, yhi), (xlo, xhi) = ((g.halo[1], g.halo[1] + th),
-                                                  (g.halo[2], g.halo[2] + tw))
-                    else:
-                        (ylo, yhi), (xlo, xhi) = self.region(s)
-                    if not last and clamp and gp < 0:
-                        continue
-                    if s == 1:
-                        inp, din = ring0, D0
-
-                        def slot_in(qq):
-                            return (first + qq - base) % D0
-                    else:
-                        inp, din = rings[s - 2], depth
-
-                        def slot_in(qq):
-                            return (qq - base) % depth
-                    vals = torch.full((E1, E2), NAN)
-                    if not last and const and not 0 <= gp < g.true[0]:
-                        vals[:] = self.bval
-                    elif not last and clamp and gp >= g.true[0]:
-                        vals = rings[s - 1][(p - 1 - base) % depth].clone()
-                    else:
-                        my = torch.arange(E1)
-                        mx = torch.arange(E2)
-                        ghost = torch.zeros((E1, E2), dtype=torch.bool)
-                        if not last and self.bnd != "periodic" and edge:
-                            my, mx = self.clamped(it, s, ylo, yhi, xlo, xhi)
-                            ghost = outside
-                        acc = None
-                        for kk, (dz, dy, dx) in enumerate(self.offs):
-                            src = inp[slot_in(p + dz)]
-                            yy = (my + dy).clamp(0, E1 - 1)
-                            xx = (mx + dx).clamp(0, E2 - 1)
-                            val = src[yy[:, None], xx[None, :]]
-                            bad = ((my + dy < 0) | (my + dy >= E1))[:, None] \
-                                | ((mx + dx < 0) | (mx + dx >= E2))[None, :]
-                            val = torch.where(bad, torch.tensor(NAN), val)
-                            term = self.coef[kk] * val
-                            acc = term if acc is None else acc + term
-                        if const:
-                            acc = torch.where(ghost, torch.tensor(self.bval),
-                                              acc)
-                        vals = acc
-                    if last:
-                        self.store(it, p, vals)
-                        continue
-                    keep = torch.full((E1, E2), NAN)
-                    keep[ylo:yhi, xlo:xhi] = vals[ylo:yhi, xlo:xhi]
-                    rings[s - 1][(p - base) % depth] = keep
-                    if clamp and gp == 0:
-                        for b in range(max(it["a"] - grow, p - r), p):
-                            rings[s - 1][(b - base) % depth] = keep.clone()
-
 
 def replay(program, center, taps, src, geo, ctas=None):
     """The output of ``geo``'s launch (B1: the carry with only true cells
-    written, the rest zero; B6: the rounded grid)."""
+    written, the rest zero; B5, B6: the rounded grid)."""
     if ctas is None:
         ctas = 3 if geo.persistent else geo.total
     return _Replay(program, center, taps, src, geo).run(ctas)
 
 
-# ---- B1 and B6 cases -------------------------------------------------------------
+# ---- B1, B5 and B6 cases -----------------------------------------------------
 
 
 def _carry_case(ndim, boundary, shape, radius, steps, seed=0, **geometry):
@@ -465,7 +364,7 @@ def test_queue_replay_equals_plain_superstep(ndim, boundary, radius, steps,
     steps = min(steps, QUEUE_STEPS[ndim][radius])
     prog, plan, lay, src, coeffs, geo = _carry_case(
         ndim, boundary, "star", radius, steps, **_corner(corner, ndim))
-    assert geo.queue and geo.carry
+    assert geo.carry and not geo.persistent
     got = replay(prog, coeffs.center, coeffs.taps, src, geo)
     want = common.padded_superstep_plain(
         src, torch.zeros_like(src), coeffs.center, coeffs.taps,
@@ -485,7 +384,7 @@ def test_carry_geometry_takes_only_the_register_queues():
 
 
 def _prepadded_case(ndim, boundary, shape, radius, steps, offsets, seed=0,
-                    **geometry):
+                    persistent=True, **geometry):
     prog = _program(ndim, boundary, shape, radius)
     plan = repro_torch.BlockPlan(spec=prog, block_shape=BLOCKS[ndim],
                                  par_time=steps)
@@ -500,32 +399,34 @@ def _prepadded_case(ndim, boundary, shape, radius, steps, offsets, seed=0,
     coeffs = prog.default_coeffs(seed=seed)
     geo = queued.prepadded_geometry(prog, steps, padded.shape[-ndim:],
                                     true_shape, offsets, batch=2,
-                                    smem_limit=LIMIT, **geometry)
+                                    smem_limit=LIMIT, persistent=persistent,
+                                    **geometry)
     return prog, plan, padded, true_shape, coeffs, geo
 
 
-#: B6's cases: the queue path, and the ring path (a box, a diamond, and a
-#: star deeper than its queues).
-PREPADDED = [("star", 2, 3), ("star", 4, 1), ("box", 1, 2), ("diamond", 2, 1),
-             ("star", 1, 5)]
+#: B5's and B6's stars (the other tap sets run the streamed kernel's
+#: pre-padded mode, ``tests/test_torch_streamed.py``).
+PREPADDED = [("star", 2, 3), ("star", 4, 1)]
 
 
 @pytest.mark.parametrize("ndim", [2, 3])
 @pytest.mark.parametrize("boundary", ["clamp", "constant", "periodic"])
 @pytest.mark.parametrize("shape,radius,steps", PREPADDED)
 @pytest.mark.parametrize("offsets", ["zero", "shard"])
+@pytest.mark.parametrize("persistent", [True, False], ids=["B6", "B5"])
 def test_prepadded_replay_equals_plain_superstep(ndim, boundary, shape,
-                                                 radius, steps, offsets):
-    """B6, batch 2, ragged tiles and short segments: a single grid, or a
-    shard at offsets 3 in a global grid 3 wider on each side (so the
-    boundary acts past the shard's padding).  Bit for bit
-    ``superstep_plain`` on the shard's true cells."""
+                                                 radius, steps, offsets,
+                                                 persistent):
+    """B6 (persistent CTAs) and B5 (a one-shot grid), batch 2, ragged
+    tiles and short segments: a single grid, or a shard at offsets 3 in a
+    global grid 3 wider on each side (so the boundary acts past the
+    shard's padding).  Bit for bit ``superstep_plain`` on the shard's true
+    cells."""
     offs = (0,) * ndim if offsets == "zero" else (3,) * ndim
     prog, plan, padded, true_shape, coeffs, geo = _prepadded_case(
         ndim, boundary, shape, radius, steps, offs, segment=4,
-        tile=(24,) if ndim == 2 else (3, 24))
-    assert geo.queue == (shape == "star"
-                         and steps <= QUEUE_STEPS[ndim][radius])
+        tile=(24,) if ndim == 2 else (3, 24), persistent=persistent)
+    assert geo.persistent == persistent and not geo.carry
     got = replay(prog, coeffs.center, coeffs.taps, padded, geo)
     want = common.superstep_plain(padded, coeffs.center, coeffs.taps,
                                   program=prog, plan=plan,
@@ -588,17 +489,24 @@ def test_geometry_array_order():
     assert a[21:24] == [2, 2, 2] and a[24:27] == [5, 4, 32]
     planes = geo.planes
     assert a[27:30] == [2, 2, planes.ahead] and planes.group == 2
-    assert a[30:33] == [1, 1, 0]          # queue path, carry, one-shot
+    assert a[30:33] == [1, 0, 0]          # carry, one-shot
     # the launcher sizes its planes itself and refuses a different count
     assert a[33:] == [geo.smem_bytes, 0, 0]
-    assert geo.smem_bytes == queued_planes(prog, 2, (4, 32), True).bytes()
-    box = _program(3, "clamp", "box", radius=1)
-    shard = queued.prepadded_geometry(box, 2, (12, 20, 40), (30, 30, 30),
-                                      (5, 6, 7), batch=1, smem_limit=LIMIT)
-    b = shard.array()
-    assert b[6:9] == [2, 2, 2] and b[12:15] == [0, 0, 0]
-    assert b[18:21] == [5, 6, 7] and b[27:29] == [2, 1]
-    assert b[30:33] == [0, 0, 1]          # ring path, pre-padded, persistent
+    assert geo.smem_bytes == queued_planes(prog, 2, (4, 32)).bytes()
+    star = _program(3, "clamp", radius=1)
+    for persistent in (True, False):      # B6, B5
+        shard = queued.prepadded_geometry(
+            star, 2, (12, 20, 40), (30, 30, 30), (5, 6, 7), batch=1,
+            smem_limit=LIMIT, persistent=persistent)
+        b = shard.array()
+        assert b[6:9] == [2, 2, 2] and b[12:15] == [0, 0, 0]
+        assert b[18:21] == [5, 6, 7] and b[27:29] == [2, 1]
+        assert b[30:33] == [0, int(persistent), 0]     # pre-padded
+    with pytest.raises(ValueError, match="no register-queue form"):
+        queued.prepadded_geometry(
+            _program(3, "clamp", "box", radius=1), 2, (12, 20, 40),
+            (30, 30, 30), (5, 6, 7), batch=1, smem_limit=LIMIT,
+            persistent=False)
 
 
 def test_two_d_geometry_has_a_dummy_y():
@@ -611,15 +519,13 @@ def test_two_d_geometry_has_a_dummy_y():
 
 
 def test_planes_count_rings_tables_and_barriers():
-    """The queue path loads groups of r planes and keeps the groups read
+    """The queued CTA loads groups of r planes and keeps the groups read
     behind the current one (r planes back, or 2r when stage 0's queue
     would pass QUEUE_REGS), the current one and 1..8 in flight (16 KB),
-    and two groups of centre planes per later stage; the ring path groups
-    of one plane, 2r + 1 behind and 2r + 2 per later stage, plus its tap
-    table; rows a multiple of 4 floats plus 12; a guard of 16 floats and
-    an mbarrier per loaded group."""
-    q = QueuedPlanes(ndim=3, radius=4, steps=2, tile=(16, 32), queue=True,
-                     ntaps=25)
+    and two groups of centre planes per later stage; rows a multiple of 4
+    floats plus 12; a guard of 16 floats and an mbarrier per loaded
+    group."""
+    q = QueuedPlanes(ndim=3, radius=4, steps=2, tile=(16, 32))
     assert q.extent == (32, 48) and q.pitch == 60 and q.plane == 32 * 60
     # 2 x 12 queue values per cell pass QUEUE_REGS: stage 0 stays in the
     # ring, two groups behind the current one; a group of 30 KB in flight
@@ -630,16 +536,16 @@ def test_planes_count_rings_tables_and_barriers():
     one = dataclasses.replace(q, steps=1, tile=(24, 40))
     assert one.stage0_in_registers and one.extent == (32, 48)
     assert one.groups == 1 + 1 + 1 and one.planes == 12
-    ring = dataclasses.replace(q, queue=False)
-    assert ring.group == 1 and ring.ahead == 3
-    assert ring.depth0 == 9 + 3 and ring.planes == 12 + 10
-    assert ring.bytes() == 4 * (22 * 32 * 60 + 16) + 8 * 25 + 8 * 12
-    two = QueuedPlanes(ndim=2, radius=4, steps=2, tile=(1008,), queue=True,
-                       ntaps=17)
+    # radius 1: groups of one plane of 24 x 52 floats (5 KB), 4 in
+    # flight; 4 x 3 queue values per cell keep stage 0 in registers
+    r1 = QueuedPlanes(ndim=3, radius=1, steps=4, tile=(16, 32))
+    assert r1.group == 1 and r1.ahead == 4 and r1.stage0_in_registers
+    assert r1.groups == 1 + 1 + 4 and r1.planes == 6 + 3 * 2
+    assert r1.bytes() == 4 * (12 * 24 * 52 + 16) + 8 * 6
+    two = QueuedPlanes(ndim=2, radius=4, steps=2, tile=(1008,))
     assert two.extent == (1, 1024) and two.pitch == 1036
     assert two.ahead == 1                # groups of 4 rows: 16.6 KB each
-    small = QueuedPlanes(ndim=2, radius=4, steps=2, tile=(32,), queue=True,
-                         ntaps=17)
+    small = QueuedPlanes(ndim=2, radius=4, steps=2, tile=(32,))
     assert small.ahead == 8              # 960-byte groups: 8 at most
 
 
@@ -653,7 +559,7 @@ def test_strips_cover_the_stage_one_region(ndim, radius, steps, pad):
     steps = min(steps, QUEUE_STEPS[ndim][radius])
     prog = _program(ndim, "clamp", radius=radius)
     tile = queued.pick_queued_tile(prog, steps, LIMIT)
-    planes = queued_planes(prog, steps, tile, True)
+    planes = queued_planes(prog, steps, tile)
     rows, nx, first = planes.strips(pad)
     E1, E2 = planes.extent
     r = radius
@@ -662,32 +568,37 @@ def test_strips_cover_the_stage_one_region(ndim, radius, steps, pad):
     assert 4 * first - 4 >= 0 and 4 * (first + nx) + 4 <= planes.pitch
 
 
+#: The kernels that run the register queues for stars (B1, B5, B6).
+QUEUED = ("padded_superstep", "superstep", "pipelined_superstep")
+
+
 def test_paper_picks_fit_two_ctas_per_sm():
-    """B1 and B6 at the main path's shapes: the queue path (stars) with a
-    tile that leaves room for two CTAs per SM; the periodic box's B1 on
-    the streamed kernel, B6 on the ring path."""
+    """B1, B5 and B6 at the main path's shapes: the register queues
+    (stars) with a tile that leaves room for two CTAs per SM; at the
+    periodic box all three run the streamed kernel at B4's tile."""
     works = {**stencil2d.workloads(), **stencil3d.workloads()}
     for name in ("2d_r4_paper", "3d_r4_paper", "3d_r2_paper"):
         plan = works[name].plan()
-        for kernel in ("padded_superstep", "pipelined_superstep"):
+        for kernel in QUEUED:
             tile = cuda.pick_tile(plan, kernel, LIMIT)
             need = plan.smem_bytes_for(tile, kernel)
             assert queue_path(plan.program, plan.par_time)
+            assert plan.body(kernel) == "queue"
             assert need <= LIMIT // 2 - queued.CTA_RESERVED
-            assert queued_planes(plan.program, plan.par_time, tile,
-                                 True).threads_fit
+            assert queued_planes(plan.program, plan.par_time,
+                                 tile).threads_fit
     box = works["2d_box_periodic_pod"].plan()
     assert not queue_path(box.program, box.par_time)
-    assert box.body("padded_superstep") == "streamed"
-    assert box.body("pipelined_superstep") == "ring"
-    assert cuda.pick_tile(box, "padded_superstep", LIMIT) == \
-        streamed.pick_streamed_tile(box.program, box.par_time, LIMIT)
-    assert box.smem_bytes_for((992,), "padded_superstep") == \
-        box.smem_bytes_for((992,), "padded_pipelined")
+    for kernel in QUEUED:
+        assert box.body(kernel) == "streamed"
+        assert cuda.pick_tile(box, kernel, LIMIT) == \
+            streamed.pick_streamed_tile(box.program, box.par_time, LIMIT)
+        assert box.smem_bytes_for((992,), kernel) == \
+            box.smem_bytes_for((992,), "padded_pipelined")
 
 
 def _old_window_fits(plan, kernel):
-    """The whole-window B1/B6 design at its smallest tile (1, 4, 32)
+    """The whole-window B1/B5/B6 design at its smallest tile (1, 4, 32)
     / (4, 32): a window, a second for the ping-pong, B6 one more for its
     prefetch, and the tables."""
     steps, nd = plan.par_time, plan.program.ndim
@@ -702,16 +613,17 @@ def _old_window_fits(plan, kernel):
 @pytest.mark.parametrize("ndim", [2, 3])
 @pytest.mark.parametrize("shape", ["star", "box", "diamond"])
 def test_every_plan_the_window_kernels_took_still_fits(ndim, shape):
-    """No plan that compiled with the whole-window B1 or B6 becomes RP105:
-    every radius 1..4 and fused steps 1..32 whose old window fitted the
-    card fits the new kernels (or B1's streamed route) at their smallest
-    tile, and the pick finds a tile."""
+    """No plan that compiled with the whole-window B1, B5 or B6 becomes
+    RP105: every radius 1..4 and fused steps 1..32 whose old window fitted
+    the card fits the body the kernel runs now (the register queues or
+    the streamed kernel) at its smallest tile, and the pick finds a
+    tile."""
     taken = 0
     for radius, steps in itertools.product(range(1, 5), range(1, 33)):
         prog = _program(ndim, "clamp", shape, radius)
         plan = repro_torch.BlockPlan(spec=prog, block_shape=BLOCKS[ndim],
                                      par_time=steps)
-        for kernel in ("padded_superstep", "pipelined_superstep"):
+        for kernel in QUEUED:
             if not _old_window_fits(plan, kernel):
                 continue
             taken += 1
@@ -719,7 +631,7 @@ def test_every_plan_the_window_kernels_took_still_fits(ndim, shape):
             assert plan.smem_bytes_for(small, kernel) <= LIMIT
             tile = cuda.pick_tile(plan, kernel, LIMIT)
             assert plan.smem_bytes_for(tile, kernel) <= LIMIT
-    assert taken > 20
+    assert taken > 30
 
 
 def test_temporal_remainders_of_the_paper_plans_run():

@@ -32,8 +32,9 @@ import repro_torch
 from repro_torch import convert
 from repro_torch.analysis.hw import H100_SXM
 from repro_torch.configs import stencil2d, stencil3d
-from repro_torch.core.blocking import (TEMPORAL_CHUNK, streamed_rings,
-                                       streamed_smem_bytes)
+from repro_torch.core.blocking import (TEMPORAL_CHUNK, round_up,
+                                       streamed_rings, streamed_smem_bytes)
+from repro_torch.core.codegen import boundary_pad
 from repro_torch.kernels import common, cuda, streamed
 from repro_torch.lint.verify import smem_diagnostics
 
@@ -65,16 +66,16 @@ def _clamp(v, lo, hi):
     return max(lo, min(hi, v))
 
 
-def replay(program, center, taps, src, layout, geo: streamed.StreamedGeometry):
+def replay(program, center, taps, src, geo: streamed.StreamedGeometry):
     """Run ``geo``'s launch the way every CTA of the kernel does, one work
-    item after another; returns the output carry (true cells written,
-    the rest zero)."""
+    item after another; returns the output (the carry: true cells written,
+    the rest zero; pre-padded: the rounded grid)."""
     nd = program.ndim
     batched = src.ndim > nd
     s3 = src if batched else src[None]
     if nd == 2:
         s3 = s3[:, :, None, :]                  # (batch, Y, 1, X)
-    out = torch.zeros_like(s3)
+    out = torch.zeros((s3.shape[0],) + geo.dst)
     coef = torch.cat([center.reshape(1), taps.reshape(-1)])
     offs = streamed.streamed_taps(program)
     rings_geo = geo.rings
@@ -83,9 +84,12 @@ def replay(program, center, taps, src, layout, geo: streamed.StreamedGeometry):
     T, (r0, r1, r2) = geo.steps, geo.radii
     h0, h1, h2 = geo.halo
     n0, n1, n2 = geo.true
+    o0, o1, o2 = geo.origin
     bnd, bval = program.boundary, float(program.boundary_value)
+    raw = bnd == "periodic" or geo.prepadded
     ty, tx = geo.tile
     tys, txs = geo.tiles
+    zero = -o0                                  # local plane of global 0
 
     for lin in range(geo.total):
         xi = lin % txs
@@ -94,17 +98,18 @@ def replay(program, center, taps, src, layout, geo: streamed.StreamedGeometry):
         b = lin // (txs * tys * geo.segments)
         a, e = geo.segment_bounds(si)
         y0, x0 = yi * ty, xi * tx
-        gy0, gx0 = y0 - h1, x0 - h2
+        ly0, lx0 = y0 - h1, x0 - h2             # local
+        gy0, gx0 = ly0 + o1, lx0 + o2           # global
         z0, zend = a - h0, e + h0
         rings = [torch.full((D0 if s == 0 else D, E1, E2), float("nan"))
                  for s in range(T)]
 
         def load(lo, hi):
-            gy = gy0 + torch.arange(E1)
-            gx = gx0 + torch.arange(E2)
+            gy = ly0 + torch.arange(E1)
+            gx = lx0 + torch.arange(E2)
             for z in range(lo, min(hi, zend)):
                 gz, ys, xs = z, gy, gx
-                if bnd == "clamp":
+                if bnd == "clamp" and not raw:
                     gz = _clamp(z, 0, n0 - 1)
                     ys, xs = gy.clamp(0, n1 - 1), gx.clamp(0, n2 - 1)
                 pz = gz + geo.src_off[0]
@@ -117,7 +122,7 @@ def replay(program, center, taps, src, layout, geo: streamed.StreamedGeometry):
                         py.clamp(0, geo.src[1] - 1)[:, None],
                         px.clamp(0, geo.src[2] - 1)[None, :]],
                     torch.tensor(0.0))
-                if bnd == "constant":
+                if bnd == "constant" and not raw:
                     out_ = ((gy < 0) | (gy >= n1))[:, None] | \
                         ((gx < 0) | (gx >= n2))[None, :]
                     out_ |= not 0 <= z < n0
@@ -137,9 +142,12 @@ def replay(program, center, taps, src, layout, geo: streamed.StreamedGeometry):
                 hi = min(z0 + i * B - s * r0 + B, e + grow)
                 if lo >= hi:
                     continue
+                top = n0 - o0
+                if geo.prepadded and bnd == "clamp" and top <= a - grow:
+                    top = a - grow + 1
                 clo, chi = lo, hi
                 if not last and bnd != "periodic":
-                    clo, chi = max(lo, 0), min(hi, n0)
+                    clo, chi = max(lo, zero), min(hi, top)
                 src_ring = rings[s - 1]
                 depth = D0 if s == 1 else D
                 if last:
@@ -168,19 +176,20 @@ def replay(program, center, taps, src, layout, geo: streamed.StreamedGeometry):
                         acc = torch.where(outside, torch.tensor(bval), acc)
                     if last:
                         out[b, q + geo.dst_off[0],
-                            (gy + geo.dst_off[1])[:, None],
-                            (gx + geo.dst_off[2])[None, :]] = acc
+                            (ly0 + ys + geo.dst_off[1])[:, None],
+                            (lx0 + xs + geo.dst_off[2])[None, :]] = acc
                     else:
                         rings[s][(q - z0) % D, ylo:yhi, xlo:xhi] = acc
                 # ghost planes in this group, or plane 0 whose copies are
                 # the ghost planes below it (due in an earlier group)
                 if last or bnd == "periodic" or (
                         clo == lo and chi == hi
-                        and not (lo <= 0 < hi and a - grow < 0)):
+                        and not (lo <= zero < hi and a - grow < zero)):
                     continue
                 ring = rings[s]
 
                 def ghost(to, frm):
+                    assert to >= z0 and (frm is None or frm >= z0)
                     tgt = ring[(to - z0) % D, ylo:yhi, xlo:xhi]
                     if frm is None:
                         tgt.fill_(bval)
@@ -189,14 +198,16 @@ def replay(program, center, taps, src, layout, geo: streamed.StreamedGeometry):
 
                 if bnd == "constant":
                     for q in range(lo, hi):
-                        if q < 0 or q >= n0:
+                        if q < zero or q >= top:
                             ghost(q, None)
                     continue
-                if lo <= 0 < hi:
-                    for q in range(max(a - grow, -r0), 0):
-                        ghost(q, 0)
-                for q in range(max(lo, n0), min(hi, n0 + r0)):
-                    ghost(q, n0 - 1)
+                if lo <= zero < hi:
+                    for q in range(max(a - grow, zero - r0), zero):
+                        ghost(q, zero)
+                # the carry's next stage reads r planes above the grid
+                qend = hi if geo.prepadded else min(hi, top + r0)
+                for q in range(max(lo, top), qend):
+                    ghost(q, q - 1)
     if nd == 2:
         out = out[:, :, 0, :]
     return out if batched else out[0]
@@ -249,13 +260,69 @@ def test_replay_equals_plain_superstep(ndim, boundary, shape, radius, steps,
     prog, plan, lay, src, coeffs, geo = _case(
         ndim, boundary, shape, radius, steps, tile=tile or narrow,
         segment=segment)
-    got = replay(prog, coeffs.center, coeffs.taps, src, lay, geo)
+    got = replay(prog, coeffs.center, coeffs.taps, src, geo)
     want = common.padded_superstep_plain(
         src, torch.zeros_like(src), coeffs.center, coeffs.taps,
         program=prog, plan=plan, layout=lay)
     ix = _interior(lay)
     assert not torch.isnan(got[ix]).any()
     torch.testing.assert_close(got[ix], want[ix], rtol=0, atol=0)
+
+
+def _prepadded_case(ndim, boundary, shape, radius, steps, offsets, seed=0,
+                    **geometry):
+    prog = _program(ndim, boundary, shape, radius)
+    plan = repro_torch.BlockPlan(spec=prog, block_shape=BLOCKS[ndim],
+                                 par_time=steps)
+    n = GRIDS[ndim]
+    h = plan.halo
+    rounded = tuple(round_up(s, b) for s, b in zip(n, BLOCKS[ndim]))
+    rng = np.random.RandomState(seed)
+    grid = torch.from_numpy(rng.uniform(-1, 1, (2,) + n).astype(np.float32))
+    padded = boundary_pad(prog, grid, [(0, 0)] + [
+        (h, r - s + h) for s, r in zip(n, rounded)]).contiguous()
+    true_shape = tuple(s + 2 * o for s, o in zip(n, offsets))
+    coeffs = prog.default_coeffs(seed=seed)
+    geo = streamed.prepadded_geometry(
+        prog, steps, tuple(padded.shape[-ndim:]), true_shape, offsets,
+        batch=2, smem_limit=LIMIT, **geometry)
+    return prog, plan, padded, true_shape, coeffs, geo
+
+
+#: The tap sets without a register-queue form that B5 and B6 run on the
+#: streamed kernel's pre-padded mode: a box, a diamond, and a star deeper
+#: than its queues.
+PREPADDED = [("box", 1, 2), ("diamond", 2, 1), ("star", 1, 5)]
+
+
+@pytest.mark.parametrize("ndim", [2, 3])
+@pytest.mark.parametrize("boundary", ["clamp", "constant", "periodic"])
+@pytest.mark.parametrize("shape,radius,steps", PREPADDED)
+@pytest.mark.parametrize("offsets", ["zero", "shard"])
+def test_prepadded_replay_equals_plain_superstep(ndim, boundary, shape,
+                                                 radius, steps, offsets):
+    """The pre-padded mode (B5, B6), batch 2, ragged tiles and short
+    segments: a single grid, or a shard at offsets 3 in a global grid 3
+    wider on each side (so the boundary acts past the shard's padding).
+    Every cell of the rounded output is written and finite; it equals
+    ``superstep_plain`` bit for bit on the shard's true cells, and on
+    every cell but under clamp (whose clamped cell a tile wholly past the
+    grid does not hold)."""
+    offs = (0,) * ndim if offsets == "zero" else (3,) * ndim
+    prog, plan, padded, true_shape, coeffs, geo = _prepadded_case(
+        ndim, boundary, shape, radius, steps, offs, segment=4,
+        tile=(24,) if ndim == 2 else (3, 24))
+    assert geo.prepadded and geo.origin == ((offs[0], 0, offs[1])
+                                            if ndim == 2 else offs)
+    got = replay(prog, coeffs.center, coeffs.taps, padded, geo)
+    want = common.superstep_plain(padded, coeffs.center, coeffs.taps,
+                                  program=prog, plan=plan,
+                                  true_shape=true_shape, offsets=offs)
+    assert got.shape == want.shape and not torch.isnan(got).any()
+    ix = (Ellipsis,) + tuple(slice(0, s) for s in GRIDS[ndim])
+    torch.testing.assert_close(got[ix], want[ix], rtol=0, atol=0)
+    if boundary != "clamp":
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("ndim", [2, 3])
@@ -267,7 +334,7 @@ def test_replay_in_a_deep_ring_matches_jax_reference(ndim, boundary):
     prog, plan, lay, src, coeffs, geo = _case(
         ndim, boundary, "box", radius, steps, segment=3,
         ring=2 * steps * radius, tile=(32,) if ndim == 2 else (4, 32))
-    got = replay(prog, coeffs.center, coeffs.taps, src, lay, geo)
+    got = replay(prog, coeffs.center, coeffs.taps, src, geo)
     rp = RefProgram(ndim=ndim, radius=radius, shape="box", boundary=boundary,
                     boundary_value=0.25)
     rplan = RefPlan(spec=rp, block_shape=BLOCKS[ndim], par_time=steps)
@@ -347,18 +414,31 @@ def test_geometry_array_order():
                                   smem_limit=LIMIT, tile=(4, 32), segment=5)
     a = geo.array()
     H = lay.halo
-    assert len(a) == 30
+    assert len(a) == 33
     assert a[:3] == list(GRIDS[3]) and a[3:6] == list(lay.padded_shape)
     assert a[6:9] == [H] * 3 and a[12:15] == [H] * 3
-    assert a[18:21] == [2, 2, 2] and a[21:24] == [5, 4, 32]
+    assert a[15:18] == list(GRIDS[3]) and a[18:21] == [0, 0, 0]
+    assert a[21:24] == [2, 2, 2] and a[24:27] == [5, 4, 32]
     # the launcher sizes the rings itself and refuses a different count
-    assert a[24:27] == [geo.rings.group, 2, geo.smem_bytes]
+    assert a[27:30] == [geo.rings.group, 2, geo.smem_bytes]
     assert geo.smem_bytes == geo.rings.bytes(prog.num_taps) == \
         streamed_smem_bytes(3, 2, prog.num_taps, 2, (4, 32))
-    assert a[27:] == [1, 0, 0]           # a star: fixed offsets
+    assert a[30:] == [1, 0, 0]           # a star: fixed offsets; the carry
     box = _program(3, "clamp", "box", radius=2)
     assert streamed.carry_geometry(box, 2, lay, batch=1,
-                                   smem_limit=LIMIT).array()[27] == 0
+                                   smem_limit=LIMIT).array()[30] == 0
+    # pre-padded: a shard of a global grid, source index h of local 0,
+    # every cell of the rounded grid written from output index 0
+    shard = streamed.prepadded_geometry(box, 2, (12, 20, 40), (30, 30, 30),
+                                        (5, 6, 7), batch=1, smem_limit=LIMIT)
+    b = shard.array()
+    assert b[:3] == [30, 30, 30] and b[3:6] == [12, 20, 40]
+    assert b[6:9] == [4, 4, 4] and b[9:12] == [4, 12, 32]
+    assert b[12:15] == [0, 0, 0] and b[15:18] == [4, 12, 32]
+    assert b[18:21] == [5, 6, 7] and b[30:] == [0, 1, 0]
+    with pytest.raises(ValueError, match="offsets"):
+        streamed.prepadded_geometry(box, 2, (12, 20, 40), (30, 30, 30),
+                                    (5, -1, 7), batch=1, smem_limit=LIMIT)
 
 
 def test_two_d_geometry_has_a_dummy_y():

@@ -154,6 +154,119 @@ def test_wrap_degenerate_layout_matches_reference():
         for c in ref_common.wrap_copies(rlay))
 
 
+#: (ndim, variant, batch, plan radius and par_time, grid): the layouts of
+#: a run's periodic carry, all with round-up slack; the temporal ones have
+#: the chunk-deep ring (H = 4 * par_time * radius).
+WRAP_CASES = [
+    (2, "plain", None, 2, 2, (37, 150)),
+    (3, "plain", None, 2, 2, (20, 18, 140)),
+    (2, "plain", 2, 1, 3, (37, 150)),
+    (3, "plain", 2, 2, 1, (20, 18, 140)),
+    (2, "temporal", None, 2, 2, (37, 150)),
+    (3, "temporal", 2, 2, 1, (20, 32, 140)),
+]
+
+
+def _wrap_case(ndim, variant, batch, radius, par_time, grid):
+    rp, rplan, _, tplan, _ = _config(ndim, "periodic", radius=radius,
+                                     par_time=par_time)
+    layout = common.ring_schedule(tplan.program, tplan, grid, par_time,
+                                  variant=variant).layout
+    assert not layout.wrap_degenerate()
+    lead = () if batch is None else (batch,)
+    src = torch.from_numpy(np.random.RandomState(ndim).uniform(
+        -1, 1, lead + layout.padded_shape).astype(np.float32))
+    return layout, src
+
+
+def _shell(layout):
+    """True on the cells a refresh rewrites: outside ``[H, H + n)`` on
+    some wrap axis."""
+    H = layout.halo
+    mask = torch.zeros(layout.padded_shape, dtype=torch.bool)
+    for d in layout.wrap_axes:
+        pos = torch.arange(layout.padded_shape[d])
+        ring = (pos < H) | (pos >= H + layout.local_shape[d])
+        shape = [1] * len(layout.padded_shape)
+        shape[d] = -1
+        mask |= ring.reshape(shape)
+    return mask
+
+
+@pytest.mark.parametrize("case", WRAP_CASES)
+def test_wrap_boxes_cover_the_shell_once_from_the_interior(case):
+    """B2's single-launch map (``cuda.wrap_boxes``): the boxes of the
+    slabs cover every shell cell exactly once and nothing else, each box
+    reads cells interior on every wrap axis (so no cell is read after it
+    is written, in any order), and applying the boxes equals the
+    axis-ordered ``refresh_wrap_halo_plain`` on every cell, exactly."""
+    layout, src = _wrap_case(*case)
+    H, n = layout.halo, layout.local_shape
+    boxes = cuda.wrap_boxes(layout)
+    assert len(boxes) == (8 if len(n) == 2 else 26)
+    cover = torch.zeros(layout.padded_shape, dtype=torch.int64)
+    got = src.clone()
+    for box in boxes:
+        dst = tuple(slice(lo, lo + ext) for lo, ext, _ in box)
+        frm = tuple(slice(lo + sh, lo + sh + ext) for lo, ext, sh in box)
+        cover[dst] += 1
+        for d, (lo, ext, sh) in enumerate(box):
+            assert H <= lo + sh and lo + sh + ext <= H + n[d]
+        got[(Ellipsis,) + dst] = src[(Ellipsis,) + frm]
+    assert torch.equal(cover, _shell(layout).long())
+    want = common.refresh_wrap_halo_plain(src.clone(), layout)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("case", WRAP_CASES)
+@pytest.mark.parametrize("aligned", [True, False])
+def test_wrap_kernel_replay_equals_plain_refresh(case, aligned):
+    """A torch replay of ``csrc/wrap_halo.cu`` over the launch rows
+    (``cuda.wrap_rows``): each CTA finds its box as the kernel does, its
+    threads decompose their item indices into (batch, z, y, x) and copy
+    one cell, or 4 where the box's rows are 16-byte aligned on both sides;
+    the CTAs cover every item once and the result equals
+    ``refresh_wrap_halo_plain`` exactly."""
+    layout, src = _wrap_case(*case)
+    batch = src.shape[0] if src.ndim > len(layout.padded_shape) else 1
+    rows, blocks, (P0, P1, P2) = cuda.wrap_rows(layout, batch, aligned)
+    per_cta = cuda.WRAP_THREADS * cuda.WRAP_PER_THREAD
+    flat = src.clone().reshape(-1)
+    base = flat.clone()
+    # a CTA's box: one less than the rows whose first CTA is at or before
+    # it (__syncthreads_count)
+    owner = [sum(cta >= row[0] for row in rows) - 1 for cta in range(blocks)]
+    for k, (first, count, l0, l1, l2, e0, e1, ex, delta, vec) in \
+            enumerate(rows):
+        # 16-byte rows: both ends of the destination row and the source's
+        assert vec == int(aligned and all(
+            v % 4 == 0 for v in (P2, l2, ex * (4 if vec else 1), delta)))
+        assert owner.count(k) == -(-count // per_cta)
+        i = torch.arange(count, dtype=torch.int64)
+        x, t = i % ex, i // ex
+        y, t = t % e1, t // e1
+        z, b = t % e0, t // e0
+        at = ((b * P0 + l0 + z) * P1 + l1 + y) * P2 + l2 + \
+            (4 * x if vec else x)
+        if vec:
+            at = (at[:, None] + torch.arange(4)).reshape(-1)
+        flat[at] = base[at + delta]
+    want = common.refresh_wrap_halo_plain(src.clone(), layout)
+    torch.testing.assert_close(flat.reshape(src.shape), want, rtol=0,
+                               atol=0)
+
+
+def test_wrap_boxes_refuse_a_wrap_degenerate_layout():
+    """``run_call`` re-pads a wrap-degenerate layout instead; the
+    single-launch map refuses one, since some source would lie in the
+    shell."""
+    _, rplan, _, _, _ = _config(3, "periodic")
+    _, tlay = _layouts(rplan, (9, 18, 140))
+    assert tlay.wrap_degenerate()
+    with pytest.raises(ValueError, match="wrap-degenerate"):
+        cuda.wrap_boxes(tlay)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take():
     """On a CPU tensor the dispatchers take the plain version; the CUDA
     wrappers themselves refuse anything but a CUDA float32 tensor."""
@@ -165,8 +278,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         cuda.padded_superstep(src, src.clone(), tc.center, tc.taps,
                               program=tplan.program, plan=tplan, layout=tlay)
     with pytest.raises(ValueError, match="CUDA tensor"):
-        cuda.refresh_wrap_halo(src, common.wrap_copies(tlay),
-                               tlay.padded_shape)
+        cuda.refresh_wrap_halo(src, tlay)
     with pytest.raises(ValueError, match="neither a kernel"):
         common.padded_superstep(src.to("meta"), src.to("meta"), tc.center,
                                 tc.taps, program=tplan.program, plan=tplan,
@@ -178,9 +290,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     (2, 8, 2, 17), (3, 4, 1, 25), (3, 8, 2, 729)])
 def test_pick_tile_fits_shared_memory(ndim, halo, steps, taps):
     """The plans of a 2D star r4, a 3D star r4 and a 3D box r4, for every
-    kernel: B5's window tile per axis, every other kernel's in-plane
-    column tile (halo and taps as named for B1); x a multiple of 32, or
-    of 8 for the queued kernels (B1, B6) on their own source."""
+    kernel: an in-plane column tile (halo and taps as named for B1); x a
+    multiple of 32 on the streamed kernel, of 8 on the register queues
+    (B1, B5, B6 with a star)."""
     radius = halo // steps
     shape = "box" if taps == (2 * radius + 1) ** ndim else "star"
     prog = RefProgram(ndim=ndim, radius=radius, shape=shape)
@@ -196,9 +308,9 @@ def test_pick_tile_fits_shared_memory(ndim, halo, steps, taps):
                 cuda.pick_tile(plan, kernel, limit)
             continue
         tile = cuda.pick_tile(plan, kernel, limit)
-        want = ndim if kernel == "superstep" else ndim - 1
-        queued = plan.body(kernel) in ("queue", "ring")
-        assert len(tile) == want and tile[-1] % (8 if queued else 32) == 0
+        queued = plan.body(kernel) == "queue"
+        assert len(tile) == ndim - 1
+        assert tile[-1] % (8 if queued else 32) == 0
         assert plan.smem_bytes_for(tile, kernel) <= limit
         with pytest.raises(ValueError, match="no CTA tile fits"):
             cuda.pick_tile(plan, kernel, 1024)
@@ -206,22 +318,25 @@ def test_pick_tile_fits_shared_memory(ndim, halo, steps, taps):
 
 def test_kernel_build_key_covers_included_headers(tmp_path, monkeypatch):
     """An edited header changes the library path of every source that
-    includes it, and only of those."""
+    includes it, directly or through another header, and only of those.
+    No source includes a header today, so a copy of one source includes
+    a header that includes a second."""
     for src in build.SOURCES:
-        for name in (src,) + build.includes(src):
-            (tmp_path / name).write_bytes((build.CSRC / name).read_bytes())
-    assert build.includes("padded_superstep.cu") == ("superstep_common.cuh",)
-    assert build.includes("queued_superstep.cu") == ()
-    assert build.includes("wrap_halo.cu") == ()
-    assert build.includes("streamed_superstep.cu") == ()
+        assert build.includes(src) == ()
+        (tmp_path / src).write_bytes((build.CSRC / src).read_bytes())
+    (tmp_path / "outer.cuh").write_text('#include "inner.cuh"\n')
+    (tmp_path / "inner.cuh").write_text("// inner\n")
+    wrap = tmp_path / "wrap_halo.cu"
+    wrap.write_text('#include "outer.cuh"\n' + wrap.read_text())
     monkeypatch.setattr(build, "CSRC", tmp_path)
+    assert build.includes("wrap_halo.cu") == ("outer.cuh", "inner.cuh")
+    assert build.includes("queued_superstep.cu") == ()
     before = {s: build.library_path(s) for s in build.SOURCES}
-    header = tmp_path / "superstep_common.cuh"
-    header.write_text(header.read_text() + "\n// edited\n")
+    inner = tmp_path / "inner.cuh"
+    inner.write_text(inner.read_text() + "// edited\n")
     after = {s: build.library_path(s) for s in build.SOURCES}
-    assert after["padded_superstep.cu"] != before["padded_superstep.cu"]
+    assert after["wrap_halo.cu"] != before["wrap_halo.cu"]
     assert after["queued_superstep.cu"] == before["queued_superstep.cu"]
-    assert after["wrap_halo.cu"] == before["wrap_halo.cu"]
     assert after["streamed_superstep.cu"] == \
         before["streamed_superstep.cu"]
 

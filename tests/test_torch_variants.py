@@ -280,17 +280,13 @@ def test_smem_check_refuses_what_no_tile_fits():
 
 
 def test_smem_bytes_for_counts_windows_by_variant():
-    """B5 counts halo'd windows; B3 and B4 count plane rings
-    (``blocking.streamed_rings``); B1 and B6 count the planes of
-    ``csrc/queued_superstep.cu`` (``blocking.QueuedPlanes``), except that
-    B1 hands a box to the streamed kernel and so counts its rings."""
+    """Every kernel counts the body it runs (``BlockPlan.body``): B3 and
+    B4 the plane rings of the streamed kernel (``blocking.streamed_rings``),
+    and so do B1, B5 and B6 for a box; for a star within ``QUEUE_STEPS``
+    B1, B5 and B6 count the planes of ``csrc/queued_superstep.cu``
+    (``blocking.QueuedPlanes``)."""
     _, _, _, _, tplan, _ = _both(2, "clamp", radius=4)
     assert tplan.program.shape == "box"
-    tile = (32, 32)
-    h = tplan.halo
-    window = (32 + 2 * h) ** 2
-    tables = 8 * tplan.program.num_taps
-    assert tplan.smem_bytes_for(tile, "superstep") == 4 * 2 * window + tables
     ntaps = tplan.program.num_taps
     # B3: 8 stages, ring s of 2r + 4 rows of 32 + 2*32 - 2*4*s cells (the
     # loaded ring 4 rows more: the next group's copy in flight), and a
@@ -302,25 +298,23 @@ def test_smem_bytes_for_counts_windows_by_variant():
         return 4 * cells + 4 * ntaps * (sum(rows) + 1)
 
     assert tplan.smem_bytes_for((32,), "temporal_superstep") == rings(8)
-    assert tplan.smem_bytes_for((32,), "padded_pipelined") == rings(2)
-    assert tplan.smem_bytes_for((32,), "padded_superstep") == rings(2)
-    # B6's ring path: rows of 32 + 16 cells, pitch 48 + 12; 8 planes in
-    # flight (16 KB of 240-byte rows caps at 8); 2r + 1 + 8 loaded planes,
-    # 2r + 2 for the second stage; the tap table, the guard, an mbarrier
-    # per loaded plane
-    pitch, depth0 = 60, 9 + 8
-    assert tplan.smem_bytes_for((32,), "pipelined_superstep") == \
-        4 * (pitch * (depth0 + 10) + 16) + 8 * ntaps + 8 * depth0
-    # a star of radius 4 at 2 steps takes the queue path: groups of 4
-    # rows, its 2 x 12 queue values per cell leave stage 0 in the ring (2
-    # groups behind the current one, 8 in flight: 11 groups), and stage 1
-    # has two groups of centre rows
+    for kernel in ("padded_pipelined", "padded_superstep", "superstep",
+                   "pipelined_superstep"):
+        assert tplan.body(kernel) == "streamed"
+        assert tplan.smem_bytes_for((32,), kernel) == rings(2)
+    one = dataclasses.replace(tplan, par_time=1)
+    assert one.smem_bytes_for((32,), "superstep") == rings(1)
+    # a star of radius 4 at 2 steps takes the register queues: groups of 4
+    # rows of 32 + 16 cells, pitch 48 + 12; its 2 x 12 queue values per
+    # cell leave stage 0 in the ring (2 groups behind the current one, 8
+    # in flight: 11 groups), and stage 1 has two groups of centre rows; a
+    # guard of 16 floats and an mbarrier per loaded group
     star = dataclasses.replace(tplan, spec=dataclasses.replace(
         tplan.spec, shape="star"))
-    for kernel in ("padded_superstep", "pipelined_superstep"):
+    pitch = 60
+    for kernel in ("padded_superstep", "superstep", "pipelined_superstep"):
+        assert star.body(kernel) == "queue"
         assert star.smem_bytes_for((32,), kernel) == \
             4 * (pitch * (11 * 4 + 2 * 4) + 16) + 8 * 11
-    one = dataclasses.replace(tplan, par_time=1)
-    assert one.smem_bytes_for(tile, "superstep") == 4 * (32 + 8) ** 2 + tables
     with pytest.raises(ValueError, match="unknown superstep kernel"):
-        tplan.smem_bytes_for(tile, "temporal")
+        tplan.smem_bytes_for((32,), "temporal")

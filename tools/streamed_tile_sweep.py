@@ -1,5 +1,5 @@
-"""Time the kernels that stream planes (B1, B3, B4, B6) at several column
-tiles on one card.
+"""Time the superstep kernels (B1, B3, B4, B5, B6) at several column tiles
+on one card.
 
     python3 tools/streamed_tile_sweep.py          # from the repo root
     python3 tools/streamed_tile_sweep.py B1 B6    # only those kernels
@@ -10,11 +10,10 @@ candidate in-plane tile's shared memory, its cost (B3/B4:
 ``QueuedPlanes.cost``, what ``pick_queued_tile`` minimises), the CTAs one
 SM holds by shared memory and registers, and the median ms of 7 launches
 after 2 warm-ups (CUDA events), beside the tile ``cuda.pick_tile`` takes:
-it shows where the cost and the time disagree.  At the periodic box B1
-and B4 run the streamed kernel (one-shot and persistent) and B6 the ring
-path of ``queued_superstep.cu``: the two bodies for tap sets without a
-register-queue form, on one function of the same grid.  Needs a CUDA
-card; exits non-zero without one.
+it shows where the cost and the time disagree.  At the periodic box every
+kernel runs the streamed kernel (B1 and B5 one-shot, B4 and B6
+persistent; B5 and B6 in its pre-padded mode).  Needs a CUDA card; exits
+non-zero without one.
 """
 
 from __future__ import annotations
@@ -84,11 +83,19 @@ def cases():
         ("B1 2d_box_periodic_pod 16384^2", box, box.plan(),
          "padded_superstep", (16384, 16384),
          [(224,), (480,), (736,), (992,)]),
+        ("B5 2d_box_periodic_pod 16384^2", box, box.plan(), "superstep",
+         (16384, 16384), [(224,), (480,), (736,), (992,)]),
         ("B6 2d_box_periodic_pod 16384^2", box, box.plan(),
          "pipelined_superstep", (16384, 16384),
-         [(224,), (480,), (736,), (992,), (1024,)]),
+         [(224,), (480,), (736,), (992,)]),
+        ("B5 2d_r4_paper", w2["2d_r4_paper"], w2["2d_r4_paper"].plan(),
+         "superstep", (16384, 16384), [(496,), (744,), (992,), (1008,)]),
         ("B1 3d_r4_paper", w3["3d_r4_paper"], w3["3d_r4_paper"].plan(),
          "padded_superstep", w3["3d_r4_paper"].grid_shape,
+         [(10, 96), (10, 72), (12, 64), (14, 56), (16, 48), (20, 40),
+          (24, 32)]),
+        ("B5 3d_r4_paper", w3["3d_r4_paper"], w3["3d_r4_paper"].plan(),
+         "superstep", w3["3d_r4_paper"].grid_shape,
          [(10, 96), (10, 72), (12, 64), (14, 56), (16, 48), (20, 40),
           (24, 32)]),
         ("B6 3d_r4_paper", w3["3d_r4_paper"], w3["3d_r4_paper"].plan(),
@@ -120,11 +127,13 @@ def main() -> int:
         steps = plan.kernel_steps(kernel)
         coeffs = prog.default_coeffs().to("cuda")
         gen = torch.Generator(device="cuda").manual_seed(0)
-        if kernel == "pipelined_superstep":
+        if kernel in ("superstep", "pipelined_superstep"):
             h = plan.halo
             src = torch.rand(tuple(n + 2 * h for n in shape),
                              generator=gen, device="cuda")
-            runs = {"": lambda t: cuda.pipelined_superstep(
+            launch = {"superstep": cuda.superstep,
+                      "pipelined_superstep": cuda.pipelined_superstep}[kernel]
+            runs = {"": lambda t: launch(
                 src, coeffs.center, coeffs.taps, program=prog, plan=plan,
                 true_shape=shape, tile=t)}
         else:
@@ -151,8 +160,7 @@ def main() -> int:
                 cost = streamed.column_cost(prog.ndim, prog.halo_radius,
                                             steps, tile)
             else:
-                cost = queued_planes(prog, steps, tile,
-                                     plan.body(kernel) == "queue").cost
+                cost = queued_planes(prog, steps, tile).cost
             if need > limit:
                 print(f"  {tile}: {need} bytes, does not fit")
                 continue
