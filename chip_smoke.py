@@ -30,7 +30,18 @@ Phases (any failure raises, so the exit code is non-zero):
    segment shorter than twice the halo and a column tile that does not
    divide the grid, a plan the whole-window B1 could not run, and the
    RP105 refusal of a plan no CTA tile fits;
-5. the ``ptxas`` report of every instantiation: no stack frame.
+5. RP105 at ``run`` for a step count other than the compiled one whose
+   kernels fit no CTA tile, with no launch;
+6. the planner: at each configuration of :data:`PLANNED`, the front door
+   with ``plan="model"`` and ``plan="auto"`` (a plan cache of this run's
+   own) against the pinned plan: the chosen plan, body and model ms, the
+   launch counts of a planned run (zeroed before, read after), its result
+   against the pinned run's, and the median wall time and MCell/s of each
+   over runs taken in turns;
+7. ``autotune(measure=True)`` at 2d_r4_paper and 3d_r4_paper: each
+   frontier candidate's predicted and measured ms (CUDA events), then a
+   second call that must come from the plan cache with no launch;
+8. the ``ptxas`` report of every instantiation: no stack frame.
 
 The last lines are the ``{"kernels": [...]}`` record, the ``nvidia-smi``
 line, and ``{"ok": true, "device": {...}}``.
@@ -44,6 +55,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -771,6 +783,164 @@ def plane_corners():
                     rtol=0.0)
 
 
+#: The planner phase's configurations: (case name, steps, the pinned
+#: variant), the pinned plan being the configuration's own.  3d_r2_paper's
+#: pinned run is the paper plan under temporal, as in the main path.
+PLANNED = (("2d_r4_paper", 9, "plain"), ("3d_r4_paper", 3, "plain"),
+           ("3d_r2_paper", 9, "temporal"),
+           ("2d_box_periodic_pod", 10, "plain"))
+#: Front-door runs per plan in the planner phase, taken in turns.
+PLANNED_RUNS = 5
+
+
+def planner_phase(cache_path):
+    """``plan="model"`` and ``plan="auto"`` against the pinned plan at each
+    configuration of :data:`PLANNED`: the chosen plan, its body and the
+    model's ms, launch counts zeroed before and read after a planned run,
+    the result against the pinned run's, and the median wall time and
+    MCell/s of :data:`PLANNED_RUNS` runs of each, in turns."""
+    import dataclasses
+    import torch
+    import repro_torch
+    from repro_torch.analysis.hw import GpuChip
+    from repro_torch.configs import stencil2d, stencil3d
+    from repro_torch.core.blocking import CARRY_KERNELS, run_seconds
+    from repro_torch.kernels import cuda
+    from repro_torch.lint.verify import smem_diagnostics
+
+    chip = GpuChip.from_device(0)
+    works = {**stencil2d.workloads(), **stencil3d.workloads()}
+    print("\n== the planner: plan='model' and plan='auto' against the "
+          "pinned plan")
+    for name, steps, variant in PLANNED:
+        work = works[name]
+        prog = work.spec
+        shape = (16384, 16384) if name == "2d_box_periodic_pod" \
+            else work.grid_shape
+        grid = random_grid(shape, seed=0)
+        runs = {"pinned": repro_torch.stencil(prog).compile(
+            shape, steps=steps, plan=work.plan(), variant=variant)}
+        if name == "3d_r2_paper":
+            runs["pinned par_time 1"] = repro_torch.stencil(prog).compile(
+                shape, steps=steps, variant=variant,
+                plan=dataclasses.replace(work.plan(), par_time=1))
+        for how in ("model", "auto"):
+            runs[how] = repro_torch.stencil(prog).compile(
+                shape, steps=steps, plan=how, cache_path=cache_path)
+        want = runs["pinned"].run(grid)
+        for how, cs in runs.items():
+            plan = cs.plan
+            kernel = CARRY_KERNELS[cs.variant]
+            if how in ("model", "auto") and smem_diagnostics(
+                    plan, cs.variant, chip):
+                raise AssertionError(f"{how} plan {plan} does not fit for "
+                                     f"every step count")
+            cuda.reset_launches()
+            out = cs.run(grid)
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in cuda.launches().items() if v}
+            expect = expected_launches(prog, plan, steps, cs.variant)
+            if counts != expect:
+                raise AssertionError(f"{name} {how}: launches {counts} != "
+                                     f"{expect}")
+            model_ms = run_seconds(plan, shape, steps, chip,
+                                   cs.variant) * 1e3
+            print(f"  {name} {how}: block={plan.block_shape} par_time="
+                  f"{plan.par_time} variant={cs.variant} body="
+                  f"{plan.body(kernel)} (CTA tile "
+                  f"{cuda.pick_tile(plan, kernel, chip.smem_optin)}), "
+                  f"model {model_ms!r} ms, launches {counts}")
+            check_close(f"{name} {how} vs the pinned run", out, want, **ULP)
+            del out
+        del want
+        walls = {how: [] for how in runs}
+        for _ in range(PLANNED_RUNS):
+            for how, cs in runs.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                cs.run(grid)
+                torch.cuda.synchronize()  # lint-ok: RP302
+                walls[how].append(time.perf_counter() - t0)
+        cells = math.prod(shape) * steps
+        rates = {}
+        for how, ws in walls.items():
+            wall = statistics.median(ws)
+            rates[how] = cells / wall / 1e6
+            print(f"  {name} {how}: median wall {wall * 1e3!r} ms of "
+                  f"{PLANNED_RUNS}, {rates[how]!r} MCell/s")
+        for how in ("model", "auto"):
+            ratio = rates[how] / rates["pinned"]
+            print(f"  {name} {how} over pinned MCell/s: {ratio!r} "
+                  f"({'at or above' if ratio >= 0.97 else 'below'} 0.97)")
+        del grid, runs
+        torch.cuda.empty_cache()
+
+
+def autotune_phase(cache_path):
+    """``autotune(measure=True)`` at 2d_r4_paper and 3d_r4_paper: each
+    frontier candidate's predicted and measured ms, then the same call
+    again, which must come from the cache and launch nothing."""
+    import torch
+    from repro_torch.configs import stencil2d, stencil3d
+    from repro_torch.kernels import cuda
+    from repro_torch.tuning import autotune
+
+    works = {**stencil2d.workloads(), **stencil3d.workloads()}
+    print("\n== autotune(measure=True): predicted against measured ms")
+    for name in ("2d_r4_paper", "3d_r4_paper"):
+        work = works[name]
+        kw = dict(grid_shape=work.grid_shape, variant="auto", measure=True,
+                  cache_path=cache_path, top_k=4, reps=3)
+        tuned = autotune(work.spec, **kw)
+        if tuned.from_cache or not tuned.measurements:
+            raise AssertionError(f"{name}: the first autotune measured "
+                                 f"nothing")
+        for m in tuned.measurements:
+            print(f"  {name}: {m.describe()}")
+            if m.ok and m.device != torch.cuda.get_device_name(0):
+                raise AssertionError(f"measured on {m.device}")
+        print(f"  {name}: winner block={tuned.plan.block_shape} "
+              f"par_time={tuned.plan.par_time} variant={tuned.variant}")
+        cuda.reset_launches()
+        again = autotune(work.spec, **kw)
+        launched = sum(cuda.launches().values())
+        if not again.from_cache or launched or again.plan != tuned.plan:
+            raise AssertionError(f"{name}: the second autotune was not a "
+                                 f"cache hit with no launch ({launched} "
+                                 f"launches)")
+        print(f"  {name}: second call from the cache, {launched} launches")
+
+
+def refuse_other_step_count():
+    """ROADMAP C1: a plan compiled for a step count whose kernels fit is
+    refused with RP105 at ``run`` for a count whose kernels do not, with
+    no launch."""
+    import repro_torch
+    from repro_torch.kernels import cuda
+    from repro_torch.lint.diagnostics import DiagnosticError
+
+    print("\n== RP105 for a step count other than the compiled one")
+    prog = repro_torch.StencilProgram(ndim=3, radius=4, shape="diamond")
+    plan = repro_torch.BlockPlan(spec=prog, block_shape=(32, 64, 704),
+                                 par_time=8)
+    shape = (512, 1024, 704)
+    cs = repro_torch.stencil(prog).compile(shape, steps=4, plan=plan)
+    grid = random_grid(shape, seed=0)
+    for steps in (5, 9):
+        cuda.reset_launches()
+        try:
+            cs.run(grid, steps=steps)
+        except DiagnosticError as e:
+            if [d.code for d in e.diagnostics] != ["RP105"]:
+                raise
+            print(f"  run(steps={steps}) refused as expected: {e}")
+        else:
+            raise AssertionError(f"run(steps={steps}) was not refused")
+        if any(cuda.launches().values()):
+            raise AssertionError("a refused run launched a kernel")
+    del grid
+
+
 #: The kernels ``ptxas_report`` reads, by source: each instantiation's
 #: name in the log, and how many instantiations the source has.
 PTXAS = {"streamed_superstep.cu": (("streamed_kernel",), 24),
@@ -835,6 +1005,11 @@ def main() -> int:
         torch.cuda.empty_cache()
     exact_checks()
     plane_corners()
+    refuse_other_step_count()
+    # a cache of this run's own, so that no stale record hides the model
+    with tempfile.TemporaryDirectory() as tmp:
+        planner_phase(os.path.join(tmp, "plans.json"))
+        autotune_phase(os.path.join(tmp, "plans.json"))
     ptxas_report()
     ported = {r["name"].split("@")[0] for r in records}
     if len(ported) != 6:

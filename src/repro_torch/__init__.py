@@ -6,11 +6,11 @@ One front door, as in the reference::
     import repro_torch
 
     program = repro_torch.StencilProgram(ndim=2, radius=4)
-    plan = repro_torch.BlockPlan(spec=program, block_shape=(1024, 1024),
-                                 par_time=2)
-    cs = repro_torch.stencil(program).compile((16384, 16384), steps=9,
-                                              plan=plan)
+    cs = repro_torch.stencil(program).compile((16384, 16384), steps=9)
     out = cs.run(grid)          # grid: float32 tensor on the card
+
+``compile`` plans with the autotuner by default (``plan="auto"``);
+``plan="model"`` asks the H100 planner, and a ``BlockPlan`` pins a plan.
 
 The package imports torch and numpy only, never jax or ``repro``.
 """

@@ -6,31 +6,21 @@ prefetching B4/B6, ``cuda-temporal`` the chunk-fused B3 (its ``superstep``
 is the plain B5: a lone superstep has no chunk to fuse).  ``run`` is the
 fused run executor (``ops._stencil_run``).  A CUDA grid launches the
 kernels; a CPU grid runs their plain PyTorch versions.  All accept a
-leading batch axis.
+leading batch axis.  ``lower`` hands them a plan (the planner's when the
+caller gives none).
 """
 
 from __future__ import annotations
-
-from typing import Optional
 
 from repro_torch.backends.registry import (BackendTraits, LoweredStencil,
                                            register_backend)
 from repro_torch.core.blocking import BlockPlan
 from repro_torch.core.program import ProgramCoeffs, StencilProgram
 from repro_torch.kernels import ops
-from repro_torch.lint.diagnostics import DiagnosticError, error
 
 
-def _make(program: StencilProgram, plan: Optional[BlockPlan],
+def _make(program: StencilProgram, plan: BlockPlan,
           coeffs: ProgramCoeffs, variant: str) -> LoweredStencil:
-    if not isinstance(plan, BlockPlan):
-        raise DiagnosticError([error(
-            "RP112",
-            f"the cuda backends need a pinned BlockPlan (got {plan!r}); "
-            f"the planner is not ported (ROADMAP A5)",
-            hint="pass plan=BlockPlan(spec=program, block_shape=..., "
-                 "par_time=...)")])
-
     def superstep_fn(grid, c):
         return ops.stencil_superstep(grid, program, c, plan, variant=variant)
 

@@ -16,15 +16,18 @@ Usage::
 
     lowered = lower(program, plan, backend="cuda-pipelined")
     out = lowered.run(grid, steps=12)
+    lowered = lower(program, grid_shape=(4096, 4096))   # the planner's plan
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
-from repro_torch.core.blocking import BlockPlan, normalize_variant
+from repro_torch.analysis.hw import H100_SXM
+from repro_torch.core.blocking import BlockPlan, normalize_variant, plan_blocking
 from repro_torch.core.program import ProgramCoeffs, StencilProgram
+from repro_torch.lint.diagnostics import DiagnosticError, error
 
 
 @dataclasses.dataclass(frozen=True)
@@ -184,14 +187,28 @@ def resolve_backend(name: Optional[str] = None,
 def lower(program: StencilProgram, plan: Optional[BlockPlan] = None, *,
           coeffs: Optional[ProgramCoeffs] = None,
           backend: Optional[str] = None,
-          version: Optional[int] = None) -> LoweredStencil:
+          version: Optional[int] = None,
+          grid_shape: Optional[Tuple[int, ...]] = None) -> LoweredStencil:
     """Lower a program through a registered backend (default
     :func:`default_backend_name`); ``coeffs`` default to
-    ``program.default_coeffs()``.  The cuda backends need a pinned
-    ``plan`` (RP112: there is no planner yet, ROADMAP A5)."""
+    ``program.default_coeffs()``.  ``plan=None`` takes the H100 planner's
+    pick for the fused-run backends (``core/blocking.plan_blocking`` for
+    the backend's variant on ``H100_SXM``), round-up
+    waste charged for ``grid_shape`` when given; the oracle takes no plan.
+    Anything but a ``BlockPlan`` or None is RP112."""
     c = program.default_coeffs() if coeffs is None else coeffs
     name = backend or default_backend_name()
     factory, v = get_backend(name, version)
+    traits = backend_traits(name, v)
+    if plan is None and traits.fused_run:
+        plan = plan_blocking(program, H100_SXM, grid_shape=grid_shape,
+                             variant=traits.variant).plan
+    elif plan is not None and not isinstance(plan, BlockPlan):
+        raise DiagnosticError([error(
+            "RP112", f"plan must be a BlockPlan or None (got {plan!r})",
+            hint="drop plan= for the planner's pick, or pass "
+                 "plan=BlockPlan(spec=program, block_shape=..., "
+                 "par_time=...)")])
     lowered = factory(program, plan, c)
     lowered.backend_name = name
     lowered.backend_version = v

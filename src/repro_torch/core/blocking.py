@@ -1,25 +1,32 @@
-"""Spatial + temporal blocking plans — counterpart of ``repro/core/blocking.py``.
+"""Spatial + temporal blocking plans and the H100 planner — counterpart of
+``repro/core/blocking.py``.
 
 Paper eq. 2, unchanged: a block that goes through ``par_time`` fused time
 steps loses ``par_time * radius`` of valid output per side.
 
-There is no planner here.  The reference's planner sizes blocks against a
-TPU's VMEM; on the H100 the CUDA kernels pick their own CTA tile from the
-shared-memory limit (``kernels/cuda.py``), and ``BlockPlan.block_shape``
-only fixes the padded layout (the round-up of the grid, and so the ring
-depth and wrap geometry), exactly as in the reference.  What one CTA needs
-is ``BlockPlan.smem_bytes_for``, the counterpart of the reference's
-``vmem_bytes_for``.
+The reference's planner sizes blocks against a TPU's VMEM.  On the H100
+the CUDA kernels pick their own CTA tile from the shared-memory limit
+(``kernels/cuda.py``), and ``BlockPlan.block_shape`` only fixes the padded
+layout (the round-up of the grid, and so the ring depth and wrap
+geometry), exactly as in the reference.  What one CTA needs is
+``BlockPlan.smem_bytes_for``, the counterpart of the reference's
+``vmem_bytes_for``.  So the planner here (:func:`estimate`,
+:func:`plan_blocking`) prices what moves time on the card: ``par_time``,
+the variant, and the body and CTA tile each kernel runs at them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import itertools
 import math
-from typing import Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch.analysis.hw import GpuChip, H100_SXM
+from repro_torch.core import h100_calibration as cal
 from repro_torch.core.program import StencilProgram
 
 #: Kernel-variant names shared with the reference.
@@ -38,6 +45,11 @@ KERNELS = ("padded_superstep", "temporal_superstep", "padded_pipelined",
 #: (``csrc/streamed_superstep.cu``) for every other tap set, as B3 and B4
 #: always do.  Every kernel takes an in-plane column tile.
 QUEUED_KERNELS = ("padded_superstep", "superstep", "pipelined_superstep")
+#: The padded-carry superstep kernel of each variant, by the name
+#: ``kernels/cuda.py`` counts its launches under.
+CARRY_KERNELS = {"plain": "padded_superstep",
+                 "temporal": "temporal_superstep",
+                 "pipelined": "padded_pipelined"}
 #: Planes per group of a streamed CTA, by grid rank: the planes one
 #: thread computes per in-plane cell (``csrc/streamed_superstep.cu``).
 COLUMN_PLANES = {2: 4, 3: 2}
@@ -365,3 +377,333 @@ class BlockPlan:
             sizes = [p - 2 * (t + 1) * r for p in self.padded_shape]
             total += math.prod(sizes) * self.spec.flops_per_cell
         return total
+
+
+# ---- the H100 planner ---------------------------------------------------------
+#
+# One superstep launch of ``kernel`` over ``cells`` output cells costs
+#
+#   cells * max(bytes / hbm_bytes_per_s, flops / (peak_fp32_flops / 2))
+#         / efficiency + LAUNCH_S
+#
+# where bytes are the cells the body loads per output cell (its CTA tile's
+# halo'd in-plane extent) plus the one it writes, and flops the cells it
+# computes per output cell (every stage over its shrinking region, idle
+# lanes included) times ``flops_per_cell``: the body's own cost
+# (``QueuedPlanes.cost``, ``streamed.column_cost``) at the tile
+# ``kernels/cuda.pick_tile`` takes under ``chip.smem_optin``.  The divisor
+# of the peak is halved because the kernels keep mul and add apart, with
+# no FMA, to equal their plain versions bit for bit.  ``efficiency`` is
+# the share of that bound the launcher reached on the card
+# (``core/h100_calibration.py``): measured per launcher, tap set and
+# fused steps by ``tools/planner_calibration.py``; for steps not measured
+# the nearest measured ones, for a tap set not measured the median of its
+# launcher and grid rank.  It holds what the bound cannot see: the
+# instruction mix of each instantiation, its occupancy, its copies.  The
+# carry kernels compute the true cells only, so a block's round-up waste
+# shows in the run executor's fills of the padded pair.  A run adds one
+# launch per wrap refresh and those fills and copies
+# (``kernels/common.run_call``) at ``COPY_EFFICIENCY`` of the memory rate.
+
+#: Useful-work floor: a launch whose output cell updates are this share of
+#: the cells it computes or less never wins (the reference's value).
+MIN_USEFUL_FRACTION = 0.25
+
+
+def launcher(plan: BlockPlan, kernel: str) -> str:
+    """Which launcher runs ``kernel`` under ``plan``: "queue" (the
+    register queues), "streamed" (the streamed kernel's one-shot grid: B3,
+    and B1 for other tap sets) or "persistent" (its persistent CTAs: B4).
+    The calibration is keyed by it."""
+    if plan.body(kernel) == "queue":
+        return "queue"
+    return "persistent" if kernel == "padded_pipelined" else "streamed"
+
+
+def efficiency(plan: BlockPlan, kernel: str) -> float:
+    """The measured share of the bound of one launch of ``kernel`` under
+    ``plan`` (``core/h100_calibration.py``)."""
+    prog = plan.spec
+    return _efficiency((launcher(plan, kernel), prog.shape, prog.ndim,
+                        prog.radius, plan.kernel_steps(kernel)))
+
+
+@functools.lru_cache(maxsize=None)
+def _efficiency(key) -> float:
+    """The row of ``key``; for fused steps not measured, the row of the
+    nearest measured steps of the same launcher and tap set (the fewer on
+    a tie); for a tap set not measured, its launcher's median."""
+    if key in cal.EFFICIENCY:
+        return cal.EFFICIENCY[key]
+    near = [k for k in cal.EFFICIENCY if k[:4] == key[:4]]
+    if near:
+        return cal.EFFICIENCY[min(near, key=lambda k: (abs(k[4] - key[4]),
+                                                       k[4]))]
+    return cal.LAUNCHER_EFFICIENCY[(key[0], key[2])]
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanEstimate:
+    """The model's price of one superstep of ``plan`` under ``variant``
+    (for "temporal" one chunk of ``TEMPORAL_CHUNK`` supersteps): the body
+    and CTA tile its kernel runs, its compute and memory time per block of
+    output cells, and the useful cell updates per second that gives, with
+    no launch cost (:func:`superstep_seconds` adds it for a grid)."""
+
+    plan: BlockPlan
+    variant: str
+    kernel: str
+    body: str
+    tile: Tuple[int, ...]
+    compute_s_per_block: float
+    hbm_s_per_block: float
+    gcells_per_s: float        # useful cell updates/s
+    gflops_per_s: float        # useful FLOP/s (no redundancy counted)
+    bound: str                 # "compute" | "memory"
+    useful_fraction: float     # output cell updates / computed cells
+
+
+def launch_work(plan: BlockPlan, kernel: str, chip: GpuChip = H100_SXM
+                ) -> Tuple[Tuple[int, ...], float, float, float]:
+    """``(tile, bytes, flops, useful_fraction)`` of one launch of
+    ``kernel`` under ``plan``, per output cell: the CTA tile it takes
+    under ``chip.smem_optin``; the cells its body loads there plus the
+    one it writes, in bytes; the cells it computes times
+    ``flops_per_cell``; and its output cell updates over the cells it
+    computes.  Raises (as the launch would) when no tile fits."""
+    # local: kernels/ imports this module
+    from repro_torch.kernels import cuda, streamed
+    prog = plan.spec
+    steps = plan.kernel_steps(kernel)
+    tile = cuda.pick_tile(plan, kernel, chip.smem_optin)
+    if plan.body(kernel) == "queue":
+        planes = queued_planes(prog, steps, tile)
+        loaded = math.prod(planes.extent) / math.prod(tile)
+        computed = planes.cost - loaded
+    else:
+        h = steps * prog.halo_radius
+        loaded = math.prod(t + 2 * h for t in tile) / math.prod(tile)
+        computed = streamed.column_cost(prog.ndim, prog.halo_radius, steps,
+                                        tile) - loaded
+    return (tile, (loaded + 1) * plan.itemsize,
+            computed * prog.flops_per_cell, steps / computed)
+
+
+def _launch_terms(plan: BlockPlan, kernel: str, chip: GpuChip):
+    """Compute and memory seconds per output cell of one launch."""
+    tile, moved, flops, useful = launch_work(plan, kernel, chip)
+    eff = efficiency(plan, kernel)
+    t_ops = flops / (chip.peak_fp32_flops / 2) / eff
+    t_mem = moved / chip.hbm_bytes_per_s / eff
+    return tile, useful, t_ops, t_mem
+
+
+def launch_seconds(plan: BlockPlan, kernel: str, cells: int,
+                   chip: GpuChip = H100_SXM) -> float:
+    """The model's time of one launch of ``kernel`` under ``plan`` over
+    ``cells`` output cells."""
+    _, _, t_ops, t_mem = _launch_terms(plan, kernel, chip)
+    return cells * max(t_ops, t_mem) + cal.LAUNCH_S
+
+
+def estimate(plan: BlockPlan, chip: GpuChip = H100_SXM,
+             variant: Optional[str] = None) -> PlanEstimate:
+    """The H100 model of one superstep of ``plan`` under ``variant``
+    (see the comment above :data:`MIN_USEFUL_FRACTION`), launch cost
+    left out."""
+    v = normalize_variant(variant)
+    kernel = CARRY_KERNELS[v]
+    tile, useful, t_ops, t_mem = _launch_terms(plan, kernel, chip)
+    block = math.prod(plan.block_shape)
+    steps = plan.kernel_steps(kernel)
+    gcells = steps / max(t_ops, t_mem) / 1e9
+    return PlanEstimate(
+        plan=plan, variant=v, kernel=kernel, body=plan.body(kernel),
+        tile=tile, compute_s_per_block=block * t_ops,
+        hbm_s_per_block=block * t_mem, gcells_per_s=gcells,
+        gflops_per_s=gcells * plan.spec.flops_per_cell,
+        bound="compute" if t_ops >= t_mem else "memory",
+        useful_fraction=useful)
+
+
+def _launch_cells(kernel: str, plan: BlockPlan, grid_shape, batch: int
+                  ) -> int:
+    """Output cells one launch computes: the carry kernels the true cells,
+    the pre-padded ones (B5, B6) every cell of the rounded grid."""
+    if kernel in CARRY_KERNELS.values():
+        return batch * math.prod(grid_shape)
+    return batch * math.prod(round_up(g, b)
+                             for g, b in zip(grid_shape, plan.block_shape))
+
+
+def _launches_seconds(plan: BlockPlan, grid_shape: Tuple[int, ...],
+                      steps: int, chip: GpuChip, variant: str, batch: int):
+    """The launches of a fused run of ``steps`` (``kernels/common.
+    run_launches``), a wrap refresh before each superstep when periodic
+    or, for a wrap-degenerate layout, the re-pad copies of each; and the
+    schedule."""
+    # local: kernels/ imports this module
+    from repro_torch.kernels import common
+    sched = common.ring_schedule(plan.spec, plan, tuple(grid_shape), steps,
+                                 variant=variant)
+    t = 0.0
+    supersteps = 0
+    for kernel, _, kplan, count in common.run_launches(sched):
+        t += count * launch_seconds(
+            kplan, kernel, _launch_cells(kernel, kplan, grid_shape, batch),
+            chip)
+        supersteps += count
+    if sched.fallback:
+        t += supersteps * 4 * batch * math.prod(grid_shape) \
+            * plan.itemsize / (chip.hbm_bytes_per_s * cal.COPY_EFFICIENCY)
+    elif sched.layout.wrap_axes:
+        t += supersteps * cal.LAUNCH_S
+    return t, sched
+
+
+def superstep_seconds(plan: BlockPlan, grid_shape: Tuple[int, ...],
+                      chip: GpuChip = H100_SXM,
+                      variant: Optional[str] = None, batch: int = 1
+                      ) -> float:
+    """The model's time of one steady-state superstep (a chunk for
+    "temporal") of a run on ``grid_shape``: its launch, and its wrap
+    refresh or re-pad copies."""
+    v = normalize_variant(variant)
+    period = plan.kernel_steps(CARRY_KERNELS[v])
+    return _launches_seconds(plan, grid_shape, period, chip, v, batch)[0]
+
+
+def run_seconds(plan: BlockPlan, grid_shape: Tuple[int, ...], steps: int,
+                chip: GpuChip = H100_SXM, variant: Optional[str] = None,
+                batch: int = 1) -> float:
+    """The model's wall time of a fused run of ``steps`` on
+    ``grid_shape``: its launches (the remainder's too) with their wrap
+    refreshes, and the run executor's fills of the padded pair (where the
+    round-up waste shows), copy in and slice out; a wrap-degenerate run
+    re-pads every superstep instead."""
+    v = normalize_variant(variant)
+    t, sched = _launches_seconds(plan, grid_shape, steps, chip, v, batch)
+    if sched.fallback:
+        return t
+    moved = 2 * batch * math.prod(sched.layout.padded_shape) \
+        + 4 * batch * math.prod(grid_shape)
+    return t + moved * plan.itemsize / (chip.hbm_bytes_per_s *
+                                        cal.COPY_EFFICIENCY)
+
+
+def grid_useful_fraction(grid_shape: Optional[Tuple[int, ...]],
+                         block_shape: Tuple[int, ...]) -> float:
+    """Share of the rounded grid's cells that are true cells (1.0 = no
+    round-up waste; 1.0 when the grid is unknown)."""
+    if grid_shape is None:
+        return 1.0
+    frac = 1.0
+    for g, b in zip(grid_shape, block_shape):
+        frac *= g / round_up(g, b)
+    return frac
+
+
+#: The paper configurations' blocks (``configs/``), candidates on every
+#: grid of their rank.
+CONFIG_BLOCKS = {2: ((1024, 1024),), 3: ((32, 64, 704), (32, 128, 1024))}
+
+
+def candidate_blocks(ndim: int, grid_shape: Optional[Tuple[int, ...]] = None
+                     ) -> Tuple[Tuple[int, ...], ...]:
+    """Block candidates: the grid's extents, halves and quarters per axis
+    (when the grid is known) and the configurations' own blocks, largest
+    first.  A block only rounds the padded layout here, so a candidate
+    differs from another only by its round-up waste, and of the blocks
+    that round the grid alike only the largest is kept."""
+    blocks = sorted(CONFIG_BLOCKS[ndim], reverse=True)
+    if grid_shape is None:
+        return tuple(blocks)
+    if len(grid_shape) != ndim:
+        raise ValueError(f"grid_shape {tuple(grid_shape)} is not {ndim}-D")
+    blocks = sorted(set(blocks).union(itertools.product(*(
+        {-(-int(g) // f) for f in (1, 2, 4)} for g in grid_shape))),
+        reverse=True)
+    rounded = {}
+    for b in blocks:
+        rounded.setdefault(tuple(round_up(g, x)
+                                 for g, x in zip(grid_shape, b)), b)
+    return tuple(rounded.values())
+
+
+def candidate_plans(spec: StencilProgram, chip: GpuChip = H100_SXM,
+                    max_par_time: int = 64,
+                    block_candidates: Optional[
+                        Sequence[Tuple[int, ...]]] = None,
+                    variant: Optional[str] = None,
+                    grid_shape: Optional[Tuple[int, ...]] = None,
+                    steps: Optional[int] = None) -> List[BlockPlan]:
+    """Plans over ``block_candidates`` (default :func:`candidate_blocks`)
+    and ``par_time`` 1..``max_par_time`` whose kernels all fit a CTA tile
+    in ``chip.smem_optin`` for any step count (``lint/verify.
+    smem_diagnostics`` with ``steps=None``; given ``grid_shape`` and
+    ``steps``, for that run too: a wrap-degenerate layout runs other
+    kernels) and keep more than :data:`MIN_USEFUL_FRACTION` of their
+    computed cells as output.  Neither depends on the block, and both
+    only grow worse with ``par_time``, so the first that fails ends it."""
+    # local: lint/ imports this module
+    from repro_torch.lint.verify import smem_diagnostics
+    v = normalize_variant(variant)
+    if block_candidates is None:
+        block_candidates = candidate_blocks(spec.ndim, grid_shape)
+    kernel = CARRY_KERNELS[v]
+    plans = []
+    for pt in range(1, max_par_time + 1):
+        probes = [BlockPlan(spec=spec, block_shape=tuple(bs), par_time=pt)
+                  for bs in block_candidates]
+        if not probes or smem_diagnostics(probes[0], v, chip) or \
+                launch_work(probes[0], kernel, chip)[3] \
+                <= MIN_USEFUL_FRACTION:
+            break
+        plans += [p for p in probes if grid_shape is None or steps is None
+                  or not smem_diagnostics(p, v, chip,
+                                          grid_shape=tuple(grid_shape),
+                                          steps=steps)]
+    return plans
+
+
+def plan_rate(plan: BlockPlan, chip: GpuChip = H100_SXM,
+              variant: Optional[str] = None,
+              grid_shape: Optional[Tuple[int, ...]] = None) -> float:
+    """Useful cell updates per second the model predicts for a
+    steady-state superstep: with ``grid_shape``, of a run on that grid
+    (launch and wrap refresh charged), else of the kernel alone."""
+    if grid_shape is None:
+        return estimate(plan, chip, variant).gcells_per_s * 1e9
+    v = normalize_variant(variant)
+    steps = plan.kernel_steps(CARRY_KERNELS[v])
+    return math.prod(grid_shape) * steps / superstep_seconds(
+        plan, tuple(grid_shape), chip, v)
+
+
+def plan_blocking(spec: StencilProgram, chip: GpuChip = H100_SXM,
+                  grid_shape: Optional[Tuple[int, ...]] = None,
+                  max_par_time: int = 64,
+                  variant: Optional[str] = None,
+                  steps: Optional[int] = None) -> PlanEstimate:
+    """The model's best plan of :func:`candidate_plans` for ``variant``:
+    the highest :func:`plan_rate` on ``grid_shape`` (if given), then the
+    least round-up waste, then the smaller ``par_time``, then the larger
+    block.  ``steps`` (with
+    ``grid_shape``) also requires the run of that many steps to fit.
+    Deterministic: the model is arithmetic on ``chip``'s figures."""
+    v = normalize_variant(variant)
+    best = None
+    for plan in candidate_plans(spec, chip, max_par_time=max_par_time,
+                                variant=v, grid_shape=grid_shape,
+                                steps=steps):
+        key = (plan_rate(plan, chip, v, grid_shape),
+               grid_useful_fraction(grid_shape, plan.block_shape),
+               -plan.par_time, plan.block_shape)
+        if best is None or key > best[0]:
+            best = (key, plan)
+    if best is None:
+        raise ValueError(f"no blocking plan of {spec} under variant {v!r} "
+                         f"fits a CTA tile of {chip.name} with more than "
+                         f"{MIN_USEFUL_FRACTION} of the cells it computes "
+                         f"useful")
+    return estimate(best[1], chip, v)

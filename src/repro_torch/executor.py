@@ -8,15 +8,18 @@ a device; ``run`` checks the grid and hands it to the fused executor
 
 ``backend``/``variant`` resolve through the registry
 (``backends.resolve_backend``): ``cuda`` (default), ``cuda-pipelined``,
-``cuda-temporal``, or the ``torch-reference`` oracle.  On a CUDA device
-the front door refuses a plan when a kernel the run would launch fits no
-CTA tile (RP105, ``lint/verify.smem_diagnostics``).
+``cuda-temporal``, or the ``torch-reference`` oracle.  ``plan="auto"``
+(the default) asks the autotuner (``repro_torch.tuning``, model-only,
+with its plan cache), ``plan="model"`` the H100 planner
+(``core/blocking.plan_blocking``).  On a CUDA device the front door
+refuses a plan when a kernel the run would launch fits no CTA tile
+(RP105, ``lint/verify.smem_diagnostics``), at compile for the compiled
+step count and at ``run`` for any other, before any launch.
 
-What this port does not do yet, and says so when asked: plan search
-(``plan="auto"``/``"model"``, ROADMAP A5) and meshes (``devices > 1``,
-A9).  Entry points run on the card: ``device=None`` means CUDA and raises
-when no GPU is visible; the CPU runs only when the caller passes
-``device="cpu"``.
+What this port does not do yet, and says so when asked: meshes
+(``devices > 1``, ROADMAP A9).  Entry points run on the card:
+``device=None`` means CUDA and raises when no GPU is visible; the CPU runs
+only when the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -27,10 +30,10 @@ from typing import Optional, Tuple, Union
 
 import torch
 
-from repro_torch.analysis.hw import GpuChip
+from repro_torch.analysis.hw import GpuChip, H100_SXM
 from repro_torch.backends import lower, resolve_backend
 from repro_torch.backends.registry import LoweredStencil
-from repro_torch.core.blocking import BlockPlan
+from repro_torch.core.blocking import TEMPORAL_CHUNK, BlockPlan, plan_blocking
 from repro_torch.core.program import ProgramCoeffs, StencilProgram
 from repro_torch.kernels import ops
 from repro_torch.lint.diagnostics import DiagnosticError
@@ -137,22 +140,36 @@ class Stencil:
                 plan: Union[str, BlockPlan] = "auto",
                 backend: Optional[str] = None,
                 variant: Optional[str] = None,
-                device=None) -> "CompiledStencil":
-        """Validate the run and bind it to ``device``.
+                device=None,
+                chip: Optional[GpuChip] = None,
+                max_par_time: int = 32,
+                cache: bool = True,
+                cache_path: Optional[str] = None) -> "CompiledStencil":
+        """Validate the run, resolve its plan and bind it to ``device``.
 
-        grid_shape  spatial extent of one grid; ``batch`` adds a leading
-                    ``(B, *grid)`` axis of independent grids.
-        steps       the step count ``run`` uses by default (>= 1).
-        devices     None or 1; more is RP110 (ROADMAP A9).
-        plan        a pinned ``BlockPlan``; "auto"/"model" are RP112
-                    (ROADMAP A5).
-        backend     a registered name (default ``cuda``).
-        variant     None/"auto" keeps the backend as named; "plain",
-                    "pipelined" or "temporal" picks that sibling, and
-                    raises where the backend has none.
-        device      None = CUDA (RP110 without a GPU); "cpu" runs the
-                    plain versions of the kernels.  On CUDA a plan no CTA
-                    tile of the variant fits is RP105.
+        grid_shape    spatial extent of one grid; ``batch`` adds a leading
+                      ``(B, *grid)`` axis of independent grids.
+        steps         the step count ``run`` uses by default (>= 1).
+        devices       None or 1; more is RP110 (ROADMAP A9).
+        plan          "auto" — the autotuner, model-only, through its plan
+                      cache (``cache``/``cache_path``); "model" — the H100
+                      planner (``core/blocking.plan_blocking``); or a
+                      ``BlockPlan`` pinned by the caller.
+        backend       a registered name (default ``cuda``).
+        variant       None/"auto" keeps the backend as named, except that
+                      ``plan="auto"`` on the plain backend searches the
+                      ``cuda``, ``cuda-pipelined`` and ``cuda-temporal``
+                      siblings and keeps the model's pick; "plain",
+                      "pipelined" or "temporal" picks that sibling, and
+                      raises where the backend has none.
+        device        None = CUDA (RP110 without a GPU); "cpu" runs the
+                      plain versions of the kernels.
+        chip          the card the plan is made and checked for: None is
+                      the visible card on CUDA and ``H100_SXM`` on the
+                      CPU.  On CUDA, or when ``chip`` is given, a plan no
+                      CTA tile of the variant fits is RP105, here for
+                      ``steps`` and at ``run`` for any other count.
+        max_par_time  the deepest superstep the planners consider.
         """
         prog = self.program
         try:
@@ -186,23 +203,16 @@ class Stencil:
                          "independent grids along a leading axis")])
             batch = b
         _check_devices(prog, devices)
-        name, version, traits = resolve_backend(
-            backend, variant=None if variant == "auto" else variant)
-        if isinstance(plan, str) and plan in ("auto", "model"):
-            raise DiagnosticError([_diag(
-                "RP112",
-                f"plan={plan!r} asks for the planner, which sizes blocks "
-                f"for a TPU's VMEM and is not ported (ROADMAP A5); pin a "
-                f"BlockPlan",
-                hint="pass plan=BlockPlan(spec=program, block_shape=..., "
-                     "par_time=...)")])
-        if not isinstance(plan, BlockPlan):
+        concrete = None if variant in (None, "auto") else variant
+        name, version, traits = resolve_backend(backend, variant=concrete)
+        planned = isinstance(plan, str) and plan in ("auto", "model")
+        if not planned and not isinstance(plan, BlockPlan):
             raise DiagnosticError([_diag(
                 "RP112",
                 f'plan must be "auto", "model", or a BlockPlan '
                 f"(got {plan!r})",
                 hint='use plan="auto" unless pinning a tuned BlockPlan')])
-        if len(plan.block_shape) != prog.ndim:
+        if not planned and len(plan.block_shape) != prog.ndim:
             raise DiagnosticError([_diag(
                 "RP111",
                 f"plan block {plan.block_shape} has rank "
@@ -215,9 +225,37 @@ class Stencil:
                 f"float32",
                 hint="use float32")])
         dev = _resolve_device(device)
-        if traits.fused_run and dev.type == "cuda":
-            found = smem_diagnostics(plan, traits.variant,
-                                     GpuChip.from_device(dev.index),
+        check = traits.fused_run and (dev.type == "cuda" or chip is not None)
+        if chip is None:
+            chip = GpuChip.from_device(dev.index) if dev.type == "cuda" \
+                else H100_SXM
+        try:
+            if plan == "auto":
+                # local: the tuner lowers candidates through this package
+                from repro_torch.tuning import autotune
+                # search the variant axis only when nothing pinned one
+                search = concrete is None and traits.variant == "plain"
+                tuned = autotune(prog, chip, grid_shape=grid_shape,
+                                 backend=name,
+                                 variant="auto" if search else None,
+                                 measure=False, cache=cache,
+                                 cache_path=cache_path,
+                                 max_par_time=max_par_time, device=dev)
+                plan = tuned.plan
+                if tuned.backend != name:
+                    name, version, traits = resolve_backend(tuned.backend)
+            elif plan == "model":
+                plan = plan_blocking(prog, chip, grid_shape=grid_shape,
+                                     max_par_time=max_par_time,
+                                     variant=traits.variant,
+                                     steps=steps).plan
+        except ValueError as e:   # no plan of the variant fits the card
+            raise DiagnosticError([_diag(
+                "RP105", str(e),
+                hint="pick variant='plain' for the smallest footprint")]) \
+                from e
+        if check:
+            found = smem_diagnostics(plan, traits.variant, chip,
                                      grid_shape=grid_shape, steps=steps)
             if found:
                 raise DiagnosticError(found)
@@ -231,7 +269,8 @@ class Stencil:
                                batch=batch, plan=plan, backend=name,
                                backend_version=version,
                                variant=traits.variant, device=dev,
-                               lowered=lowered)
+                               lowered=lowered,
+                               chip=chip if check else None)
 
 
 class CompiledStencil:
@@ -242,7 +281,8 @@ class CompiledStencil:
                  grid_shape: Tuple[int, ...], steps: int,
                  batch: Optional[int], plan: BlockPlan, backend: str,
                  backend_version: int, variant: str, device: torch.device,
-                 lowered: Optional[LoweredStencil] = None):
+                 lowered: Optional[LoweredStencil] = None,
+                 chip: Optional[GpuChip] = None):
         self.program = program
         self.coeffs = coeffs
         self.grid_shape = grid_shape
@@ -254,6 +294,31 @@ class CompiledStencil:
         self.variant = variant
         self.device = device
         self._lowered = lowered
+        # the chip RP105 is checked against (None: no check), and the
+        # diagnostics per (a full superstep runs, remainder): what decides
+        # the kernels of a run
+        self._chip = chip
+        self._fits = {self._launch_key(steps): []}
+
+    def _launch_key(self, steps: int) -> Tuple[bool, int]:
+        period = self.plan.par_time * (
+            TEMPORAL_CHUNK if self.variant == "temporal" else 1)
+        full, rem = divmod(steps, period)
+        return full > 0, rem
+
+    def _check_fits(self, steps: int) -> None:
+        """RP105 when a kernel a run of ``steps`` launches fits no CTA
+        tile of the chip compile checked against (compile checked its own
+        count); raised before any launch."""
+        if self._chip is None:
+            return
+        key = self._launch_key(steps)
+        if key not in self._fits:
+            self._fits[key] = smem_diagnostics(
+                self.plan, self.variant, self._chip,
+                grid_shape=self.grid_shape, steps=steps)
+        if self._fits[key]:
+            raise DiagnosticError(self._fits[key])
 
     def _check_grid(self, grid: torch.Tensor) -> None:
         if not isinstance(grid, torch.Tensor):
@@ -303,9 +368,11 @@ class CompiledStencil:
     def run(self, grid: torch.Tensor,
             steps: Optional[int] = None) -> torch.Tensor:
         """Advance ``steps`` time steps (default: the compiled count) and
-        return a new tensor; ``grid`` is not written."""
+        return a new tensor; ``grid`` is not written.  A count whose
+        kernels fit no CTA tile is RP105, before any launch."""
         steps = self.steps if steps is None else _check_steps(steps)
         self._check_grid(grid)
+        self._check_fits(steps)
         return self._dispatch(grid, steps)
 
     def _dispatch(self, grid: torch.Tensor, steps: int) -> torch.Tensor:

@@ -43,8 +43,9 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.core.blocking import (BlockPlan, TEMPORAL_CHUNK,
-                                       normalize_variant, round_up)
+from repro_torch.core.blocking import (CARRY_KERNELS, BlockPlan,
+                                       TEMPORAL_CHUNK, normalize_variant,
+                                       round_up)
 from repro_torch.core.codegen import boundary_pad, tap_interior_update
 from repro_torch.core.program import ProgramCoeffs, StencilProgram
 from repro_torch.kernels import cuda
@@ -280,13 +281,6 @@ def ring_schedule(program: StencilProgram, plan: BlockPlan,
     return RunSchedule(program=program, plan=plan, layout=layout, variant=v,
                        steps=steps, full=full, rem=rem,
                        supersteps=tuple(supersteps))
-
-
-#: The padded-carry superstep kernel of each variant, by the name
-#: ``kernels/cuda.py`` counts its launches under.
-CARRY_KERNELS = {"plain": "padded_superstep",
-                 "temporal": "temporal_superstep",
-                 "pipelined": "padded_pipelined"}
 
 
 def run_launches(sched: RunSchedule

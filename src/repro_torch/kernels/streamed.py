@@ -181,6 +181,7 @@ def streamed_need(program, steps: int, tile: Tuple[int, ...]) -> int:
                                program.num_taps, steps, tile)
 
 
+@functools.lru_cache(maxsize=None)
 def smallest_streamed_tile(program, steps: int) -> Tuple[int, ...]:
     """The in-plane candidate with the least shared memory (not always
     the narrowest: a narrow plane groups more planes per iteration)."""

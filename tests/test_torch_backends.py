@@ -23,6 +23,8 @@ from repro_torch.backends import (available_backends, backend_traits,
                                   register_backend, resolve_backend,
                                   variant_of)
 from repro_torch.backends.registry import LoweredStencil
+from repro_torch.core.blocking import plan_blocking
+from repro_torch.lint.verify import smem_diagnostics
 from repro_torch.lint.diagnostics import DiagnosticError
 
 TOL = dict(atol=5e-4, rtol=5e-4)
@@ -140,11 +142,20 @@ def test_resolve_backend_never_runs_another_kernel():
 
 
 def test_lower_without_a_plan_is_rp112():
+    """``lower`` without a plan takes the planner's pick for the backend's
+    variant (a plan every kernel of the run fits); anything but a
+    ``BlockPlan`` or None is RP112; the oracle takes no plan."""
     prog = repro_torch.StencilProgram(ndim=2, radius=1)
     for name in CUDA_NAMES:
-        with pytest.raises(DiagnosticError, match="RP112") as info:
-            lower(prog, backend=name)
-        assert "ROADMAP A5" in str(info.value)
+        low = lower(prog, backend=name, grid_shape=(37, 150))
+        v = backend_traits(name).variant
+        assert low.plan == plan_blocking(prog, grid_shape=(37, 150),
+                                         variant=v).plan
+        assert smem_diagnostics(low.plan, v) == []
+        assert isinstance(lower(prog, backend=name).plan,
+                          repro_torch.BlockPlan)
+        with pytest.raises(DiagnosticError, match="RP112"):
+            lower(prog, (16, 128), backend=name)
     assert lower(prog, backend="torch-reference").plan is None
 
 

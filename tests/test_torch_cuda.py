@@ -519,3 +519,91 @@ def test_queued_launches_on_two_streams_keep_their_coefficients(
     for got, w in [(g, want_star) for g in stars] + \
             [(g, want_box) for g in boxes]:
         torch.testing.assert_close(got[true], w[true], rtol=0, atol=0)
+
+
+def test_run_refuses_a_step_count_no_tile_fits(cuda_device):
+    """ROADMAP C1: compiled for 4 steps (one 4-step B1, which fits), the
+    3D diamond r4 plan of par_time 8 is refused with RP105 at ``run`` for
+    5 and 9 steps, before any launch; the compiled count still runs."""
+    prog = repro_torch.StencilProgram(ndim=3, radius=4, shape="diamond")
+    plan = repro_torch.BlockPlan(spec=prog, block_shape=(32, 64, 704),
+                                 par_time=8)
+    shape = (512, 1024, 704)
+    cs = repro_torch.stencil(prog).compile(shape, steps=4, plan=plan)
+    grid = torch.zeros(shape, device=cuda_device)
+    for steps in (5, 9):
+        cuda.reset_launches()
+        with pytest.raises(DiagnosticError, match="RP105"):
+            cs.run(grid, steps=steps)
+        assert sum(cuda.launches().values()) == 0
+    small = repro_torch.stencil(prog).compile((6, 8, 40), steps=4, plan=plan)
+    cuda.reset_launches()
+    small.run(torch.zeros((6, 8, 40), device=cuda_device))
+    assert cuda.launches()["padded_superstep"] == 1
+
+
+@pytest.mark.parametrize("ndim,shape,radius,boundary,grid,body", [
+    (3, "star", 2, "clamp", (128, 256, 256), "queue"),
+    (3, "star", 4, "clamp", (64, 96, 160), "streamed"),
+    (2, "box", 1, "periodic", (300, 1000), "streamed"),
+])
+def test_planned_run_equals_the_pinned_run(cuda_device, tmp_path, ndim,
+                                           shape, radius, boundary, grid,
+                                           body):
+    """``plan="auto"`` (the default) and ``plan="model"`` on the card: the
+    plan's carry kernel runs the expected body, launches as the schedule
+    says, and the result equals the pinned plan's run."""
+    prog = repro_torch.StencilProgram(ndim=ndim, radius=radius, shape=shape,
+                                      boundary=boundary, boundary_value=0.25)
+    steps = 7
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    g = torch.rand(grid, generator=gen, device=cuda_device) * 2 - 1
+    pinned = repro_torch.stencil(prog).compile(grid, steps=steps, plan=(
+        repro_torch.BlockPlan(spec=prog, block_shape=BLOCKS[ndim],
+                              par_time=2)))
+    want = pinned.run(g)
+    for plan in ("auto", "model"):
+        kw = {} if plan == "auto" else {"plan": plan}
+        cs = repro_torch.stencil(prog).compile(
+            grid, steps=steps, cache_path=str(tmp_path / "p.json"), **kw)
+        kernel = common.CARRY_KERNELS[cs.variant]
+        if plan == "auto":
+            assert cs.plan.body(kernel) == body
+        cuda.reset_launches()
+        got = cs.run(g)
+        sched = common.ring_schedule(prog, cs.plan, grid, steps,
+                                     variant=cs.variant)
+        want_counts = {}
+        for name, _, _, count in common.run_launches(sched):
+            want_counts[name] = want_counts.get(name, 0) + count
+        if sched.layout.wrap_axes and not sched.fallback:
+            want_counts["wrap_halo"] = sched.full + int(sched.rem > 0)
+        assert {k: v for k, v in cuda.launches().items() if v} == \
+            want_counts
+        torch.testing.assert_close(got, want, **ULP)
+
+
+def test_autotune_measures_on_the_card(cuda_device, tmp_path):
+    """``autotune(measure=True)`` times its frontier with CUDA events on
+    the card, keeps a cache record under the card's name, and the second
+    call comes from the cache with no launch."""
+    from repro_torch.tuning import PlanCache, autotune, cache_key
+    prog = repro_torch.StencilProgram(ndim=2, radius=2)
+    grid = (512, 1024)
+    path = str(tmp_path / "plans.json")
+    tuned = autotune(prog, grid_shape=grid, variant="auto", measure=True,
+                     top_k=2, reps=2, cache_path=path)
+    name = torch.cuda.get_device_name(cuda_device)
+    assert tuned.measurement is not None
+    assert {m.device for m in tuned.measurements} == {name}
+    assert all(m.ok and m.measured_ms > 0 and m.predicted_ms > 0
+               for m in tuned.measurements)
+    key = cache_key(prog, grid, name, "cuda", 1, variant="auto",
+                    device="cuda")
+    assert tuned.key == key
+    records = PlanCache(path).get_all(key)
+    assert len(records) == 1 and records[0]["measurement"]["device"] == name
+    cuda.reset_launches()
+    again = autotune(prog, grid_shape=grid, variant="auto", measure=True,
+                     top_k=2, reps=2, cache_path=path)
+    assert again.from_cache and sum(cuda.launches().values()) == 0

@@ -136,8 +136,8 @@ def _compile(tp, tplan, **kw):
     (dict(devices=2), "RP110"),
     (dict(devices=(2, 1)), "RP110"),
     (dict(devices="x"), "RP110"),
-    (dict(plan="auto"), "RP112"),
-    (dict(plan="model"), "RP112"),
+    (dict(plan="fastest"), "RP112"),
+    (dict(plan=None), "RP112"),
     (dict(plan=(16, 128)), "RP112"),
 ])
 def test_front_door_rejections(kwargs, code):
@@ -163,8 +163,9 @@ def test_rejections_follow_reference_order_and_text():
         _compile(tp, tplan, steps=0, batch=0, plan="nope")
     with pytest.raises(DiagnosticError, match="RP103"):
         _compile(tp, tplan, batch=0, plan="nope")
-    with pytest.raises(DiagnosticError, match="ROADMAP A5"):
-        _compile(tp, tplan, plan="auto")
+    with pytest.raises(DiagnosticError, match='"auto", "model", or a '
+                                              'BlockPlan'):
+        _compile(tp, tplan, plan="nope")
 
 
 def test_variant_and_rank_and_dtype_rejections():
@@ -225,7 +226,9 @@ def test_import_does_not_load_jax_or_the_reference():
     code = ("import sys, repro_torch, repro_torch.convert, "
             "repro_torch.kernels.ops, repro_torch.configs.stencil3d, "
             "repro_torch.backends, repro_torch.kernels.stencil2d, "
-            "repro_torch.kernels.stencil3d, repro_torch.lint.verify; "
+            "repro_torch.kernels.stencil3d, repro_torch.lint.verify, "
+            "repro_torch.tuning, repro_torch.tuning.cli, "
+            "repro_torch.core.perf_model; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); "
             "sys.exit(1 if bad else 0)")
