@@ -41,7 +41,20 @@ Phases (any failure raises, so the exit code is non-zero):
 7. ``autotune(measure=True)`` at 2d_r4_paper and 3d_r4_paper: each
    frontier candidate's predicted and measured ms (CUDA events), then a
    second call that must come from the plan cache with no launch;
-8. the ``ptxas`` report of every instantiation: no stack frame.
+8. the serving front at paper width (:data:`SERVED`): one
+   ``StencilServer(max_batch=4)`` flushes batched 2D and 3D groups, the
+   periodic box unbatched and identity requests, cold (under
+   ``repro_torch.obs.profile()``, so each chunk's ``run`` span gives its
+   launches) and again warm; launch counts zeroed before each flush and
+   read after, every result held to the front door's unbatched run under
+   the server's plan at 0, then compile and run seconds, served
+   Mcell-steps/s, p50/p95/p99 latency and batch occupancy;
+9. the flight recorder: at each configuration of :data:`PLANNED`,
+   ``plan="model"``, runs under ``repro_torch.obs.profile()`` (each
+   ``run`` span's wall, device and host seconds, model accuracy and
+   launches) in turns with runs with the recorder off, and the MCell/s of
+   both;
+10. the ``ptxas`` report of every instantiation: no stack frame.
 
 The last lines are the ``{"kernels": [...]}`` record, the ``nvidia-smi``
 line, and ``{"ok": true, "device": {...}}``.
@@ -911,6 +924,223 @@ def autotune_phase(cache_path):
         print(f"  {name}: second call from the cache, {launched} launches")
 
 
+#: The serving phase's groups: (configuration, steps, requests); the box
+#: at PERF.md's 16384^2 cut.  IDENTITY requests of 2d_r4_paper's program at
+#: steps 0 ride along.
+SERVED = (("2d_r4_paper", 9, 6), ("3d_r4_paper", 3, 3),
+          ("2d_box_periodic_pod", 10, 1))
+IDENTITY = 2
+SERVE_BATCH = 4
+
+
+def serve_mix():
+    """The served requests as (configuration, program, grid shape, steps,
+    count), the 3D chunk cut to 2 when the card's free memory cannot hold
+    the flush (inputs, held results and the largest chunk's stack, padded
+    pair and output, float32)."""
+    import torch
+    from repro_torch.configs import stencil2d, stencil3d
+    works = {**stencil2d.workloads(), **stencil3d.workloads()}
+    box = (16384, 16384)
+
+    def shape_of(name):
+        return box if name == "2d_box_periodic_pod" \
+            else works[name].grid_shape
+
+    mix = [(name, works[name].spec, shape_of(name), steps, n)
+           for name, steps, n in SERVED]
+    mix.append(("identity", works["2d_r4_paper"].spec,
+                shape_of("2d_r4_paper"), 0, IDENTITY))
+
+    def need(mix):
+        held = sum(n * math.prod(shape) for _, _, shape, _, n in mix)
+        chunk = max(min(n, SERVE_BATCH) * math.prod(shape)
+                    for _, _, shape, steps, n in mix if steps)
+        return 4 * (2 * held + 4 * chunk)
+
+    free, total = torch.cuda.mem_get_info()
+    print(f"  memory: the flush needs about {need(mix) / 1e9!r} GB, "
+          f"{free / 1e9!r} GB free of {total / 1e9!r}")
+    if need(mix) > free:
+        mix = [m[:4] + (2,) if m[0] == "3d_r4_paper" else m for m in mix]
+        print(f"  reduced: 3d_r4_paper served as a chunk of 2 instead of 3 "
+              f"(the flush would need {need(mix) / 1e9!r} GB)")
+    return mix
+
+
+def serving_phase(smi):
+    """The serving front at paper width, cold then warm (module docstring,
+    phase 8)."""
+    import torch
+    import repro_torch
+    from repro_torch import obs
+    from repro_torch.kernels import cuda
+    from repro_torch.launch.stencil_serve import StencilServer
+    from repro_torch.tuning.cache import program_fingerprint
+
+    print(f"\n== the serving front: StencilServer(max_batch={SERVE_BATCH}), "
+          f"plan='model', at paper width")
+    torch.cuda.empty_cache()
+    mix = serve_mix()
+    server = StencilServer(max_batch=SERVE_BATCH)
+    rec = server.recorder
+    for flush in ("cold", "warm"):
+        subs = []
+        seed = 0
+        for name, prog, shape, steps, n in mix:
+            for _ in range(n):
+                seed += 1
+                subs.append([name, prog, shape, steps,
+                             random_grid(shape, seed=seed), None])
+        # grids are made before the clock of any request starts
+        torch.cuda.synchronize()
+        for sub in subs:
+            sub[5] = server.submit(sub[1], sub[4], sub[3])
+        mark = {k: len(rec.samples(k)) for k in (
+            "serve.compile_s", "serve.run_s", "serve.request_latency_s",
+            "serve.batch_occupancy")}
+        cells0 = server.stats.cell_steps
+        cuda.reset_launches()
+        if flush == "cold":
+            with obs.profile() as prof:
+                results = server.flush()
+            spans = prof.spans("run")
+        else:
+            results = server.flush()
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in cuda.launches().items() if v}
+        if server.failed:
+            raise AssertionError(f"served requests failed: {server.failed}")
+        # the launches each chunk must make, in dispatch order
+        chunks = []
+        for name, prog, shape, steps, n in mix:
+            if not steps:
+                continue
+            plan, backend = server._resolved[(program_fingerprint(prog),
+                                              shape)]
+            variant = "plain" if backend == "cuda" \
+                else backend.split("-")[1]
+            want = expected_launches(prog, plan, steps, variant)
+            for lo in range(0, n, SERVE_BATCH):
+                chunks.append((name, shape, min(n - lo, SERVE_BATCH), plan,
+                               variant, want))
+        total = {}
+        for i, (name, shape, b, plan, variant, want) in enumerate(chunks):
+            for k, v in want.items():
+                total[k] = total.get(k, 0) + v
+            line = (f"  {flush} chunk {name} x{b}: block={plan.block_shape} "
+                    f"par_time={plan.par_time} variant={variant}, expected "
+                    f"launches {want}")
+            if flush == "cold":
+                sp = spans[i]
+                got = (tuple(sp["grid_shape"]), sp["batch"] or 1)
+                if got != (shape, b) or sp["launch_delta"] != want:
+                    raise AssertionError(f"chunk {i} ({name} x{b}): run span "
+                                         f"{got} launched "
+                                         f"{sp['launch_delta']}")
+                line += (f", run span: launched {sp['launch_delta']}, wall "
+                         f"{sp['wall_s']!r} s, device {sp['device_s']!r} s")
+            print(line)
+        print(f"  {flush} flush: launches {counts} (expected {total})")
+        if counts != total:
+            raise AssertionError(f"flush launches {counts} != {total}")
+        # every result against the front door's unbatched run, at 0
+        for name, prog, shape, steps, n in mix:
+            group = [sub for sub in subs if sub[0] == name]
+            if steps:
+                plan, backend = server._resolved[(
+                    program_fingerprint(prog), shape)]
+                cs = repro_torch.stencil(prog).compile(
+                    shape, steps=steps, plan=plan, backend=backend)
+            for sub in group:
+                got = results.pop(sub[5])
+                if got.device != sub[4].device:
+                    raise AssertionError("a served result left the card")
+                want = cs.run(sub[4]) if steps else sub[4]
+                check_close(f"{flush} served {name} rid {sub[5]} vs the "
+                            f"unbatched front door", got, want, atol=0.0,
+                            rtol=0.0)
+                del got, want
+                sub[4] = None
+            torch.cuda.empty_cache()
+        comp = sum(rec.samples("serve.compile_s")[mark["serve.compile_s"]:])
+        run = sum(rec.samples("serve.run_s")[mark["serve.run_s"]:])
+        lat = rec.samples("serve.request_latency_s")[
+            mark["serve.request_latency_s"]:]
+        occ = rec.samples("serve.batch_occupancy")[
+            mark["serve.batch_occupancy"]:]
+        cells = server.stats.cell_steps - cells0
+        pct = {q: obs.percentile(lat, q) for q in (50, 95, 99)}
+        print(f"  {flush} flush ({smi}): {len(subs)} requests, compile "
+              f"{comp!r} s, run {run!r} s, {cells} cell-steps, served "
+              f"{cells / (comp + run) / 1e6!r} Mcell-steps/s, latency p50 "
+              f"{pct[50]!r} s p95 {pct[95]!r} s p99 {pct[99]!r} s, batch "
+              f"occupancy {occ}")
+        del results, subs
+    torch.cuda.empty_cache()
+
+
+def recorder_phase(smi):
+    """The flight recorder at each configuration of :data:`PLANNED`
+    (module docstring, phase 9)."""
+    import torch
+    import repro_torch
+    from repro_torch import obs
+    from repro_torch.configs import stencil2d, stencil3d
+
+    works = {**stencil2d.workloads(), **stencil3d.workloads()}
+    print("\n== the flight recorder: run spans timed on the card, recorder "
+          "on against off")
+    for name, steps, _ in PLANNED:
+        work = works[name]
+        prog = work.spec
+        shape = (16384, 16384) if name == "2d_box_periodic_pod" \
+            else work.grid_shape
+        grid = random_grid(shape, seed=0)
+        with obs.profile() as rec:
+            cs = repro_torch.stencil(prog).compile(shape, steps=steps,
+                                                   plan="model")
+        (sp,) = rec.spans("compile")
+        print(f"  {name} compile span: plan_source {sp['plan_source']}, "
+              f"cache_hit {sp['cache_hit']}, {sp['backend']} block "
+              f"{sp['block_shape']} par_time {sp['par_time']}, supersteps "
+              f"{sp['supersteps']}, model {sp['model_bytes_per_superstep']} "
+              f"bytes per superstep, predicted {sp['predicted_s']!r} s, "
+              f"{sp['dur_s']!r} s")
+        want = expected_launches(prog, cs.plan, steps, cs.variant)
+        cs.run(grid)
+        walls = {"on": [], "off": []}
+        for _ in range(PLANNED_RUNS):
+            torch.cuda.synchronize()
+            with obs.profile() as rec:
+                t0 = time.perf_counter()
+                cs.run(grid)
+                torch.cuda.synchronize()  # lint-ok: RP302
+                walls["on"].append(time.perf_counter() - t0)
+            (sp,) = rec.spans("run")
+            print(f"  {name} run span: wall_s {sp['wall_s']!r} device_s "
+                  f"{sp['device_s']!r} host_s {sp['host_s']!r} "
+                  f"model_accuracy {sp['model_accuracy']!r} launch_delta "
+                  f"{sp['launch_delta']}")
+            if sp["launch_delta"] != want or not \
+                    0 < sp["device_s"] <= sp["wall_s"]:
+                raise AssertionError(f"{name}: run span {sp} (expected "
+                                     f"launches {want})")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cs.run(grid)
+            torch.cuda.synchronize()  # lint-ok: RP302
+            walls["off"].append(time.perf_counter() - t0)
+        cells = math.prod(shape) * steps
+        rate = {k: cells / statistics.median(v) / 1e6
+                for k, v in walls.items()}
+        print(f"  {name} ({smi}): median of {PLANNED_RUNS} in turns, "
+              f"recorder on {rate['on']!r} MCell/s, off {rate['off']!r} "
+              f"MCell/s, on/off {rate['on'] / rate['off']!r}")
+        del grid, cs
+        torch.cuda.empty_cache()
+
+
 def refuse_other_step_count():
     """ROADMAP C1: a plan compiled for a step count whose kernels fit is
     refused with RP105 at ``run`` for a count whose kernels do not, with
@@ -1010,6 +1240,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         planner_phase(os.path.join(tmp, "plans.json"))
         autotune_phase(os.path.join(tmp, "plans.json"))
+    serving_phase(smi)
+    recorder_phase(smi)
     ptxas_report()
     ported = {r["name"].split("@")[0] for r in records}
     if len(ported) != 6:

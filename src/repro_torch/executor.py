@@ -16,6 +16,12 @@ refuses a plan when a kernel the run would launch fits no CTA tile
 (RP105, ``lint/verify.smem_diagnostics``), at compile for the compiled
 step count and at ``run`` for any other, before any launch.
 
+With the flight recorder on (``REPRO_TORCH_OBS=1`` or
+``repro_torch.obs.profile()``) ``compile`` emits a ``compile`` span and
+each ``run`` a ``run`` span timed on the card (CUDA events beside the host
+clock) plus one accuracy sample; off, ``run`` pays one ``obs.active()``
+lookup and stays asynchronous.
+
 What this port does not do yet, and says so when asked: meshes
 (``devices > 1``, ROADMAP A9).  Entry points run on the card:
 ``device=None`` means CUDA and raises when no GPU is visible; the CPU runs
@@ -26,19 +32,23 @@ from __future__ import annotations
 
 import math
 import operator
+import time
 from typing import Optional, Tuple, Union
 
 import torch
 
+from repro_torch import obs
 from repro_torch.analysis.hw import GpuChip, H100_SXM
 from repro_torch.backends import lower, resolve_backend
 from repro_torch.backends.registry import LoweredStencil
-from repro_torch.core.blocking import TEMPORAL_CHUNK, BlockPlan, plan_blocking
+from repro_torch.core.blocking import (TEMPORAL_CHUNK, BlockPlan,
+                                       plan_blocking, run_seconds)
 from repro_torch.core.program import ProgramCoeffs, StencilProgram
-from repro_torch.kernels import ops
-from repro_torch.lint.diagnostics import DiagnosticError
+from repro_torch.kernels import cuda, ops
+from repro_torch.lint.diagnostics import DiagnosticError, raise_on_error
 from repro_torch.lint.diagnostics import error as _diag
 from repro_torch.lint.verify import smem_diagnostics
+from repro_torch.tuning.cache import cache_key
 
 Devices = Union[None, int, Tuple[int, ...]]
 
@@ -170,7 +180,45 @@ class Stencil:
                       CTA tile of the variant fits is RP105, here for
                       ``steps`` and at ``run`` for any other count.
         max_par_time  the deepest superstep the planners consider.
+
+        With the flight recorder on, the resolution runs inside a
+        ``compile`` span: the plan source and plan-cache hit, backend@version,
+        variant, block, ``par_time``, supersteps, the model's bytes per
+        superstep (``BlockPlan.run_bytes_per_superstep``) and its run time
+        (``predicted_s``, ``core/blocking.run_seconds``).
         """
+        kwargs = dict(steps=steps, batch=batch, devices=devices, plan=plan,
+                      backend=backend, variant=variant, device=device,
+                      chip=chip, max_par_time=max_par_time, cache=cache,
+                      cache_path=cache_path)
+        rec = obs.active()
+        if rec is None or torch.compiler.is_compiling():
+            return self._compile(grid_shape, **kwargs)
+        plan_source = plan if isinstance(plan, str) else "pinned"
+        with rec.span("compile", plan_source=plan_source) as sp:
+            cs = self._compile(grid_shape, **kwargs)
+            sp.set(**cs._span_attrs())
+            sp.set(cache_hit=cs.from_plan_cache,
+                   supersteps=-(-cs.steps // cs.plan.par_time),
+                   model_bytes_per_superstep=cs.plan.run_bytes_per_superstep(
+                       cs.grid_shape, cs.variant),
+                   predicted_s=cs.predicted_seconds(cs.steps))
+            rec.count("compile.plan_cache_hit" if cs.from_plan_cache
+                      else "compile.plan_cache_miss")
+        return cs
+
+    def _compile(self, grid_shape, *, steps: int,
+                 batch: Optional[int] = None,
+                 devices: Devices = None,
+                 plan: Union[str, BlockPlan] = "auto",
+                 backend: Optional[str] = None,
+                 variant: Optional[str] = None,
+                 device=None,
+                 chip: Optional[GpuChip] = None,
+                 max_par_time: int = 32,
+                 cache: bool = True,
+                 cache_path: Optional[str] = None) -> "CompiledStencil":
+        """Validate, plan and bind; the contract is :meth:`compile`'s."""
         prog = self.program
         try:
             grid_shape = tuple(operator.index(s) for s in grid_shape)
@@ -229,6 +277,7 @@ class Stencil:
         if chip is None:
             chip = GpuChip.from_device(dev.index) if dev.type == "cuda" \
                 else H100_SXM
+        tuned = None
         try:
             if plan == "auto":
                 # local: the tuner lowers candidates through this package
@@ -255,10 +304,9 @@ class Stencil:
                 hint="pick variant='plain' for the smallest footprint")]) \
                 from e
         if check:
-            found = smem_diagnostics(plan, traits.variant, chip,
-                                     grid_shape=grid_shape, steps=steps)
-            if found:
-                raise DiagnosticError(found)
+            raise_on_error(smem_diagnostics(plan, traits.variant, chip,
+                                            grid_shape=grid_shape,
+                                            steps=steps), source="verify")
         coeffs = self.coeffs.to(dev)
         # a backend whose run is not the fused executor (the oracle) runs
         # through its own lowering
@@ -270,7 +318,8 @@ class Stencil:
                                backend_version=version,
                                variant=traits.variant, device=dev,
                                lowered=lowered,
-                               chip=chip if check else None)
+                               chip=chip if check else None,
+                               model_chip=chip, tuned=tuned)
 
 
 class CompiledStencil:
@@ -282,7 +331,9 @@ class CompiledStencil:
                  batch: Optional[int], plan: BlockPlan, backend: str,
                  backend_version: int, variant: str, device: torch.device,
                  lowered: Optional[LoweredStencil] = None,
-                 chip: Optional[GpuChip] = None):
+                 chip: Optional[GpuChip] = None,
+                 model_chip: GpuChip,
+                 tuned=None):
         self.program = program
         self.coeffs = coeffs
         self.grid_shape = grid_shape
@@ -299,6 +350,14 @@ class CompiledStencil:
         # the kernels of a run
         self._chip = chip
         self._fits = {self._launch_key(steps): []}
+        #: the card the plan was made for, which the model prices runs on
+        self.chip = model_chip
+        #: the autotuner's answer under plan="auto" (None otherwise), and
+        #: whether it came from the plan cache
+        self.tuned = tuned
+        self.from_plan_cache = tuned is not None and tuned.from_cache
+        self._predicted = {}
+        self._history_key = None
 
     def _launch_key(self, steps: int) -> Tuple[bool, int]:
         period = self.plan.par_time * (
@@ -317,8 +376,7 @@ class CompiledStencil:
             self._fits[key] = smem_diagnostics(
                 self.plan, self.variant, self._chip,
                 grid_shape=self.grid_shape, steps=steps)
-        if self._fits[key]:
-            raise DiagnosticError(self._fits[key])
+        raise_on_error(self._fits[key], source="verify")
 
     def _check_grid(self, grid: torch.Tensor) -> None:
         if not isinstance(grid, torch.Tensor):
@@ -369,14 +427,120 @@ class CompiledStencil:
             steps: Optional[int] = None) -> torch.Tensor:
         """Advance ``steps`` time steps (default: the compiled count) and
         return a new tensor; ``grid`` is not written.  A count whose
-        kernels fit no CTA tile is RP105, before any launch."""
+        kernels fit no CTA tile is RP105, before any launch.
+
+        With the flight recorder on, the run is timed under a ``run`` span
+        (:meth:`_run_recorded`), which synchronises the device; off, it is
+        only enqueued on the current stream."""
         steps = self.steps if steps is None else _check_steps(steps)
         self._check_grid(grid)
         self._check_fits(steps)
-        return self._dispatch(grid, steps)
+        rec = obs.active()
+        if rec is None or torch.compiler.is_compiling():
+            return self._dispatch(grid, steps)
+        return self._run_recorded(rec, grid, steps)
 
     def _dispatch(self, grid: torch.Tensor, steps: int) -> torch.Tensor:
         if self._lowered is not None:
             return self._lowered.run(grid, steps)
         return ops._stencil_run(grid, self.program, self.coeffs, self.plan,
                                 steps, variant=self.variant)
+
+    def _run_recorded(self, rec, grid: torch.Tensor,
+                      steps: int) -> torch.Tensor:
+        """One dispatch under a ``run`` span, and one accuracy sample.
+
+        On CUDA the device is synchronised before the clock starts, so
+        earlier work is not charged; CUDA events on the current stream (the
+        one the kernels launch on) around the dispatch give ``device_s``,
+        the host clock around the synchronised dispatch ``wall_s``, their
+        difference ``host_s``, and the change in the kernels' launch counts
+        ``launch_delta`` (launches from other threads meanwhile count too).
+        On the CPU those four are None.  ``model_accuracy`` is
+        ``predicted_s / wall_s`` (= achieved / predicted GB/s)."""
+        card = self.device.type == "cuda"
+        with rec.span("run", **self._span_attrs()) as sp:
+            if card:
+                torch.cuda.synchronize(self.device)
+                stream = torch.cuda.current_stream(self.device)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                before = cuda.launches()
+            t0 = time.perf_counter()
+            if card:
+                start.record(stream)
+            out = self._dispatch(grid, steps)
+            if card:
+                end.record(stream)
+                torch.cuda.synchronize(self.device)
+            wall = time.perf_counter() - t0
+            device_s = host_s = launch_delta = None
+            if card:
+                device_s = start.elapsed_time(end) / 1e3
+                host_s = wall - device_s
+                after = cuda.launches()
+                launch_delta = {k: n - before[k] for k, n in after.items()
+                                if n != before[k]}
+            nb = 1 if self.batch is None else self.batch
+            cells = nb * math.prod(self.grid_shape) * steps
+            predicted = self.predicted_seconds(steps)
+            gbps = cells * self.program.bytes_per_cell / wall / 1e9
+            predicted_gbps = cells * self.program.bytes_per_cell \
+                / predicted / 1e9
+            accuracy = predicted / wall
+            sp.set(steps=steps, wall_s=wall, device_s=device_s,
+                   host_s=host_s, mcells_per_s=cells / wall / 1e6,
+                   achieved_gbps=gbps,
+                   achieved_gflops=cells * self.program.flops_per_cell
+                   / wall / 1e9,
+                   predicted_s=predicted, predicted_gbps=predicted_gbps,
+                   model_accuracy=accuracy, launch_delta=launch_delta)
+            rec.record_accuracy(
+                key=self.history_key(), device=self.device.type,
+                chip=self.chip.name, backend=self.backend,
+                backend_version=self.backend_version,
+                variant=self.variant, grid_shape=list(self.grid_shape),
+                batch=self.batch, steps=steps,
+                block_shape=list(self.plan.block_shape),
+                par_time=self.plan.par_time, predicted_s=predicted,
+                wall_s=wall, device_s=device_s,
+                predicted_gbps=predicted_gbps, achieved_gbps=gbps,
+                model_accuracy=accuracy, mcells_per_s=cells / wall / 1e6,
+                source="executor.run")
+        return out
+
+    # -- telemetry -----------------------------------------------------------
+
+    def predicted_seconds(self, steps: int) -> float:
+        """The H100 model's wall time of a run of ``steps``
+        (``core/blocking.run_seconds`` on :attr:`chip`), kept per count."""
+        t = self._predicted.get(steps)
+        if t is None:
+            t = self._predicted[steps] = run_seconds(
+                self.plan, self.grid_shape, steps, self.chip, self.variant,
+                batch=1 if self.batch is None else self.batch)
+        return t
+
+    def history_key(self) -> str:
+        """The plan cache key this executable's accuracy samples file
+        under (``tuning/cache.cache_key``: program, grid, GPU name, device
+        type, backend@version), so samples join tuned plans directly.
+        Kept on the instance: fingerprinting the program per run costs too
+        much for the recorded path."""
+        if self._history_key is None:
+            self._history_key = cache_key(
+                self.program, self.grid_shape, self.chip.name, self.backend,
+                self.backend_version, device=self.device.type)
+        return self._history_key
+
+    def _span_attrs(self) -> dict:
+        return {
+            "backend": f"{self.backend}@{self.backend_version}",
+            "grid_shape": list(self.grid_shape),
+            "batch": self.batch,
+            "device": self.device.type,
+            "chip": self.chip.name,
+            "block_shape": list(self.plan.block_shape),
+            "par_time": self.plan.par_time,
+            "variant": self.variant,
+        }

@@ -22,6 +22,8 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Iterable, Tuple
 
+from repro_torch import obs
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("queued_superstep.cu", "streamed_superstep.cu", "wrap_halo.cu")
@@ -81,14 +83,23 @@ def build_log(source: str) -> str:
 def build(sources: Iterable[str] = SOURCES) -> Dict[str, str]:
     """Compile every source whose library or log is missing, one ``nvcc``
     each, in parallel.  Returns the compiler's output (also kept in
-    :func:`log_path`) per source it built; raises on a failure."""
+    :func:`log_path`) per source it built; raises on a failure.  With the
+    flight recorder on, a build runs inside a ``kernels.build`` span naming
+    the sources built (its ``dur_s`` is the build's seconds)."""
+    missing = [s for s in sources
+               if not (library_path(s).exists() and log_path(s).exists())]
+    if not missing:
+        return {}
+    with obs.span("kernels.build", sources=missing):
+        return _build(missing)
+
+
+def _build(sources) -> Dict[str, str]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = {}
     try:
         for source in sources:
             out = library_path(source)
-            if out.exists() and log_path(source).exists():
-                continue
             tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
             proc = subprocess.Popen(
                 [nvcc(), *FLAGS, "-o", str(tmp), str(CSRC / source)],

@@ -1,0 +1,435 @@
+"""Stencil serving front: same-shape micro-batching over the front door —
+counterpart of ``repro/launch/stencil_serve.py``.
+
+Many independent grids (parameter sweeps, ensembles, per-user runs) each
+under-use the card and pay their own launches.  This front queues
+requests and, on ``flush()``, groups them by (program, grid shape, dtype,
+steps) and runs each group through the one front door —
+``repro_torch.stencil(program).compile(shape, steps=..., batch=B)`` — as
+batched runs: one leading batch axis through the same kernels, so B
+compatible requests cost one run's launches instead of B.
+
+Requests in a group share the program's default coefficients; others land
+in their own group.  Plans come from ``compile(plan="model")`` (the H100
+planner) by default, or ``plan="auto"`` with ``use_autotune=True`` (the
+autotuner and its plan cache).  The first compile of a (program, shape)
+resolves its plan and backend; every later chunk size and step count
+pins them, so a shape's requests all run the same kernels.
+
+Where this differs from the reference:
+
+* ``device=`` (None: CUDA, RP110 without a GPU; ``"cpu"`` runs the plain
+  versions) and ``chip=`` replace ``interpret=``/``hw=`` and go to
+  ``compile``.  ``variant=`` is the only kernel-variant knob.
+* ``flush()`` returns ``{rid: torch.Tensor}`` on the server's device: row
+  ``i`` of its chunk's output, not copied to the host (at paper width a
+  1 GiB device-to-host copy per request would dominate ``run_s``).
+* Chunks are enqueued without waiting; a CUDA event recorded after each
+  chunk's dispatch is what the resolution pass waits on
+  (:func:`wait_ready`) before it stamps the chunk's latency samples.
+* One device: ``mesh_devices`` above 1 is RP110 (the mesh executor is
+  ROADMAP A9), never a silent single-device run.  ``mesh_fallbacks`` and
+  ``stats.sharded_batches`` stay for parity, always empty and 0.
+* Failure isolation holds for host-side failures (a refused plan, RP105,
+  RP101, ...): the group loses its own requests to ``failed`` and the
+  others are served.  A device fault (an illegal address) leaves the CUDA
+  context unusable for every group, so it is raised, never recorded as
+  one group's failure.
+
+CPU-scale usage:
+    PYTHONPATH=src python -m repro_torch.launch.stencil_serve --device cpu \\
+        --requests 9 --grid 48,256 --radius 2 --steps 5 --max-batch 4
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import math
+import time
+from typing import Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch import obs
+from repro_torch.analysis.hw import GpuChip
+from repro_torch.core.program import StencilProgram
+from repro_torch.executor import (CompiledStencil, _resolve_device,
+                                  stencil)
+from repro_torch.lint.diagnostics import DiagnosticError
+from repro_torch.lint.diagnostics import error as _diag
+from repro_torch.tuning.cache import program_fingerprint
+
+
+@dataclasses.dataclass
+class StencilRequest:
+    rid: int
+    program: StencilProgram
+    grid: torch.Tensor          # (*grid_shape) on the server's device
+    steps: int
+    t_submit: float = 0.0       # perf_counter at submit; latency anchor
+
+
+class ServeStats:
+    """Live read-only view over the server's flight recorder.
+
+    ``compile_seconds`` sums the dispatch time of cold executables (the
+    plan resolution and first enqueue), ``run_seconds`` the warm dispatches
+    plus the resolution pass; ``latency_percentiles()`` gives per-request
+    p50/p95/p99, and ``serve.queue_depth``/``serve.batch_occupancy``
+    samples live under those names on ``recorder``.
+    """
+
+    def __init__(self, recorder: "obs.Recorder"):
+        self.recorder = recorder
+
+    @property
+    def requests(self) -> int:
+        return self.recorder.counter("serve.requests")
+
+    @property
+    def batches(self) -> int:
+        return self.recorder.counter("serve.batches")
+
+    @property
+    def batched_requests(self) -> int:
+        """Requests that shared their executable with a batch-mate."""
+        return self.recorder.counter("serve.batched_requests")
+
+    @property
+    def sharded_batches(self) -> int:
+        """Batches placed on a device mesh (none: one device)."""
+        return self.recorder.counter("serve.sharded_batches")
+
+    @property
+    def cell_steps(self) -> int:
+        return self.recorder.counter("serve.cell_steps")
+
+    @property
+    def compile_seconds(self) -> float:
+        return self.recorder.sample_sum("serve.compile_s")
+
+    @property
+    def run_seconds(self) -> float:
+        return self.recorder.sample_sum("serve.run_s")
+
+    @property
+    def seconds(self) -> float:
+        return self.compile_seconds + self.run_seconds
+
+    @property
+    def mcell_steps_per_s(self) -> float:
+        return self.cell_steps / max(self.seconds, 1e-9) / 1e6
+
+    def latency_percentiles(self) -> Dict[str, float]:
+        """{"p50": s, "p95": s, "p99": s} of submit->result latency."""
+        return self.recorder.percentiles("serve.request_latency_s")
+
+
+def wait_ready(out: torch.Tensor,
+               done: Optional[torch.cuda.Event]) -> torch.Tensor:
+    """Block until a chunk's work is done: its event, recorded after the
+    dispatch, on CUDA; on the CPU the result is already computed."""
+    if done is not None:
+        done.synchronize()
+    return out
+
+
+def _device_fault(exc: BaseException) -> bool:
+    """A CUDA error: the context is unusable for every group after it."""
+    accel = getattr(torch, "AcceleratorError", None)
+    return (accel is not None and isinstance(exc, accel)) \
+        or "CUDA error" in str(exc)
+
+
+class StencilServer:
+    """Queue + group + batched-flush executor for stencil runs.
+
+    ``max_batch`` caps the leading batch axis per run (about bounding one
+    dispatch's latency and memory).  ``variant`` selects the kernel variant
+    for every group ("plain" | "pipelined" | "temporal" | "auto"/None).
+    """
+
+    def __init__(self, *, max_batch: int = 8,
+                 device=None,
+                 chip: Optional[GpuChip] = None,
+                 variant: Optional[str] = None,
+                 use_autotune: bool = False,
+                 cache_path: Optional[str] = None,
+                 max_par_time: int = 8,
+                 mesh_devices: Optional[int] = None,
+                 recorder: Optional["obs.Recorder"] = None):
+        if max_batch < 1:
+            raise ValueError(f"max_batch must be >= 1 (got {max_batch})")
+        if mesh_devices is not None and mesh_devices < 1:
+            raise ValueError(
+                f"mesh_devices must be >= 1 (got {mesh_devices})")
+        if mesh_devices is not None and mesh_devices > 1:
+            raise DiagnosticError([_diag(
+                "RP110",
+                f"StencilServer(mesh_devices={mesh_devices}) asks for a "
+                f"device mesh; this port serves on one device so far (the "
+                f"mesh executor is ROADMAP A9)",
+                hint="drop mesh_devices= to serve on one card")])
+        self.max_batch = max_batch
+        self.device = _resolve_device(device)
+        self.chip = chip
+        self.variant = variant
+        self.use_autotune = use_autotune
+        self.cache_path = cache_path
+        self.max_par_time = max_par_time
+        self.mesh_devices = None
+        # an explicit recorder records whatever REPRO_TORCH_OBS says, so
+        # serve stats always work
+        self.recorder = recorder if recorder is not None else obs.Recorder()
+        self.stats = ServeStats(self.recorder)
+        #: (executable identity, steps) pairs that already dispatched once
+        self._warm: set = set()
+        self.failed: Dict[int, str] = {}
+        #: always empty: no mesh path to decline a group
+        self.mesh_fallbacks: Dict[Tuple[str, Tuple[int, ...]], str] = {}
+        self._pending: List[StencilRequest] = []
+        self._next_rid = 0
+        self._programs: Dict[str, StencilProgram] = {}
+        #: (fp, shape, batch) -> executable; steps stays out of the key, as
+        #: run(grid, steps) takes its own count
+        self._compiled: Dict[tuple, CompiledStencil] = {}
+        #: (fp, shape) -> (plan, backend): the plan search runs once per
+        #: shape, and every chunk size pins its answer
+        self._resolved: Dict[tuple, tuple] = {}
+
+    # -- request intake ------------------------------------------------------
+
+    def submit(self, program: StencilProgram, grid, steps: int) -> int:
+        """Queue one run; returns the request id ``flush()`` resolves.  The
+        grid moves to the server's device as float32."""
+        if not isinstance(program, StencilProgram):
+            raise TypeError(f"program must be a StencilProgram (got "
+                            f"{type(program).__name__})")
+        grid = torch.as_tensor(grid, dtype=torch.float32, device=self.device)
+        if grid.ndim != program.ndim:
+            raise ValueError(
+                f"request grid rank {grid.ndim} != program ndim "
+                f"{program.ndim}")
+        if steps < 0:
+            raise ValueError("steps must be >= 0")
+        rid = self._next_rid
+        self._next_rid += 1
+        self._pending.append(
+            StencilRequest(rid, program, grid, steps,
+                           t_submit=time.perf_counter()))
+        return rid
+
+    def pending(self) -> int:
+        return len(self._pending)
+
+    # -- compilation ---------------------------------------------------------
+
+    def _compiled_for(self, program: StencilProgram, shape: Tuple[int, ...],
+                      steps: int, batch: Optional[int]) -> CompiledStencil:
+        """Front-door executable for one chunk shape, memoized per server.
+
+        ``steps`` only seeds the first compile of a key; every flush
+        passes its own count to ``run``.  The first compile of a shape
+        plans (the autotuner's cache when the caller opted in with
+        ``use_autotune`` or ``cache_path``, the model planner otherwise);
+        later ones pin its plan and backend.
+        """
+        fp = program_fingerprint(program)
+        key = (fp, shape, batch)
+        cs = self._compiled.get(key)
+        if cs is None:
+            resolved = self._resolved.get((fp, shape))
+            if resolved is None:
+                plan = "auto" if self.use_autotune else "model"
+                backend, variant = None, self.variant
+            else:
+                (plan, backend), variant = resolved, None
+            cs = stencil(program).compile(
+                shape, steps=steps, batch=batch, plan=plan, backend=backend,
+                variant=variant, device=self.device, chip=self.chip,
+                max_par_time=self.max_par_time,
+                cache=self.use_autotune or self.cache_path is not None,
+                cache_path=self.cache_path)
+            self._resolved[(fp, shape)] = (cs.plan, cs.backend)
+            self._compiled[key] = cs
+        return cs
+
+    # -- execution -----------------------------------------------------------
+
+    def _group_key(self, req: StencilRequest):
+        fp = program_fingerprint(req.program)
+        self._programs.setdefault(fp, req.program)
+        return (fp, tuple(req.grid.shape), str(req.grid.dtype), req.steps)
+
+    def flush(self) -> Dict[int, torch.Tensor]:
+        """Run every pending request; returns ``{rid: result}``, each a
+        tensor on the server's device (row ``i`` of its chunk's output).
+
+        Groups are formed by (program, shape, dtype, steps) and run in
+        ``max_batch``-sized batched runs; a chunk of one runs unbatched
+        through the same executor.  A group whose plan, compile or run
+        raises on the host loses only its own requests — their rids land in
+        ``self.failed`` with the error — and every other group is still
+        served; a CUDA error is raised (the module docstring says why).
+        """
+        rec = self.recorder
+        pending, self._pending = self._pending, []
+        rec.observe("serve.queue_depth", float(len(pending)))
+        groups: Dict[tuple, List[StencilRequest]] = {}
+        for req in pending:
+            groups.setdefault(self._group_key(req), []).append(req)
+
+        results: Dict[int, torch.Tensor] = {}
+        failed_before = len(self.failed)
+        outs = []
+        with rec.span("serve.flush", requests=len(pending),
+                      groups=len(groups)) as flush_span:
+            for (fp, shape, _dtype, steps), reqs in groups.items():
+                program = self._programs[fp]
+                done = 0     # requests of this group whose chunk already ran
+                if steps == 0:      # identity: results are the inputs, no run
+                    for lo in range(0, len(reqs), self.max_batch):
+                        chunk = reqs[lo:lo + self.max_batch]
+                        outs.append((chunk,
+                                     torch.stack([r.grid for r in chunk]),
+                                     None))
+                        self._count_chunk(chunk, shape, steps)
+                    continue
+                try:
+                    for lo in range(0, len(reqs), self.max_batch):
+                        chunk = reqs[lo:lo + self.max_batch]
+                        t0 = time.perf_counter()
+                        batch = len(chunk) if len(chunk) > 1 else None
+                        cs = self._compiled_for(program, shape, steps, batch)
+                        grid = chunk[0].grid if batch is None \
+                            else torch.stack([r.grid for r in chunk])
+                        # timed here: the enqueue; wait_ready synchronises
+                        out = cs.run(grid, steps)  # lint-ok: RP302
+                        if batch is None:
+                            out = out[None]
+                        outs.append((chunk, out, self._record_done()))
+                        # the first dispatch of an (executable, steps) pair
+                        # pays the plan resolution; later ones only enqueue
+                        wkey = (id(cs), steps)
+                        cold = wkey not in self._warm
+                        self._warm.add(wkey)
+                        rec.observe(
+                            "serve.compile_s" if cold else "serve.run_s",
+                            time.perf_counter() - t0)
+                        done += len(chunk)
+                        self._count_chunk(chunk, shape, steps)
+                except Exception as e:  # plan/compile failure: fail the rest
+                    if _device_fault(e):
+                        raise
+                    for req in reqs[done:]:
+                        self.failed[req.rid] = f"{type(e).__name__}: {e}"
+            # Resolution is a separate pass so that every chunk is enqueued
+            # before the first wait; a chunk whose wait raises fails only
+            # its own rids.
+            t0 = time.perf_counter()
+            for chunk, out, ready in outs:
+                try:
+                    out = wait_ready(out, ready)
+                except Exception as e:
+                    if _device_fault(e):
+                        raise
+                    for req in chunk:
+                        self.failed[req.rid] = f"{type(e).__name__}: {e}"
+                    continue
+                t_done = time.perf_counter()
+                for i, req in enumerate(chunk):
+                    results[req.rid] = out[i]
+                    rec.observe("serve.request_latency_s",
+                                t_done - req.t_submit)
+            rec.observe("serve.run_s", time.perf_counter() - t0)
+            rec.count("serve.requests", len(pending))
+            newly_failed = len(self.failed) - failed_before
+            if newly_failed:
+                rec.count("serve.failed", newly_failed)
+            flush_span.set(results=len(results), failed=newly_failed)
+        return results
+
+    def _record_done(self) -> Optional[torch.cuda.Event]:
+        """An event on the current stream after a chunk's dispatch (None on
+        the CPU, where the dispatch is the work)."""
+        if self.device.type != "cuda":
+            return None
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(self.device))
+        return done
+
+    def _count_chunk(self, chunk: List[StencilRequest],
+                     shape: Tuple[int, ...], steps: int) -> None:
+        rec = self.recorder
+        rec.count("serve.batches")
+        rec.observe("serve.batch_occupancy", len(chunk) / self.max_batch)
+        if len(chunk) > 1:
+            rec.count("serve.batched_requests", len(chunk))
+        if steps:
+            rec.count("serve.cell_steps",
+                      len(chunk) * math.prod(shape) * steps)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.launch.stencil_serve")
+    ap.add_argument("--requests", type=int, default=9)
+    ap.add_argument("--grid", default="48,256",
+                    help="grid shape per request, e.g. 48,256 or 8,16,128")
+    ap.add_argument("--ndim", type=int, default=None, choices=(2, 3),
+                    help="defaults to len(--grid)")
+    ap.add_argument("--radius", type=int, default=2)
+    ap.add_argument("--shape", default="star",
+                    choices=("star", "box", "diamond"))
+    ap.add_argument("--boundary", default="clamp",
+                    choices=("clamp", "periodic", "constant"))
+    ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--max-batch", type=int, default=4)
+    ap.add_argument("--variant", default=None,
+                    choices=("auto", "plain", "pipelined", "temporal"),
+                    help="kernel variant for every group")
+    ap.add_argument("--autotune", action="store_true",
+                    help="plans from the autotuner's cache (model-guided)")
+    ap.add_argument("--mesh-devices", type=int, default=None,
+                    help="more than 1 is refused (RP110): one device so far")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the CUDA card; 'cpu' runs "
+                         "the kernels' plain versions)")
+    args = ap.parse_args(argv)
+
+    shape = tuple(int(p) for p in args.grid.split(",") if p)
+    ndim = args.ndim or len(shape)
+    program = StencilProgram(ndim=ndim, radius=args.radius,
+                             shape=args.shape, boundary=args.boundary)
+    server = StencilServer(max_batch=args.max_batch, device=args.device,
+                           variant=args.variant,
+                           use_autotune=args.autotune,
+                           mesh_devices=args.mesh_devices)
+    gen = torch.Generator().manual_seed(0)
+    rids = [server.submit(program,
+                          torch.rand(shape, generator=gen) * 2 - 1,
+                          args.steps)
+            for _ in range(args.requests)]
+    results = server.flush()
+    s = server.stats
+    lat = s.latency_percentiles()
+    print(f"[stencil-serve] {s.requests} requests -> {s.batches} batches "
+          f"({s.batched_requests} batched) on {server.device}, "
+          f"{s.compile_seconds * 1e3:.1f} ms compile + "
+          f"{s.run_seconds * 1e3:.1f} ms run, "
+          f"{s.mcell_steps_per_s:.1f} Mcell-steps/s")
+    print(f"[stencil-serve] request latency "
+          f"p50={lat['p50'] * 1e3:.1f} ms p95={lat['p95'] * 1e3:.1f} ms "
+          f"p99={lat['p99'] * 1e3:.1f} ms")
+    for rid, why in server.failed.items():
+        print(f"[stencil-serve] rid={rid} failed: {why}")
+    for rid in rids[:2]:
+        g = results.get(rid)
+        if g is not None:
+            print(f"[stencil-serve] rid={rid} out_shape={tuple(g.shape)} "
+                  f"mean={float(g.mean()):+.5f}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,10 +1,14 @@
 """Stable diagnostic codes — the subset of ``repro/lint/diagnostics.py``
-that the port's front door raises, with the reference's wording."""
+that the port's front door raises, with the reference's wording, its
+severities, and its counting through the flight recorder."""
 
 from __future__ import annotations
 
 import dataclasses
+import enum
 from typing import List, Sequence
+
+from repro_torch import obs
 
 #: code -> one-line contract, as in the reference's ``CODES``.
 CODES = {
@@ -20,21 +24,39 @@ CODES = {
 }
 
 
+class Severity(enum.Enum):
+    """How fatal a diagnostic is: ERROR fails the pre-flight, WARNING is
+    reported and counted, INFO is context."""
+
+    ERROR = "error"
+    WARNING = "warning"
+    INFO = "info"
+
+
 @dataclasses.dataclass(frozen=True)
 class Diagnostic:
-    """One finding: a stable code, a message and a fix hint."""
+    """One finding: a stable code, a message, a fix hint and a severity."""
 
     code: str
     message: str
     hint: str = ""
+    severity: Severity = Severity.ERROR
 
     def __post_init__(self):
         if self.code not in CODES:
             raise ValueError(f"unknown diagnostic code {self.code!r}")
 
+    @property
+    def is_error(self) -> bool:
+        return self.severity is Severity.ERROR
+
     def describe(self) -> str:
         hint = f" (fix: {self.hint})" if self.hint else ""
         return f"{self.code}: {self.message}{hint}"
+
+    def to_json(self) -> dict:
+        return {"code": self.code, "severity": self.severity.value,
+                "message": self.message, "hint": self.hint}
 
 
 class DiagnosticError(ValueError):
@@ -46,5 +68,38 @@ class DiagnosticError(ValueError):
         super().__init__("; ".join(d.describe() for d in self.diagnostics))
 
 
+def emit(diagnostics: Sequence[Diagnostic], source: str) -> None:
+    """Count diagnostics through the flight recorder (no-op when off):
+    ``lint.diagnostics`` totals every finding, ``lint.<source>.<severity>``
+    and ``lint.code.<code>`` say which checks fire."""
+    if not diagnostics:
+        return
+    rec = obs.active()
+    if rec is None:
+        return
+    rec.count("lint.diagnostics", len(diagnostics))
+    for d in diagnostics:
+        rec.count(f"lint.{source}.{d.severity.value}")
+        rec.count(f"lint.code.{d.code}")
+
+
+def raise_on_error(diagnostics: Sequence[Diagnostic],
+                   source: str = "verify") -> List[Diagnostic]:
+    """Emit counters, then raise :class:`DiagnosticError` on any ERROR;
+    returns the (possibly warning-only) list otherwise."""
+    diags = list(diagnostics)
+    emit(diags, source)
+    errors = [d for d in diags if d.is_error]
+    if errors:
+        raise DiagnosticError(errors)
+    return diags
+
+
 def error(code: str, message: str, hint: str = "") -> Diagnostic:
-    return Diagnostic(code=code, message=message, hint=hint)
+    return Diagnostic(code=code, message=message, hint=hint,
+                      severity=Severity.ERROR)
+
+
+def warning(code: str, message: str, hint: str = "") -> Diagnostic:
+    return Diagnostic(code=code, message=message, hint=hint,
+                      severity=Severity.WARNING)

@@ -1,0 +1,185 @@
+"""repro_torch.obs — the port's flight recorder: structured tracing and
+run metrics, counterpart of ``repro/obs``.
+
+Every instrumented path — ``compile``/``run`` of the front door, the
+kernel build, the serving front — emits structured events; a recorded
+``run`` carries its host wall time, its device time (CUDA events), the
+model's predicted seconds (``core/blocking.run_seconds``) and their ratio,
+and appends one accuracy sample to the port's history ledger.
+
+Off by default.  ``REPRO_TORCH_OBS=1`` (or an active :func:`profile`
+scope) turns recording on; when off, every module-level helper returns
+the shared no-op after one dict lookup, no recorder is built, and ``run``
+stays asynchronous.
+
+Usage::
+
+    import repro_torch, repro_torch.obs
+
+    with repro_torch.obs.profile() as rec:
+        cs = repro_torch.stencil(program).compile((16384, 16384), steps=9)
+        out = cs.run(grid)
+    rec.spans("run")[0]["device_s"]           # CUDA-event seconds
+    rec.accuracy_samples()[0]["model_accuracy"]   # predicted / wall
+
+Env (the port's own; the reference's ``REPRO_OBS*`` do not apply):
+    REPRO_TORCH_OBS          1/true enables the global recorder
+    REPRO_TORCH_OBS_JSONL    stream every event to this JSONL file
+    REPRO_TORCH_OBS_HISTORY  accuracy ledger (default
+                             ``build/repro_torch/history.jsonl``; an empty
+                             string disables it)
+
+``python -m repro_torch.obs report`` renders the summary (accuracy per
+backend and device, slowest spans, plan-cache hit rate, counters);
+``--json`` emits the same machine-readably.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import threading
+from typing import Optional
+
+from repro_torch.obs.history import (DEFAULT_HISTORY_PATH, SCHEMA_VERSION,
+                                     append_sample, default_history_path,
+                                     read_history)
+from repro_torch.obs.recorder import NULL_SPAN, Recorder, Span, percentile
+
+__all__ = [
+    "DEFAULT_HISTORY_PATH",
+    "NULL_SPAN",
+    "Recorder",
+    "SCHEMA_VERSION",
+    "Span",
+    "active",
+    "append_sample",
+    "count",
+    "enabled",
+    "event",
+    "observe",
+    "percentile",
+    "profile",
+    "read_history",
+    "record_accuracy",
+    "reset",
+    "span",
+]
+
+ENV_SWITCH = "REPRO_TORCH_OBS"
+ENV_JSONL = "REPRO_TORCH_OBS_JSONL"
+_OFF = frozenset(("", "0", "false", "off", "no"))
+
+# One slot each so toggles are atomic swaps; the lock only guards lazy
+# construction of the env-driven recorder.  ``env_off`` caches the switch
+# (an environ lookup per call site costs too much); :func:`reset` re-reads.
+_state = {"override": None, "env_recorder": None, "env_off": None}
+_state_lock = threading.Lock()
+
+
+def active() -> Optional[Recorder]:
+    """The recorder every module-level helper routes to, or None when off.
+
+    A :func:`profile` scope (or :func:`enable`) wins over the environment;
+    otherwise ``REPRO_TORCH_OBS`` decides — read once per process
+    (:func:`reset` re-reads) — with the env-driven recorder built lazily on
+    first use (sinks from ``REPRO_TORCH_OBS_JSONL`` /
+    ``REPRO_TORCH_OBS_HISTORY``).
+    """
+    rec = _state["override"]
+    if rec is not None:
+        return rec
+    off = _state["env_off"]
+    if off is None:
+        off = os.environ.get(ENV_SWITCH, "0").strip().lower() in _OFF
+        _state["env_off"] = off
+    if off:
+        return None
+    rec = _state["env_recorder"]
+    if rec is None:
+        with _state_lock:
+            rec = _state["env_recorder"]
+            if rec is None:
+                rec = Recorder(
+                    jsonl_path=os.environ.get(ENV_JSONL) or None,
+                    history_path=default_history_path())
+                _state["env_recorder"] = rec
+    return rec
+
+
+def enabled() -> bool:
+    return active() is not None
+
+
+def enable(recorder: Optional[Recorder] = None) -> Recorder:
+    """Force recording on for this process (until :func:`disable`)."""
+    rec = recorder if recorder is not None else Recorder()
+    _state["override"] = rec
+    return rec
+
+
+def disable() -> None:
+    """Drop any programmatic override (the env switch still applies)."""
+    _state["override"] = None
+
+
+def reset() -> None:
+    """Forget the override, the env-driven recorder and the cached
+    ``REPRO_TORCH_OBS`` decision (test isolation, env re-reads)."""
+    _state["override"] = None
+    _state["env_off"] = None
+    rec = _state["env_recorder"]
+    _state["env_recorder"] = None
+    if rec is not None:
+        rec.close()
+
+
+@contextlib.contextmanager
+def profile(jsonl_path: Optional[str] = None,
+            history_path: Optional[str] = None):
+    """Record everything inside the scope into a fresh :class:`Recorder`.
+
+    The yielded recorder is the process-global target for the scope
+    (nesting restores the previous one), whatever ``REPRO_TORCH_OBS``
+    says.  Sinks default to in-memory only — pass ``jsonl_path`` /
+    ``history_path`` to persist.
+    """
+    rec = Recorder(jsonl_path=jsonl_path, history_path=history_path)
+    prev = _state["override"]
+    _state["override"] = rec
+    try:
+        yield rec
+    finally:
+        _state["override"] = prev
+        rec.close()
+
+
+# -- module-level instrumentation helpers (no-ops when disabled) -------------
+
+def span(name: str, **attrs):
+    """A timed-region context manager, or the shared no-op when disabled."""
+    rec = active()
+    return NULL_SPAN if rec is None else rec.span(name, **attrs)
+
+
+def event(name: str, **attrs) -> None:
+    rec = active()
+    if rec is not None:
+        rec.event(name, **attrs)
+
+
+def count(name: str, n: int = 1) -> None:
+    rec = active()
+    if rec is not None:
+        rec.count(name, n)
+
+
+def observe(name: str, value: float) -> None:
+    rec = active()
+    if rec is not None:
+        rec.observe(name, value)
+
+
+def record_accuracy(**fields) -> Optional[dict]:
+    rec = active()
+    return None if rec is None else rec.record_accuracy(**fields)

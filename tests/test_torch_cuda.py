@@ -607,3 +607,64 @@ def test_autotune_measures_on_the_card(cuda_device, tmp_path):
     again = autotune(prog, grid_shape=grid, variant="auto", measure=True,
                      top_k=2, reps=2, cache_path=path)
     assert again.from_cache and sum(cuda.launches().values()) == 0
+
+
+@pytest.mark.parametrize("ndim", [2, 3])
+def test_served_batch_equals_unbatched_runs(cuda_device, ndim):
+    """A served chunk of 3 (one batched run on the card) equals three
+    unbatched front-door runs under the server's plan, at 0; the results
+    stay on the card."""
+    from repro_torch.launch.stencil_serve import StencilServer
+    from repro_torch.tuning.cache import program_fingerprint
+    prog = repro_torch.StencilProgram(ndim=ndim, radius=2, shape="box",
+                                      boundary="periodic",
+                                      boundary_value=0.25)
+    server = StencilServer(max_batch=4, max_par_time=2)
+    gen = torch.Generator(device=cuda_device).manual_seed(ndim)
+    grids = [torch.rand(GRIDS[ndim], generator=gen, device=cuda_device)
+             for _ in range(3)]
+    rids = [server.submit(prog, g, steps=5) for g in grids]
+    cuda.reset_launches()
+    results = server.flush()
+    assert not server.failed and server.stats.batched_requests == 3
+    launched = {k: v for k, v in cuda.launches().items() if v}
+    plan, backend = server._resolved[(program_fingerprint(prog),
+                                      GRIDS[ndim])]
+    cs = repro_torch.stencil(prog).compile(GRIDS[ndim], steps=5, plan=plan,
+                                           backend=backend)
+    cuda.reset_launches()
+    for rid, g in zip(rids, grids):
+        assert results[rid].device == g.device
+        torch.testing.assert_close(results[rid], cs.run(g), rtol=0, atol=0)
+    torch.cuda.synchronize()
+    # one batched run launches what one unbatched run does
+    assert {k: v // 3 for k, v in cuda.launches().items() if v} == launched
+
+
+@pytest.mark.parametrize("variant,want", [
+    ("plain", {"padded_superstep": 3, "wrap_halo": 3}),
+    ("pipelined", {"padded_pipelined": 3, "wrap_halo": 3}),
+    ("temporal", {"temporal_superstep": 1, "padded_superstep": 1,
+                  "wrap_halo": 2}),
+])
+def test_recorded_run_is_timed_on_the_card(cuda_device, variant, want):
+    """Under ``obs.profile()`` a run's span carries CUDA-event seconds no
+    longer than its synchronised wall time, and the launches it made."""
+    from repro_torch import obs
+    prog, plan, _ = _config(2, "periodic")
+    steps = 11 if variant == "temporal" else 5
+    cs = repro_torch.stencil(prog).compile(GRIDS[2], steps=steps, plan=plan,
+                                           variant=variant)
+    g = torch.rand(GRIDS[2], device=cuda_device)
+    with obs.profile() as rec:
+        out = cs.run(g)
+    (sp,) = rec.spans("run")
+    assert 0 < sp["device_s"] <= sp["wall_s"]
+    assert sp["host_s"] == pytest.approx(sp["wall_s"] - sp["device_s"])
+    assert sp["launch_delta"] == want
+    assert sp["device"] == "cuda"
+    assert sp["chip"] == torch.cuda.get_device_name(cuda_device)
+    (sample,) = rec.accuracy_samples()
+    assert sample["device_s"] == sp["device_s"]
+    assert sample["model_accuracy"] == sp["model_accuracy"] > 0
+    torch.testing.assert_close(out, cs.run(g), rtol=0, atol=0)
