@@ -54,7 +54,18 @@ Phases (any failure raises, so the exit code is non-zero):
    ``run`` span's wall, device and host seconds, model accuracy and
    launches) in turns with runs with the recorder off, and the MCell/s of
    both;
-10. the ``ptxas`` report of every instantiation: no stack frame.
+10. pre-flight on the card: the ring-schedule proof
+    (``lint/dataflow.verify_dataflow``, best of 20) at the four paper
+    shapes of :data:`PLANNED`, and the pinned compile's wall with and
+    without it; the NaN canary (``lint/sanitize.sanitize_run``) at paper
+    width on the real kernels (:data:`CANARIES`: B1, B3, B4 and B2, launch
+    counts zeroed before and read after), each clean and equal to the
+    front door's run at 0, with its seconds and peak memory; the box with
+    ``kernels.common.wrap_copies`` patched to return nothing, which both
+    halves must report as RP405; and RP106 on a pinned odd-halo plan
+    beside B1's time at par_time 1 and 2, and at par_time 1 on a grid
+    whose pitch is aligned;
+11. the ``ptxas`` report of every instantiation: no stack frame.
 
 The last lines are the ``{"kernels": [...]}`` record, the ``nvidia-smi``
 line, and ``{"ok": true, "device": {...}}``.
@@ -1141,6 +1152,186 @@ def recorder_phase(smi):
         torch.cuda.empty_cache()
 
 
+#: The canary runs of the pre-flight phase: (configuration, variant,
+#: steps, the launches the run must make).  Each schedule has at most four
+#: full supersteps, so the canary executes the whole run.
+CANARIES = (
+    ("2d_r4_paper", "plain", 9, {"padded_superstep": 5}),
+    ("2d_r4_paper", "temporal", 19,
+     {"temporal_superstep": 2, "padded_superstep": 1}),
+    ("3d_r4_paper", "pipelined", 3, {"padded_pipelined": 3}),
+    ("2d_box_periodic_pod", "plain", 10,
+     {"padded_superstep": 3, "wrap_halo": 3}),
+    ("2d_box_periodic_pod", "pipelined", 10,
+     {"padded_pipelined": 3, "wrap_halo": 3}),
+)
+#: The proof's budget at each shape (the reference's pre-flight budget).
+PROOF_BUDGET_S = 2e-3
+
+
+def preflight_phase(smi):
+    """The pre-flight checks at paper width (module docstring, phase 10).
+    Every check raises on failure."""
+    import dataclasses
+    import torch
+    import repro_torch
+    from repro_torch import executor
+    from repro_torch.configs import stencil2d, stencil3d
+    from repro_torch.kernels import common, cuda
+    from repro_torch.lint import sanitize_run, verify_dataflow
+    from repro_torch.lint.sanitize import canary_grid
+
+    print(f"\n== pre-flight on the card ({smi})")
+    works = {**stencil2d.workloads(), **stencil3d.workloads()}
+    box = (16384, 16384)
+
+    def shape_of(name):
+        return box if name == "2d_box_periodic_pod" \
+            else works[name].grid_shape
+
+    for name, steps, variant in PLANNED:
+        work = works[name]
+        prog, plan, shape = work.spec, work.plan(), shape_of(name)
+        times = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            found = verify_dataflow(prog, plan, shape, steps=steps,
+                                    variant=variant)
+            times.append(time.perf_counter() - t0)
+        if found:
+            raise AssertionError(f"{name}: the proof found "
+                                 f"{[d.describe() for d in found]}")
+        walls = {"with": [], "without": []}
+        proof = executor.check_dataflow
+        for _ in range(5):
+            for key in walls:
+                if key == "without":
+                    executor.check_dataflow = lambda *a, **k: []
+                try:
+                    t0 = time.perf_counter()
+                    repro_torch.stencil(prog).compile(
+                        shape, steps=steps, plan=plan, variant=variant)
+                    walls[key].append(time.perf_counter() - t0)
+                finally:
+                    executor.check_dataflow = proof
+        print(f"  proof at {name} ({variant}, {steps} steps, grid {shape}, "
+              f"block {plan.block_shape} par_time {plan.par_time}): best of "
+              f"20 {min(times) * 1e3!r} ms, median "
+              f"{statistics.median(times) * 1e3!r} ms; pinned compile "
+              f"median of 5 {statistics.median(walls['with']) * 1e3!r} ms "
+              f"with the proof, "
+              f"{statistics.median(walls['without']) * 1e3!r} ms without")
+        if min(times) >= PROOF_BUDGET_S:
+            raise AssertionError(f"{name}: the proof took "
+                                 f"{min(times) * 1e3} ms")
+
+    for name, variant, steps, want in CANARIES:
+        work = works[name]
+        prog, plan, shape = work.spec, work.plan(), shape_of(name)
+        coeffs = prog.default_coeffs(0)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        cuda.reset_launches()
+        t0 = time.perf_counter()
+        report = sanitize_run(prog, plan, shape, steps=steps,
+                              variant=variant, coeffs=coeffs)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = {k: v for k, v in cuda.launches().items() if v}
+        peak = torch.cuda.max_memory_allocated() - base
+        print(f"  canary {name} {variant} {steps} steps: "
+              f"{report.describe()}; {secs!r} s, peak {peak / 2**30!r} GiB "
+              f"above the {base / 2**30!r} GiB held before; launches "
+              f"{counts} (expected {want})")
+        full = steps // (plan.par_time * (4 if variant == "temporal" else 1))
+        if not report.ok or report.fallback or counts != want or \
+                report.supersteps != sum(
+                    v for k, v in want.items() if k != "wrap_halo") or \
+                full > 4:
+            raise AssertionError(f"canary {name} {variant}: {report}")
+        cs = repro_torch.stencil(prog, coeffs).compile(
+            shape, steps=steps, plan=plan, variant=variant)
+        grid = torch.from_numpy(canary_grid(shape)).cuda()
+        check_close(f"canary {name} {variant} interior vs the front door's "
+                    f"run", report.interior, cs.run(grid), atol=0.0,
+                    rtol=0.0)
+        del report, grid, cs
+    torch.cuda.empty_cache()
+
+    name, variant, steps = "2d_box_periodic_pod", "plain", 10
+    work = works[name]
+    prog, plan, shape = work.spec, work.plan(), shape_of(name)
+    print(f"  seeded fault: {name} {variant} {steps} steps with "
+          f"kernels.common.wrap_copies returning ()")
+    wrap_copies = common.wrap_copies
+    common.wrap_copies = lambda layout: ()
+    try:
+        cuda.reset_launches()
+        report = sanitize_run(prog, plan, shape, steps=steps,
+                              variant=variant)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in cuda.launches().items() if v}
+        proof = verify_dataflow(prog, plan, shape, steps=steps,
+                                variant=variant)
+    finally:
+        common.wrap_copies = wrap_copies
+    for d in report.diagnostics:
+        print(f"  canary: {d.describe()}")
+    print(f"  canary launches {counts}; the proof: "
+          f"{[d.code for d in proof]}")
+    if [d.code for d in report.diagnostics] != ["RP405"] or \
+            counts != {"padded_superstep": 1} or \
+            "RP405" not in [d.code for d in proof]:
+        raise AssertionError("the skipped wrap was not reported as RP405 "
+                             "by both halves")
+    del report
+
+    prog = repro_torch.StencilProgram(ndim=2, radius=1, boundary="clamp")
+    shape = (16384, 16384)
+    odd = repro_torch.BlockPlan(spec=prog, block_shape=(1024, 1024),
+                                par_time=1)
+    cs = repro_torch.stencil(prog).compile(shape, steps=1, plan=odd)
+    codes = [d.code for d in cs.preflight]
+    print(f"  odd halo: 2D star r1 clamp {shape} par_time 1, preflight "
+          f"{[d.describe() for d in cs.preflight]}")
+    if "RP106" not in codes:
+        raise AssertionError(f"no RP106 at an odd halo: {codes}")
+    coeffs = prog.default_coeffs(0).to("cuda")
+    # par_time 1 and 2 on the grid, and par_time 1 on a grid two columns
+    # narrower, whose carry pitch 16384 is a multiple of 4 floats: the
+    # same one step, the alignment alone changed
+    aligned = (16384, 16382)
+    ms = {}
+    for pt, grid, block in ((1, shape, odd.block_shape),
+                            (2, shape, odd.block_shape),
+                            (1, aligned, aligned)):
+        plan = dataclasses.replace(odd, par_time=pt, block_shape=block)
+        warned = [d.code for d in repro_torch.stencil(prog).compile(
+            grid, steps=pt, plan=plan).preflight]
+        layout = common.ring_schedule(prog, plan, grid, pt).layout
+        src = random_grid(layout.padded_shape, seed=pt)
+        dst = torch.zeros_like(src)
+        t = ms[(pt, grid)] = median_ms(lambda: cuda.padded_superstep(
+            src, dst, coeffs.center, coeffs.taps, program=prog, plan=plan,
+            layout=layout), label=f"B1 at par_time {pt}, grid {grid}")
+        print(f"  B1 ({plan.body('padded_superstep')}) at par_time {pt}, "
+              f"grid {grid}: pitch {layout.padded_shape[-1]} floats, "
+              f"preflight {warned}, {t!r} ms per launch, "
+              f"{t / pt / math.prod(grid) * 1e9!r} ns per cell-step "
+              f"({smi})")
+        if ("RP106" in warned) != bool(layout.padded_shape[-1] % 4):
+            raise AssertionError(f"RP106 {warned} at pitch "
+                                 f"{layout.padded_shape[-1]}")
+        del src, dst
+    per = {k: t / k[0] / math.prod(k[1]) for k, t in ms.items()}
+    print(f"  RP106: per cell-step, par_time 1 over par_time 2 "
+          f"{per[(1, shape)] / per[(2, shape)]!r}x; pitch 16386 over pitch "
+          f"16384 at par_time 1 {per[(1, shape)] / per[(1, aligned)]!r}x")
+    torch.cuda.empty_cache()
+
+
 def refuse_other_step_count():
     """ROADMAP C1: a plan compiled for a step count whose kernels fit is
     refused with RP105 at ``run`` for a count whose kernels do not, with
@@ -1242,6 +1433,7 @@ def main() -> int:
         autotune_phase(os.path.join(tmp, "plans.json"))
     serving_phase(smi)
     recorder_phase(smi)
+    preflight_phase(smi)
     ptxas_report()
     ported = {r["name"].split("@")[0] for r in records}
     if len(ported) != 6:

@@ -11,10 +11,14 @@ a device; ``run`` checks the grid and hands it to the fused executor
 ``cuda-temporal``, or the ``torch-reference`` oracle.  ``plan="auto"``
 (the default) asks the autotuner (``repro_torch.tuning``, model-only,
 with its plan cache), ``plan="model"`` the H100 planner
-(``core/blocking.plan_blocking``).  On a CUDA device the front door
-refuses a plan when a kernel the run would launch fits no CTA tile
-(RP105, ``lint/verify.smem_diagnostics``), at compile for the compiled
-step count and at ``run`` for any other, before any launch.
+(``core/blocking.plan_blocking``).  After planning, ``compile`` runs the
+pre-flight checks before anything is built or launched: the RP1xx
+verifier (``lint/verify.check``; RP105, a kernel the run would launch
+fitting no CTA tile, on a CUDA device or when ``chip=`` is given, and
+again at ``run`` for another step count) and the proof of the padded ring
+schedule (``lint/dataflow.check_dataflow``), and with ``sanitize=True``
+the NaN canary on the compile's device (``lint/sanitize.sanitize_run``).
+Their warnings stay on ``CompiledStencil.preflight``.
 
 With the flight recorder on (``REPRO_TORCH_OBS=1`` or
 ``repro_torch.obs.profile()``) ``compile`` emits a ``compile`` span and
@@ -45,8 +49,11 @@ from repro_torch.core.blocking import (TEMPORAL_CHUNK, BlockPlan,
                                        plan_blocking, run_seconds)
 from repro_torch.core.program import ProgramCoeffs, StencilProgram
 from repro_torch.kernels import cuda, ops
+from repro_torch.lint.dataflow import check_dataflow
 from repro_torch.lint.diagnostics import DiagnosticError, raise_on_error
 from repro_torch.lint.diagnostics import error as _diag
+from repro_torch.lint.sanitize import SanitizeReport, sanitize_run
+from repro_torch.lint.verify import check as _preflight
 from repro_torch.lint.verify import smem_diagnostics
 from repro_torch.tuning.cache import cache_key
 
@@ -154,7 +161,8 @@ class Stencil:
                 chip: Optional[GpuChip] = None,
                 max_par_time: int = 32,
                 cache: bool = True,
-                cache_path: Optional[str] = None) -> "CompiledStencil":
+                cache_path: Optional[str] = None,
+                sanitize: bool = False) -> "CompiledStencil":
         """Validate the run, resolve its plan and bind it to ``device``.
 
         grid_shape    spatial extent of one grid; ``batch`` adds a leading
@@ -180,6 +188,13 @@ class Stencil:
                       CTA tile of the variant fits is RP105, here for
                       ``steps`` and at ``run`` for any other count.
         max_par_time  the deepest superstep the planners consider.
+        sanitize      also run the NaN canary (``lint/sanitize``): the
+                      run's supersteps one by one on ``device`` (the CUDA
+                      kernels on the card, their plain versions on the
+                      CPU) with every cell outside the true interior
+                      poisoned; an error raises, the report stays on
+                      ``CompiledStencil.sanitize_report``.  The proof of
+                      the ring schedule (``lint/dataflow``) runs always.
 
         With the flight recorder on, the resolution runs inside a
         ``compile`` span: the plan source and plan-cache hit, backend@version,
@@ -190,7 +205,7 @@ class Stencil:
         kwargs = dict(steps=steps, batch=batch, devices=devices, plan=plan,
                       backend=backend, variant=variant, device=device,
                       chip=chip, max_par_time=max_par_time, cache=cache,
-                      cache_path=cache_path)
+                      cache_path=cache_path, sanitize=sanitize)
         rec = obs.active()
         if rec is None or torch.compiler.is_compiling():
             return self._compile(grid_shape, **kwargs)
@@ -217,7 +232,8 @@ class Stencil:
                  chip: Optional[GpuChip] = None,
                  max_par_time: int = 32,
                  cache: bool = True,
-                 cache_path: Optional[str] = None) -> "CompiledStencil":
+                 cache_path: Optional[str] = None,
+                 sanitize: bool = False) -> "CompiledStencil":
         """Validate, plan and bind; the contract is :meth:`compile`'s."""
         prog = self.program
         try:
@@ -260,18 +276,6 @@ class Stencil:
                 f'plan must be "auto", "model", or a BlockPlan '
                 f"(got {plan!r})",
                 hint='use plan="auto" unless pinning a tuned BlockPlan')])
-        if not planned and len(plan.block_shape) != prog.ndim:
-            raise DiagnosticError([_diag(
-                "RP111",
-                f"plan block {plan.block_shape} has rank "
-                f"{len(plan.block_shape)}, the program is {prog.ndim}-D",
-                hint="give one output-tile extent per grid axis")])
-        if prog.dtype != "float32":
-            raise DiagnosticError([_diag(
-                "RP109",
-                f"program dtype {prog.dtype!r}: the port's kernels take "
-                f"float32",
-                hint="use float32")])
         dev = _resolve_device(device)
         check = traits.fused_run and (dev.type == "cuda" or chip is not None)
         if chip is None:
@@ -303,11 +307,23 @@ class Stencil:
                 "RP105", str(e),
                 hint="pick variant='plain' for the smallest footprint")]) \
                 from e
-        if check:
-            raise_on_error(smem_diagnostics(plan, traits.variant, chip,
-                                            grid_shape=grid_shape,
-                                            steps=steps), source="verify")
+        # the pre-flight, before anything is built or launched: RP1xx
+        # (RP105 only where a card's limit applies), then the proof of the
+        # ring schedule the fused executor runs
+        preflight = _preflight(prog, plan, grid_shape,
+                               chip if check else None,
+                               variant=traits.variant, batch=batch,
+                               steps=steps)
         coeffs = self.coeffs.to(dev)
+        report = None
+        if traits.fused_run:
+            preflight += check_dataflow(prog, plan, grid_shape, steps=steps,
+                                        variant=traits.variant)
+            if sanitize:
+                report = sanitize_run(prog, plan, grid_shape, steps=steps,
+                                      coeffs=coeffs, variant=traits.variant,
+                                      device=dev)
+                raise_on_error(report.diagnostics, source="sanitize")
         # a backend whose run is not the fused executor (the oracle) runs
         # through its own lowering
         lowered = None if traits.fused_run else lower(
@@ -319,7 +335,8 @@ class Stencil:
                                variant=traits.variant, device=dev,
                                lowered=lowered,
                                chip=chip if check else None,
-                               model_chip=chip, tuned=tuned)
+                               model_chip=chip, tuned=tuned,
+                               preflight=preflight, sanitize_report=report)
 
 
 class CompiledStencil:
@@ -333,7 +350,14 @@ class CompiledStencil:
                  lowered: Optional[LoweredStencil] = None,
                  chip: Optional[GpuChip] = None,
                  model_chip: GpuChip,
-                 tuned=None):
+                 tuned=None, preflight=None,
+                 sanitize_report: Optional[SanitizeReport] = None):
+        #: the pre-flight's warnings (RP106 row pitch, RP108 wrap-degenerate
+        #: fallback, RP113 overlap tax); its errors raise at compile
+        self.preflight = list(preflight or [])
+        #: the NaN canary's report under ``compile(sanitize=True)``, else
+        #: None; its errors raise at compile, so a stored report is clean
+        self.sanitize_report = sanitize_report
         self.program = program
         self.coeffs = coeffs
         self.grid_shape = grid_shape

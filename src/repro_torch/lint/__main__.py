@@ -1,0 +1,155 @@
+"""CLI of the port's pre-flight checks (counterpart of ``repro.lint``'s).
+
+    python -m repro_torch.lint dataflow --ndim 2 --radius 1 \\
+        --boundary periodic --grid 64,256 --steps 9    # the proof (RP4xx)
+    python -m repro_torch.lint sanitize --ndim 2 --radius 1 \\
+        --boundary periodic --grid 64,256 --steps 9    # the canary, on the card
+    python -m repro_torch.lint sanitize --device cpu ...   # the plain versions
+    python -m repro_torch.lint codes                   # the RP-code registry
+
+The default plan is the H100 planner's (``core/blocking.plan_blocking``).
+Exit status 1 when any ERROR diagnostic fires, 0 otherwise (warnings
+print but never fail the run); 2 for a request this port refuses: a mesh
+(``--devices``, ROADMAP A9), or paths to lint (the codebase rules read
+JAX and Pallas; lint the port with ``python -m repro.lint src tests``,
+ROADMAP A10).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from typing import List, Optional
+
+from repro_torch.lint.diagnostics import (CODE_INFO, Diagnostic,
+                                          DiagnosticError, error)
+
+COMMANDS = ("dataflow", "sanitize", "codes")
+
+
+def _render(diagnostics: List[Diagnostic], label: str,
+            json_path: Optional[str]) -> int:
+    diagnostics = sorted(diagnostics, key=lambda d: d.code)
+    if json_path:
+        with open(json_path, "w") as fh:
+            json.dump([d.to_json() for d in diagnostics], fh, indent=2)
+            fh.write("\n")
+    for d in diagnostics:
+        print(f"{d.severity.value}: {d.describe()}")
+    errors = sum(1 for d in diagnostics if d.is_error)
+    warnings = len(diagnostics) - errors
+    if errors:
+        print(f"{label}: {errors} error(s), {warnings} warning(s)",
+              file=sys.stderr)
+        return 1
+    print(f"{label} OK: 0 errors, {warnings} warning(s)")
+    return 0
+
+
+def _parser(prog_name: str) -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog=prog_name)
+    p.add_argument("--ndim", type=int, default=2, choices=(2, 3))
+    p.add_argument("--radius", type=int, default=1)
+    p.add_argument("--boundary", default="periodic",
+                   choices=("clamp", "periodic", "constant"))
+    p.add_argument("--grid", default=None,
+                   help="comma-separated extents (default 64,256 / 16,64,256)")
+    p.add_argument("--steps", type=int, default=None,
+                   help="step count (default: 2 full supersteps + a "
+                        "remainder)")
+    p.add_argument("--variant", default="plain",
+                   choices=("plain", "pipelined", "temporal"))
+    p.add_argument("--block", default=None,
+                   help="comma-separated block shape (default: the H100 "
+                        "planner's)")
+    p.add_argument("--par-time", type=int, default=None,
+                   help="fused steps per superstep (default: the planner's)")
+    p.add_argument("--json", default=None, help="write diagnostics JSON")
+    p.add_argument("--devices", default=None,
+                   help="shards per grid axis: refused, the port runs one "
+                        "device (ROADMAP A9)")
+    return p
+
+
+def _config(ns):
+    """The (program, plan, grid, steps) both subcommands check."""
+    from repro_torch.core.blocking import (TEMPORAL_CHUNK, BlockPlan,
+                                           plan_blocking)
+    from repro_torch.core.program import StencilProgram
+
+    prog = StencilProgram(ndim=ns.ndim, radius=ns.radius,
+                          boundary=ns.boundary)
+    if ns.grid:
+        grid = tuple(int(s) for s in ns.grid.split(","))
+    else:
+        grid = (64, 256) if ns.ndim == 2 else (16, 64, 256)
+    # the planner only for what the flags leave open
+    planned = None if ns.block and ns.par_time else plan_blocking(
+        prog, grid_shape=grid, variant=ns.variant).plan
+    block = tuple(int(s) for s in ns.block.split(",")) if ns.block \
+        else planned.block_shape
+    plan = BlockPlan(spec=prog, block_shape=block,
+                     par_time=ns.par_time or planned.par_time)
+    period = plan.par_time * (TEMPORAL_CHUNK
+                              if ns.variant == "temporal" else 1)
+    steps = ns.steps if ns.steps is not None \
+        else 2 * period + (1 if period > 1 else 0)
+    return prog, plan, grid, steps
+
+
+def _refused(message: str) -> int:
+    print(f"repro_torch.lint: {message}", file=sys.stderr)
+    return 2
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if argv and argv[0] == "codes":
+        width = max(len(info.summary) for info in CODE_INFO.values())
+        for code in sorted(CODE_INFO):
+            info = CODE_INFO[code]
+            print(f"{code}  {info.severity.value:<7}  "
+                  f"{info.summary:<{width}}  fix: {info.hint}")
+        return 0
+    if not argv or argv[0] not in COMMANDS:
+        return _refused(
+            f"usage: python -m repro_torch.lint {{{','.join(COMMANDS)}}} "
+            f"...; the codebase rules (RP3xx, a list of paths) read JAX "
+            f"and Pallas and are not ported: lint the port with "
+            f"`python -m repro.lint src tests` (ROADMAP A10)")
+    command = argv[0]
+    p = _parser(f"repro_torch.lint {command}")
+    if command == "sanitize":
+        p.add_argument("--device", default=None,
+                       help="cuda (the default: the card's kernels) or cpu "
+                            "(their plain versions)")
+    ns = p.parse_args(argv[1:])
+    if ns.devices:
+        return _refused(DiagnosticError([error(
+            "RP110",
+            f"--devices {ns.devices}: the port runs on one device; the "
+            f"sharded ring schedule comes with the mesh executor "
+            f"(ROADMAP A9)",
+            hint="drop --devices")]).args[0])
+    prog, plan, grid, steps = _config(ns)
+    label = (f"{command} of {ns.ndim}D r={ns.radius} {ns.boundary} "
+             f"{ns.variant} block={plan.block_shape} "
+             f"par_time={plan.par_time} over {'x'.join(map(str, grid))}, "
+             f"{steps} steps")
+    if command == "dataflow":
+        from repro_torch.lint.dataflow import verify_dataflow
+        return _render(verify_dataflow(prog, plan, grid, steps=steps,
+                                       variant=ns.variant), label, ns.json)
+    from repro_torch.lint.sanitize import sanitize_run
+    try:
+        report = sanitize_run(prog, plan, grid, steps=steps,
+                              variant=ns.variant, device=ns.device)
+    except DiagnosticError as e:       # RP110: no card
+        return _render(e.diagnostics, label, ns.json)
+    print(report.describe())
+    return _render(list(report.diagnostics), label, ns.json)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

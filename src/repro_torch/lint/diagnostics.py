@@ -1,6 +1,7 @@
-"""Stable diagnostic codes — the subset of ``repro/lint/diagnostics.py``
-that the port's front door raises, with the reference's wording, its
-severities, and its counting through the flight recorder."""
+"""Stable diagnostic codes — counterpart of ``repro/lint/diagnostics.py``
+for the codes the port emits, with the reference's wording, its
+severities, its per-code registry and its counting through the flight
+recorder."""
 
 from __future__ import annotations
 
@@ -10,19 +11,6 @@ from typing import List, Sequence
 
 from repro_torch import obs
 
-#: code -> one-line contract, as in the reference's ``CODES``.
-CODES = {
-    "RP101": "grid shape does not describe the program's spatial rank",
-    "RP102": "step count must be an integer >= 1",
-    "RP103": "batch must be None or an integer >= 1 (and match at run)",
-    "RP105": "kernel shared memory of one CTA exceeds the card's "
-             "per-block limit",
-    "RP109": "program dtype outside the kernels' supported set",
-    "RP110": "device placement invalid for this backend/host",
-    "RP111": "plan block rank does not match the program rank",
-    "RP112": "plan selector must be \"auto\", \"model\", or a BlockPlan",
-}
-
 
 class Severity(enum.Enum):
     """How fatal a diagnostic is: ERROR fails the pre-flight, WARNING is
@@ -31,6 +19,90 @@ class Severity(enum.Enum):
     ERROR = "error"
     WARNING = "warning"
     INFO = "info"
+
+
+@dataclasses.dataclass(frozen=True)
+class CodeInfo:
+    """Per-code registry entry: the one-line contract, the default
+    severity of a finding of this code, and the canonical fix hint
+    (``python -m repro_torch.lint codes`` prints all three)."""
+
+    summary: str
+    severity: Severity
+    hint: str = ""
+
+
+def _info(summary: str, severity: str = "error", hint: str = "") -> CodeInfo:
+    return CodeInfo(summary=summary, severity=Severity(severity), hint=hint)
+
+
+#: The registry of the codes the port emits: RP1xx plan/program legality
+#: (``lint/verify.py`` and the front door), RP4xx the dataflow of the
+#: padded ring schedule (``lint/dataflow.py``, ``lint/sanitize.py``).  The
+#: summaries are the reference's, except RP105, whose budget on the card
+#: is shared memory per CTA; the hints speak of the card's kernels.
+CODE_INFO = {
+    "RP101": _info("grid shape does not describe the program's spatial rank",
+                   hint="give one positive extent per program axis"),
+    "RP102": _info("step count must be an integer >= 1",
+                   hint="run at least one time step"),
+    "RP103": _info("batch must be None or an integer >= 1 (and match at run)",
+                   hint="stack independent grids along one leading axis"),
+    "RP104": _info("eq. 2 violation: par_time shrinks csize to <= 0 on some "
+                   "axis",
+                   hint="give every axis a positive block extent, or cut "
+                        "par_time"),
+    "RP105": _info("kernel shared memory of one CTA exceeds the card's "
+                   "per-block limit",
+                   hint="shrink par_time or use variant='plain'"),
+    "RP106": _info("eq. 6 advisory: streamed window is not lane/sublane "
+                   "aligned", "warning",
+                   hint="on the card: pick par_time so that "
+                        "par_time*radius is even (a carry row pitch of a "
+                        "multiple of 4 floats keeps the 16-byte row copies)"),
+    "RP108": _info("wrap-degenerate periodic axis routes through the re-pad "
+                   "fallback", "warning",
+                   hint="grow the axis, shrink par_time, or pick a dividing "
+                        "block"),
+    "RP109": _info("program dtype outside the kernels' supported set",
+                   hint="use float32"),
+    "RP110": _info("device placement invalid for this backend/host",
+                   hint="run on one visible CUDA device, or pass "
+                        "device='cpu'"),
+    "RP111": _info("plan block rank does not match the program rank",
+                   hint="give one output-tile extent per grid axis"),
+    "RP112": _info("plan selector must be \"auto\", \"model\", or a "
+                   "BlockPlan",
+                   hint="use plan='auto' unless pinning a tuned BlockPlan"),
+    "RP113": _info("overlap-tax advisory: useful fraction at or below the "
+                   "planner floor", "warning",
+                   hint="cut par_time: the CTA tile the card runs, not the "
+                        "block, sets the overlap"),
+    "RP401": _info("stale-halo read: a superstep window reaches a cell no "
+                   "pad, write, wrap DMA, or boundary_fixup initialized",
+                   hint="refresh the ring to the superstep's halo "
+                        "(par_time * halo_radius, chunk-deep for temporal) "
+                        "and read the windows at ring offset H - h"),
+    "RP402": _info("coverage hole: interior cells never written during a "
+                   "superstep",
+                   hint="output tiles must tile the rounded interior "
+                        "exactly (write stride == write tile == block)"),
+    "RP403": _info("overlapping (or out-of-interior) writes within one "
+                   "superstep",
+                   hint="output tiles never overlap; each interior cell is "
+                        "written exactly once per superstep"),
+    "RP404": _info("ping-pong aliasing lets a superstep read a cell it "
+                   "already overwrote",
+                   hint="the superstep writes the other buffer of the "
+                        "ping-pong pair, never the one its windows read"),
+    "RP405": _info("periodic wrap DMA missing or issued after a dependent "
+                   "read",
+                   hint="refresh the wrap ring (B2, wrap_halo.cu) on the "
+                        "same stream before the superstep that reads it"),
+}
+
+#: code -> one-line contract (the reference's ``CODES``).
+CODES = {code: info.summary for code, info in CODE_INFO.items()}
 
 
 @dataclasses.dataclass(frozen=True)

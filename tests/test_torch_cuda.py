@@ -668,3 +668,117 @@ def test_recorded_run_is_timed_on_the_card(cuda_device, variant, want):
     assert sample["device_s"] == sp["device_s"]
     assert sample["model_accuracy"] == sp["model_accuracy"] > 0
     torch.testing.assert_close(out, cs.run(g), rtol=0, atol=0)
+
+
+# ---- the pre-flight checks on the card --------------------------------------
+
+#: Grids the canary runs at: no axis a multiple of its block, so the
+#: round-up slack is poisoned too, and periodic under every variant keeps
+#: its ring schedule (no wrap-degenerate fallback).
+CANARY_GRIDS = {2: (37, 150), 3: (20, 40, 140)}
+
+
+def _canary_counts(prog, variant, remainder):
+    """The launches of a canary run of two full supersteps (+ one)."""
+    main = {"plain": "padded_superstep", "pipelined": "padded_pipelined",
+            "temporal": "temporal_superstep"}[variant]
+    want = {main: 2}
+    if remainder:
+        tail = "padded_superstep" if variant == "temporal" else main
+        want[tail] = want.get(tail, 0) + 1
+    if prog.boundary == "periodic":
+        want["wrap_halo"] = 2 + int(remainder)
+    return want
+
+
+@pytest.mark.parametrize("ndim", [2, 3])
+@pytest.mark.parametrize("boundary", ["clamp", "periodic", "constant"])
+@pytest.mark.parametrize("variant", ["plain", "pipelined", "temporal"])
+@pytest.mark.parametrize("remainder", [False, True])
+def test_canary_on_the_kernels_is_clean_and_equals_the_run(
+        cuda_device, ndim, boundary, variant, remainder):
+    """The NaN canary runs B1, B3 or B4 (and B2 when periodic) with every
+    ring and slack cell poisoned: clean, and its interior equals the front
+    door's run of the same grid at 0."""
+    from repro_torch.lint import sanitize_run
+    from repro_torch.lint.sanitize import canary_grid
+    prog = repro_torch.StencilProgram(ndim=ndim, radius=2,
+                                      boundary=boundary, boundary_value=0.25)
+    plan = repro_torch.BlockPlan(spec=prog, block_shape=BLOCKS[ndim],
+                                 par_time=2)
+    grid = CANARY_GRIDS[ndim]
+    steps = 2 * plan.par_time * (TEMPORAL_CHUNK if variant == "temporal"
+                                 else 1) + int(remainder)
+    cuda.reset_launches()
+    report = sanitize_run(prog, plan, grid, steps=steps, variant=variant)
+    torch.cuda.synchronize()
+    assert report.ok and not report.fallback, report.describe()
+    assert report.supersteps == 2 + int(remainder)
+    assert {k: v for k, v in cuda.launches().items() if v} == \
+        _canary_counts(prog, variant, remainder)
+    assert report.interior.device.type == "cuda"
+    cs = repro_torch.stencil(prog, prog.default_coeffs(0)).compile(
+        grid, steps=steps, plan=plan, variant=variant)
+    g = torch.from_numpy(canary_grid(grid)).to(cuda_device)
+    torch.testing.assert_close(report.interior, cs.run(g), rtol=0, atol=0)
+
+
+def test_canary_on_the_kernels_catches_a_skipped_wrap(cuda_device,
+                                                      monkeypatch):
+    """With the wrap copies gone no B2 runs, B1 reads the NaN ring, and
+    both the canary and the proof say RP405."""
+    from repro_torch.lint import sanitize_run, verify_dataflow
+    prog = repro_torch.StencilProgram(ndim=2, radius=2, boundary="periodic")
+    plan = repro_torch.BlockPlan(spec=prog, block_shape=BLOCKS[2],
+                                 par_time=2)
+    grid = CANARY_GRIDS[2]
+    assert sanitize_run(prog, plan, grid, steps=5).ok
+    monkeypatch.setattr(common, "wrap_copies", lambda layout: ())
+    cuda.reset_launches()
+    report = sanitize_run(prog, plan, grid, steps=5)
+    torch.cuda.synchronize()
+    assert [d.code for d in report.diagnostics] == ["RP405"]
+    assert report.supersteps == 1 and report.interior is None
+    assert cuda.launches()["wrap_halo"] == 0
+    assert cuda.launches()["padded_superstep"] == 1
+    assert "RP405" in [d.code for d in verify_dataflow(prog, plan, grid,
+                                                       steps=5)]
+
+
+def test_compile_sanitize_on_the_card(cuda_device):
+    prog = repro_torch.StencilProgram(ndim=3, radius=2, boundary="periodic")
+    plan = repro_torch.BlockPlan(spec=prog, block_shape=BLOCKS[3],
+                                 par_time=2)
+    cs = repro_torch.stencil(prog).compile(CANARY_GRIDS[3], steps=5,
+                                           plan=plan, sanitize=True)
+    assert cs.sanitize_report.ok and cs.sanitize_report.supersteps == 3
+    assert cs.sanitize_report.interior.device.type == "cuda"
+    g = torch.rand(CANARY_GRIDS[3], device=cuda_device)
+    assert torch.isfinite(cs.run(g)).all()
+
+
+def test_rp106_on_an_odd_halo_plan(cuda_device):
+    """2D r1 at par_time 1: a carry pitch of 258 floats, which turns the
+    register queues' bulk row copies off; par_time 2 does not warn."""
+    prog = repro_torch.StencilProgram(ndim=2, radius=1, boundary="clamp")
+    plan = repro_torch.BlockPlan(spec=prog, block_shape=(64, 256),
+                                 par_time=1)
+    cs = repro_torch.stencil(prog).compile((64, 256), steps=3, plan=plan)
+    assert [d.code for d in cs.preflight] == ["RP106"]
+    assert "pitch 258" in cs.preflight[0].message
+    even = repro_torch.stencil(prog).compile(
+        (64, 256), steps=3, plan=dataclasses.replace(plan, par_time=2))
+    assert even.preflight == []
+    g = torch.rand((64, 256), device=cuda_device)
+    torch.testing.assert_close(cs.run(g), even.run(g, steps=3), **ULP)
+
+
+def test_rp104_on_the_card(cuda_device):
+    prog = repro_torch.StencilProgram(ndim=2, radius=1, boundary="clamp")
+    for block in ((0, 128), (8, 0), (-4, 128)):
+        plan = repro_torch.BlockPlan(spec=prog, block_shape=block,
+                                     par_time=1)
+        before = cuda.launches()
+        with pytest.raises(DiagnosticError, match="RP104"):
+            repro_torch.stencil(prog).compile((16, 128), steps=3, plan=plan)
+        assert cuda.launches() == before

@@ -229,7 +229,9 @@ def test_import_does_not_load_jax_or_the_reference():
             "repro_torch.kernels.stencil3d, repro_torch.lint.verify, "
             "repro_torch.tuning, repro_torch.tuning.cli, "
             "repro_torch.core.perf_model, repro_torch.obs, "
-            "repro_torch.obs.report, repro_torch.launch.stencil_serve; "
+            "repro_torch.obs.report, repro_torch.launch.stencil_serve, "
+            "repro_torch.lint, repro_torch.lint.dataflow, "
+            "repro_torch.lint.sanitize, repro_torch.lint.__main__; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); "
             "sys.exit(1 if bad else 0)")
