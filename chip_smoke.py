@@ -65,7 +65,22 @@ Phases (any failure raises, so the exit code is non-zero):
     halves must report as RP405; and RP106 on a pinned odd-halo plan
     beside B1's time at par_time 1 and 2, and at par_time 1 on a grid
     whose pitch is aligned;
-11. the ``ptxas`` report of every instantiation: no stack frame.
+11. the mesh on one card (``REPRO_TORCH_FORCE_DEVICE_COUNT=4``, restored
+    after; :data:`MESH_RUNS`): each front-door mesh run at paper width
+    (2D r4 plain and batched on 2x2, 3D r4 pipelined on 2x2x1, the box
+    plain on 2x1 and pipelined on 2x2) with its decomposition, the proof's
+    ms at its compile, its launches by kernel and instantiation (zeroed
+    before, read after), its result against the single-device front
+    door's run at 0 (the first failing cell printed), its MCell/s beside
+    the single device's, one exchange per superstep (CUDA events) against
+    its bound, and the scatter and gather copies; each sharded
+    instantiation (B1 on the queues and on the streamed kernel, B4) on a
+    shard with a non-zero origin at the global edge and on an inner
+    shard against its plain version at 0, timed beside the unsharded
+    instantiation on the same local shape; ``DistributedStencil.
+    superstep`` (B5 with shard origins); ``compile(devices=4,
+    plan="model")``; ``StencilServer(mesh_devices=4)``;
+12. the ``ptxas`` report of every instantiation: no stack frame.
 
 The last lines are the ``{"kernels": [...]}`` record, the ``nvidia-smi``
 line, and ``{"ok": true, "device": {...}}``.
@@ -1362,10 +1377,413 @@ def refuse_other_step_count():
     del grid
 
 
+#: The mesh runs (module docstring, phase 12): (label, configuration,
+#: shards per axis, variant, steps, batch).  The box at the 16384^2 cut.
+MESH_RUNS = (
+    ("2d_r4_paper plain", "2d_r4_paper", (2, 2), "plain", 9, None),
+    ("2d_r4_paper batched", "2d_r4_paper", (2, 2), "plain", 9, 2),
+    ("3d_r4_paper pipelined", "3d_r4_paper", (2, 2, 1), "pipelined", 3,
+     None),
+    ("box plain", "2d_box_periodic_pod", (2, 1), "plain", 10, None),
+    ("box pipelined", "2d_box_periodic_pod", (2, 2), "pipelined", 10, None),
+)
+MESH_DEVICES = 4
+#: (record name, mesh run, instantiation counter) of the sharded
+#: instantiations held to their plain versions and timed
+SHARDED = (("sharded_queued", "2d_r4_paper plain",
+            "padded_superstep_sharded"),
+           ("sharded_streamed", "box plain", "padded_superstep_sharded"),
+           ("sharded_streamed", "3d_r4_paper pipelined",
+            "padded_pipelined_sharded"))
+
+
+def _mesh_work(name):
+    from repro_torch.configs import stencil2d, stencil3d
+    work = {**stencil2d.workloads(), **stencil3d.workloads()}[name]
+    shape = (16384, 16384) if name == "2d_box_periodic_pod" \
+        else work.grid_shape
+    return work.spec, work.plan(), shape
+
+
+def mesh_launches(prog, plan, steps, variant, shards, batch):
+    """The launch counts of a mesh run: every shard one sharded carry
+    kernel per superstep, and a wrap refresh where a periodic axis is held
+    by one shard."""
+    n = math.prod(shards)
+    supersteps = -(-steps // plan.par_time)
+    kernel = {"plain": "padded_superstep_sharded",
+              "pipelined": "padded_pipelined_sharded"}[variant]
+    want = {kernel: n * supersteps}
+    if prog.boundary == "periodic" and 1 in shards:
+        want["wrap_halo"] = n * supersteps
+    return want
+
+
+def exchange_bytes(dist, exe, h, batch):
+    """Bytes one exchange of ``h``-deep strips reads and writes: every
+    strip a shard receives, spanning the padded extent of the other
+    axes."""
+    P = exe.layout.padded_shape
+    total = 0
+    for d in exe.sched.sharded_axes:
+        others = math.prod(P) // P[d]
+        for left, right in dist.neighbours[d]:
+            received = (left is not None) + (right is not None)
+            total += received * h * others
+    return 2 * 4 * total * (batch or 1)
+
+
+def timed_wall(fn):
+    """Host wall seconds of one synchronised call (after one warm-up)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()  # lint-ok: RP302
+    return time.perf_counter() - t0, out
+
+
+def check_sharded(label, kernel, dist, state, chip):
+    """The sharded instantiation of ``kernel`` on shard (1, 1[, 0]) of the
+    mesh (a non-zero origin, its high sides on the global edge) and on an
+    inner shard of a 3-wide mesh (no global edge), each against
+    ``padded_superstep_plain`` at atol = rtol = 0; then its time beside the
+    unsharded instantiation's on the same local shape."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels import common, cuda
+    prog, plan, coeffs = dist.program, dist.plan, dist.coeffs_on(
+        state["grid"].device)
+    exe = dist.run_fn(0, 0)
+    layout, local = exe.layout, exe.local
+    launch, replaces = (cuda.padded_superstep, 707) if kernel.startswith(
+        "padded_superstep") else (cuda.padded_pipelined, 785)
+    base = kernel.replace("_sharded", "")
+    body = plan.body(base)
+    src = random_grid(layout.padded_shape, seed=7)
+    last = max(range(dist.mesh.size), key=lambda j: sum(dist.offsets[j]))
+    errs = []
+    for where, offs, gshape in (
+            ("edge", dist.offsets[last], dist.global_shape),
+            ("inner", tuple(n for n in local), tuple(3 * n for n in local))):
+        got = torch.zeros_like(src)
+        want = torch.zeros_like(src)
+        before = cuda.launches()[kernel]
+        launch(src, got, coeffs.center, coeffs.taps, program=prog,
+               plan=plan, layout=layout, offsets=offs, global_shape=gshape)
+        if cuda.launches()[kernel] != before + 1:
+            raise AssertionError(f"{kernel} did not count its launch")
+        common.padded_superstep_plain(src, want, coeffs.center, coeffs.taps,
+                                      program=prog, plan=plan, layout=layout,
+                                      offsets=offs, global_shape=gshape)
+        torch.cuda.synchronize()
+        errs.append(check_close(
+            f"{kernel} ({body}) on a shard at origin {offs} of "
+            f"{gshape} ({where}) vs padded_superstep_plain",
+            got[exe.interior], want[exe.interior], atol=0.0, rtol=0.0))
+        del want
+    offs, gshape = dist.offsets[last], dist.global_shape
+    ms = median_ms(lambda: launch(src, got, coeffs.center, coeffs.taps,
+                                  program=prog, plan=plan, layout=layout,
+                                  offsets=offs, global_shape=gshape),
+                   label=f"{kernel} sharded")
+    # the unsharded instantiation on the same local shape: one device's
+    # carry of that extent (origin 0, the local extent as the global one)
+    one = dataclasses.replace(layout, wrap_axes=())
+    unsharded_ms = median_ms(lambda: launch(src, got, coeffs.center,
+                                            coeffs.taps, program=prog,
+                                            plan=plan, layout=one),
+                             label=f"{base} unsharded")
+    plain_ms = median_ms(lambda: common.padded_superstep_plain(
+        src, got, coeffs.center, coeffs.taps, program=prog, plan=plan,
+        layout=layout, offsets=offs, global_shape=gshape))
+    interior = src[exe.interior].contiguous()
+    lib = library_ms(f"{label} shard", prog, coeffs, interior, plan.par_time)
+    del interior, got
+    cells = math.prod(local)
+    moved = 4 * (math.prod(layout.padded_shape) + cells)
+    flops = cells * plan.par_time * prog.flops_per_cell
+    print(f"  {kernel}: {ms!r} ms against the unsharded instantiation's "
+          f"{unsharded_ms!r} ms on the same local shape {local} "
+          f"({ms / unsharded_ms!r}x)")
+    rec = record(label, base, BODY_SOURCES[body], replaces, body,
+                 {"counts": {base: state["counts"].get(kernel, 0)}},
+                 max(errs), ms, plain_ms, moved, flops, lib, chip)
+    rec["name"] = f"{base}@{label}"
+    rec["unsharded_ms"] = unsharded_ms
+    rec["shard"] = list(local)
+    return rec
+
+
+def mesh_phase(smi, chip):
+    """The mesh on one card (module docstring, phase 12)."""
+    import torch
+    import repro_torch
+    from repro_torch.core import distributed
+    from repro_torch.kernels import cuda
+    from repro_torch.launch.stencil_serve import StencilServer
+    from repro_torch.lint.dataflow import verify_dataflow
+
+    env = distributed.ENV_DEVICE_COUNT
+    saved = os.environ.get(env)
+    os.environ[env] = str(MESH_DEVICES)
+    try:
+        devices = distributed.visible_devices()
+        print(f"\n== the mesh: {env}={MESH_DEVICES} lays "
+              f"{len(devices)} mesh devices over "
+              f"{len(set(devices))} card(s) ({smi}); serialised shards on "
+              f"one card, not a multi-card mesh")
+        records = []
+        states = {}
+        torch.cuda.empty_cache()
+        for label, name, shards, variant, steps, batch in MESH_RUNS:
+            prog, plan, shape = _mesh_work(name)
+            print(f"\n-- mesh run {label}: grid {shape}"
+                  f"{'' if batch is None else f' x{batch}'}, block "
+                  f"{plan.block_shape}, par_time {plan.par_time}, "
+                  f"{variant}, {steps} steps, shards {shards}")
+            t0 = time.perf_counter()
+            cs = repro_torch.stencil(prog).compile(
+                shape, steps=steps, batch=batch, devices=shards, plan=plan,
+                variant=variant)
+            compile_s = time.perf_counter() - t0
+            proof = min(_timed(lambda: verify_dataflow(
+                prog, plan, shape, steps=steps, variant=variant,
+                decomp=shards)) for _ in range(20))
+            print(f"  {cs!r}: {cs.describe()}, compile {compile_s * 1e3!r} "
+                  f"ms, the proof (verify_dataflow(decomp=), best of 20) "
+                  f"{proof * 1e3!r} ms")
+            full = shape if batch is None else (batch,) + shape
+            grid = random_grid(full, seed=len(states) + 1)
+            want = mesh_launches(prog, plan, steps, variant, shards, batch)
+            torch.cuda.synchronize()
+            cuda.reset_launches()
+            out = cs.run(grid)  # lint-ok: RP302
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in cuda.launches().items() if v}
+            print(f"  launches by kernel and instantiation {counts} "
+                  f"(expected {want})")
+            if counts != want:
+                raise AssertionError(f"mesh launches {counts} != {want}")
+            if tuple(out.shape) != full or not bool(out.isfinite().all()):
+                raise AssertionError("mesh output has the wrong shape or "
+                                     "non-finite values")
+            one = repro_torch.stencil(prog).compile(
+                shape, steps=steps, batch=batch, plan=plan, variant=variant)
+            single = one.run(grid)
+            diff = (out != single)
+            if bool(diff.any()):
+                first = tuple(int(i) for i in diff.nonzero()[0])
+                print(f"  first failing cell {first}: mesh "
+                      f"{float(out[first])!r}, single device "
+                      f"{float(single[first])!r}")
+            check_close("mesh run vs the single-device front door", out,
+                        single, atol=0.0, rtol=0.0)
+            del out, single, diff
+            cells = (batch or 1) * math.prod(shape) * steps
+            wall, _ = timed_wall(lambda: cs.run(grid))
+            wall1, _ = timed_wall(lambda: one.run(grid))
+            print(f"  mesh {cs.describe()}: {wall * 1e3!r} ms, "
+                  f"{cells / wall / 1e6!r} MCell/s; single device "
+                  f"{wall1 * 1e3!r} ms, {cells / wall1 / 1e6!r} MCell/s "
+                  f"({smi})")
+            dist = cs._dist
+            exe = dist.run_fn(0, 0 if batch is None else 1)
+            pairs = exe.scatter(grid)
+            ex_ms = median_ms(lambda: exe.exchange(pairs, plan.halo),
+                              label="exchange")
+            moved = exchange_bytes(dist, exe, plan.halo, batch)
+            print(f"  exchange per superstep ({plan.halo}-deep strips): "
+                  f"{ex_ms!r} ms against its bound "
+                  f"{moved / chip.hbm_bytes_per_s * 1e3!r} ms ({moved} "
+                  f"bytes read and written over "
+                  f"{chip.hbm_bytes_per_s!r} B/s on one card)")
+            sc_ms = median_ms(lambda: exe.scatter(grid), label="scatter")
+            ga_ms = median_ms(lambda: exe.gather(pairs, grid),
+                              label="gather")
+            print(f"  scatter {sc_ms!r} ms (zero fills of the padded "
+                  f"pairs and the copy in), gather {ga_ms!r} ms")
+            del pairs
+            states[label] = dict(counts=counts, grid=grid, dist=dist)
+            torch.cuda.empty_cache()
+        for rec_name, label, kernel in SHARDED:
+            print(f"\n-- {kernel} ({rec_name}) at the shape of the mesh run "
+                  f"{label}")
+            st = states[label]
+            records.append(check_sharded(rec_name, kernel, st["dist"], st,
+                                         chip))
+            torch.cuda.empty_cache()
+        superstep_record = mesh_superstep(chip)
+        del states
+        torch.cuda.empty_cache()
+        mesh_planned()
+        mesh_served(smi)
+        return records + [superstep_record]
+    finally:
+        if saved is None:
+            os.environ.pop(env, None)
+        else:
+            os.environ[env] = saved
+
+
+def _timed(fn) -> float:
+    t0 = time.perf_counter()
+    fn()
+    return time.perf_counter() - t0
+
+
+def mesh_superstep(chip):
+    """``DistributedStencil.superstep`` at 2d_r4_paper on (2, 2): B5 on
+    every shard with its origin (the concat form of the exchange), equal
+    to the single-device pre-padded superstep at 0."""
+    import torch
+    import repro_torch
+    from repro_torch.core import distributed
+    from repro_torch.kernels import common, cuda
+    prog, plan, shape = _mesh_work("2d_r4_paper")
+    print(f"\n-- DistributedStencil.superstep at 2d_r4_paper, shards (2, 2)")
+    mesh = distributed.make_mesh((2, 2), distributed.visible_devices())
+    dist = distributed.DistributedStencil(
+        prog, None, plan, mesh, distributed.Decomposition((("d0",),
+                                                           ("d1",))),
+        shape, _warn=False)
+    grid = random_grid(shape, seed=9)
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    out = dist.superstep(grid)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in cuda.launches().items() if v}
+    print(f"  launches {counts} (expected {{'superstep': 4}})")
+    if counts != {"superstep": 4}:
+        raise AssertionError(f"superstep launches {counts}")
+    c = dist.coeffs_on(grid.device)
+    want = common.pad_superstep(grid, c.center, c.taps, program=prog,
+                                plan=plan)
+    err = check_close("mesh superstep (B5 with shard origins) vs the "
+                      "single-device pre-padded superstep", out, want,
+                      atol=0.0, rtol=0.0)
+    del out, want
+    # B5 on shard (1, 1): its block with the halo the exchange gives it
+    # (the neighbours' cells inside the grid, the boundary outside)
+    from repro_torch.core.codegen import boundary_pad
+    j = 3
+    h = plan.halo
+    local = [sl.stop - sl.start for sl in dist.slices[j]]
+    block = boundary_pad(prog, grid, [(h, h), (h, h)])[
+        tuple(slice(o, o + n + 2 * h) for o, n in zip(
+            dist.offsets[j], local))].contiguous()
+    got = cuda.superstep(block, c.center, c.taps, program=prog, plan=plan,
+                         true_shape=shape, offsets=dist.offsets[j])
+    want = common.superstep_plain(block, c.center, c.taps, program=prog,
+                                  plan=plan, true_shape=shape,
+                                  offsets=dist.offsets[j])
+    torch.cuda.synchronize()
+    err = max(err, check_close(f"superstep on shard {j} (origin "
+                               f"{dist.offsets[j]}) vs superstep_plain",
+                               got, want, atol=0.0, rtol=0.0))
+    ms = median_ms(lambda: cuda.superstep(
+        block, c.center, c.taps, program=prog, plan=plan, true_shape=shape,
+        offsets=dist.offsets[j]), label="superstep (shard)")
+    plain_ms = median_ms(lambda: common.superstep_plain(
+        block, c.center, c.taps, program=prog, plan=plan, true_shape=shape,
+        offsets=dist.offsets[j]))
+    interior = grid[dist.slices[j]].contiguous()
+    lib = library_ms("2d_r4_paper shard", prog, c, interior, plan.par_time)
+    cells = math.prod(interior.shape)
+    moved = 4 * (block.numel() + cells)
+    flops = cells * plan.par_time * prog.flops_per_cell
+    body = plan.body("superstep")
+    rec = record("mesh_2d_r4_paper", "superstep", BODY_SOURCES[body], 181,
+                 body, {"counts": counts}, err, ms, plain_ms, moved, flops,
+                 lib, chip)
+    del got, want, block, interior, grid
+    return rec
+
+
+def mesh_planned():
+    """``compile(devices=4, plan="model")`` at 2d_r4_paper: the planner
+    picks the plan and the split; its run equals the single-device run of
+    the same plan at 0."""
+    import torch
+    import repro_torch
+    from repro_torch.kernels import cuda
+    prog, _, shape = _mesh_work("2d_r4_paper")
+    print(f"\n-- compile(devices={MESH_DEVICES}, plan='model') at "
+          f"2d_r4_paper")
+    t0 = time.perf_counter()
+    cs = repro_torch.stencil(prog).compile(shape, steps=9,
+                                           devices=MESH_DEVICES,
+                                           plan="model")
+    print(f"  chose {cs!r}: {cs.describe()}, plan block "
+          f"{cs.plan.block_shape} par_time {cs.plan.par_time}, in "
+          f"{(time.perf_counter() - t0) * 1e3!r} ms")
+    grid = random_grid(shape, seed=12)
+    cuda.reset_launches()
+    out = cs.run(grid)  # lint-ok: RP302
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in cuda.launches().items() if v}
+    want = mesh_launches(prog, cs.plan, 9, cs.variant, cs.decomp, None)
+    print(f"  launches {counts} (expected {want})")
+    if counts != want:
+        raise AssertionError(f"planned mesh launches {counts}")
+    single = repro_torch.stencil(prog).compile(
+        shape, steps=9, plan=cs.plan, variant=cs.variant).run(grid)
+    check_close("planned mesh run vs the single-device run", out, single,
+                atol=0.0, rtol=0.0)
+    del out, single
+    wall, _ = timed_wall(lambda: cs.run(grid))
+    print(f"  planned mesh: {wall * 1e3!r} ms, "
+          f"{math.prod(shape) * 9 / wall / 1e6!r} MCell/s")
+    del grid
+    torch.cuda.empty_cache()
+
+
+def mesh_served(smi):
+    """``StencilServer(mesh_devices=4)`` with two 2D requests at
+    2d_r4_paper, 9 steps: one batched mesh chunk, each result equal to
+    the unbatched single-device run under the server's plan at 0."""
+    import torch
+    import repro_torch
+    from repro_torch.kernels import cuda
+    from repro_torch.launch.stencil_serve import StencilServer
+    prog, _, shape = _mesh_work("2d_r4_paper")
+    print(f"\n-- StencilServer(mesh_devices={MESH_DEVICES}), two "
+          f"2d_r4_paper requests at 9 steps")
+    server = StencilServer(mesh_devices=MESH_DEVICES, max_batch=2)
+    grids = [random_grid(shape, seed=20 + i) for i in range(2)]
+    torch.cuda.synchronize()
+    rids = [server.submit(prog, g, 9) for g in grids]
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    out = server.flush()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: v for k, v in cuda.launches().items() if v}
+    if server.failed or server.mesh_fallbacks or \
+            server.stats.sharded_batches != 1:
+        raise AssertionError(f"mesh serving: failed {server.failed}, "
+                             f"fallbacks {server.mesh_fallbacks}, "
+                             f"{server.stats.sharded_batches} sharded")
+    (cs,) = server._mesh_compiled.values()
+    print(f"  served on {cs!r}: launches {counts}, flush "
+          f"{wall * 1e3!r} ms (compile included), "
+          f"{2 * math.prod(shape) * 9 / wall / 1e6!r} Mcell-steps/s "
+          f"({smi})")
+    one = repro_torch.stencil(prog).compile(shape, steps=9, plan=cs.plan,
+                                            variant=cs.variant)
+    for rid, g in zip(rids, grids):
+        want = one.run(g)  # lint-ok: RP302 (not timed: the wall above is)
+        check_close(f"served mesh rid {rid} vs the unbatched single-device "
+                    f"run", out[rid], want, atol=0.0, rtol=0.0)
+    del out, grids
+    torch.cuda.empty_cache()
+
+
 #: The kernels ``ptxas_report`` reads, by source: each instantiation's
 #: name in the log, and how many instantiations the source has.
-PTXAS = {"streamed_superstep.cu": (("streamed_kernel",), 24),
-         "queued_superstep.cu": (("queue_kernel",), 21),
+PTXAS = {"streamed_superstep.cu": (("streamed_kernel",), 36),
+         "queued_superstep.cu": (("queue_kernel",), 42),
          "wrap_halo.cu": (("wrap_halo_kernel",), 1)}
 
 
@@ -1434,6 +1852,7 @@ def main() -> int:
     serving_phase(smi)
     recorder_phase(smi)
     preflight_phase(smi)
+    records += mesh_phase(smi, chip)
     ptxas_report()
     ported = {r["name"].split("@")[0] for r in records}
     if len(ported) != 6:

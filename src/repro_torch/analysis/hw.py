@@ -21,6 +21,7 @@ class GpuChip:
     smem_optin: int              # bytes of shared memory one block may use
     hbm_bytes_per_s: float
     peak_fp32_flops: float       # FP32 outside the tensor cores
+    nvlink_bytes_per_s: float = 0.0  # to another card, each way
 
     @classmethod
     def from_device(cls, index: int = 0) -> "GpuChip":
@@ -34,13 +35,17 @@ class GpuChip:
                                sheet.smem_optin))
 
 
-#: NVIDIA H100 SXM5 data sheet: 3.35 TB/s HBM3, 67 TFLOP/s FP32 (700 W).
+#: NVIDIA H100 SXM5 data sheet: 3.35 TB/s HBM3, 67 TFLOP/s FP32 (700 W),
+#: NVLink 900 GB/s to the other cards of the host (450 GB/s each way).
 H100_SXM = GpuChip(name="NVIDIA H100 SXM", sm_count=132, smem_optin=232448,
-                   hbm_bytes_per_s=3.35e12, peak_fp32_flops=67e12)
+                   hbm_bytes_per_s=3.35e12, peak_fp32_flops=67e12,
+                   nvlink_bytes_per_s=450e9)
 
-#: NVIDIA H100 PCIe data sheet: 2.0 TB/s HBM2e, 51 TFLOP/s FP32 (350 W).
+#: NVIDIA H100 PCIe data sheet: 2.0 TB/s HBM2e, 51 TFLOP/s FP32 (350 W),
+#: an NVLink bridge of 600 GB/s (300 GB/s each way).
 H100_PCIE = GpuChip(name="NVIDIA H100 PCIe", sm_count=114, smem_optin=232448,
-                    hbm_bytes_per_s=2.0e12, peak_fp32_flops=51e12)
+                    hbm_bytes_per_s=2.0e12, peak_fp32_flops=51e12,
+                    nvlink_bytes_per_s=300e9)
 
 
 def datasheet(name: str) -> GpuChip:

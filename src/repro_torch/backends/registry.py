@@ -36,8 +36,8 @@ class BackendTraits:
 
     ``variant`` is the kernel variant its lowering runs ("plain" |
     "pipelined" | "temporal").  ``local_kernel=True`` means its superstep
-    can serve as the local kernel of a sharded run (ROADMAP A9): the oracle
-    pads its own boundaries and cannot, and neither can the temporal
+    can serve as the local kernel of a mesh run (``core/distributed``):
+    the oracle pads its own boundaries and cannot, and neither can the temporal
     variant, whose chunk would need ``TEMPORAL_CHUNK`` supersteps of halo
     exchanged at once.  ``fused_run=True`` declares that ``run`` is the
     fused run executor (``kernels/ops._stencil_run`` with ``variant``), so

@@ -3,8 +3,17 @@ counterpart of ``repro/executor.py`` for the single-device run.
 
 ``compile`` validates the request with the reference's RP codes and in
 its order (grid, steps, batch, placement, variant, plan), then binds it to
-a device; ``run`` checks the grid and hands it to the fused executor
-(``kernels/common.run_call``) through ``kernels/ops._stencil_run``.
+a device; ``run`` checks the grid and hands it to one of three executors:
+
+    devices <= 1, cuda backend  -> the fused executor
+                                   (``kernels/common.run_call`` through
+                                   ``kernels/ops._stencil_run``)
+    devices <= 1, the oracle    -> the backend's lowering
+                                   (``torch-reference``)
+    devices  > 1                -> the mesh executor
+                                   (``core/distributed.DistributedStencil``:
+                                   the deep-halo exchange and the sharded
+                                   carry kernels)
 
 ``backend``/``variant`` resolve through the registry
 (``backends.resolve_backend``): ``cuda`` (default), ``cuda-pipelined``,
@@ -26,10 +35,13 @@ each ``run`` a ``run`` span timed on the card (CUDA events beside the host
 clock) plus one accuracy sample; off, ``run`` pays one ``obs.active()``
 lookup and stays asynchronous.
 
-What this port does not do yet, and says so when asked: meshes
-(``devices > 1``, ROADMAP A9).  Entry points run on the card:
-``device=None`` means CUDA and raises when no GPU is visible; the CPU runs
-only when the caller passes ``device="cpu"``.
+``devices=N`` or shards per axis lays the run over a mesh of the devices
+``core/distributed.visible_devices`` gives (one per card, or with
+``REPRO_TORCH_FORCE_DEVICE_COUNT=N`` N of them over the visible cards or
+the CPU); more than it gives is RP110, never a silent single-device run.
+Entry points run on the card: ``device=None`` means CUDA and raises when
+no GPU is visible; the CPU runs only when the caller passes
+``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -47,6 +59,9 @@ from repro_torch.backends import lower, resolve_backend
 from repro_torch.backends.registry import LoweredStencil
 from repro_torch.core.blocking import (TEMPORAL_CHUNK, BlockPlan,
                                        plan_blocking, run_seconds)
+from repro_torch.core.distributed import (ENV_DEVICE_COUNT, Decomposition,
+                                          DistributedStencil, make_mesh,
+                                          visible_devices)
 from repro_torch.core.program import ProgramCoeffs, StencilProgram
 from repro_torch.kernels import cuda, ops
 from repro_torch.lint.dataflow import check_dataflow
@@ -56,6 +71,10 @@ from repro_torch.lint.sanitize import SanitizeReport, sanitize_run
 from repro_torch.lint.verify import check as _preflight
 from repro_torch.lint.verify import smem_diagnostics
 from repro_torch.tuning.cache import cache_key
+from repro_torch.tuning.model_rank import exchange_seconds, rank
+from repro_torch.tuning.space import (Candidate, MeshDecomposition,
+                                      enumerate_decompositions,
+                                      enumerate_space, fits_shard)
 
 Devices = Union[None, int, Tuple[int, ...]]
 
@@ -83,39 +102,108 @@ def _check_steps(steps, context: str = "") -> int:
     return v
 
 
-def _check_devices(prog: StencilProgram, devices: Devices) -> None:
-    """Only one device runs in this port (RP110 otherwise)."""
+def _normalize_devices(prog: StencilProgram, devices: Devices):
+    """-> (shards per axis or None, total device count); RP110 for a
+    malformed request."""
     if devices is None:
-        return
+        return None, 1
     n = _as_int(devices)
-    if n is None:
-        try:
-            axes = tuple(operator.index(s) for s in devices)
-        except TypeError:
+    if n is not None:
+        if n < 1:
             raise DiagnosticError([_diag(
-                "RP110",
-                f"devices must be None, an int device count, or a "
-                f"{prog.ndim}-tuple of shards per grid axis (got "
-                f"{devices!r})",
-                hint="an int searches every factorization; a tuple pins "
-                     "shards per axis")])
-        if len(axes) != prog.ndim or any(s < 1 for s in axes):
-            raise DiagnosticError([_diag(
-                "RP110",
-                f"devices {devices!r} must give one positive shard count "
-                f"per grid axis ({prog.ndim} of them)",
-                hint=f"give {prog.ndim} positive shard counts")])
-        n = math.prod(axes)
-    if n < 1:
-        raise DiagnosticError([_diag(
-            "RP110", f"devices must be >= 1 (got {devices})",
-            hint="pass a positive device count or drop devices=")])
-    if n > 1:
+                "RP110", f"devices must be >= 1 (got {devices})",
+                hint="pass a positive device count or drop devices=")])
+        return None, n
+    try:
+        axes = tuple(operator.index(s) for s in devices)
+    except TypeError:
         raise DiagnosticError([_diag(
             "RP110",
-            f"compile(devices={devices!r}) asks for {n} devices; this port "
-            f"runs on one device so far (the mesh executor is ROADMAP A9)",
-            hint="drop devices= to run on one card")])
+            f"devices must be None, an int device count, or a "
+            f"{prog.ndim}-tuple of shards per grid axis (got {devices!r})",
+            hint="an int searches every factorization; a tuple pins "
+                 "shards per axis")])
+    if len(axes) != prog.ndim or any(s < 1 for s in axes):
+        raise DiagnosticError([_diag(
+            "RP110",
+            f"devices {devices!r} must give one positive shard count per "
+            f"grid axis ({prog.ndim} of them)",
+            hint=f"give {prog.ndim} positive shard counts")])
+    return axes, math.prod(axes)
+
+
+def _mesh_devices(devices: Devices, n: int, dev: torch.device):
+    """The devices a mesh of ``n`` takes beside ``dev``; RP110 naming
+    ``REPRO_TORCH_FORCE_DEVICE_COUNT`` when fewer are visible."""
+    try:
+        avail = visible_devices(dev)
+    except ValueError as e:
+        raise DiagnosticError([_diag(
+            "RP110", str(e),
+            hint=f"set {ENV_DEVICE_COUNT} to a positive count")]) from e
+    if n > len(avail):
+        raise DiagnosticError([_diag(
+            "RP110",
+            f"compile(devices={devices!r}) needs {n} mesh devices but "
+            f"{len(avail)} {'is' if len(avail) == 1 else 'are'} visible "
+            f"beside {dev}; set {ENV_DEVICE_COUNT}={n} to lay {n} mesh "
+            f"devices over the visible "
+            f"{'CPU' if dev.type == 'cpu' else 'cards'}",
+            hint=f"request at most the visible device count, or set "
+                 f"{ENV_DEVICE_COUNT}={n} before compiling")])
+    return avail[:n]
+
+
+def _no_feasible_split(grid_shape, n_devices, plan=None):
+    what = "" if plan is None else (f" for block={plan.block_shape} "
+                                    f"par_time={plan.par_time}")
+    return DiagnosticError([_diag(
+        "RP107",
+        f"no feasible decomposition of {n_devices} devices over grid "
+        f"{grid_shape}{what} (every split must divide the grid, tile the "
+        f"local extent by the block, and keep the halo shallower than the "
+        f"shard)",
+        hint="pass devices=<shards per axis> or let plan='auto' search "
+             "blocking and split together")])
+
+
+def _pick_decomposition(program, plan: BlockPlan, grid_shape,
+                        n_devices: int, chip: GpuChip, backend: str,
+                        version: int, variant: str,
+                        cards: int) -> Tuple[int, ...]:
+    """The best feasible split of ``n_devices`` for a fixed plan: every
+    factorization that divides the grid and fits a shard
+    (``tuning/space.fits_shard``), ranked by the mesh model (exchange
+    charged); RP107 when none fits."""
+    feasible = [dc for dc in enumerate_decompositions(program.ndim,
+                                                      n_devices, grid_shape)
+                if fits_shard(plan, dc, grid_shape)]
+    if not feasible:
+        raise _no_feasible_split(grid_shape, n_devices, plan)
+    cands = [Candidate(plan=plan, backend=backend, backend_version=version,
+                       variant=variant, decomp=dc) for dc in feasible]
+    best = rank(program, cands, chip, grid_shape=grid_shape, cards=cards)[0]
+    return best.candidate.decomp.axis_shards
+
+
+def _plan_mesh(program, chip: GpuChip, grid_shape, n_devices: int,
+               decomp_axes, backend: str, max_par_time: int,
+               cards: int) -> Tuple[BlockPlan, Tuple[int, ...]]:
+    """``plan="model"`` on a mesh: the H100 planner's candidates on each
+    shard's extent (``tuning/space.enumerate_space`` over the splits,
+    or the pinned one) ranked by the mesh model; RP107 when none fits."""
+    decomps = None if decomp_axes is None \
+        else (MeshDecomposition(tuple(decomp_axes)),)
+    cands = enumerate_space(program, chip, backends=(backend,),
+                            grid_shape=grid_shape,
+                            max_par_time=max_par_time,
+                            n_devices=None if decomps else n_devices,
+                            decompositions=decomps)
+    if not cands:
+        raise _no_feasible_split(grid_shape, n_devices)
+    best = rank(program, cands, chip, grid_shape=grid_shape,
+                cards=cards)[0].candidate
+    return best.plan, best.decomp.axis_shards
 
 
 def _resolve_device(device) -> torch.device:
@@ -168,7 +256,13 @@ class Stencil:
         grid_shape    spatial extent of one grid; ``batch`` adds a leading
                       ``(B, *grid)`` axis of independent grids.
         steps         the step count ``run`` uses by default (>= 1).
-        devices       None or 1; more is RP110 (ROADMAP A9).
+        devices       None or 1: one device; an int N: a mesh of N
+                      devices, the split searched (``plan="auto"``: with
+                      the plan, by the model; otherwise for the plan);
+                      shards per axis: that split.  The mesh takes
+                      ``core/distributed.visible_devices(device)``; more
+                      devices than it gives, the temporal variant and
+                      the oracle are RP110, an infeasible split RP107.
         plan          "auto" — the autotuner, model-only, through its plan
                       cache (``cache``/``cache_path``); "model" — the H100
                       planner (``core/blocking.plan_blocking``); or a
@@ -266,9 +360,30 @@ class Stencil:
                     hint="drop batch= for a single grid, or stack "
                          "independent grids along a leading axis")])
             batch = b
-        _check_devices(prog, devices)
+        decomp_axes, n_devices = _normalize_devices(prog, devices)
         concrete = None if variant in (None, "auto") else variant
         name, version, traits = resolve_backend(backend, variant=concrete)
+        if n_devices > 1 and traits.variant == "temporal":
+            raise DiagnosticError([_diag(
+                "RP110",
+                f"backend {name!r} (the temporally-fused variant) cannot "
+                f"run sharded: its launch advances TEMPORAL_CHUNK "
+                f"supersteps per kernel, but the mesh executor exchanges "
+                f"halos once per superstep — the chunk would read "
+                f"neighbor cells that were never exchanged; "
+                f"compile(devices={devices!r}) needs a per-superstep "
+                f"local kernel",
+                hint="drop devices= for the temporal variant, or use "
+                     "variant='plain'/'pipelined' on the mesh")])
+        if n_devices > 1 and not traits.local_kernel:
+            raise DiagnosticError([_diag(
+                "RP110",
+                f"backend {name!r} cannot run sharded (it declares no "
+                f"local_kernel trait — its lowering pads its own "
+                f"boundaries and cannot consume an exchanged halo); "
+                f"compile(devices={devices!r}) needs a cuda backend",
+                hint="drop devices= for this backend, or use a cuda "
+                     "backend for mesh runs")])
         planned = isinstance(plan, str) and plan in ("auto", "model")
         if not planned and not isinstance(plan, BlockPlan):
             raise DiagnosticError([_diag(
@@ -277,6 +392,10 @@ class Stencil:
                 f"(got {plan!r})",
                 hint='use plan="auto" unless pinning a tuned BlockPlan')])
         dev = _resolve_device(device)
+        mesh_devices = _mesh_devices(devices, n_devices, dev) \
+            if n_devices > 1 else None
+        # shards sharing a card run one after another (the mesh model)
+        cards = len(set(mesh_devices)) if mesh_devices else 1
         check = traits.fused_run and (dev.type == "cuda" or chip is not None)
         if chip is None:
             chip = GpuChip.from_device(dev.index) if dev.type == "cuda" \
@@ -288,66 +407,101 @@ class Stencil:
                 from repro_torch.tuning import autotune
                 # search the variant axis only when nothing pinned one
                 search = concrete is None and traits.variant == "plain"
-                tuned = autotune(prog, chip, grid_shape=grid_shape,
-                                 backend=name,
-                                 variant="auto" if search else None,
-                                 measure=False, cache=cache,
-                                 cache_path=cache_path,
-                                 max_par_time=max_par_time, device=dev)
+                tuned = autotune(
+                    prog, chip, grid_shape=grid_shape, backend=name,
+                    variant="auto" if search else None, measure=False,
+                    cache=cache, cache_path=cache_path,
+                    max_par_time=max_par_time, device=dev,
+                    n_devices=n_devices if (n_devices > 1
+                                            and decomp_axes is None)
+                    else None,
+                    decomposition=decomp_axes if n_devices > 1 else None,
+                    cards=cards)
                 plan = tuned.plan
                 if tuned.backend != name:
                     name, version, traits = resolve_backend(tuned.backend)
+                if n_devices > 1:
+                    decomp_axes = tuned.decomp or decomp_axes
+            elif plan == "model" and n_devices > 1:
+                plan, decomp_axes = _plan_mesh(
+                    prog, chip, grid_shape, n_devices, decomp_axes, name,
+                    max_par_time, cards)
             elif plan == "model":
                 plan = plan_blocking(prog, chip, grid_shape=grid_shape,
                                      max_par_time=max_par_time,
                                      variant=traits.variant,
                                      steps=steps).plan
+            elif n_devices > 1 and decomp_axes is None:
+                decomp_axes = _pick_decomposition(
+                    prog, plan, grid_shape, n_devices, chip, name, version,
+                    traits.variant, cards)
+        except DiagnosticError:
+            raise
         except ValueError as e:   # no plan of the variant fits the card
+            if n_devices > 1 and "empty design space" in str(e):
+                raise _no_feasible_split(grid_shape, n_devices) from e
             raise DiagnosticError([_diag(
                 "RP105", str(e),
                 hint="pick variant='plain' for the smallest footprint")]) \
                 from e
+        if n_devices <= 1:
+            decomp_axes = None
         # the pre-flight, before anything is built or launched: RP1xx
-        # (RP105 only where a card's limit applies), then the proof of the
-        # ring schedule the fused executor runs
+        # (RP105 only where a card's limit applies; RP107 per shard on a
+        # mesh), then the proof of the ring schedule the executor runs
         preflight = _preflight(prog, plan, grid_shape,
                                chip if check else None,
-                               variant=traits.variant, batch=batch,
-                               steps=steps)
+                               decomp=decomp_axes, variant=traits.variant,
+                               batch=batch, steps=steps)
         coeffs = self.coeffs.to(dev)
         report = None
         if traits.fused_run:
             preflight += check_dataflow(prog, plan, grid_shape, steps=steps,
-                                        variant=traits.variant)
-            if sanitize:
+                                        variant=traits.variant,
+                                        decomp=decomp_axes)
+            # the canary runs one device's schedule, as the reference's
+            if sanitize and decomp_axes is None:
                 report = sanitize_run(prog, plan, grid_shape, steps=steps,
                                       coeffs=coeffs, variant=traits.variant,
                                       device=dev)
                 raise_on_error(report.diagnostics, source="sanitize")
-        # a backend whose run is not the fused executor (the oracle) runs
-        # through its own lowering
-        lowered = None if traits.fused_run else lower(
-            prog, plan, coeffs=coeffs, backend=name, version=version)
+        dist = lowered = None
+        if decomp_axes is not None:
+            mesh = make_mesh(decomp_axes, mesh_devices)
+            decomp = Decomposition(tuple(
+                (mesh.axis_names[d],) if decomp_axes[d] > 1 else ()
+                for d in range(prog.ndim)))
+            dist = DistributedStencil(prog, self.coeffs, plan, mesh, decomp,
+                                      grid_shape, backend=name,
+                                      _warn=False)
+        elif not traits.fused_run:
+            # a backend whose run is not the fused executor (the oracle)
+            # runs through its own lowering
+            lowered = lower(prog, plan, coeffs=coeffs, backend=name,
+                            version=version)
         return CompiledStencil(program=prog, coeffs=coeffs,
                                grid_shape=grid_shape, steps=steps,
                                batch=batch, plan=plan, backend=name,
                                backend_version=version,
                                variant=traits.variant, device=dev,
-                               lowered=lowered,
+                               lowered=lowered, dist=dist,
+                               decomp=decomp_axes,
                                chip=chip if check else None,
                                model_chip=chip, tuned=tuned,
                                preflight=preflight, sanitize_report=report)
 
 
 class CompiledStencil:
-    """A validated run bound to one device and one backend; ``run``
-    dispatches it."""
+    """A validated run bound to one device (or a mesh) and one backend;
+    ``run`` dispatches it."""
 
     def __init__(self, *, program: StencilProgram, coeffs: ProgramCoeffs,
                  grid_shape: Tuple[int, ...], steps: int,
                  batch: Optional[int], plan: BlockPlan, backend: str,
                  backend_version: int, variant: str, device: torch.device,
                  lowered: Optional[LoweredStencil] = None,
+                 dist: Optional[DistributedStencil] = None,
+                 decomp: Optional[Tuple[int, ...]] = None,
                  chip: Optional[GpuChip] = None,
                  model_chip: GpuChip,
                  tuned=None, preflight=None,
@@ -369,6 +523,9 @@ class CompiledStencil:
         self.variant = variant
         self.device = device
         self._lowered = lowered
+        #: the mesh executor and its shards per axis (None: one device)
+        self._dist = dist
+        self.decomp = decomp
         # the chip RP105 is checked against (None: no check), and the
         # diagnostics per (a full superstep runs, remainder): what decides
         # the kernels of a run
@@ -382,6 +539,26 @@ class CompiledStencil:
         self.from_plan_cache = tuned is not None and tuned.from_cache
         self._predicted = {}
         self._history_key = None
+
+    def describe(self) -> str:
+        """Where the run goes: ``1 device`` or ``mesh 2x2``."""
+        return "1 device" if self.decomp is None else \
+            f"mesh {'x'.join(map(str, self.decomp))}"
+
+    def __repr__(self) -> str:
+        b = "" if self.batch is None else f" batch={self.batch}"
+        v = "" if self.variant == "plain" else f" variant={self.variant}"
+        return (f"CompiledStencil(grid={self.grid_shape}{b} "
+                f"steps={self.steps} block={self.plan.block_shape} "
+                f"par_time={self.plan.par_time} backend={self.backend}"
+                f"{v} on {self.describe()})")
+
+    def _local_shape(self) -> Tuple[int, ...]:
+        """One shard's extent (the grid on one device): what the kernels
+        of a run launch on."""
+        if self.decomp is None:
+            return self.grid_shape
+        return tuple(g // s for g, s in zip(self.grid_shape, self.decomp))
 
     def _launch_key(self, steps: int) -> Tuple[bool, int]:
         period = self.plan.par_time * (
@@ -399,7 +576,7 @@ class CompiledStencil:
         if key not in self._fits:
             self._fits[key] = smem_diagnostics(
                 self.plan, self.variant, self._chip,
-                grid_shape=self.grid_shape, steps=steps)
+                grid_shape=self._local_shape(), steps=steps)
         raise_on_error(self._fits[key], source="verify")
 
     def _check_grid(self, grid: torch.Tensor) -> None:
@@ -465,6 +642,8 @@ class CompiledStencil:
         return self._run_recorded(rec, grid, steps)
 
     def _dispatch(self, grid: torch.Tensor, steps: int) -> torch.Tensor:
+        if self._dist is not None:
+            return self._dist.run(grid, steps)
         if self._lowered is not None:
             return self._lowered.run(grid, steps)
         return ops._stencil_run(grid, self.program, self.coeffs, self.plan,
@@ -480,27 +659,38 @@ class CompiledStencil:
         the host clock around the synchronised dispatch ``wall_s``, their
         difference ``host_s``, and the change in the kernels' launch counts
         ``launch_delta`` (launches from other threads meanwhile count too).
+        On a mesh the events bracket every card's current stream (the
+        shards' launches go there) and ``device_s`` is the longest card's.
         On the CPU those four are None.  ``model_accuracy`` is
         ``predicted_s / wall_s`` (= achieved / predicted GB/s)."""
         card = self.device.type == "cuda"
         with rec.span("run", **self._span_attrs()) as sp:
             if card:
-                torch.cuda.synchronize(self.device)
-                stream = torch.cuda.current_stream(self.device)
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
+                cards = tuple(dict.fromkeys(
+                    (self.device,) + (self._dist.mesh.cards()
+                                      if self._dist is not None else ())))
+                for c in cards:
+                    torch.cuda.synchronize(c)
+                events = [(torch.cuda.current_stream(c),
+                           torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True))
+                          for c in cards]
                 before = cuda.launches()
             t0 = time.perf_counter()
             if card:
-                start.record(stream)
+                for stream, start, _ in events:
+                    start.record(stream)
             out = self._dispatch(grid, steps)
             if card:
-                end.record(stream)
-                torch.cuda.synchronize(self.device)
+                for stream, _, end in events:
+                    end.record(stream)
+                for c in cards:
+                    torch.cuda.synchronize(c)
             wall = time.perf_counter() - t0
             device_s = host_s = launch_delta = None
             if card:
-                device_s = start.elapsed_time(end) / 1e3
+                device_s = max(start.elapsed_time(end)
+                               for _, start, end in events) / 1e3
                 host_s = wall - device_s
                 after = cuda.launches()
                 launch_delta = {k: n - before[k] for k, n in after.items()
@@ -526,8 +716,9 @@ class CompiledStencil:
                 variant=self.variant, grid_shape=list(self.grid_shape),
                 batch=self.batch, steps=steps,
                 block_shape=list(self.plan.block_shape),
-                par_time=self.plan.par_time, predicted_s=predicted,
-                wall_s=wall, device_s=device_s,
+                par_time=self.plan.par_time,
+                decomp=None if self.decomp is None else list(self.decomp),
+                predicted_s=predicted, wall_s=wall, device_s=device_s,
                 predicted_gbps=predicted_gbps, achieved_gbps=gbps,
                 model_accuracy=accuracy, mcells_per_s=cells / wall / 1e6,
                 source="executor.run")
@@ -537,12 +728,24 @@ class CompiledStencil:
 
     def predicted_seconds(self, steps: int) -> float:
         """The H100 model's wall time of a run of ``steps``
-        (``core/blocking.run_seconds`` on :attr:`chip`), kept per count."""
+        (``core/blocking.run_seconds`` on :attr:`chip`), kept per count.
+        On a mesh: one shard's run and its exchanges, times the shards
+        that share a card (``tuning/model_rank.exchange_seconds``)."""
         t = self._predicted.get(steps)
         if t is None:
-            t = self._predicted[steps] = run_seconds(
-                self.plan, self.grid_shape, steps, self.chip, self.variant,
-                batch=1 if self.batch is None else self.batch)
+            nb = 1 if self.batch is None else self.batch
+            t = run_seconds(self.plan, self._local_shape(), steps,
+                            self.chip, self.variant, batch=nb)
+            if self._dist is not None:
+                n = self._dist.mesh.size
+                cards = len(self._dist.mesh.cards())
+                supersteps = -(-steps // self.plan.par_time)
+                t += supersteps * nb * exchange_seconds(
+                    self.program, self.plan,
+                    MeshDecomposition(self.decomp), self.grid_shape,
+                    self.chip, shared=cards < n)
+                t *= -(-n // cards)
+            self._predicted[steps] = t
         return t
 
     def history_key(self) -> str:
@@ -554,7 +757,8 @@ class CompiledStencil:
         if self._history_key is None:
             self._history_key = cache_key(
                 self.program, self.grid_shape, self.chip.name, self.backend,
-                self.backend_version, device=self.device.type)
+                self.backend_version, device=self.device.type,
+                decomp=self.decomp)
         return self._history_key
 
     def _span_attrs(self) -> dict:
@@ -563,6 +767,8 @@ class CompiledStencil:
             "grid_shape": list(self.grid_shape),
             "batch": self.batch,
             "device": self.device.type,
+            "devices": 1 if self.decomp is None else math.prod(self.decomp),
+            "decomp": None if self.decomp is None else list(self.decomp),
             "chip": self.chip.name,
             "block_shape": list(self.plan.block_shape),
             "par_time": self.plan.par_time,

@@ -27,6 +27,13 @@ Each dispatches on where the tensor lies: a CUDA tensor launches the
 hand-written kernel (``kernels/cuda.py``), a CPU tensor takes the plain
 version, and any other device raises.
 
+On a mesh (``core/distributed.py``) each shard keeps such a carry of its
+local extent; ``ring_schedule(decomp=)`` records the exchange strips of
+:func:`exchange_copies` beside the wrap copies, and ``padded_superstep``
+takes the shard's ``offsets`` and the ``global_shape``, so that the
+fixups act only outside the global grid (the sharded instantiations of
+B1 and B4 on the card).
+
 Cells of the round-up slack ``[H+n, H+rounded)`` never feed a true cell:
 clamp/constant fixups overwrite window positions >= n, and the periodic
 refresh rewrites ``[H+n, P)`` before every superstep.  So what a superstep
@@ -176,6 +183,20 @@ def wrap_copies(layout: PaddedLayout) -> Tuple[RingCopy, ...]:
     return tuple(copies)
 
 
+def exchange_copies(axis: int, h: int, H: int,
+                    nloc: int) -> Tuple[RingCopy, RingCopy]:
+    """The mesh's exchange-into-ring strips along one sharded axis: the
+    left neighbour's hi strip ``[H+nloc-h, H+nloc)`` lands just below
+    this shard's interior at ``[H-h, H)``, the right neighbour's lo strip
+    ``[H, H+h)`` just above it at ``[H+nloc, H+nloc+h)``.  ``h`` is the
+    superstep's halo (a remainder exchanges shallower strips into the same
+    depth-``H`` ring); each ``src`` interval is what this shard sends."""
+    return (
+        RingCopy("exchange", axis, (H + nloc - h, H + nloc), (H - h, H)),
+        RingCopy("exchange", axis, (H, H + h), (H + nloc, H + nloc + h)),
+    )
+
+
 def ping_pong_aliases(wrap: bool) -> Dict[int, int]:
     """The reference launch's ``input_output_aliases`` over operands
     ``(offsets, center, taps, src, dst)``: the tile output lives in
@@ -216,8 +237,8 @@ class SuperstepSchedule:
 class RunSchedule:
     """The dataflow of one fused run: up to four full supersteps (the
     buffer pattern is 2-periodic) and the remainder, or ``fallback`` for a
-    wrap-degenerate layout.  ``sharded_axes`` is always empty here (one
-    device) and stays for parity with the reference's record."""
+    wrap-degenerate layout.  ``sharded_axes`` are the axes a mesh splits
+    over more than one shard (their ring arrives by exchange)."""
 
     program: StencilProgram
     plan: BlockPlan
@@ -233,19 +254,40 @@ class RunSchedule:
 
 def ring_schedule(program: StencilProgram, plan: BlockPlan,
                   true_shape: Tuple[int, ...], steps: int, *,
-                  variant: Optional[str] = None) -> RunSchedule:
-    """The :class:`RunSchedule` of a single-device run (the reference's
-    ``ring_schedule`` with ``decomp=None``)."""
+                  variant: Optional[str] = None,
+                  decomp=None) -> RunSchedule:
+    """The :class:`RunSchedule` that ``run_call`` (one device) or the mesh
+    (``core/distributed.DistributedStencil.run``) executes.
+
+    ``decomp`` (shards per axis, or a ``tuning.space.MeshDecomposition``)
+    gives each shard's local and rounded extent (the global one over its
+    shards), wrap axes only on the device-local periodic axes, and per
+    sharded axis the exchange strips of :func:`exchange_copies` in each
+    superstep's ring (after the wrap copies, as the reference records
+    them; the mesh exchanges first and refreshes the wrap axes after, and
+    axes are independent in the proof)."""
     v = normalize_variant(variant)
     ndim = program.ndim
     chunk = TEMPORAL_CHUNK if v == "temporal" else 1
     H = chunk * plan.halo
-    rounded = tuple(round_up(true_shape[d], plan.block_shape[d])
-                    for d in range(ndim))
-    wrap_axes = tuple(range(ndim)) if program.boundary == "periodic" else ()
-    layout = PaddedLayout(halo=H, local_shape=tuple(true_shape),
-                          rounded=rounded, wrap_axes=wrap_axes)
-    if layout.wrap_degenerate():
+    shards = getattr(decomp, "axis_shards", decomp)
+    if shards is not None:
+        local = tuple(true_shape[d] // shards[d] for d in range(ndim))
+        rounded = local
+        wrap_axes = tuple(d for d in range(ndim)
+                          if program.boundary == "periodic"
+                          and shards[d] == 1)
+        sharded_axes = tuple(d for d in range(ndim) if shards[d] > 1)
+    else:
+        local = tuple(true_shape)
+        rounded = tuple(round_up(true_shape[d], plan.block_shape[d])
+                        for d in range(ndim))
+        wrap_axes = tuple(range(ndim)) \
+            if program.boundary == "periodic" else ()
+        sharded_axes = ()
+    layout = PaddedLayout(halo=H, local_shape=local, rounded=rounded,
+                          wrap_axes=wrap_axes)
+    if shards is None and layout.wrap_degenerate():
         return RunSchedule(program=program, plan=plan, layout=layout,
                            variant=v, steps=steps, full=0, rem=0,
                            supersteps=(), fallback=True)
@@ -260,6 +302,8 @@ def ring_schedule(program: StencilProgram, plan: BlockPlan,
 
     def entry(index, rb, ss_steps, ss_variant):
         h = ss_steps * program.halo_radius
+        ring = wraps + tuple(c for d in sharded_axes
+                             for c in exchange_copies(d, h, H, local[d]))
         return SuperstepSchedule(
             index=index, steps=ss_steps, halo=h, variant=ss_variant,
             read_buffer=rb, write_buffer=rb if winput == 3 else 1 - rb,
@@ -267,7 +311,7 @@ def ring_schedule(program: StencilProgram, plan: BlockPlan,
             window_shape=tuple(b + 2 * h for b in plan.block_shape),
             write_tile=tuple(plan.block_shape),
             write_stride=tuple(plan.block_shape),
-            ring=wraps, fixup=program.boundary != "periodic",
+            ring=ring, fixup=program.boundary != "periodic",
             aliases=tuple(sorted(amap.items())))
 
     supersteps = []
@@ -280,7 +324,8 @@ def ring_schedule(program: StencilProgram, plan: BlockPlan,
                                 "plain" if v == "temporal" else v))
     return RunSchedule(program=program, plan=plan, layout=layout, variant=v,
                        steps=steps, full=full, rem=rem,
-                       supersteps=tuple(supersteps))
+                       supersteps=tuple(supersteps),
+                       sharded_axes=sharded_axes)
 
 
 def run_launches(sched: RunSchedule
@@ -350,7 +395,9 @@ def padded_superstep_plain(src: torch.Tensor, dst: torch.Tensor,
                            center: torch.Tensor, taps: torch.Tensor, *,
                            program: StencilProgram, plan: BlockPlan,
                            layout: PaddedLayout,
-                           tile: Optional[Tuple[int, ...]] = None
+                           tile: Optional[Tuple[int, ...]] = None,
+                           offsets: Optional[Sequence[int]] = None,
+                           global_shape: Optional[Tuple[int, ...]] = None
                            ) -> torch.Tensor:
     """Plain version of the superstep kernel; writes ``dst``'s rounded
     interior in place and returns ``dst``.
@@ -358,23 +405,31 @@ def padded_superstep_plain(src: torch.Tensor, dst: torch.Tensor,
     ``tile`` (default: the whole rounded grid as one tile) cuts the
     interior into output tiles, each computed from its own halo'd window
     as the kernel's CTAs do; the result on true cells does not depend on
-    it.
+    it.  ``offsets`` is a shard's origin in the ``global_shape`` grid (the
+    reference's ``offsets=``/``global_shape=``): the fixups act at global
+    coordinates ``offsets + o - h``, so a shard's exchanged ring cells at
+    inner edges stay as they are.  Without them, one device: origin 0 in
+    ``layout.local_shape``.
     """
     h = plan.halo
     H = layout.halo
     off = H - h
     rounded = layout.rounded
     tile = rounded if tile is None else tuple(tile)
+    offs = [0] * len(rounded) if offsets is None else [int(o)
+                                                       for o in offsets]
+    true = layout.local_shape if global_shape is None \
+        else tuple(global_shape)
     coeffs = ProgramCoeffs(center, taps)
     for origin in itertools.product(*(range(0, r, t)
                                       for r, t in zip(rounded, tile))):
         size = [min(t, r - o) for t, r, o in zip(tile, rounded, origin)]
         win = src[_interior([off + o for o in origin],
                             [s + 2 * h for s in size])]
-        starts = [o - h for o in origin]
-        cur = boundary_fixup(program, win, starts, layout.local_shape)
+        starts = [g + o - h for g, o in zip(offs, origin)]
+        cur = boundary_fixup(program, win, starts, true)
         dst[_interior([H + o for o in origin], size)] = _fused_steps(
-            program, coeffs, cur, starts, layout.local_shape, plan.par_time)
+            program, coeffs, cur, starts, true, plan.par_time)
     return dst
 
 
@@ -410,21 +465,36 @@ def padded_superstep(src: torch.Tensor, dst: torch.Tensor,
                      center: torch.Tensor, taps: torch.Tensor, *,
                      program: StencilProgram, plan: BlockPlan,
                      layout: PaddedLayout,
-                     variant: Optional[str] = None) -> torch.Tensor:
+                     variant: Optional[str] = None,
+                     offsets: Optional[Sequence[int]] = None,
+                     global_shape: Optional[Tuple[int, ...]] = None
+                     ) -> torch.Tensor:
     """One superstep ``src`` -> ``dst`` (for "temporal", one chunk of
     ``TEMPORAL_CHUNK`` supersteps): the variant's CUDA kernel for a CUDA
-    tensor, the plain version for a CPU tensor."""
+    tensor, the plain version for a CPU tensor.  ``offsets`` and
+    ``global_shape`` place a mesh shard (plain and pipelined only: the
+    mesh refuses the temporal chunk); a shard launches the sharded
+    instantiation of B1 or B4."""
     v = normalize_variant(variant)
+    shard = dict(offsets=offsets, global_shape=global_shape)
+    if v == "temporal" and (offsets is not None
+                            or global_shape is not None):
+        raise ValueError("the temporal chunk runs on one device only: a "
+                         "shard's ring is exchanged once per superstep")
     if _on_cuda(src):
-        launch = {"plain": cuda.padded_superstep,
-                  "temporal": cuda.temporal_superstep,
-                  "pipelined": cuda.padded_pipelined}[v]
-        launch(src, dst, center, taps, program=program, plan=plan,
-               layout=layout)
+        if v == "temporal":
+            cuda.temporal_superstep(src, dst, center, taps, program=program,
+                                    plan=plan, layout=layout)
+        else:
+            launch = cuda.padded_superstep if v == "plain" \
+                else cuda.padded_pipelined
+            launch(src, dst, center, taps, program=program, plan=plan,
+                   layout=layout, **shard)
         return dst
     return padded_superstep_plain(
         src, dst, center, taps, program=program,
-        plan=deep_plan(plan) if v == "temporal" else plan, layout=layout)
+        plan=deep_plan(plan) if v == "temporal" else plan, layout=layout,
+        **shard)
 
 
 def refresh_wrap_halo(src: torch.Tensor,

@@ -10,6 +10,11 @@
 //   t = 0 boundary applied plane by plane on load, the true cells written
 //   into the other carry buffer `dst` at H; a one-shot grid.  Plain
 //   PyTorch version: repro_torch/kernels/common.py:padded_superstep_plain.
+//   A mesh shard's carry runs the sharded instantiation (SH): the t = 0
+//   mapping on load at global coordinates origin + local against the
+//   global extent (the reference's offsets= and global_shape=), so the
+//   ring cells the mesh exchanged at inner shard edges load as they are.
+//   The single device's instantiation maps at local coordinates.
 // * B5, build_superstep_kernel (`:181`), and B6, build_pipelined_kernel
 //   (`:223`), both launched by _superstep_pallas at `:362`: one superstep
 //   of a grid that boundary_pad already padded by h.  Window at the tile
@@ -130,7 +135,7 @@ enum Field {
   kRadius,   // shrink per step (0 on a 2D grid's dummy y)
   kBlock,    // (segment length L, tile y, tile x)
   kPlanes,   // (fused steps T, planes per group B, groups ahead)
-  kMode,     // (padded carry?, persistent?, 0)
+  kMode,     // (padded carry?, persistent?, a shard's carry?)
   kBytes,    // (shared-memory bytes, 0, 0)
   kFields
 };
@@ -157,6 +162,7 @@ struct Geo {
   // all planes (plane_count), from the host: with the count inlined into
   // the kernel, ptxas spilled the 1-step radius-4 instantiations
   int carry, persistent;
+  int sharded;  // a mesh shard's carry: the SH instantiation
   int Y1, NX, j0;  // strip rows, strips per row, first strip
   int planes;
   int bulk;  // rows may be copied with cp.async.bulk
@@ -200,12 +206,15 @@ inline bool make_geo(const long long* a, int steps, int batch, int ntaps,
   g->L = f(kBlock, 0), g->ty = f(kBlock, 1), g->tx = f(kBlock, 2);
   g->T = f(kPlanes, 0), g->B = f(kPlanes, 1), g->ahead = f(kPlanes, 2);
   g->carry = f(kMode, 0), g->persistent = f(kMode, 1);
+  g->sharded = f(kMode, 2);
   if (g->T != steps || steps < 1 || batch < 1 || g->L < 1 || g->ty < 1 ||
       g->tx < 1 || g->tx % 4 != 0 || g->ahead < 1 || g->w0 < 1 ||
       g->w1 < 1 || g->w2 < 1 || g->r0 < 1 || g->r2 < 1 ||
       g->so2 < steps * g->r2 || ntaps < 1 || ntaps > kMaxTaps ||
       (g->carry != 0 && g->carry != 1) ||
-      (g->persistent != 0 && g->persistent != 1) || g->B != g->r0)
+      (g->persistent != 0 && g->persistent != 1) ||
+      (g->sharded != 0 && g->sharded != 1) || (g->sharded && !g->carry) ||
+      g->B != g->r0)
     return false;
   g->h0 = steps * g->r0, g->h1 = steps * g->r1, g->h2 = steps * g->r2;
   g->E1 = g->ty + 2 * g->h1;
@@ -327,15 +336,18 @@ struct PlaneLoad {
 
 // How row iy of plane `pl` reads the source: 0 = copy from source row
 // `*row` (a flat index of its first cell), 1 = the boundary value, 2 =
-// nothing (past the source's end).
+// nothing (past the source's end).  SH: the carry's mapping acts at
+// global coordinates (origin + local); else local == global.
+template <bool SH>
 __device__ __forceinline__ int row_source(const Geo& g, const Item& it,
                                           const PlaneLoad& pl, int iy,
                                           int boundary, long long* row) {
   if (pl.fill) return 1;
-  int gy = it.y0 - g.h1 + iy;  // local == global for the carry
+  int gy = it.y0 - g.h1 + iy;  // local
   if (g.carry && boundary != kPeriodic) {
-    if (boundary == kConstant && (gy < 0 || gy >= g.n1)) return 1;
-    gy = clampi(gy, 0, g.n1 - 1);
+    const int oy = SH ? g.o1 : 0;
+    if (boundary == kConstant && (gy + oy < 0 || gy + oy >= g.n1)) return 1;
+    gy = clampi(gy + oy, 0, g.n1 - 1) - oy;
   }
   const int py = gy + g.so1;
   if (pl.pz < 0 || pl.pz >= g.s0 || py < 0 || py >= g.s1) return 2;
@@ -344,16 +356,19 @@ __device__ __forceinline__ int row_source(const Geo& g, const Item& it,
 }
 
 // Plane k (counted from the item's first stage-0 plane) of item `it`.
+template <bool SH>
 __device__ __forceinline__ PlaneLoad plane_load(const Geo& g, const Item& it,
                                                 int k, int boundary) {
   PlaneLoad pl;
   const int z = it.a - g.h0 + k;  // local plane
+  // global coordinate of local 0 where the carry's mapping acts
+  const int oz = SH ? g.o0 : 0, oy = SH ? g.o1 : 0, ox = SH ? g.o2 : 0;
   int zs = z;
   pl.fill = false;
   const bool mapped = g.carry && boundary != kPeriodic;
   if (mapped) {
-    pl.fill = boundary == kConstant && (z < 0 || z >= g.n0);
-    zs = clampi(z, 0, g.n0 - 1);
+    pl.fill = boundary == kConstant && (z + oz < 0 || z + oz >= g.n0);
+    zs = clampi(z + oz, 0, g.n0 - 1) - oz;
   }
   pl.pz = zs + g.so0;
   // stage-0 columns [in0, in1) lie inside the source; columns [lo, hi)
@@ -367,8 +382,8 @@ __device__ __forceinline__ PlaneLoad plane_load(const Geo& g, const Item& it,
     // the clamp/constant mapping reaches every column outside the grid
     pl.in0 = 0;
     pl.in1 = g.E2;
-    lo = max(lo, -gx0);
-    hi = min(hi, g.n2 - gx0);
+    lo = max(lo, -(gx0 + ox));
+    hi = min(hi, g.n2 - (gx0 + ox));
   }
   // 16-byte aligned ends, at most 3 cells past the stage-0 extent
   int sc0 = lo + g.pad > 4 ? lo + g.pad : 4;
@@ -382,7 +397,7 @@ __device__ __forceinline__ PlaneLoad plane_load(const Geo& g, const Item& it,
   const int gy0 = it.y0 - g.h1;
   pl.rows = !pl.bulk || pl.fill ||
             (mapped && boundary == kConstant &&
-             (gy0 < 0 || gy0 + g.E1 > g.n1));
+             (gy0 + oy < 0 || gy0 + oy + g.E1 > g.n1));
   pl.cells = pl.rows || pl.sc0 - g.pad > pl.in0 ||
              pl.sc1 - g.pad < pl.in1;
   return pl;
@@ -396,6 +411,7 @@ __device__ __forceinline__ PlaneLoad plane_load(const Geo& g, const Item& it,
 // leave out with plain loads and stores: every cell of a plane without
 // bulk copies or with rows of the boundary value, else only the columns
 // left and right of the bulk range.
+template <bool SH>
 __device__ void issue_group(const float* __restrict__ src, float* ring0,
                             unsigned long long* bars, const Geo& g,
                             const Item& it, int kg, int slot, int boundary,
@@ -406,10 +422,10 @@ __device__ void issue_group(const float* __restrict__ src, float* ring0,
     const int lane = threadIdx.x;
     uint32_t bytes = 0;
     for (int j = 0; j < g.B; ++j) {
-      const PlaneLoad pl = plane_load(g, it, kg * g.B + j, boundary);
+      const PlaneLoad pl = plane_load<SH>(g, it, kg * g.B + j, boundary);
       if (!pl.bulk) continue;
       for (int iy = lane; iy < g.E1; iy += 32)
-        if (row_source(g, it, pl, iy, boundary, &row) == 0)
+        if (row_source<SH>(g, it, pl, iy, boundary, &row) == 0)
           bytes += (uint32_t)(pl.sc1 - pl.sc0) * sizeof(float);
     }
     bytes = __reduce_add_sync(0xffffffffu, bytes);
@@ -419,11 +435,11 @@ __device__ void issue_group(const float* __restrict__ src, float* ring0,
     // stores; the threads that wrote cells of a ring slot with plain
     // stores fenced after them (below), and barriers separate both
     for (int j = 0; j < g.B; ++j) {
-      const PlaneLoad pl = plane_load(g, it, kg * g.B + j, boundary);
+      const PlaneLoad pl = plane_load<SH>(g, it, kg * g.B + j, boundary);
       if (!pl.bulk) continue;
       float* out = ring0 + (slot * g.B + j) * g.plane;
       for (int iy = lane; iy < g.E1; iy += 32) {
-        if (row_source(g, it, pl, iy, boundary, &row) != 0) continue;
+        if (row_source<SH>(g, it, pl, iy, boundary, &row) != 0) continue;
         bulk_copy(out + iy * g.P + pl.sc0,
                   src + row + pl.sx0 + (pl.sc0 - g.pad),
                   (uint32_t)(pl.sc1 - pl.sc0) * sizeof(float), bar);
@@ -432,8 +448,9 @@ __device__ void issue_group(const float* __restrict__ src, float* ring0,
   }
   bool wrote = false;
   const int gx0 = it.x0 - g.h2;
+  const int ox = SH ? g.o2 : 0;
   for (int j = 0; j < g.B; ++j) {
-    const PlaneLoad pl = plane_load(g, it, kg * g.B + j, boundary);
+    const PlaneLoad pl = plane_load<SH>(g, it, kg * g.B + j, boundary);
     if (!pl.cells) continue;
     wrote = true;
     float* out = ring0 + (slot * g.B + j) * g.plane;
@@ -447,15 +464,16 @@ __device__ void issue_group(const float* __restrict__ src, float* ring0,
       const int iy = w / per_row;
       int c = pl.in0 + (w - iy * per_row);
       if (c >= left) c += right - left;
-      const int how = row_source(g, it, pl, iy, boundary, &row);
+      const int how = row_source<SH>(g, it, pl, iy, boundary, &row);
       if (how == 2) continue;  // past the source: not read
       float v = bval;
       if (how == 0) {
         int gx = gx0 + c;
         bool fill = false;
-        if (g.carry && boundary != kPeriodic && (gx < 0 || gx >= g.n2)) {
+        if (g.carry && boundary != kPeriodic &&
+            (gx + ox < 0 || gx + ox >= g.n2)) {
           fill = boundary == kConstant;
-          gx = clampi(gx, 0, g.n2 - 1);
+          gx = clampi(gx + ox, 0, g.n2 - 1) - ox;
         }
         v = fill ? bval : src[row + gx + g.so2];
       }
@@ -469,6 +487,7 @@ __device__ void issue_group(const float* __restrict__ src, float* ring0,
 // the CTA's sequence of work items: issue group `pos` counted from the
 // start of item `lin` (= `it`), the `count`-th group of the CTA.  A
 // position past the CTA's last item issues nothing.
+template <bool SH>
 __device__ __forceinline__ void issue_at(const float* __restrict__ src,
                                          float* ring0,
                                          unsigned long long* bars,
@@ -481,8 +500,8 @@ __device__ __forceinline__ void issue_at(const float* __restrict__ src,
     if (lin >= g.total) return;
     it = item_of(g, lin);
   }
-  issue_group(src, ring0, bars, g, it, pos, (int)(count % g.G), boundary,
-              bval);
+  issue_group<SH>(src, ring0, bars, g, it, pos, (int)(count % g.G),
+                  boundary, bval);
 }
 
 __device__ __forceinline__ float4 ld4(const float* p) {
@@ -528,6 +547,7 @@ __device__ __forceinline__ void init_barriers(unsigned long long* bars,
 }
 
 // The first `ahead` groups of the CTA's first work item (or items).
+template <bool SH>
 __device__ __forceinline__ void issue_first(const float* __restrict__ src,
                                            float* ring0,
                                            unsigned long long* bars,
@@ -536,7 +556,8 @@ __device__ __forceinline__ void issue_first(const float* __restrict__ src,
   if ((int)blockIdx.x >= g.total) return;
   const Item it = item_of(g, blockIdx.x);
   for (int i = 0; i < g.ahead; ++i)
-    issue_at(src, ring0, bars, g, blockIdx.x, it, i, i, boundary, bval);
+    issue_at<SH>(src, ring0, bars, g, blockIdx.x, it, i, i, boundary,
+                 bval);
 }
 
 // ---- the queue path ------------------------------------------------------------
@@ -626,8 +647,9 @@ __device__ __forceinline__ float4 f4(const float (&v)[kV]) {
 // j .. j + 2R, its centre at R + j, which the threads wrote into shared
 // memory at the start of the step (from position 2R + j, before the
 // stage's push), double-buffered, so one barrier a step publishes the
-// loaded group and every centre group.
-template <int ND, int R, int T>
+// loaded group and every centre group.  SH is the sharded carry
+// (row_source).
+template <int ND, int R, int T, bool SH>
 __global__ void __launch_bounds__(kThreads, 2)
 queue_kernel(const float* __restrict__ src, float* __restrict__ dst,
              Geo g, int boundary, float bval) {
@@ -659,7 +681,7 @@ queue_kernel(const float* __restrict__ src, float* __restrict__ dst,
 #pragma unroll
       for (int v = 0; v < kV; ++v) q[s][i][v] = 0.0f;
 
-  issue_first(src, ring0, bars, g, boundary, bval);
+  issue_first<SH>(src, ring0, bars, g, boundary, bval);
   unsigned step = 0;  // groups consumed by this CTA
   int slot = 0;       // step % G
   unsigned parity = 0;
@@ -714,8 +736,8 @@ queue_kernel(const float* __restrict__ src, float* __restrict__ dst,
         }
         __syncthreads();
       }
-      issue_at(src, ring0, bars, g, lin, it, k + g.ahead, step + g.ahead,
-               boundary, bval);
+      issue_at<SH>(src, ring0, bars, g, lin, it, k + g.ahead,
+                   step + g.ahead, boundary, bval);
       // ring plane of stage-0 plane z + d (d >= -2R), d counted in planes
       const int base = (int)((step * R) % g.D0);
       auto ring = [&](int d) {
@@ -819,30 +841,32 @@ using QueueFn = void (*)(const float*, float*, Geo, int, float);
 
 // The queue path's instantiations: stars of radius 1..4 in 2D and 3D,
 // up to QUEUE_STEPS[ndim][R] fused steps (core/blocking.py), what fits
-// 128 registers without spilling.
+// 128 registers without spilling; each for one device's carry and the
+// pre-padded grids (SH false) and for a mesh shard's carry (SH true).
+template <bool SH>
 QueueFn choose_queue(int nd, int r, int t) {
   switch (nd * 100 + r * 10 + t) {
-    case 211: return queue_kernel<2, 1, 1>;
-    case 212: return queue_kernel<2, 1, 2>;
-    case 213: return queue_kernel<2, 1, 3>;
-    case 214: return queue_kernel<2, 1, 4>;
-    case 221: return queue_kernel<2, 2, 1>;
-    case 222: return queue_kernel<2, 2, 2>;
-    case 223: return queue_kernel<2, 2, 3>;
-    case 231: return queue_kernel<2, 3, 1>;
-    case 232: return queue_kernel<2, 3, 2>;
-    case 241: return queue_kernel<2, 4, 1>;
-    case 242: return queue_kernel<2, 4, 2>;
-    case 311: return queue_kernel<3, 1, 1>;
-    case 312: return queue_kernel<3, 1, 2>;
-    case 313: return queue_kernel<3, 1, 3>;
-    case 314: return queue_kernel<3, 1, 4>;
-    case 321: return queue_kernel<3, 2, 1>;
-    case 322: return queue_kernel<3, 2, 2>;
-    case 323: return queue_kernel<3, 2, 3>;
-    case 331: return queue_kernel<3, 3, 1>;
-    case 332: return queue_kernel<3, 3, 2>;
-    case 341: return queue_kernel<3, 4, 1>;
+    case 211: return queue_kernel<2, 1, 1, SH>;
+    case 212: return queue_kernel<2, 1, 2, SH>;
+    case 213: return queue_kernel<2, 1, 3, SH>;
+    case 214: return queue_kernel<2, 1, 4, SH>;
+    case 221: return queue_kernel<2, 2, 1, SH>;
+    case 222: return queue_kernel<2, 2, 2, SH>;
+    case 223: return queue_kernel<2, 2, 3, SH>;
+    case 231: return queue_kernel<2, 3, 1, SH>;
+    case 232: return queue_kernel<2, 3, 2, SH>;
+    case 241: return queue_kernel<2, 4, 1, SH>;
+    case 242: return queue_kernel<2, 4, 2, SH>;
+    case 311: return queue_kernel<3, 1, 1, SH>;
+    case 312: return queue_kernel<3, 1, 2, SH>;
+    case 313: return queue_kernel<3, 1, 3, SH>;
+    case 314: return queue_kernel<3, 1, 4, SH>;
+    case 321: return queue_kernel<3, 2, 1, SH>;
+    case 322: return queue_kernel<3, 2, 2, SH>;
+    case 323: return queue_kernel<3, 2, 3, SH>;
+    case 331: return queue_kernel<3, 3, 1, SH>;
+    case 332: return queue_kernel<3, 3, 2, SH>;
+    case 341: return queue_kernel<3, 4, 1, SH>;
     default: return nullptr;
   }
 }
@@ -866,7 +890,9 @@ int launch(const void* src, void* dst, const void* coef, int ntaps,
   if (!make_geo(geometry, steps, batch, ntaps, &g))
     return cudaErrorInvalidConfiguration;
   g.bulk = g.s2 % 4 == 0 && reinterpret_cast<uintptr_t>(src) % 16 == 0;
-  const QueueFn q = choose_queue(g.r1 == 0 ? 2 : 3, g.r0, g.T);
+  const int nd = g.r1 == 0 ? 2 : 3;
+  const QueueFn q = g.sharded ? choose_queue<true>(nd, g.r0, g.T)
+                              : choose_queue<false>(nd, g.r0, g.T);
   if (q == nullptr) return cudaErrorInvalidConfiguration;
   const void* fn = reinterpret_cast<const void*>(q);
   const size_t smem = smem_bytes(g);

@@ -19,6 +19,14 @@
 //     before group i computes;
 //   - B1 (build_padded_superstep_kernel) runs tap sets that have no
 //     register queue (queued_superstep.cu) on the one-shot launcher.
+// * The sharded carry: the padded carry of one mesh shard, its t = 0
+//   boundary mapped and its fixups made at global coordinates origin +
+//   local (origin: the shard offsets) against the global extent, so the
+//   ring cells the mesh exchanged at inner shard edges are read as they
+//   are and only cells outside the global grid are mapped (the
+//   reference's offsets= and global_shape=, core/distributed.py).  B1 on
+//   the one-shot launcher, B4 on the persistent one; plain version:
+//   padded_superstep_plain(offsets=, global_shape=).
 // * Pre-padded: T fused steps of a grid that boundary_pad already padded
 //   by h, copied as it is (no t = 0 mapping), fixups between steps at
 //   global coordinates origin + local (origin: the shard offsets), every
@@ -105,9 +113,15 @@ enum Field {
   kRadius,   // shrink per step (0 on a 2D grid's dummy y)
   kBlock,    // (segment length L, tile y, tile x)
   kRing,     // (planes per group B, fused steps T, shared-memory bytes)
-  kMode,     // (fixed tap set: Shape code, or 0; pre-padded?; unused)
+  kMode,     // (fixed tap set: Shape code, or 0; pre-padded?; sharded?)
   kFields
 };
+
+// What a launch loads and where its boundary acts: the single device's
+// carry (origin 0 at compile time), a mesh shard's carry (origin read at
+// run time, the t = 0 mapping at global coordinates), or a pre-padded
+// grid (copied as it is, the origin read at run time).
+enum Mode { kCarry = 0, kPrepadded = 1, kSharded = 2 };
 
 // Tap sets the kernel has fixed-offset instantiations for: their offsets
 // are compile-time constants and their coefficients live in registers.
@@ -137,6 +151,7 @@ struct Geo {
   int D0, D;       // ring depth: loaded ring, computed rings
   int shape;       // fixed tap set (Shape) or kAny
   int prepadded;   // the source is copied as it is (no t = 0 mapping)
+  int sharded;     // a mesh shard's carry (Mode kSharded)
 };
 
 // Ring s (stage s's output; 0: the loaded planes) is clipped to stage s's
@@ -196,15 +211,18 @@ inline bool make_geo(const long long* a, int steps, int batch, Geo* g) {
   g->B = (int)f(kRing, 0), g->T = (int)f(kRing, 1);
   g->shape = (int)f(kMode, 0);
   g->prepadded = (int)f(kMode, 1);
+  g->sharded = (int)f(kMode, 2);
   if (g->T != steps || steps < 1 || batch < 1 || g->L < 1 || g->ty < 1 ||
       g->tx < 1 || g->B < 1 || g->w0 < 1 || g->w1 < 1 || g->w2 < 1 ||
       g->r0 < 1 || g->r2 < 1 || g->shape < kAny || g->shape > kBox ||
-      (g->prepadded != 0 && g->prepadded != 1) || g->n1 > (1LL << 30) ||
-      g->n2 > (1LL << 30))
+      (g->prepadded != 0 && g->prepadded != 1) ||
+      (g->sharded != 0 && g->sharded != 1) ||
+      (g->sharded && g->prepadded) || g->n0 > (1LL << 30) ||
+      g->n1 > (1LL << 30) || g->n2 > (1LL << 30))
     return false;
   for (int i = 0; i < 3; ++i)
     if (f(kOrigin, i) < 0 || f(kOrigin, i) > (1LL << 30) ||
-        (!g->prepadded && f(kOrigin, i) != 0))
+        (!g->prepadded && !g->sharded && f(kOrigin, i) != 0))
       return false;
   g->h0 = steps * g->r0, g->h1 = steps * g->r1, g->h2 = steps * g->r2;
   g->E1 = g->ty + 2 * g->h1;
@@ -278,11 +296,13 @@ __device__ __forceinline__ int divmod(int f, int d, float inv, int* r) {
 // source cell, the boundary value (constant) or zero (past the source's
 // end, unmapped loads only: such cells feed no stored output).  `raw`
 // copies the source as it is: a pre-padded source, or a periodic carry;
-// any other carry maps the t = 0 boundary.
+// any other carry maps the t = 0 boundary at global coordinates, (oz, oy,
+// ox) being the global coordinate of local 0 (0 but on a mesh shard).
 __device__ __forceinline__ void load_planes(
     const float* __restrict__ src, float* ring0, const Ring& r0,
     const Geo& g, const Item& it, long long z0, long long zlo,
-    long long zhi, int boundary, float bval, bool raw) {
+    long long zhi, int boundary, float bval, bool raw, long long oz,
+    long long oy, long long ox) {
   const int nchunk = (g.E2 + 3) >> 2;
   const int rows = (int)(zhi - zlo) * g.E1;
   const int items = rows * nchunk;
@@ -300,9 +320,10 @@ __device__ __forceinline__ void load_planes(
     long long zs = z, ys = gy;
     if (!raw) {
       if (boundary == kConstant)
-        fill = z < 0 || z >= g.n0 || gy < 0 || gy >= g.n1;
-      zs = clampll(z, 0, g.n0 - 1);
-      ys = clampll(gy, 0, g.n1 - 1);
+        fill = z + oz < 0 || z + oz >= g.n0 || gy + oy < 0 ||
+               gy + oy >= g.n1;
+      zs = clampll(z + oz, 0, g.n0 - 1) - oz;
+      ys = clampll(gy + oy, 0, g.n1 - 1) - oy;
     }
     const long long pz = zs + g.so0, py = ys + g.so1;
     const bool row_ok = !fill && pz >= 0 && pz < g.s0 && py >= 0 &&
@@ -312,7 +333,7 @@ __device__ __forceinline__ void load_planes(
     const long long gx = gx0 + 4 * c;
     const long long px = gx + g.so2;
     bool vec = row_ok && 4 * c + 4 <= g.E2 && px >= 0 && px + 3 < g.s2;
-    if (vec && !raw) vec = gx >= 0 && gx + 3 < g.n2;
+    if (vec && !raw) vec = gx + ox >= 0 && gx + ox + 3 < g.n2;
     if (vec) vec = (reinterpret_cast<size_t>(srow + px) & 15) == 0;
     if (vec) {
       __pipeline_memcpy_async(out, srow + px, 16);
@@ -326,11 +347,11 @@ __device__ __forceinline__ void load_planes(
       }
       long long xs = gx + k;
       if (!raw) {
-        if (boundary == kConstant && (xs < 0 || xs >= g.n2)) {
+        if (boundary == kConstant && (xs + ox < 0 || xs + ox >= g.n2)) {
           *cell = bval;
           continue;
         }
-        xs = clampll(xs, 0, g.n2 - 1);
+        xs = clampll(xs + ox, 0, g.n2 - 1) - ox;
       }
       const long long q = xs + g.so2;
       if (q >= 0 && q < g.s2)
@@ -638,11 +659,12 @@ __device__ __forceinline__ void ghost_plane(float* ring, const Ring& r,
 }
 
 // At least two CTAs per SM: ptxas may then use up to 128 registers a
-// thread, which every instantiation fits without spilling.  PRE is the
-// pre-padded mode: in the carry's instantiations the origin is 0 at
-// compile time (read at run time, it made the box runs 0.1-0.2 ms slower:
-// PERF.md, tools/box_run_walls.py).
-template <int S, int R, int ND, bool PRE>
+// thread, which every instantiation fits without spilling.  M is the Mode:
+// in the single device's carry (kCarry) the origin is 0 at compile time
+// (read at run time, it made the box runs 0.1-0.2 ms slower: PERF.md,
+// tools/box_run_walls.py); a mesh shard's carry (kSharded) and the
+// pre-padded mode read it.
+template <int S, int R, int ND, int M>
 __global__ void __launch_bounds__(kThreads, 2)
 streamed_kernel(const float* __restrict__ src, float* __restrict__ dst,
                 const float* __restrict__ coef, const int* __restrict__ offs,
@@ -673,17 +695,23 @@ streamed_kernel(const float* __restrict__ src, float* __restrict__ dst,
   }
   __syncthreads();
 
+  constexpr bool PRE = M == kPrepadded;
   const bool periodic = boundary == kPeriodic;
   const bool raw = periodic || PRE;
   const Ring r0 = first_ring(g);
-  const long long zero = PRE ? -g.o0 : 0;  // local plane of global 0
+  const long long zero = M != kCarry ? -g.o0 : 0;  // local plane of global 0
+  // global coordinate of local 0 where the t = 0 mapping acts
+  const long long lo0 = M == kSharded ? g.o0 : 0;
+  const long long lo1 = M == kSharded ? g.o1 : 0;
+  const long long lo2 = M == kSharded ? g.o2 : 0;
   for (long long lin = blockIdx.x; lin < g.total; lin += gridDim.x) {
     const Item it = item_of(g, lin);
     const long long z0 = it.a - g.h0;        // first loaded plane
     const long long zend = it.e + g.h0;      // loaded planes end
     const int iters = (int)((it.e - it.a + 2 * g.h0 + g.B - 1) / g.B);
     load_planes(src, smem, r0, g, it, z0, z0,
-                z0 + g.B < zend ? z0 + g.B : zend, boundary, bval, raw);
+                z0 + g.B < zend ? z0 + g.B : zend, boundary, bval, raw, lo0,
+                lo1, lo2);
     __pipeline_commit();
     for (int i = 0; i < iters; ++i) {
       // the copy of group i + 1 is in flight while group i computes
@@ -691,7 +719,7 @@ streamed_kernel(const float* __restrict__ src, float* __restrict__ dst,
       const long long ghi = glo + g.B < zend ? glo + g.B : zend;
       if (glo < ghi)
         load_planes(src, smem, r0, g, it, z0, glo, ghi, boundary, bval,
-                    raw);
+                    raw, lo0, lo1, lo2);
       __pipeline_commit();
       __pipeline_wait_prior(1);  // group i has landed
       __syncthreads();
@@ -727,8 +755,8 @@ streamed_kernel(const float* __restrict__ src, float* __restrict__ dst,
         p.out = smem + p.ro.base;
         p.qlo = clo;
         p.qhi = chi;
-        p.oy = PRE ? (int)g.o1 : 0;
-        p.ox = PRE ? (int)g.o2 : 0;
+        p.oy = M != kCarry ? (int)g.o1 : 0;
+        p.ox = M != kCarry ? (int)g.o2 : 0;
         p.last = last;
         if (last) {
           p.ylo = g.h1;
@@ -789,30 +817,32 @@ using KernelFn = void (*)(const float*, float*, const float*, const int*,
 
 // The instantiation for the geometry: a fixed tap set (star of radius
 // 1..4, box of radius 1..2 in 2D or 1 in 3D) in groups of its column
-// planes, else the flat path; for the carry or the pre-padded mode.
-template <bool PRE>
+// planes, else the flat path; for the carry, a shard's carry or the
+// pre-padded mode.
+template <int M>
 KernelFn choose_taps(const Geo& g) {
   const bool d2 = g.r1 == 0;
   if (g.B != (d2 ? column_planes<2>() : column_planes<3>()))
-    return streamed_kernel<kAny, 0, 3, PRE>;
+    return streamed_kernel<kAny, 0, 3, M>;
   switch (g.shape * 100 + g.r0 * 10 + (d2 ? 2 : 3)) {
-    case 112: return streamed_kernel<kStar, 1, 2, PRE>;
-    case 122: return streamed_kernel<kStar, 2, 2, PRE>;
-    case 132: return streamed_kernel<kStar, 3, 2, PRE>;
-    case 142: return streamed_kernel<kStar, 4, 2, PRE>;
-    case 113: return streamed_kernel<kStar, 1, 3, PRE>;
-    case 123: return streamed_kernel<kStar, 2, 3, PRE>;
-    case 133: return streamed_kernel<kStar, 3, 3, PRE>;
-    case 143: return streamed_kernel<kStar, 4, 3, PRE>;
-    case 212: return streamed_kernel<kBox, 1, 2, PRE>;
-    case 222: return streamed_kernel<kBox, 2, 2, PRE>;
-    case 213: return streamed_kernel<kBox, 1, 3, PRE>;
-    default: return streamed_kernel<kAny, 0, 3, PRE>;
+    case 112: return streamed_kernel<kStar, 1, 2, M>;
+    case 122: return streamed_kernel<kStar, 2, 2, M>;
+    case 132: return streamed_kernel<kStar, 3, 2, M>;
+    case 142: return streamed_kernel<kStar, 4, 2, M>;
+    case 113: return streamed_kernel<kStar, 1, 3, M>;
+    case 123: return streamed_kernel<kStar, 2, 3, M>;
+    case 133: return streamed_kernel<kStar, 3, 3, M>;
+    case 143: return streamed_kernel<kStar, 4, 3, M>;
+    case 212: return streamed_kernel<kBox, 1, 2, M>;
+    case 222: return streamed_kernel<kBox, 2, 2, M>;
+    case 213: return streamed_kernel<kBox, 1, 3, M>;
+    default: return streamed_kernel<kAny, 0, 3, M>;
   }
 }
 
 KernelFn choose(const Geo& g) {
-  return g.prepadded ? choose_taps<true>(g) : choose_taps<false>(g);
+  if (g.prepadded) return choose_taps<kPrepadded>(g);
+  return g.sharded ? choose_taps<kSharded>(g) : choose_taps<kCarry>(g);
 }
 
 int launch(const void* src, void* dst, const void* coef, const void* offs,

@@ -11,7 +11,9 @@ source headers say what bounds each on the card and what its design does
 about it).  Two bodies carry every superstep (``blocking.kernel_body``
 says which one a kernel and tap set run):
 
-* ``padded_superstep`` (B1, ``build_padded_superstep_kernel``),
+* ``padded_superstep`` (B1, ``build_padded_superstep_kernel``; a mesh
+  shard's launch is the sharded instantiation, counted as
+  ``padded_superstep_sharded``),
   ``superstep`` (B5, ``build_superstep_kernel``) and
   ``pipelined_superstep`` (B6, ``build_pipelined_kernel``) ->
   ``csrc/queued_superstep.cu`` for stars within ``QUEUE_STEPS``: CTAs
@@ -20,7 +22,8 @@ says which one a kernel and tap set run):
   ``kernels/queued.py``).  B1 and B5 run a one-shot grid, B6 persistent
   CTAs;
 * ``temporal_superstep`` (B3, ``build_temporal_kernel``) and
-  ``padded_pipelined`` (B4, ``build_padded_pipelined_kernel``) ->
+  ``padded_pipelined`` (B4, ``build_padded_pipelined_kernel``; a shard's
+  launch counted as ``padded_pipelined_sharded``) ->
   ``csrc/streamed_superstep.cu``, CTAs that stream a column tile plane by
   plane through one ring of planes per fused step, copying the next plane
   group while the current one computes (geometry in
@@ -105,6 +108,15 @@ PADDED_PIPELINED = Kernel("streamed_superstep.cu",
                           "padded_pipelined_launch", _SUPERSTEP_ARGS)
 PIPELINED_SUPERSTEP = Kernel("queued_superstep.cu",
                              "queued_superstep_launch", _SUPERSTEP_ARGS)
+#: The sharded instantiations of B1 and B4 (a mesh shard's carry: the t = 0
+#: boundary at global coordinates ``origin + local``), counted apart from
+#: the single device's, whose origin is 0 at compile time.
+PADDED_SUPERSTEP_SHARDED = Kernel("queued_superstep.cu",
+                                  "queued_superstep_launch",
+                                  _SUPERSTEP_ARGS)
+PADDED_PIPELINED_SHARDED = Kernel("streamed_superstep.cu",
+                                  "padded_pipelined_launch",
+                                  _SUPERSTEP_ARGS)
 
 #: (buf, boxes, nbox, blocks, P0, P1, P2, device, stream)
 WRAP_HALO = Kernel("wrap_halo.cu", "wrap_halo_launch",
@@ -117,6 +129,8 @@ KERNELS = {
     "padded_pipelined": PADDED_PIPELINED,
     "superstep": SUPERSTEP,
     "pipelined_superstep": PIPELINED_SUPERSTEP,
+    "padded_superstep_sharded": PADDED_SUPERSTEP_SHARDED,
+    "padded_pipelined_sharded": PADDED_PIPELINED_SHARDED,
 }
 
 
@@ -216,38 +230,60 @@ def _superstep_launch(kernel: Kernel, src, dst, center, taps, geo, program,
            dev.index, _stream(dev), route=route)
 
 
+def _shard(layout, offsets, global_shape) -> dict:
+    """The geometry keywords placing a mesh shard (none on one device)."""
+    if offsets is None and global_shape is None:
+        return {}
+    nd = len(layout.local_shape)
+    return dict(origin=(0,) * nd if offsets is None
+                else tuple(int(o) for o in offsets),
+                true_shape=layout.local_shape if global_shape is None
+                else tuple(int(n) for n in global_shape))
+
+
 def padded_superstep(src, dst, center, taps, *, program, plan, layout,
-                     tile=None, segment=None) -> None:
+                     offsets=None, global_shape=None, tile=None,
+                     segment=None) -> None:
     """B1: one superstep of ``plan.par_time`` steps of the padded carry
     ``src`` -> ``dst`` (true interior of ``dst`` only; see
     ``common.padded_superstep_plain``), a one-shot grid: the register
     queues for a star within ``QUEUE_STEPS``, the streamed kernel's
     one-shot launcher (B3's, at ``par_time`` steps) for every other tap
-    set.  ``tile`` (in-plane) and ``segment`` override the picks."""
+    set.  ``offsets`` and ``global_shape`` place a mesh shard: its
+    geometry is then ``sharded`` and the launch runs (and counts as) the
+    sharded instantiation.  ``tile`` (in-plane) and ``segment`` override
+    the picks."""
     _check_pair(src, dst, layout)
     batch = src.shape[0] if src.ndim > program.ndim else 1
     kw = dict(batch=batch, smem_limit=smem_optin(src.device.index),
-              tile=tile, segment=segment)
+              tile=tile, segment=segment,
+              **_shard(layout, offsets, global_shape))
     if plan.body("padded_superstep") == "streamed":
         geo = streamed.carry_geometry(program, plan.par_time, layout, **kw)
         route = TEMPORAL_SUPERSTEP
     else:
         geo = queued.carry_geometry(program, plan.par_time, layout, **kw)
         route = None
-    _superstep_launch(PADDED_SUPERSTEP, src, dst, center, taps, geo, program,
-                      route)
+    kernel = PADDED_SUPERSTEP_SHARDED if geo.sharded else PADDED_SUPERSTEP
+    _superstep_launch(kernel, src, dst, center, taps, geo, program, route)
 
 
 def _streamed(kernel: Kernel, name: str, src, dst, center, taps, *,
-              program, plan, layout, tile, segment) -> None:
+              program, plan, layout, tile, segment, offsets=None,
+              global_shape=None, sharded: Optional[Kernel] = None) -> None:
     """B3 or B4: a streamed superstep of the padded carry, geometry from
-    ``streamed.carry_geometry``."""
+    ``streamed.carry_geometry``; a shard's launch counts as ``sharded``."""
     _check_pair(src, dst, layout)
     batch = src.shape[0] if src.ndim > program.ndim else 1
     geo = streamed.carry_geometry(
         program, plan.kernel_steps(name), layout, batch=batch,
-        smem_limit=smem_optin(src.device.index), tile=tile, segment=segment)
-    _superstep_launch(kernel, src, dst, center, taps, geo, program)
+        smem_limit=smem_optin(src.device.index), tile=tile, segment=segment,
+        **_shard(layout, offsets, global_shape))
+    if geo.sharded:
+        _superstep_launch(sharded, src, dst, center, taps, geo, program,
+                          kernel)
+    else:
+        _superstep_launch(kernel, src, dst, center, taps, geo, program)
 
 
 def temporal_superstep(src, dst, center, taps, *, program, plan, layout,
@@ -262,11 +298,14 @@ def temporal_superstep(src, dst, center, taps, *, program, plan, layout,
 
 
 def padded_pipelined(src, dst, center, taps, *, program, plan, layout,
-                     tile=None, segment=None) -> None:
-    """B4: one superstep of ``plan.par_time`` steps, persistent CTAs."""
+                     offsets=None, global_shape=None, tile=None,
+                     segment=None) -> None:
+    """B4: one superstep of ``plan.par_time`` steps, persistent CTAs;
+    ``offsets``/``global_shape`` as :func:`padded_superstep`'s."""
     _streamed(PADDED_PIPELINED, "padded_pipelined", src, dst, center, taps,
               program=program, plan=plan, layout=layout, tile=tile,
-              segment=segment)
+              segment=segment, offsets=offsets, global_shape=global_shape,
+              sharded=PADDED_PIPELINED_SHARDED)
 
 
 def _rounded(padded: torch.Tensor, program, plan) -> Tuple[int, ...]:

@@ -81,6 +81,15 @@ class QueuedGeometry:
     persistent: bool
 
     @property
+    def sharded(self) -> bool:
+        """A mesh shard's carry (origin or global extent not the local
+        ones): the sharded instantiation, which maps the t = 0 boundary on
+        load at global coordinates; a single device's carry keeps the one
+        that maps it at local coordinates."""
+        return self.carry and (any(self.origin)
+                               or self.true != self.written)
+
+    @property
     def radii(self) -> Tuple[int, int, int]:
         r = self.radius
         return (r, 0 if self.ndim == 2 else r, r)
@@ -135,7 +144,7 @@ class QueuedGeometry:
                 self.written, self.origin, self.radii,
                 (self.segment, self.tile[0], self.tile[1]),
                 (self.steps, planes.group, planes.ahead),
-                (int(self.carry), int(self.persistent), 0),
+                (int(self.carry), int(self.persistent), int(self.sharded)),
                 (planes.bytes(), 0, 0))
         return [int(v) for row in rows for v in row]
 
@@ -225,23 +234,29 @@ def _geometry(program, steps, *, true, src, src_off, dst, dst_off, written,
 @functools.lru_cache(maxsize=256)
 def carry_geometry(program, steps: int, layout, *, batch: int,
                    smem_limit: int, tile: Optional[Tuple[int, ...]] = None,
-                   segment: Optional[int] = None) -> QueuedGeometry:
+                   segment: Optional[int] = None,
+                   origin: Optional[Tuple[int, ...]] = None,
+                   true_shape: Optional[Tuple[int, ...]] = None
+                   ) -> QueuedGeometry:
     """B1: ``steps`` fused steps of the padded carry ``layout``
     (``common.PaddedLayout``), read at ring offset ``H - h`` and written
     into the other carry buffer at ``H``, true cells only, on the register
     queues; a one-shot grid (persistent CTAs measured slower,
-    ``PERF.md``)."""
+    ``PERF.md``).  ``origin`` and ``true_shape`` place a mesh shard in the
+    global grid (:attr:`QueuedGeometry.sharded`); the tile and segment
+    picks read the local extent."""
     nd = program.ndim
     h = steps * program.halo_radius
     H = layout.halo
     if h > H:
         raise ValueError(f"a {steps}-step window needs a ring of {h}, the "
                          f"layout has {H}")
+    o3, true = streamed.shard_rows(nd, layout, origin, true_shape)
     n = streamed.axes3(nd, layout.local_shape)
     P = streamed.axes3(nd, layout.padded_shape)
     off = (H, 0, H) if nd == 2 else (H, H, H)
-    return _geometry(program, steps, true=n, src=P, src_off=off, dst=P,
-                     dst_off=off, written=n, origin=(0, 0, 0), batch=batch,
+    return _geometry(program, steps, true=true, src=P, src_off=off, dst=P,
+                     dst_off=off, written=n, origin=o3, batch=batch,
                      smem_limit=smem_limit, tile=tile, segment=segment,
                      carry=True, persistent=False)
 

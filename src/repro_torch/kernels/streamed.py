@@ -85,6 +85,15 @@ class StreamedGeometry:
     prepadded: bool = False
 
     @property
+    def sharded(self) -> bool:
+        """A mesh shard's carry (origin or global extent not the local
+        ones): the kernel's sharded instantiation, which maps the t = 0
+        boundary at global coordinates.  A single device's carry keeps the
+        instantiation whose origin is 0 at compile time."""
+        return not self.prepadded and (any(self.origin)
+                                       or self.true != self.written)
+
+    @property
     def radii(self) -> Tuple[int, int, int]:
         """Shrink per stage on each axis (0 on a 2D grid's dummy y)."""
         r = self.radius
@@ -149,7 +158,7 @@ class StreamedGeometry:
                 self.written, self.origin, self.radii,
                 (self.segment, self.tile[0], self.tile[1]),
                 (self.rings.group, self.steps, self.smem_bytes),
-                (self.fixed, int(self.prepadded), 0))
+                (self.fixed, int(self.prepadded), int(self.sharded)))
         return [int(v) for row in rows for v in row]
 
 
@@ -246,26 +255,49 @@ def _geometry(program, steps, *, true, src, src_off, dst, dst_off,
         prepadded=prepadded)
 
 
+def shard_rows(nd: int, layout, origin, true_shape):
+    """``(origin, true)`` rows of a carry in (streamed, y, x) axes: a mesh
+    shard's origin and the global extent, or 0 and the local extent on
+    one device.  Raises where they do not place the local extent inside
+    the global grid."""
+    true = layout.local_shape if true_shape is None else tuple(true_shape)
+    offs = (0,) * nd if origin is None else tuple(int(o) for o in origin)
+    if len(offs) != nd or len(true) != nd or any(
+            o < 0 or o + n > t
+            for o, n, t in zip(offs, layout.local_shape, true)):
+        raise ValueError(f"shard origin {offs} does not place the local "
+                         f"extent {layout.local_shape} inside the global "
+                         f"grid {true}")
+    o3 = (offs[0], 0, offs[1]) if nd == 2 else offs
+    return o3, axes3(nd, true)
+
+
 @functools.lru_cache(maxsize=256)
 def carry_geometry(program, steps: int, layout, *, batch: int,
                    smem_limit: int,
                    tile: Optional[Tuple[int, ...]] = None,
-                   segment: Optional[int] = None) -> StreamedGeometry:
+                   segment: Optional[int] = None,
+                   origin: Optional[Tuple[int, ...]] = None,
+                   true_shape: Optional[Tuple[int, ...]] = None
+                   ) -> StreamedGeometry:
     """The geometry of a streamed superstep of the padded carry ``layout``
     (``common.PaddedLayout``): ``steps`` fused steps read at ring offset
     ``H`` and written into the other carry buffer at ``H``, true cells
     only.  ``tile`` (in-plane, as :func:`pick_streamed_tile` returns it)
-    and ``segment`` override the picks."""
+    and ``segment`` override the picks, which read the local extent.
+    ``origin`` and ``true_shape`` place a mesh shard in the global grid
+    (:attr:`StreamedGeometry.sharded`)."""
     nd = program.ndim
     H = layout.halo
     if steps * program.halo_radius > H:
         raise ValueError(f"a {steps}-step window needs a ring of "
                          f"{steps * program.halo_radius}, the layout has {H}")
+    o3, true = shard_rows(nd, layout, origin, true_shape)
     n = axes3(nd, layout.local_shape)
     P = axes3(nd, layout.padded_shape)
     off = (H, 0, H) if nd == 2 else (H, H, H)
-    return _geometry(program, steps, true=n, src=P, src_off=off, dst=P,
-                     dst_off=off, written=n, origin=(0, 0, 0), batch=batch,
+    return _geometry(program, steps, true=true, src=P, src_off=off, dst=P,
+                     dst_off=off, written=n, origin=o3, batch=batch,
                      smem_limit=smem_limit, tile=tile, segment=segment,
                      prepadded=False)
 

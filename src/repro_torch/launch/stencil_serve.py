@@ -16,6 +16,13 @@ autotuner and its plan cache).  The first compile of a (program, shape)
 resolves its plan and backend; every later chunk size and step count
 pins them, so a shape's requests all run the same kernels.
 
+``mesh_devices=N`` compiles every batched chunk onto an N-device mesh
+(``compile(devices=N)``, the mesh tuner picking the plan and the split
+per (program, shape)), each chunk one batched mesh run: the batch rides
+along, the grid is decomposed, one deep-halo exchange per superstep.
+Groups the mesh cannot take (a shape no split divides, an empty sharded
+space) run on one device instead, the reason in ``mesh_fallbacks``.
+
 Where this differs from the reference:
 
 * ``device=`` (None: CUDA, RP110 without a GPU; ``"cpu"`` runs the plain
@@ -27,9 +34,9 @@ Where this differs from the reference:
 * Chunks are enqueued without waiting; a CUDA event recorded after each
   chunk's dispatch is what the resolution pass waits on
   (:func:`wait_ready`) before it stamps the chunk's latency samples.
-* One device: ``mesh_devices`` above 1 is RP110 (the mesh executor is
-  ROADMAP A9), never a silent single-device run.  ``mesh_fallbacks`` and
-  ``stats.sharded_batches`` stay for parity, always empty and 0.
+* ``mesh_devices`` above what ``core/distributed.visible_devices`` gives
+  (one per card, or ``REPRO_TORCH_FORCE_DEVICE_COUNT``) is RP110 at
+  construction, never a silent single-device server.
 * Failure isolation holds for host-side failures (a refused plan, RP105,
   RP101, ...): the group loses its own requests to ``failed`` and the
   others are served.  A device fault (an illegal address) leaves the CUDA
@@ -54,8 +61,8 @@ import torch
 from repro_torch import obs
 from repro_torch.analysis.hw import GpuChip
 from repro_torch.core.program import StencilProgram
-from repro_torch.executor import (CompiledStencil, _resolve_device,
-                                  stencil)
+from repro_torch.executor import (CompiledStencil, _mesh_devices,
+                                  _resolve_device, stencil)
 from repro_torch.lint.diagnostics import DiagnosticError
 from repro_torch.lint.diagnostics import error as _diag
 from repro_torch.tuning.cache import program_fingerprint
@@ -164,21 +171,20 @@ class StencilServer:
         if mesh_devices is not None and mesh_devices < 1:
             raise ValueError(
                 f"mesh_devices must be >= 1 (got {mesh_devices})")
-        if mesh_devices is not None and mesh_devices > 1:
-            raise DiagnosticError([_diag(
-                "RP110",
-                f"StencilServer(mesh_devices={mesh_devices}) asks for a "
-                f"device mesh; this port serves on one device so far (the "
-                f"mesh executor is ROADMAP A9)",
-                hint="drop mesh_devices= to serve on one card")])
         self.max_batch = max_batch
         self.device = _resolve_device(device)
+        if mesh_devices is not None and mesh_devices > 1:
+            # RP110 here when too few devices are visible: a mesh server
+            # never serves on one device in silence
+            _mesh_devices(mesh_devices, mesh_devices, self.device)
         self.chip = chip
         self.variant = variant
         self.use_autotune = use_autotune
         self.cache_path = cache_path
         self.max_par_time = max_par_time
-        self.mesh_devices = None
+        # a 1-device "mesh" is the single-device executor, so that
+        # stats.sharded_batches counts only batches that were sharded
+        self.mesh_devices = None if mesh_devices == 1 else mesh_devices
         # an explicit recorder records whatever REPRO_TORCH_OBS says, so
         # serve stats always work
         self.recorder = recorder if recorder is not None else obs.Recorder()
@@ -186,7 +192,7 @@ class StencilServer:
         #: (executable identity, steps) pairs that already dispatched once
         self._warm: set = set()
         self.failed: Dict[int, str] = {}
-        #: always empty: no mesh path to decline a group
+        #: (program fp, shape) -> why the mesh declined the group
         self.mesh_fallbacks: Dict[Tuple[str, Tuple[int, ...]], str] = {}
         self._pending: List[StencilRequest] = []
         self._next_rid = 0
@@ -197,6 +203,9 @@ class StencilServer:
         #: (fp, shape) -> (plan, backend): the plan search runs once per
         #: shape, and every chunk size pins its answer
         self._resolved: Dict[tuple, tuple] = {}
+        #: the same two on the mesh, the split pinned beside the plan
+        self._mesh_compiled: Dict[tuple, CompiledStencil] = {}
+        self._mesh_resolved: Dict[tuple, tuple] = {}
 
     # -- request intake ------------------------------------------------------
 
@@ -226,34 +235,46 @@ class StencilServer:
     # -- compilation ---------------------------------------------------------
 
     def _compiled_for(self, program: StencilProgram, shape: Tuple[int, ...],
-                      steps: int, batch: Optional[int]) -> CompiledStencil:
+                      steps: int, batch: Optional[int],
+                      on_mesh: bool = False) -> CompiledStencil:
         """Front-door executable for one chunk shape, memoized per server.
 
         ``steps`` only seeds the first compile of a key; every flush
         passes its own count to ``run``.  The first compile of a shape
         plans (the autotuner's cache when the caller opted in with
-        ``use_autotune`` or ``cache_path``, the model planner otherwise);
-        later ones pin its plan and backend.
+        ``use_autotune`` or ``cache_path``, the model planner otherwise;
+        on the mesh always the mesh tuner, model-only, touching the
+        cache only under the same opt-in); later ones pin its plan,
+        backend and split.
         """
         fp = program_fingerprint(program)
-        key = (fp, shape, batch)
-        cs = self._compiled.get(key)
+        compiled, found = (self._mesh_compiled, self._mesh_resolved) \
+            if on_mesh else (self._compiled, self._resolved)
+        cs = compiled.get((fp, shape, batch))
         if cs is None:
-            resolved = self._resolved.get((fp, shape))
+            resolved = found.get((fp, shape))
             if resolved is None:
-                plan = "auto" if self.use_autotune else "model"
+                plan = "auto" if (on_mesh or self.use_autotune) else "model"
                 backend, variant = None, self.variant
+                devices = self.mesh_devices if on_mesh else None
             else:
-                (plan, backend), variant = resolved, None
+                (plan, backend), variant = resolved[:2], None
+                devices = resolved[2] if on_mesh else None
             cs = stencil(program).compile(
-                shape, steps=steps, batch=batch, plan=plan, backend=backend,
-                variant=variant, device=self.device, chip=self.chip,
-                max_par_time=self.max_par_time,
+                shape, steps=steps, batch=batch, devices=devices, plan=plan,
+                backend=backend, variant=variant, device=self.device,
+                chip=self.chip, max_par_time=self.max_par_time,
                 cache=self.use_autotune or self.cache_path is not None,
                 cache_path=self.cache_path)
-            self._resolved[(fp, shape)] = (cs.plan, cs.backend)
-            self._compiled[key] = cs
+            found[(fp, shape)] = (cs.plan, cs.backend) + (
+                (cs.decomp,) if on_mesh else ())
+            compiled[(fp, shape, batch)] = cs
         return cs
+
+    def _mesh_ok(self, program: StencilProgram,
+                 shape: Tuple[int, ...]) -> bool:
+        return self.mesh_devices is not None and \
+            (program_fingerprint(program), shape) not in self.mesh_fallbacks
 
     # -- execution -----------------------------------------------------------
 
@@ -272,6 +293,8 @@ class StencilServer:
         raises on the host loses only its own requests — their rids land in
         ``self.failed`` with the error — and every other group is still
         served; a CUDA error is raised (the module docstring says why).
+        A group the mesh refuses runs on one device (the reason in
+        ``mesh_fallbacks``) before it counts as failed.
         """
         rec = self.recorder
         pending, self._pending = self._pending, []
@@ -297,11 +320,31 @@ class StencilServer:
                         self._count_chunk(chunk, shape, steps)
                     continue
                 try:
+                    on_mesh = self._mesh_ok(program, shape)
+                    if on_mesh:
+                        try:
+                            # plan and split once per group; a refusal
+                            # (no split divides the shape, an empty
+                            # sharded space) moves the group, not the
+                            # flush, to one device
+                            t0 = time.perf_counter()
+                            self._compiled_for(program, shape, steps,
+                                               len(reqs[:self.max_batch]),
+                                               on_mesh=True)
+                            rec.observe("serve.compile_s",
+                                        time.perf_counter() - t0)
+                        except ValueError as e:  # RP107, RP110, no plan
+                            self.mesh_fallbacks[(fp, shape)] = \
+                                f"{type(e).__name__}: {e}"
+                            on_mesh = False
                     for lo in range(0, len(reqs), self.max_batch):
                         chunk = reqs[lo:lo + self.max_batch]
                         t0 = time.perf_counter()
-                        batch = len(chunk) if len(chunk) > 1 else None
-                        cs = self._compiled_for(program, shape, steps, batch)
+                        # on the mesh every chunk is one batched run
+                        batch = len(chunk) if (on_mesh or len(chunk) > 1) \
+                            else None
+                        cs = self._compiled_for(program, shape, steps, batch,
+                                                on_mesh)
                         grid = chunk[0].grid if batch is None \
                             else torch.stack([r.grid for r in chunk])
                         # timed here: the enqueue; wait_ready synchronises
@@ -319,6 +362,8 @@ class StencilServer:
                             time.perf_counter() - t0)
                         done += len(chunk)
                         self._count_chunk(chunk, shape, steps)
+                        if on_mesh:
+                            rec.count("serve.sharded_batches")
                 except Exception as e:  # plan/compile failure: fail the rest
                     if _device_fault(e):
                         raise
@@ -392,7 +437,9 @@ def main(argv=None):
     ap.add_argument("--autotune", action="store_true",
                     help="plans from the autotuner's cache (model-guided)")
     ap.add_argument("--mesh-devices", type=int, default=None,
-                    help="more than 1 is refused (RP110): one device so far")
+                    help="serve batched groups on a mesh of this many "
+                         "devices (REPRO_TORCH_FORCE_DEVICE_COUNT lays "
+                         "them over the visible cards or the CPU)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' runs "
                          "the kernels' plain versions)")

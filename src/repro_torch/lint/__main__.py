@@ -2,17 +2,20 @@
 
     python -m repro_torch.lint dataflow --ndim 2 --radius 1 \\
         --boundary periodic --grid 64,256 --steps 9    # the proof (RP4xx)
+    python -m repro_torch.lint dataflow --devices 2,2 ...   # a mesh's proof
     python -m repro_torch.lint sanitize --ndim 2 --radius 1 \\
         --boundary periodic --grid 64,256 --steps 9    # the canary, on the card
     python -m repro_torch.lint sanitize --device cpu ...   # the plain versions
     python -m repro_torch.lint codes                   # the RP-code registry
 
-The default plan is the H100 planner's (``core/blocking.plan_blocking``).
-Exit status 1 when any ERROR diagnostic fires, 0 otherwise (warnings
-print but never fail the run); 2 for a request this port refuses: a mesh
-(``--devices``, ROADMAP A9), or paths to lint (the codebase rules read
-JAX and Pallas; lint the port with ``python -m repro.lint src tests``,
-ROADMAP A10).
+The default plan is the H100 planner's (``core/blocking.plan_blocking``),
+under ``--devices`` on one shard's extent, its block and ``par_time``
+conformed to the shard as the reference's CLI does.  Exit status 1 when
+any ERROR diagnostic fires, 0 otherwise (warnings print but never fail
+the run); 2 for a request this port refuses: the canary on a mesh
+(``sanitize --devices``: the canary runs one device's schedule, as the
+reference's), or paths to lint (the codebase rules read JAX and Pallas;
+lint the port with ``python -m repro.lint src tests``, ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -67,13 +70,14 @@ def _parser(prog_name: str) -> argparse.ArgumentParser:
                    help="fused steps per superstep (default: the planner's)")
     p.add_argument("--json", default=None, help="write diagnostics JSON")
     p.add_argument("--devices", default=None,
-                   help="shards per grid axis: refused, the port runs one "
-                        "device (ROADMAP A9)")
+                   help="comma-separated shards per grid axis (dataflow "
+                        "only: the canary runs one device)")
     return p
 
 
-def _config(ns):
-    """The (program, plan, grid, steps) both subcommands check."""
+def _config(ns, shards=None):
+    """The (program, plan, grid, steps) both subcommands check; under
+    ``shards`` the default plan blocks one shard's extent."""
     from repro_torch.core.blocking import (TEMPORAL_CHUNK, BlockPlan,
                                            plan_blocking)
     from repro_torch.core.program import StencilProgram
@@ -84,9 +88,27 @@ def _config(ns):
         grid = tuple(int(s) for s in ns.grid.split(","))
     else:
         grid = (64, 256) if ns.ndim == 2 else (16, 64, 256)
+    plan_shape = grid
+    if shards is not None:
+        if len(shards) != len(grid) or any(g % s for g, s in
+                                           zip(grid, shards)):
+            raise SystemExit(
+                f"--devices {','.join(map(str, shards))} must divide the "
+                f"grid {'x'.join(map(str, grid))} axis by axis")
+        plan_shape = tuple(g // s for g, s in zip(grid, shards))
     # the planner only for what the flags leave open
     planned = None if ns.block and ns.par_time else plan_blocking(
-        prog, grid_shape=grid, variant=ns.variant).plan
+        prog, grid_shape=plan_shape, variant=ns.variant).plan
+    if planned is not None and shards is not None:
+        # a shard takes blocks that tile it and a halo within it, as the
+        # mesh tuner prunes; explicit --block/--par-time still override
+        planned = BlockPlan(
+            spec=prog,
+            block_shape=tuple(b if b <= n and n % b == 0 else n
+                              for b, n in zip(planned.block_shape,
+                                              plan_shape)),
+            par_time=max(1, min(planned.par_time,
+                                min(plan_shape) // prog.halo_radius)))
     block = tuple(int(s) for s in ns.block.split(",")) if ns.block \
         else planned.block_shape
     plan = BlockPlan(spec=prog, block_shape=block,
@@ -125,22 +147,28 @@ def main(argv: Optional[List[str]] = None) -> int:
                        help="cuda (the default: the card's kernels) or cpu "
                             "(their plain versions)")
     ns = p.parse_args(argv[1:])
-    if ns.devices:
+    shards = tuple(int(s) for s in ns.devices.split(",")) \
+        if ns.devices else None
+    if shards is not None and command == "sanitize":
         return _refused(DiagnosticError([error(
             "RP110",
-            f"--devices {ns.devices}: the port runs on one device; the "
-            f"sharded ring schedule comes with the mesh executor "
-            f"(ROADMAP A9)",
+            f"--devices {ns.devices}: the canary runs one device's "
+            f"schedule, as the reference's does; prove a mesh's schedule "
+            f"with `python -m repro_torch.lint dataflow --devices "
+            f"{ns.devices}`",
             hint="drop --devices")]).args[0])
-    prog, plan, grid, steps = _config(ns)
+    prog, plan, grid, steps = _config(ns, shards)
     label = (f"{command} of {ns.ndim}D r={ns.radius} {ns.boundary} "
              f"{ns.variant} block={plan.block_shape} "
-             f"par_time={plan.par_time} over {'x'.join(map(str, grid))}, "
-             f"{steps} steps")
+             f"par_time={plan.par_time} over {'x'.join(map(str, grid))}"
+             + ("" if shards is None
+                else f" on mesh {'x'.join(map(str, shards))}")
+             + f", {steps} steps")
     if command == "dataflow":
         from repro_torch.lint.dataflow import verify_dataflow
         return _render(verify_dataflow(prog, plan, grid, steps=steps,
-                                       variant=ns.variant), label, ns.json)
+                                       variant=ns.variant, decomp=shards),
+                       label, ns.json)
     from repro_torch.lint.sanitize import sanitize_run
     try:
         report = sanitize_run(prog, plan, grid, steps=steps,

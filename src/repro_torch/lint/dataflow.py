@@ -1,20 +1,23 @@
 """RP4xx symbolic half: abstract interpretation of the padded ring
-schedule — counterpart of ``repro/lint/dataflow.py`` for one device.
+schedule — counterpart of ``repro/lint/dataflow.py``.
 
-The fused executor (``kernels/common.run_call``) never re-pads a boundary:
+The fused executor (``kernels/common.run_call``, and on a mesh
+``core/distributed.DistributedStencil.run``) never re-pads a boundary:
 its correctness rests on a schedule of ping-pong buffers, wrap refreshes
 of the source's ring (B2, ordered before the superstep on the same
-stream), ring-offset windows for a remainder superstep and the temporal
-chunk's deeper ring.  :func:`verify_dataflow` proves that schedule sound
-for one (program, plan, grid, variant, steps) configuration by
-interpreting ``kernels/common.ring_schedule`` — the metadata ``run_call``
-launches from — over a per-axis timestamp lattice:
+stream), exchange strips into a shard's ring, ring-offset windows for a
+remainder superstep and the temporal chunk's deeper ring.
+:func:`verify_dataflow` proves that schedule sound for one (program,
+plan, grid, variant, steps[, decomp]) configuration by interpreting
+``kernels/common.ring_schedule`` — the metadata the executors launch
+from — over a per-axis timestamp lattice:
 
 * every cell a superstep's windows read must hold the current time's
   value: from the initial copy into the carry, a prior superstep's
-  write, a wrap copy, or (out of the grid under clamp/constant) the
-  kernel's t=0 ``boundary_fixup`` — else **RP401**, or **RP405** when a
-  periodic wrap copy is missing or ordered after the read;
+  write, a wrap or exchange copy, or (out of the grid under
+  clamp/constant, on an axis one shard holds) the kernel's t=0
+  ``boundary_fixup`` — else **RP401**, or **RP405** when a periodic wrap
+  copy is missing or ordered after the read;
 * the output tiles write every interior cell exactly once per superstep
   — **RP402** for holes, **RP403** for overlaps or writes outside;
 * the superstep writes the other buffer of the pair, never the one its
@@ -23,9 +26,12 @@ launches from — over a per-axis timestamp lattice:
 Axes are independent under the axis-ordered ring schedule (a wrap copy
 spans the whole padded extent of the other axes, windows are Cartesian
 products), so the interpreter runs per axis on 1-D integer arrays: numpy
-and integers only, well under the front door's 2 ms budget.  A mesh's
-exchange strips come with the mesh executor (ROADMAP A9), so there is no
-``decomp=``.
+and integers only, well under the front door's 2 ms budget.  A sharded
+axis's exchange strips are modelled by symmetry, as the reference does:
+every shard sees the same state pattern, so a neighbour's strip carries
+this shard's own timestamps, and a sharded axis gets no fixup exemption
+(an inner shard's ring holds other shards' interior, which must arrive
+by exchange).
 
 The dynamic half is ``lint/sanitize.py``: tests seed the same schedule
 bugs into both (they share ``kernels.common.wrap_copies`` and
@@ -47,14 +53,16 @@ STALE = -1
 
 def verify_dataflow(program, plan: BlockPlan, grid_shape, *,
                     steps: int, variant: Optional[str] = None,
-                    schedule=None) -> List[Diagnostic]:
+                    decomp=None, schedule=None) -> List[Diagnostic]:
     """Prove the padded ring schedule of one run configuration correct.
 
     Returns every RP4xx finding (an empty list: the schedule is sound).
-    ``schedule`` overrides the derived ``kernels.common.RunSchedule``, the
-    hook mutation tests seed schedule-level bugs through.  A
-    wrap-degenerate layout has no ring schedule (the run re-pads every
-    superstep, which RP108 warns of): nothing to prove.
+    ``decomp`` (shards per axis or a ``tuning.space.MeshDecomposition``)
+    proves a mesh's schedule.  ``schedule`` overrides the derived
+    ``kernels.common.RunSchedule``, the hook mutation tests seed
+    schedule-level bugs through.  A wrap-degenerate layout has no ring
+    schedule (the run re-pads every superstep, which RP108 warns of):
+    nothing to prove.
     """
     # local: the module is looked up at call time, so a patched
     # wrap_copies/ping_pong_aliases reaches the schedule
@@ -62,7 +70,8 @@ def verify_dataflow(program, plan: BlockPlan, grid_shape, *,
 
     if schedule is None:
         schedule = common.ring_schedule(program, plan, tuple(grid_shape),
-                                        int(steps), variant=variant)
+                                        int(steps), variant=variant,
+                                        decomp=decomp)
     if schedule.fallback or not schedule.supersteps:
         return []
 
@@ -85,12 +94,12 @@ def verify_dataflow(program, plan: BlockPlan, grid_shape, *,
 
 def check_dataflow(program, plan: BlockPlan, grid_shape, *,
                    steps: int, variant: Optional[str] = None,
-                   schedule=None) -> List[Diagnostic]:
+                   decomp=None, schedule=None) -> List[Diagnostic]:
     """:func:`verify_dataflow`, raising ``DiagnosticError`` on errors;
     counted as ``lint.dataflow.*``."""
     return raise_on_error(
         verify_dataflow(program, plan, grid_shape, steps=steps,
-                        variant=variant, schedule=schedule),
+                        variant=variant, decomp=decomp, schedule=schedule),
         source="dataflow")
 
 
@@ -165,6 +174,7 @@ def _verify_axis(sched, prog, plan: BlockPlan, d: int) -> List[Diagnostic]:
     nblocks = R // b
     r = prog.halo_radius
     wrap_axis = d in layout.wrap_axes
+    sharded = d in sched.sharded_axes
     out: List[Diagnostic] = []
 
     # state[buf][cell]: the time the cell's value belongs to, or STALE.
@@ -212,9 +222,11 @@ def _verify_axis(sched, prog, plan: BlockPlan, d: int) -> List[Diagnostic]:
                      "the window block + 2*halo wide"))
         else:
             a, e = lo, hi
-            if ss.fixup:
+            if ss.fixup and not sharded:
                 # boundary_fixup rebuilds every out-of-grid position from
-                # in-grid cells at t=0: only in-grid cells must be live
+                # in-grid cells at t=0: only in-grid cells must be live.
+                # A sharded axis has no such exemption: an inner shard's
+                # ring is other shards' interior, which the exchange brings
                 a, e = max(lo, H), min(hi, H + n)
             stale = state[rb, a:max(a, e)] != tau
             if stale.any():

@@ -60,6 +60,10 @@ CODE_INFO = {
                    hint="on the card: pick par_time so that "
                         "par_time*radius is even (a carry row pitch of a "
                         "multiple of 4 floats keeps the 16-byte row copies)"),
+    "RP107": _info("decomposition infeasible: shard/divisibility/halo bound "
+                   "broken",
+                   hint="devices=<count> or plan='auto' searches blocking "
+                        "and split together"),
     "RP108": _info("wrap-degenerate periodic axis routes through the re-pad "
                    "fallback", "warning",
                    hint="grow the axis, shrink par_time, or pick a dividing "

@@ -5,8 +5,9 @@
 and reports RP1xx diagnostics with fix hints; :func:`check` raises on the
 errors.  The front door (``executor.py``) runs :func:`check` after
 planning and before anything is built or launched.  The checks and their
-order are the reference's, less RP107 (no mesh yet, ROADMAP A9) and
-RP114 (the port has no ``pipelined=``).  Where the TPU's rule does not
+order are the reference's, less RP114 (the port has no ``pipelined=``);
+RP107 holds a mesh's shards to the same rules as the reference
+(``tuning/space.shard_violations``).  Where the TPU's rule does not
 apply, the card's takes its place:
 
 * RP105 asks whether one CTA of every superstep kernel the run launches
@@ -20,23 +21,28 @@ apply, the card's takes its place:
   (``core/blocking.launch_work``), the quantity ``candidate_plans`` prunes
   on, not the TPU window's.
 
+On a mesh (``decomp=``) the card's checks read one shard: its local
+extent, the sharded ring schedule and its carry pitch.
+
 All of it is integer arithmetic on the plan; nothing touches a device.
 """
 
 from __future__ import annotations
 
 import operator
-from typing import List, Optional, Tuple
+from typing import List, Optional, Tuple, Union
 
 from repro_torch.analysis.hw import GpuChip, H100_SXM
 from repro_torch.core.blocking import (CARRY_KERNELS, MIN_USEFUL_FRACTION,
                                        TEMPORAL_CHUNK, BlockPlan,
-                                       launch_work, normalize_variant,
-                                       round_up)
+                                       launch_work, normalize_variant)
 from repro_torch.kernels.common import ring_schedule, run_kernels
 from repro_torch.kernels.cuda import smallest_tile
 from repro_torch.lint.diagnostics import (Diagnostic, error, raise_on_error,
                                           warning)
+
+#: shards per grid axis, or a ``tuning.space.MeshDecomposition``
+Decomp = Union[None, Tuple[int, ...], "MeshDecomposition"]  # noqa: F821
 
 #: dtypes the port's kernels (and their plain versions) take.
 SUPPORTED_DTYPES = ("float32",)
@@ -98,6 +104,7 @@ def smem_diagnostics(plan: BlockPlan, variant: str = "plain",
 
 def verify(program, plan: BlockPlan, grid_shape,
            chip: Optional[GpuChip] = H100_SXM, *,
+           decomp: Decomp = None,
            variant: Optional[str] = None,
            batch: Optional[int] = None,
            steps: Optional[int] = None) -> List[Diagnostic]:
@@ -124,6 +131,8 @@ def verify(program, plan: BlockPlan, grid_shape,
     RP106  (warning) the carry's row pitch is a multiple of 4 floats
     RP113  (warning) each kernel's CTA tile keeps more than
            ``MIN_USEFUL_FRACTION`` of the cells it computes
+    RP107  per-shard bounds of ``decomp``: divisibility, block tiling,
+           halo within the shard
     RP108  (warning) a wrap-degenerate periodic layout re-pads instead
     """
     prog = program
@@ -188,23 +197,29 @@ def verify(program, plan: BlockPlan, grid_shape,
         return out
 
     v = normalize_variant(variant)
+    shards, found = _shards(prog, plan, grid, decomp)
+    # one shard's extent: the kernels a mesh launches run on it
+    local = grid if shards is None or found else tuple(
+        g // s for g, s in zip(grid, shards))
     if chip is not None:
-        out += smem_diagnostics(plan, v, chip, grid_shape=grid,
+        out += smem_diagnostics(plan, v, chip, grid_shape=local,
                                 steps=run_steps)
-    if grid is None:
+    out += found
+    if grid is None or found:
         return out
     if run_steps is None:
         # a full superstep (or chunk) and the longest remainder
         run_steps = 2 * plan.par_time * (
             TEMPORAL_CHUNK if v == "temporal" else 1) - 1
-    sched = ring_schedule(prog, plan, grid, run_steps, variant=v)
-    kernels = run_kernels(prog, plan, grid, run_steps, v)
-    out += _pitch_warnings(plan, grid, sched, kernels)
+    sched = ring_schedule(prog, plan, grid, run_steps, variant=v,
+                          decomp=shards)
+    kernels = run_kernels(prog, plan, local, run_steps, v)
+    out += _pitch_warnings(plan, sched, kernels)
     out += _overlap_warnings(plan, v, kernels, chip or H100_SXM)
     if sched.fallback:
         out.append(warning(
             "RP108",
-            f"periodic wrap is degenerate for local extents {grid} under "
+            f"periodic wrap is degenerate for local extents {local} under "
             f"block={plan.block_shape} par_time={plan.par_time}: some wrap "
             f"axis is shallower than the halo ring ({sched.layout.halo}) "
             f"or the round-up slack",
@@ -219,6 +234,7 @@ def verify(program, plan: BlockPlan, grid_shape,
 
 def check(program, plan: BlockPlan, grid_shape,
           chip: Optional[GpuChip] = H100_SXM, *,
+          decomp: Decomp = None,
           variant: Optional[str] = None,
           batch: Optional[int] = None,
           steps: Optional[int] = None) -> List[Diagnostic]:
@@ -226,8 +242,38 @@ def check(program, plan: BlockPlan, grid_shape,
     returns the warnings.  Counted through the flight recorder as
     ``lint.verify.*`` and ``lint.code.*``."""
     return raise_on_error(verify(program, plan, grid_shape, chip,
-                                 variant=variant, batch=batch, steps=steps),
+                                 decomp=decomp, variant=variant, batch=batch,
+                                 steps=steps),
                           source="verify")
+
+
+def _shards(prog, plan: BlockPlan, grid: Optional[Tuple[int, ...]],
+            decomp: Decomp):
+    """``(shards per axis or None, RP107 findings)`` of ``decomp``, with
+    the reference's messages."""
+    # local: the tuner's space imports the backends, which import this
+    from repro_torch.tuning.space import MeshDecomposition, shard_violations
+    if decomp is None:
+        return None, []
+    shards = tuple(int(s) for s in getattr(decomp, "axis_shards", decomp))
+    if len(shards) != prog.ndim or any(s < 1 for s in shards):
+        return None, [error(
+            "RP107",
+            f"decomposition {shards} does not give one positive shard "
+            f"count per axis of a {prog.ndim}-D grid",
+            hint="one positive shards-per-axis entry per grid axis")]
+    if grid is None:
+        return shards, []
+    return shards, [error(
+        "RP107",
+        f"decomposition {shards} cannot take block={plan.block_shape} "
+        f"par_time={plan.par_time} on grid {grid}: {reason}",
+        hint="every sharded axis must divide the grid, the local extent "
+             "must tile by csize, and the halo must stay shallower than "
+             "the shard; devices=<count> or plan='auto' searches blocking "
+             "and split together")
+        for reason in shard_violations(plan, MeshDecomposition(shards),
+                                       grid)]
 
 
 def _block_extents(prog, plan: BlockPlan) -> List[Diagnostic]:
@@ -251,8 +297,7 @@ def _block_extents(prog, plan: BlockPlan) -> List[Diagnostic]:
     return out
 
 
-def _pitch_warnings(plan: BlockPlan, grid: Tuple[int, ...], sched,
-                    kernels) -> List[Diagnostic]:
+def _pitch_warnings(plan: BlockPlan, sched, kernels) -> List[Diagnostic]:
     """RP106: the kernels of the run whose row pitch is not a multiple of
     4 floats.  The carry kernels read the padded pair, of pitch
     ``rounded + 2H``; the pre-padded ones (a wrap-degenerate run's) a grid
@@ -260,7 +305,7 @@ def _pitch_warnings(plan: BlockPlan, grid: Tuple[int, ...], sched,
     of 4, that is an odd ``H``.  ``tools/planner_calibration.py`` timed
     B1 on the register queues 2.4-2.7x slower at such points than at
     their neighbours (PERF.md, NVIDIA H100 80GB HBM3, 700.00 W)."""
-    rounded = round_up(grid[-1], plan.block_shape[-1])
+    rounded = sched.layout.rounded[-1]
     slow = []
     for kernel, kplan in kernels:
         carry = kernel in CARRY_KERNELS.values()

@@ -18,8 +18,10 @@ One call does all four::
     lowered = lower(program, tuned.plan, backend=tuned.backend)
 
 or from a shell: ``python -m repro_torch.tuning tune --ndim 2 --radius 4
---grid 16384,16384``.  The mesh decomposition axis of the reference waits
-for the mesh executor (ROADMAP A9).
+--grid 16384,16384``.  ``autotune(n_devices=N)`` searches the
+decomposition axis too (``space.enumerate_decompositions``, each pair
+priced with its exchange by ``model_rank.predict``), and
+``decomposition=`` pins the split; a mesh is tuned by the model only.
 """
 
 from __future__ import annotations
@@ -39,17 +41,21 @@ from repro_torch.tuning.cache import (PlanCache, cache_key,
 from repro_torch.tuning.measure import (Measurement, best_measurement,
                                         measure_frontier)
 from repro_torch.tuning.model_rank import RankedCandidate, predict, rank
-from repro_torch.tuning.space import Candidate, enumerate_space
+from repro_torch.tuning.space import (Candidate, MeshDecomposition,
+                                     enumerate_decompositions,
+                                     enumerate_space)
 
 __all__ = [
     "Candidate",
     "Measurement",
+    "MeshDecomposition",
     "PlanCache",
     "RankedCandidate",
     "TunedPlan",
     "autotune",
     "best_measurement",
     "cache_key",
+    "enumerate_decompositions",
     "enumerate_space",
     "measure_frontier",
     "predict",
@@ -83,6 +89,8 @@ class TunedPlan:
     searched_bsizes: Optional[Tuple[Tuple[int, ...], ...]] = None
     # every frontier candidate's measurement, in rank order (not cached)
     measurements: Tuple[Measurement, ...] = ()
+    # the winning mesh split (shards per grid axis); None: one device
+    decomp: Optional[Tuple[int, ...]] = None
 
     @property
     def measured_gbps(self) -> float:
@@ -101,6 +109,7 @@ class TunedPlan:
             "space_size": self.space_size,
             "frontier_size": self.frontier_size,
             "variant": self.variant,
+            "decomp": None if self.decomp is None else list(self.decomp),
             "search": {
                 "max_par_time": self.searched_max_par_time,
                 "bsizes": None if self.searched_bsizes is None
@@ -116,6 +125,7 @@ def _from_record(program: StencilProgram, record: dict,
     plan = BlockPlan(spec=program, block_shape=tuple(record["block_shape"]),
                      par_time=int(record["par_time"]))
     variant = record.get("variant", "plain")
+    decomp = record.get("decomp")
     m = record.get("measurement")
     measurement = None
     if m is not None:
@@ -137,7 +147,8 @@ def _from_record(program: StencilProgram, record: dict,
                      searched_max_par_time=int(search.get("max_par_time",
                                                           0)),
                      searched_bsizes=None if search.get("bsizes") is None
-                     else tuple(tuple(b) for b in search["bsizes"]))
+                     else tuple(tuple(b) for b in search["bsizes"]),
+                     decomp=None if decomp is None else tuple(decomp))
 
 
 def _record_satisfies(record: dict, program: StencilProgram,
@@ -194,7 +205,10 @@ def autotune(program: StencilProgram, chip: Optional[GpuChip] = None, *,
              reps: int = 2,
              supersteps: int = 2,
              seed: int = 0,
-             device=None) -> TunedPlan:
+             device=None,
+             n_devices: Optional[int] = None,
+             decomposition: Optional[Tuple[int, ...]] = None,
+             cards: Optional[int] = None) -> TunedPlan:
     """Tune ``program`` on a ``grid_shape`` workload: search, rank,
     measure, cache.
 
@@ -213,6 +227,13 @@ def autotune(program: StencilProgram, chip: Optional[GpuChip] = None, *,
     siblings, a variant name pins that sibling.  ``bsizes`` are the block
     shapes searched (default ``blocking.candidate_blocks``); there are no
     padded windows to search, since each kernel picks its own CTA tile.
+
+    ``n_devices`` puts the mesh decomposition on the search axis (every
+    factorization that divides the grid, pruned per shard), and
+    ``decomposition`` pins shards per axis; the winner's split lands in
+    ``TunedPlan.decomp`` under a key of its own.  A mesh is tuned by the
+    model only (``measure=True`` raises), ``cards`` being how many cards
+    its shards share (``model_rank.predict``).
     """
     if device is None:
         if not torch.cuda.is_available():
@@ -240,8 +261,17 @@ def autotune(program: StencilProgram, chip: Optional[GpuChip] = None, *,
         search = (name,)
     _, version = get_backend(name)
 
+    decomp_req = None
+    if decomposition is not None:
+        decomp_req = tuple(int(s) for s in decomposition)
+    elif n_devices is not None:
+        decomp_req = f"ndev={n_devices}"
+    if decomp_req is not None and measure:
+        raise ValueError("mesh-aware tuning is model-only (the harness "
+                         "times one device's run); pass measure=False")
+
     key = cache_key(program, grid_shape, chip.name, name, version,
-                    variant=variant, device=dev.type)
+                    variant=variant, device=dev.type, decomp=decomp_req)
     store = PlanCache(cache_path) if cache else None
     if store is not None and not force:
         for record in store.get_all(key):
@@ -250,15 +280,21 @@ def autotune(program: StencilProgram, chip: Optional[GpuChip] = None, *,
                                  max_par_time=max_par_time, top_k=top_k):
                 return _from_record(program, record, key)
 
-    candidates = enumerate_space(program, chip, backends=search,
-                                 bsizes=bsizes, grid_shape=grid_shape,
-                                 max_par_time=max_par_time)
+    decomps = None if decomposition is None \
+        else (MeshDecomposition(tuple(int(s) for s in decomposition)),)
+    candidates = enumerate_space(
+        program, chip, backends=search, bsizes=bsizes,
+        grid_shape=grid_shape, max_par_time=max_par_time,
+        n_devices=None if decomps is not None else n_devices,
+        decompositions=decomps)
     if not candidates:
         raise ValueError(f"empty design space for {program} on {chip.name} "
                          f"(grid {grid_shape}): no plan of the searched "
-                         f"variants fits a CTA tile")
-    frontier = rank(program, candidates, chip,
-                    grid_shape=grid_shape)[:max(top_k, 1)]
+                         f"variants fits a CTA tile"
+                         + (" and a shard of the mesh"
+                            if decomp_req is not None else ""))
+    frontier = rank(program, candidates, chip, grid_shape=grid_shape,
+                    cards=cards)[:max(top_k, 1)]
     winner: RankedCandidate = frontier[0]
     measurement = None
     results: Tuple[Measurement, ...] = ()
@@ -282,7 +318,9 @@ def autotune(program: StencilProgram, chip: Optional[GpuChip] = None, *,
         searched_max_par_time=max_par_time,
         searched_bsizes=None if bsizes is None
         else tuple(tuple(b) for b in bsizes),
-        measurements=results)
+        measurements=results,
+        decomp=None if winner.candidate.decomp is None
+        else winner.candidate.decomp.axis_shards)
     if store is not None:
         store.add(key, tuned.to_record())
     return tuned

@@ -11,6 +11,9 @@ A record is addressed by the sha1 of:
   device type the plan was tuned on, so that a CPU measurement never
   serves a card;
 * the backend name and registry version, and the variant request;
+* the decomposition request, on a mesh only: shards per axis, or
+  ``"ndev=N"`` for a search over N devices (a plan tuned for one mesh
+  never serves another, nor one device);
 * :data:`SCHEMA_VERSION` of this tuner.
 
 The file, its environment variable and its schema are the port's own:
@@ -53,11 +56,13 @@ def program_fingerprint(program: StencilProgram) -> str:
 
 def cache_key(program: StencilProgram, grid_shape: Tuple[int, ...],
               chip_name: str, backend: str, backend_version: int,
-              variant: Optional[str] = None, device: str = "cuda") -> str:
+              variant: Optional[str] = None, device: str = "cuda",
+              decomp: Optional[object] = None) -> str:
     """``variant`` is the request (None: the backend as named, "auto":
     every sibling searched, or a variant name); ``device`` the device
-    type the tuner measured on ("cuda" or "cpu")."""
-    payload = json.dumps({
+    type the tuner measured on ("cuda" or "cpu"); ``decomp`` the mesh
+    request (None: one device, whose keys it leaves as they were)."""
+    fields = {
         "program": program_fingerprint(program),
         "grid_shape": list(grid_shape),
         "chip": chip_name,
@@ -66,7 +71,11 @@ def cache_key(program: StencilProgram, grid_shape: Tuple[int, ...],
         "backend_version": backend_version,
         "variant": variant,
         "schema": SCHEMA_VERSION,
-    }, sort_keys=True)
+    }
+    if decomp is not None:
+        fields["decomp"] = list(decomp) \
+            if isinstance(decomp, (tuple, list)) else decomp
+    payload = json.dumps(fields, sort_keys=True)
     return hashlib.sha1(payload.encode()).hexdigest()
 
 

@@ -782,3 +782,138 @@ def test_rp104_on_the_card(cuda_device):
         with pytest.raises(DiagnosticError, match="RP104"):
             repro_torch.stencil(prog).compile((16, 128), steps=3, plan=plan)
         assert cuda.launches() == before
+
+
+# ---- the mesh: sharded carry kernels and shards on one card -----------------
+
+
+#: A shard's place along each axis, for a local extent n in a global grid
+#: of 3n: the last shard (non-zero origin, its high side on the global
+#: edge), an inner shard (no global edge), the first shard (origin 0, its
+#: high side an inner edge).
+SHARD_ORIGINS = {"last": 2, "inner": 1, "first": 0}
+SHARD_GRIDS = {2: (24, 96), 3: (12, 16, 96)}
+
+
+def _shard_case(ndim, boundary, shape, radius, steps, where, device):
+    prog = repro_torch.StencilProgram(ndim=ndim, radius=radius, shape=shape,
+                                      boundary=boundary, boundary_value=0.25)
+    local = SHARD_GRIDS[ndim]
+    plan = repro_torch.BlockPlan(spec=prog, block_shape=local,
+                                 par_time=steps)
+    global_shape = tuple(3 * n for n in local)
+    layout = common.ring_schedule(prog, plan, global_shape, steps,
+                                  decomp=(3,) * ndim).layout
+    offsets = tuple(SHARD_ORIGINS[where] * n for n in local)
+    # random everywhere: the ring stands for exchanged neighbour cells
+    # and, past the global edge, for cells nothing wrote
+    src = _random((2,) + layout.padded_shape, device, ndim)
+    coeffs = prog.default_coeffs(seed=1).to(device)
+    return prog, plan, layout, offsets, global_shape, src, coeffs
+
+
+@pytest.mark.parametrize("ndim", [2, 3])
+@pytest.mark.parametrize("boundary", ["clamp", "periodic", "constant"])
+@pytest.mark.parametrize("shape,radius,steps", QUEUED)
+@pytest.mark.parametrize("where", sorted(SHARD_ORIGINS))
+@pytest.mark.parametrize("variant", ["plain", "pipelined"])
+def test_sharded_carry_matches_plain_version(cuda_device, ndim, boundary,
+                                             shape, radius, steps, where,
+                                             variant):
+    """B1 and B4 on a mesh shard's carry (the sharded instantiations, a
+    launch counted apart) against ``padded_superstep_plain`` with the
+    same ``offsets`` and ``global_shape``, batch 2: exact on the shard's
+    true cells, whether its edges are global or inner."""
+    prog, plan, layout, offsets, global_shape, src, coeffs = _shard_case(
+        ndim, boundary, shape, radius, steps, where, cuda_device)
+    launch, name = (cuda.padded_superstep, "padded_superstep_sharded") \
+        if variant == "plain" else (cuda.padded_pipelined,
+                                    "padded_pipelined_sharded")
+    got, want = torch.zeros_like(src), torch.zeros_like(src)
+    before = cuda.launches()
+    launch(src, got, coeffs.center, coeffs.taps, program=prog, plan=plan,
+           layout=layout, offsets=offsets, global_shape=global_shape)
+    after = cuda.launches()
+    assert {k: v - before[k] for k, v in after.items()
+            if v != before[k]} == {name: 1}
+    common.padded_superstep_plain(src, want, coeffs.center, coeffs.taps,
+                                  program=prog, plan=plan, layout=layout,
+                                  offsets=offsets,
+                                  global_shape=global_shape)
+    ix = _interior(layout)
+    torch.testing.assert_close(got[ix], want[ix], rtol=0, atol=0)
+
+
+def _mesh(prog, plan, grid, axis_shards, variant, device):
+    from repro_torch.core import distributed
+    mesh = distributed.make_mesh(axis_shards, [device] * 8)
+    decomp = distributed.Decomposition(tuple(
+        (f"d{i}",) if s > 1 else () for i, s in enumerate(axis_shards)))
+    return distributed.DistributedStencil(
+        prog, prog.default_coeffs(seed=3), plan, mesh, decomp, grid,
+        variant=variant, _warn=False)
+
+
+@pytest.mark.parametrize("ndim,grid,block,axis_shards", [
+    (2, (64, 256), (16, 64), (2, 2)), (3, (16, 32, 128), (4, 8, 64),
+                                       (2, 2, 1))])
+@pytest.mark.parametrize("boundary", ["clamp", "periodic", "constant"])
+@pytest.mark.parametrize("shape", ["star", "box"])
+@pytest.mark.parametrize("variant", ["plain", "pipelined"])
+def test_mesh_on_one_card_equals_the_single_device_run(
+        cuda_device, ndim, grid, block, axis_shards, boundary, shape,
+        variant):
+    """Four shards on one card, 5 steps at par_time 2 (a remainder),
+    batch 2: the sharded kernels only, equal to the single-device front
+    door's run at 0."""
+    prog = repro_torch.StencilProgram(ndim=ndim, radius=2, shape=shape,
+                                      boundary=boundary, boundary_value=0.25)
+    plan = repro_torch.BlockPlan(spec=prog, block_shape=block, par_time=2)
+    dist = _mesh(prog, plan, grid, axis_shards, variant, cuda_device)
+    g = _random((2,) + grid, cuda_device, ndim)
+    cuda.reset_launches()
+    got = dist.run(g, 5)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in cuda.launches().items() if v}
+    name = "padded_superstep" if variant == "plain" else "padded_pipelined"
+    want_counts = {f"{name}_sharded": 4 * 3}
+    wrap = boundary == "periodic" and 1 in axis_shards
+    if wrap:
+        want_counts["wrap_halo"] = 4 * 3
+    assert counts == want_counts
+    want = repro_torch.stencil(prog, prog.default_coeffs(seed=3)).compile(
+        grid, steps=5, batch=2, plan=plan, variant=variant).run(g)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    one = dist.superstep(g)
+    torch.testing.assert_close(
+        one, common.pad_superstep(g, dist.coeffs_on(cuda_device).center,
+                                  dist.coeffs_on(cuda_device).taps,
+                                  program=prog, plan=plan, variant=variant),
+        rtol=0, atol=0)
+
+
+def test_mesh_shards_on_two_streams_keep_their_coefficients(cuda_device):
+    """Two meshes of four shards on one card with different coefficients,
+    on two streams at once: the queued source's one constant bank per
+    device takes turns, so each run equals its own single-device run."""
+    star = repro_torch.StencilProgram(ndim=3, radius=2, boundary="clamp")
+    plan = repro_torch.BlockPlan(spec=star, block_shape=(4, 8, 64),
+                                 par_time=2)
+    grid = (16, 32, 128)
+    assert plan.body("padded_superstep") == "queue"
+    a = _mesh(star, plan, grid, (2, 2, 1), "plain", cuda_device)
+    b = _mesh(star, plan, grid, (2, 2, 1), "plain", cuda_device)
+    b.coeffs = star.default_coeffs(seed=4)
+    g = _random(grid, cuda_device, 5)
+    streams = (torch.cuda.Stream(cuda_device), torch.cuda.Stream(cuda_device))
+    torch.cuda.synchronize()
+    outs = []
+    for _ in range(3):
+        for dist, stream in zip((a, b), streams):
+            with torch.cuda.stream(stream):
+                outs.append((dist, dist.run(g, 4)))
+    torch.cuda.synchronize()
+    for dist, got in outs:
+        want = repro_torch.stencil(star, dist.coeffs).compile(
+            grid, steps=4, plan=plan).run(g)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)

@@ -348,9 +348,12 @@ def test_cli_reports_a_seeded_fault(monkeypatch, tmp_path):
 
 
 def test_cli_refuses_a_mesh_and_the_codebase_rules(capsys):
-    assert lint_main(["dataflow", "--devices", "2,1"]) == 2
+    """The canary runs one device's schedule: ``sanitize --devices`` is
+    refused (the mesh's proof is ``dataflow --devices``)."""
+    assert lint_main(["sanitize", "--device", "cpu", "--devices", "2,1"]) \
+        == 2
     err = capsys.readouterr().err
-    assert "RP110" in err and "A9" in err
+    assert "RP110" in err and "dataflow --devices 2,1" in err
     assert lint_main(["src", "tests"]) == 2
     err = capsys.readouterr().err
     assert "python -m repro.lint src tests" in err and "A10" in err

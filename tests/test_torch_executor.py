@@ -140,11 +140,34 @@ def _compile(tp, tplan, **kw):
     (dict(plan=None), "RP112"),
     (dict(plan=(16, 128)), "RP112"),
 ])
-def test_front_door_rejections(kwargs, code):
+def test_front_door_rejections(kwargs, code, monkeypatch):
+    monkeypatch.delenv("REPRO_TORCH_FORCE_DEVICE_COUNT", raising=False)
     _, _, _, tp, tplan, _ = _both(2, "clamp")
     with pytest.raises(DiagnosticError, match=code) as info:
         _compile(tp, tplan, **kwargs)
     assert [d.code for d in info.value.diagnostics] == [code]
+
+
+@pytest.mark.parametrize("devices", [2, (2, 1)])
+def test_mesh_request_names_the_device_variable(devices, monkeypatch):
+    """Without ``REPRO_TORCH_FORCE_DEVICE_COUNT`` the CPU is one device, so
+    a mesh is RP110 and its hint names the variable; with it the same
+    call runs, equal to the single-device run."""
+    monkeypatch.delenv("REPRO_TORCH_FORCE_DEVICE_COUNT", raising=False)
+    _, _, _, tp, tplan, _ = _both(2, "clamp")
+    with pytest.raises(DiagnosticError) as info:
+        _compile(tp, tplan, devices=devices)
+    (d,) = info.value.diagnostics
+    assert d.code == "RP110" and "REPRO_TORCH_FORCE_DEVICE_COUNT=2" in d.hint
+    monkeypatch.setenv("REPRO_TORCH_FORCE_DEVICE_COUNT", "2")
+    grid = (64, 256)            # a split of 2 tiles by the block
+    cs = _compile(tp, tplan, devices=devices, grid_shape=grid)
+    assert cs.decomp in ((2, 1), (1, 2)) and cs.describe() == \
+        "mesh " + "x".join(map(str, cs.decomp))
+    g = torch.rand(grid)
+    torch.testing.assert_close(
+        cs.run(g), _compile(tp, tplan, grid_shape=grid).run(g), rtol=0,
+        atol=0)
 
 
 def test_rejections_follow_reference_order_and_text():

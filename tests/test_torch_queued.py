@@ -98,16 +98,20 @@ class _Replay:
                     nload=e - a + 2 * g.halo[0])
 
     def load(self, it, k):
-        """Stage-0 plane k of item ``it`` as ``issue_group`` fills it."""
+        """Stage-0 plane k of item ``it`` as ``issue_group`` fills it: the
+        carry's mapping at global coordinates (``origin`` + local: a mesh
+        shard's carry, the sharded instantiation; origin 0 on one
+        device)."""
         g, E1, E2 = self.geo, self.E1, self.E2
         h0, h1, h2 = g.halo
         n0, n1, n2 = g.true
+        oz, oy, ox = g.origin
         mapped = g.carry and self.bnd != "periodic"
         const = self.bnd == "constant"
         z = it["a"] - h0 + k
-        if mapped and const and not 0 <= z < n0:
+        if mapped and const and not 0 <= z + oz < n0:
             return torch.full((E1, E2), self.bval)
-        zs = _clip(z, 0, n0 - 1) if mapped else z
+        zs = _clip(z + oz, 0, n0 - 1) - oz if mapped else z
         pz = zs + g.src_off[0]
         gy = it["y0"] - h1 + torch.arange(E1)
         gx = it["x0"] - h2 + torch.arange(E2)
@@ -116,9 +120,10 @@ class _Replay:
         ys, xs = gy, gx
         if mapped:
             if const:
-                row_fill = (gy < 0) | (gy >= n1)
-                cell_fill = (gx < 0) | (gx >= n2)
-            ys, xs = gy.clamp(0, n1 - 1), gx.clamp(0, n2 - 1)
+                row_fill = (gy + oy < 0) | (gy + oy >= n1)
+                cell_fill = (gx + ox < 0) | (gx + ox >= n2)
+            ys = (gy + oy).clamp(0, n1 - 1) - oy
+            xs = (gx + ox).clamp(0, n2 - 1) - ox
         py, px = ys + g.src_off[1], xs + g.src_off[2]
         row_ok = (py >= 0) & (py < g.src[1]) & (0 <= pz < g.src[0])
         col_ok = (px >= 0) & (px < g.src[2])
@@ -372,6 +377,66 @@ def test_queue_replay_equals_plain_superstep(ndim, boundary, radius, steps,
     ix = _interior(lay)
     assert not torch.isnan(got[ix]).any()
     torch.testing.assert_close(got[ix], want[ix], rtol=0, atol=0)
+
+
+#: A shard's place along each axis for a local extent n in a global grid
+#: of 3n: the last shard (a non-zero origin, its high side on the global
+#: edge) and an inner one (no global edge).
+SHARD_ORIGINS = {"last": 2, "inner": 1}
+
+
+@pytest.mark.parametrize("ndim", [2, 3])
+@pytest.mark.parametrize("boundary", ["clamp", "periodic", "constant"])
+@pytest.mark.parametrize("radius,steps", [(1, 4), (2, 3), (4, 1)])
+@pytest.mark.parametrize("where", sorted(SHARD_ORIGINS))
+def test_sharded_carry_replay_equals_plain_superstep(ndim, boundary, radius,
+                                                     steps, where):
+    """B1 on a mesh shard's carry (the sharded instantiation: origin and
+    the global extent in the geometry) against ``padded_superstep_plain``
+    with the same ``offsets`` and ``global_shape``, batch 2, bit for bit;
+    the ring is random, standing for exchanged cells and, past the global
+    edge, for cells nothing wrote."""
+    prog = _program(ndim, boundary, "star", radius)
+    local = GRIDS[ndim]
+    plan = repro_torch.BlockPlan(spec=prog, block_shape=local,
+                                 par_time=steps)
+    global_shape = tuple(3 * n for n in local)
+    lay = common.ring_schedule(prog, plan, global_shape, steps,
+                               decomp=(3,) * ndim).layout
+    assert lay.local_shape == local
+    offsets = tuple(SHARD_ORIGINS[where] * n for n in local)
+    rng = np.random.RandomState(radius)
+    src = torch.from_numpy(rng.uniform(
+        -1, 1, (2,) + lay.padded_shape).astype(np.float32))
+    coeffs = prog.default_coeffs(seed=radius)
+    geo = queued.carry_geometry(prog, steps, lay, batch=2, smem_limit=LIMIT,
+                                origin=offsets, true_shape=global_shape,
+                                segment=5)
+    assert geo.sharded and geo.array()[3 * 10 + 2] == 1
+    got = replay(prog, coeffs.center, coeffs.taps, src, geo)
+    want = common.padded_superstep_plain(
+        src, torch.zeros_like(src), coeffs.center, coeffs.taps,
+        program=prog, plan=plan, layout=lay, offsets=offsets,
+        global_shape=global_shape)
+    ix = _interior(lay)
+    assert not torch.isnan(got[ix]).any()
+    torch.testing.assert_close(got[ix], want[ix], rtol=0, atol=0)
+
+
+def test_single_device_carry_is_not_sharded():
+    prog = _program(2, "clamp")
+    plan = repro_torch.BlockPlan(spec=prog, block_shape=BLOCKS[2],
+                                 par_time=2)
+    lay = common.ring_schedule(prog, plan, GRIDS[2], 2).layout
+    geo = queued.carry_geometry(prog, 2, lay, batch=1, smem_limit=LIMIT)
+    assert not geo.sharded and geo.origin == (0, 0, 0)
+    # origin 0 and the local extent as the global one: still one device
+    same = queued.carry_geometry(prog, 2, lay, batch=1, smem_limit=LIMIT,
+                                 origin=(0, 0), true_shape=GRIDS[2])
+    assert same == geo
+    with pytest.raises(ValueError, match="inside the global grid"):
+        queued.carry_geometry(prog, 2, lay, batch=1, smem_limit=LIMIT,
+                              origin=(1, 0), true_shape=GRIDS[2])
 
 
 def test_carry_geometry_takes_only_the_register_queues():

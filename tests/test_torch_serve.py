@@ -321,12 +321,19 @@ def test_server_validates_requests():
     assert req.grid.device == torch.device("cpu") and req.t_submit > 0
 
 
-def test_mesh_request_is_rp110():
+def test_mesh_request_is_rp110(monkeypatch):
+    """Too few mesh devices visible (the variable unset: one CPU device)
+    is RP110 at construction, its hint naming the variable; with it set
+    the mesh server is built."""
+    monkeypatch.delenv("REPRO_TORCH_FORCE_DEVICE_COUNT", raising=False)
     with pytest.raises(DiagnosticError, match="RP110") as info:
         StencilServer(mesh_devices=2, device="cpu")
-    assert "ROADMAP A9" in str(info.value)
+    assert "REPRO_TORCH_FORCE_DEVICE_COUNT=2" in info.value.diagnostics[0].hint
     one = StencilServer(mesh_devices=1, device="cpu")
     assert one.mesh_devices is None and one.mesh_fallbacks == {}
+    monkeypatch.setenv("REPRO_TORCH_FORCE_DEVICE_COUNT", "2")
+    two = StencilServer(mesh_devices=2, device="cpu")
+    assert two.mesh_devices == 2 and two.mesh_fallbacks == {}
 
 
 def test_default_device_without_a_gpu_is_rp110(monkeypatch):
@@ -335,12 +342,23 @@ def test_default_device_without_a_gpu_is_rp110(monkeypatch):
         StencilServer(max_batch=2)
 
 
-def test_cli_on_the_cpu(capsys):
+def test_cli_on_the_cpu(capsys, monkeypatch):
     stencil_serve.main(["--device", "cpu", "--requests", "5", "--grid",
                         "20,140", "--radius", "1", "--steps", "3",
                         "--max-batch", "4"])
     out = capsys.readouterr().out
     assert "5 requests -> 2 batches (4 batched) on cpu" in out
     assert "p50=" in out and "rid=0 out_shape=(20, 140)" in out
+    monkeypatch.delenv("REPRO_TORCH_FORCE_DEVICE_COUNT", raising=False)
     with pytest.raises(DiagnosticError, match="RP110"):
         stencil_serve.main(["--device", "cpu", "--mesh-devices", "2"])
+
+
+def test_cli_serves_on_a_cpu_mesh(capsys, monkeypatch):
+    monkeypatch.setenv("REPRO_TORCH_FORCE_DEVICE_COUNT", "4")
+    stencil_serve.main(["--device", "cpu", "--requests", "3", "--grid",
+                        "32,128", "--radius", "1", "--steps", "3",
+                        "--max-batch", "2", "--mesh-devices", "4"])
+    out = capsys.readouterr().out
+    assert "3 requests -> 2 batches (2 batched) on cpu" in out
+    assert "rid=0 out_shape=(32, 128)" in out

@@ -105,13 +105,16 @@ def replay(program, center, taps, src, geo: streamed.StreamedGeometry):
                  for s in range(T)]
 
         def load(lo, hi):
+            # the carry's mapping at global coordinates (origin + local:
+            # a mesh shard's carry; origin 0 on one device)
             gy = ly0 + torch.arange(E1)
             gx = lx0 + torch.arange(E2)
             for z in range(lo, min(hi, zend)):
                 gz, ys, xs = z, gy, gx
                 if bnd == "clamp" and not raw:
-                    gz = _clamp(z, 0, n0 - 1)
-                    ys, xs = gy.clamp(0, n1 - 1), gx.clamp(0, n2 - 1)
+                    gz = _clamp(z + o0, 0, n0 - 1) - o0
+                    ys = (gy + o1).clamp(0, n1 - 1) - o1
+                    xs = (gx + o2).clamp(0, n2 - 1) - o2
                 pz = gz + geo.src_off[0]
                 py, px = ys + geo.src_off[1], xs + geo.src_off[2]
                 ok = ((py >= 0) & (py < geo.src[1]))[:, None] & \
@@ -123,9 +126,9 @@ def replay(program, center, taps, src, geo: streamed.StreamedGeometry):
                         px.clamp(0, geo.src[2] - 1)[None, :]],
                     torch.tensor(0.0))
                 if bnd == "constant" and not raw:
-                    out_ = ((gy < 0) | (gy >= n1))[:, None] | \
-                        ((gx < 0) | (gx >= n2))[None, :]
-                    out_ |= not 0 <= z < n0
+                    out_ = ((gy + o1 < 0) | (gy + o1 >= n1))[:, None] | \
+                        ((gx + o2 < 0) | (gx + o2 >= n2))[None, :]
+                    out_ |= not 0 <= z + o0 < n0
                     plane = torch.where(out_, torch.tensor(bval), plane)
                 rings[0][(z - z0) % D0] = plane
 
@@ -264,6 +267,51 @@ def test_replay_equals_plain_superstep(ndim, boundary, shape, radius, steps,
     want = common.padded_superstep_plain(
         src, torch.zeros_like(src), coeffs.center, coeffs.taps,
         program=prog, plan=plan, layout=lay)
+    ix = _interior(lay)
+    assert not torch.isnan(got[ix]).any()
+    torch.testing.assert_close(got[ix], want[ix], rtol=0, atol=0)
+
+
+#: A shard's place along each axis for a local extent n in a global grid
+#: of 3n: the last shard (a non-zero origin, its high side on the global
+#: edge) and an inner one (no global edge).
+SHARD_ORIGINS = {"last": 2, "inner": 1}
+
+
+@pytest.mark.parametrize("ndim", [2, 3])
+@pytest.mark.parametrize("boundary", ["clamp", "periodic", "constant"])
+@pytest.mark.parametrize("shape,radius,steps", [("box", 1, 2),
+                                                ("diamond", 2, 1)])
+@pytest.mark.parametrize("where", sorted(SHARD_ORIGINS))
+def test_sharded_carry_replay_equals_plain_superstep(ndim, boundary, shape,
+                                                     radius, steps, where):
+    """B1/B4 on a mesh shard's carry (the sharded instantiation) against
+    ``padded_superstep_plain`` with the same ``offsets`` and
+    ``global_shape``, batch 2, short segments and ragged column tiles:
+    bit for bit on the shard's true cells."""
+    prog = _program(ndim, boundary, shape, radius)
+    local = GRIDS[ndim]
+    plan = repro_torch.BlockPlan(spec=prog, block_shape=local,
+                                 par_time=steps)
+    global_shape = tuple(3 * n for n in local)
+    lay = common.ring_schedule(prog, plan, global_shape, steps,
+                               decomp=(3,) * ndim).layout
+    offsets = tuple(SHARD_ORIGINS[where] * n for n in local)
+    rng = np.random.RandomState(radius)
+    src = torch.from_numpy(rng.uniform(
+        -1, 1, (2,) + lay.padded_shape).astype(np.float32))
+    coeffs = prog.default_coeffs(seed=radius)
+    geo = streamed.carry_geometry(
+        prog, steps, lay, batch=2, smem_limit=LIMIT, segment=3,
+        tile=(32,) if ndim == 2 else (2, 32), origin=offsets,
+        true_shape=global_shape)
+    assert geo.sharded and not geo.prepadded
+    assert geo.array()[-1] == 1 and geo.array()[-2] == 0
+    got = replay(prog, coeffs.center, coeffs.taps, src, geo)
+    want = common.padded_superstep_plain(
+        src, torch.zeros_like(src), coeffs.center, coeffs.taps,
+        program=prog, plan=plan, layout=lay, offsets=offsets,
+        global_shape=global_shape)
     ix = _interior(lay)
     assert not torch.isnan(got[ix]).any()
     torch.testing.assert_close(got[ix], want[ix], rtol=0, atol=0)
