@@ -80,7 +80,31 @@ Phases (any failure raises, so the exit code is non-zero):
     instantiation on the same local shape; ``DistributedStencil.
     superstep`` (B5 with shard origins); ``compile(devices=4,
     plan="model")``; ``StencilServer(mesh_devices=4)``;
-12. the ``ptxas`` report of every instantiation: no stack frame.
+12. the ``ptxas`` report of every instantiation: no stack frame;
+13. the LM serving path (:func:`lm_phase`; it reaches none of the six
+    kernels, and their launch counts, zeroed before, stay 0): (a)
+    gemma3-4b at full width in its own dtypes (float32 params, bfloat16
+    compute), drawn on the card from a seed, with its parameter count,
+    seconds and peak memory; (b) one 2048-token prompt through
+    ``decode_step`` a token at a time into a 2064-long cache (every local
+    layer's 1024-entry ring wraps) against ``forward`` over the prompt at
+    positions 0, 1023, 1024, 1535 and 2047: max |diff| over the spread
+    (standard deviation) of the forward row, both without the input
+    token's entry (a random-init model's echo), at most 0.15; a second
+    batch row decodes with a planted ring fault (its write slot clamped
+    to the ring's last entry, so the local rings never wrap) and must read
+    above 0.15 at 1535 and 2047, which shows that the limit fails a wrong
+    ring; (c) ``ServeEngine(batch=4, cache_len=64)``
+    serving 8 requests of prompt 16 and gen 16: tokens, seconds,
+    tokens/s, the median ms of one decode step (CUDA events) beside its
+    bound (the bytes one step reads at the card's HBM rate), the kernels
+    and device ms of one step (``torch.profiler``) and the device's share
+    of the step and of the run; (d) the same engine at reduced width in
+    float32 on the card and on the CPU, every decode call's logits equal
+    at atol 1e-3, rtol 1e-4, the tokens identical (the CPU path is the
+    one ``tests/test_torch_lm.py`` holds to the JAX package); (e)
+    starcoder2-7b at full width (gemma3 freed first): one engine run of 4
+    requests at batch 4, tokens/s and decode ms against its bound.
 
 The last lines are the ``{"kernels": [...]}`` record, the ``nvidia-smi``
 line, and ``{"ok": true, "device": {...}}``.
@@ -1813,6 +1837,301 @@ def ptxas_report():
                                  f"instantiations, expected {count}")
 
 
+#: Phase 13 (module docstring): the full-width models, the decode-vs-
+#: prefill prompt, cache and positions; the bf16 limit on max |diff| over
+#: the forward row's spread, the input token's entry left out of both (its
+#: logit, ~d_model, is the random-init echo and would swamp any fault);
+#: the positions where the planted ring fault must exceed it.
+LM_ARCH, LM_SECOND = "gemma3-4b", "starcoder2-7b"
+LM_PROMPT, LM_CACHE = 2048, 2064
+LM_POSITIONS = (0, 1023, 1024, 1535, 2047)
+LM_SPREAD = 0.15
+LM_FAULT_POSITIONS = (1535, 2047)
+#: card against CPU at reduced width, float32 (tests/test_torch_lm.py's)
+LM_TOL = dict(atol=1e-3, rtol=1e-4)
+
+
+def lm_step_bytes(model, caches) -> int:
+    """Bytes one decode step must read: every layer weight, the head
+    (the tied table) and the whole KV cache (keys, values, positions)."""
+    n = sum(p.numel() * p.element_size() for p in model.layers.parameters())
+    head = model.embed if model.lm_head is None else model.lm_head
+    n += head.numel() * head.element_size()
+    n += sum(t.numel() * t.element_size() for c in caches for t in c)
+    return n
+
+
+def device_busy(fn, steps: int = 3):
+    """(device ms, kernels, the five costliest kernels as (name, launches,
+    ms)) per call of ``fn`` from ``torch.profiler``'s kernel events; fails
+    when the profiler fails or records no kernel."""
+    import collections
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        raise AssertionError("torch.profiler recorded no kernel: the "
+                             "device's busy share is not measured")
+    by_name = collections.defaultdict(lambda: [0, 0.0])
+    for e in kernels:
+        by_name[e.name][0] += 1
+        by_name[e.name][1] += e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:5]
+    busy_us = sum(us for _, us in by_name.values())
+    return (busy_us / 1e3 / steps, len(kernels) / steps,
+            [(name[:70], n / steps, us / 1e3 / steps)
+             for name, (n, us) in top])
+
+
+def lm_requests(cfg, n, prompt, gen, seed=0):
+    import numpy as np
+    from repro_torch.launch import serve
+    rng = np.random.RandomState(seed)
+    return [serve.Request(rid=i, prompt=rng.randint(0, cfg.vocab,
+                                                    size=(prompt,)),
+                          max_new=gen) for i in range(n)]
+
+
+def lm_serve(label, model, smi, chip, requests, prompt=16, gen=16,
+             batch=4, cache_len=64):
+    """One engine run at full width (phase 13 (c) and (e))."""
+    import torch
+    from repro_torch.launch import serve
+
+    warm = serve.ServeEngine(model, batch, cache_len)
+    warm.run(lm_requests(model.cfg, 2, 4, 2, seed=1))
+    engine = serve.ServeEngine(model, batch, cache_len)
+    decode = engine.decode
+    calls = [0]
+
+    def counted(*args):
+        calls[0] += 1
+        return decode(*args)
+
+    engine.decode = counted
+    reqs = lm_requests(model.cfg, requests, prompt, gen)
+    torch.cuda.synchronize()
+    stats = engine.run(reqs)
+    torch.cuda.synchronize()
+    if stats["tokens"] != requests * gen:
+        raise AssertionError(f"served {stats['tokens']} tokens, expected "
+                             f"{requests * gen}")
+    for r in reqs:
+        if len(r.generated) != gen or not all(0 <= t < model.cfg.vocab
+                                              for t in r.generated):
+            raise AssertionError(f"request {r.rid} generated {r.generated}")
+    print(f"  {label} {model.cfg.name} ServeEngine(batch={batch}, cache_len="
+          f"{cache_len}), {requests} requests, prompt {prompt}, gen {gen}: "
+          f"{stats['tokens']} tokens in {stats['seconds']!r} s, "
+          f"{stats['tokens_per_s']!r} tokens/s, {calls[0]} decode calls "
+          f"(prefill token by token, as the reference)")
+
+    toks = torch.zeros((batch, 1), dtype=torch.int32, device=model.device)
+    pos = torch.full((batch, 1), prompt, dtype=torch.int32,
+                     device=model.device)
+
+    def step():
+        decode(engine.caches, toks, pos)
+
+    ms = median_ms(step, label=f"{model.cfg.name} decode step")
+    moved = lm_step_bytes(model, engine.caches)
+    bound_ms = moved / chip.hbm_bytes_per_s * 1e3
+    busy_ms, kernels, top = device_busy(step)
+    print(f"  decode step (batch {batch}): {ms!r} ms (median of {RUNS} CUDA-"
+          f"event windows), bound {bound_ms!r} ms ({moved / 1e9!r} GB read "
+          f"at {chip.hbm_bytes_per_s / 1e12!r} TB/s), {ms / bound_ms!r}x "
+          f"bound ({smi})")
+    print(f"  device busy per step {busy_ms!r} ms over {kernels!r} "
+          f"kernels (torch.profiler): {busy_ms / ms!r} of the step, "
+          f"{busy_ms * calls[0] / (stats['seconds'] * 1e3)!r} of the "
+          f"run's wall; the costliest kernels per step:")
+    for name, n, k_ms in top:
+        print(f"    {k_ms!r} ms over {n!r} launches: {name}")
+
+
+def lm_recorded_run(model, device, reqs, batch, cache_len):
+    """Every decode call's logits (float64 on the host) and the tokens."""
+    from repro_torch.launch import serve
+    engine = serve.ServeEngine(model, batch, cache_len, device=device)
+    decode, calls = engine.decode, []
+
+    def record(*args):
+        logits, caches = decode(*args)
+        calls.append(logits.double().cpu())
+        return logits, caches
+
+    engine.decode = record
+    engine.run(reqs)
+    return calls, [r.generated for r in reqs]
+
+
+def lm_phase(smi, chip):
+    """The LM serving path (module docstring, phase 13)."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import cuda
+    from repro_torch.launch import serve
+    from repro_torch.models import attention, common, transformer
+    from repro_torch.runtime.trainer import make_decode_step
+
+    print(f"\n== the LM serving path ({smi})")
+    if torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("TF32 is on: the float32 head would not be "
+                             "the reference's float32 product")
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cuda.reset_launches()
+
+    # (a) gemma3-4b at full width, in its own dtypes
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = transformer.build(get_arch(LM_ARCH), seed=0)
+    torch.cuda.synchronize()
+    print(f"  (a) {LM_ARCH}: {common.param_count(model)} parameters "
+          f"(param_dtype {model.cfg.param_dtype}, compute "
+          f"{model.cfg.compute_dtype}: layers held as their "
+          f"{model.cfg.compute_dtype} cast, embedding and final norm "
+          f"{model.cfg.param_dtype}), drawn on the card in "
+          f"{time.perf_counter() - t0!r} s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30!r} GiB")
+
+    # (b) decode against prefill at 2048 tokens: the rings wrap.  Row 1
+    # decodes with a planted fault: its write slot clamped to the ring's
+    # last entry, so its local rings never wrap (the global caches, longer
+    # than the prompt, are untouched)
+    cfg = model.cfg
+    gen = torch.Generator(device=model.device).manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab, (1, LM_PROMPT), generator=gen,
+                           dtype=torch.int32, device=model.device)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        want = model(prompt).logits[0, list(LM_POSITIONS), :cfg.vocab]
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    caches = model.init_caches(2, LM_CACHE)
+    rings = sorted({c.k.shape[1] for c in caches})
+    decode = make_decode_step(model)
+    tokens = prompt.expand(2, -1)
+    positions = torch.arange(LM_PROMPT, dtype=torch.int32,
+                             device=model.device).expand(2, -1)
+    ring_slot = attention._ring_slot
+
+    def faulty_ring_slot(step, length):
+        slot = ring_slot(step, length)
+        slot[1] = torch.clamp(step[1], max=length - 1)
+        return slot
+
+    got = []
+    attention._ring_slot = faulty_ring_slot
+    try:
+        t0 = time.perf_counter()
+        for t in range(LM_PROMPT):
+            logits, caches = decode(caches, tokens[:, t:t + 1],
+                                    positions[:, t:t + 1])
+            if t in LM_POSITIONS:
+                got.append(logits[:, 0, :cfg.vocab])
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+    finally:
+        attention._ring_slot = ring_slot
+    got = torch.stack(got, dim=1)                     # (2, positions, V)
+    echo = torch.zeros_like(want, dtype=torch.bool)
+    echo[torch.arange(len(LM_POSITIONS)),
+         prompt[0, list(LM_POSITIONS)].long()] = True
+    rest = want.masked_fill(echo, float("nan"))
+    spread = torch.sqrt(torch.nanmean((rest - torch.nanmean(
+        rest, -1, keepdim=True)) ** 2, -1))
+    diff = (got - want).abs().masked_fill(echo, 0.0).amax(-1)
+    readings = (diff / spread).tolist()
+    share = ((got[0] - want).abs().amax(-1) / want.abs().amax(-1)).tolist()
+    print(f"  (b) {LM_PROMPT}-token prompt: forward {prefill_s!r} s; "
+          f"{LM_PROMPT} decode steps into caches of {rings} (local rings "
+          f"wrap) in {decode_s!r} s ({decode_s / LM_PROMPT * 1e3!r} ms a "
+          f"step, batch 2: row 0 as built, row 1 with the planted ring "
+          f"fault)")
+    for i, p in enumerate(LM_POSITIONS):
+        print(f"    position {p}: max |decode - forward| / spread of the "
+              f"forward row (input token left out) = {readings[0][i]!r}, "
+              f"with the ring fault {readings[1][i]!r} (spread "
+              f"{spread[i].item()!r}; over max |logit| "
+              f"{want[i].abs().max().item()!r}: {share[i]!r})")
+    if not all(math.isfinite(v) and v <= LM_SPREAD for v in readings[0]):
+        raise AssertionError(f"decode disagrees with forward: {readings[0]} "
+                             f"(limit {LM_SPREAD})")
+    missed = [p for i, p in enumerate(LM_POSITIONS)
+              if p in LM_FAULT_POSITIONS and not readings[1][i] > LM_SPREAD]
+    if missed:
+        raise AssertionError(f"the limit {LM_SPREAD} passes a ring that "
+                             f"never wraps at positions {missed}: "
+                             f"{readings[1]}")
+    del want, got, rest, caches, logits, prompt, tokens
+
+    # (c) the serving engine at full width
+    lm_serve("(c)", model, smi, chip, requests=8)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the same engine at reduced width, card against CPU, float32
+    small = get_arch(LM_ARCH).reduced()
+    cpu = transformer.build(small, device="cpu", seed=2)
+    card = transformer.build(small, seed=2)
+    card.load_state_dict(cpu.state_dict())
+    runs = []
+    for m, dev in ((card, None), (cpu, "cpu")):
+        rng = np.random.RandomState(3)
+        reqs = [serve.Request(rid=i, prompt=rng.randint(0, small.vocab,
+                                                         size=(n,)),
+                              max_new=g)
+                for i, (n, g) in enumerate(((7, 4), (3, 6), (12, 3), (5, 5),
+                                            (9, 2)))]
+        runs.append(lm_recorded_run(m, dev, reqs, batch=2, cache_len=32))
+    (card_calls, card_gen), (cpu_calls, cpu_gen) = runs
+    if len(card_calls) != len(cpu_calls) or card_gen != cpu_gen:
+        raise AssertionError(f"card and CPU engines differ: {card_gen} "
+                             f"against {cpu_gen}")
+    worst = max(max_err(a, b) for a, b in zip(card_calls, cpu_calls))
+    for a, b in zip(card_calls, cpu_calls):
+        if not torch.allclose(a, b, **LM_TOL):
+            raise AssertionError(f"card logits disagree with the CPU's: "
+                                 f"max_abs_err {max_err(a, b)}")
+    print(f"  (d) reduced {LM_ARCH}, float32, batch 2, 5 requests: "
+          f"{len(card_calls)} decode calls, card against CPU max_abs_err "
+          f"{worst!r} (atol {LM_TOL['atol']}, rtol {LM_TOL['rtol']}), "
+          f"tokens identical ({sum(map(len, card_gen))} generated)")
+    del card, cpu
+
+    # (e) starcoder2-7b at full width
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = transformer.build(get_arch(LM_SECOND), seed=0)
+    torch.cuda.synchronize()
+    print(f"  (e) {LM_SECOND}: {common.param_count(model)} parameters, "
+          f"drawn in {time.perf_counter() - t0!r} s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30!r} GiB")
+    lm_serve("(e)", model, smi, chip, requests=4)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    counts = cuda.launches()
+    if any(counts.values()):
+        raise AssertionError(f"the LM path launched stencil kernels: "
+                             f"{counts}")
+    print(f"  stencil kernel launches during the LM path: {counts} (none: "
+          f"the LM path reaches no pallas_call in the reference)")
+    print(f"  phase 13: {time.perf_counter() - t_phase!r} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1854,6 +2173,7 @@ def main() -> int:
     preflight_phase(smi)
     records += mesh_phase(smi, chip)
     ptxas_report()
+    lm_phase(smi, chip)
     ported = {r["name"].split("@")[0] for r in records}
     if len(ported) != 6:
         raise AssertionError(f"kernel records cover {sorted(ported)}")

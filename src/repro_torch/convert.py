@@ -7,19 +7,29 @@ numpy arrays, then hand both packages the same thing:
     plan = plan_from_fields(**dataclasses.asdict(ref_plan))
     coeffs = coeffs_from_numpy(ref_coeffs.center, ref_coeffs.taps, "cpu")
 
+and an LM configuration and its weights:
+
+    cfg = arch_from_fields(**dataclasses.asdict(ref_cfg))
+    values, _ = repro.models.common.split_params(ref_model.init(key))
+    model.load_state_dict(lm_params_from_numpy(
+        cfg, jax.tree.map(np.asarray, values), "cpu"))
+
 Only plain fields and numpy arrays cross, so this module imports nothing
 of the reference.
 """
 
 from __future__ import annotations
 
-from typing import Mapping, Sequence
+from typing import Dict, Mapping, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch.configs.base import (ArchConfig, AttnCfg, LayerCfg,
+                                      MambaCfg, MoECfg, RwkvCfg)
 from repro_torch.core.blocking import BlockPlan
 from repro_torch.core.program import ProgramCoeffs, StencilProgram
+from repro_torch.models.transformer import LMModel
 
 
 def program_from_fields(**fields) -> StencilProgram:
@@ -42,3 +52,64 @@ def coeffs_from_numpy(center, taps, device="cpu") -> ProgramCoeffs:
                             device=device),
         taps=torch.tensor(np.asarray(taps, dtype=np.float32).reshape(-1),
                           device=device))
+
+
+def arch_from_fields(**fields) -> ArchConfig:
+    """A port ``ArchConfig`` from the reference config's dataclass fields
+    (``dataclasses.asdict`` nests the sub-configs as dicts)."""
+    subs = {"attn": AttnCfg, "moe": MoECfg, "mamba": MambaCfg,
+            "rwkv": RwkvCfg}
+    for name, cls in subs.items():
+        if fields.get(name) is not None:
+            fields[name] = cls(**fields[name])
+    fields["pattern"] = tuple(LayerCfg(**l) for l in fields["pattern"])
+    return ArchConfig(**fields)
+
+
+def _flatten(tree, prefix: str, out: Dict[str, np.ndarray]):
+    if isinstance(tree, Mapping):
+        for k, v in tree.items():
+            _flatten(v, f"{prefix}{k}.", out)
+    else:
+        out[prefix[:-1]] = tree
+
+
+def lm_params_from_numpy(cfg: ArchConfig, tree: Mapping,
+                         device="cpu") -> Dict[str, torch.Tensor]:
+    """The port model's state dict from the reference's params tree (the
+    values of ``common.split_params``, leaves as numpy arrays).
+
+    ``tree["units"][p]`` stacks pattern position ``p`` over units; unit
+    ``u`` becomes layer ``u * len(pattern) + p``, and ``tree["tail"][p]``
+    layer ``units * len(pattern) + p``.  Each leaf is placed as the model
+    places it: layer leaves cast from ``param_dtype`` to
+    ``compute_dtype`` (the reference casts them at use; norm scales then
+    held in float32), the rest in ``param_dtype``.
+    """
+    held = {k: v.dtype for k, v in
+            LMModel(cfg, device="meta").state_dict().items()}
+    flat: Dict[str, np.ndarray] = {}
+    P = len(cfg.pattern)
+    for p, stacked in enumerate(tree["units"]):
+        leaves: Dict[str, np.ndarray] = {}
+        _flatten(stacked, "", leaves)
+        for u in range(cfg.units):
+            for name, v in leaves.items():
+                flat[f"layers.{u * P + p}.{name}"] = v[u]
+    for p, layer in enumerate(tree["tail"]):
+        _flatten(layer, f"layers.{cfg.units * P + p}.", flat)
+    for name in ("embed", "lm_head", "final_norm"):
+        if name in tree:
+            _flatten(tree[name], f"{name}.", flat)
+    param = getattr(torch, cfg.param_dtype)
+    compute = getattr(torch, cfg.compute_dtype)
+    out = {}
+    for name, v in flat.items():
+        v = np.asarray(v)
+        if v.dtype.name == "bfloat16":
+            v = v.astype(np.float32)        # exact: ml_dtypes bfloat16
+        t = torch.tensor(v).to(param)
+        if name.startswith("layers."):
+            t = t.to(compute)
+        out[name] = t.to(held[name]).to(device)
+    return out

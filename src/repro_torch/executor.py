@@ -207,21 +207,21 @@ def _plan_mesh(program, chip: GpuChip, grid_shape, n_devices: int,
 
 
 def _resolve_device(device) -> torch.device:
-    """``None`` -> the current CUDA device; raises RP110 when no GPU is
-    visible.  An explicit device is taken as given."""
-    if device is not None:
-        dev = torch.device(device)
-        if dev.type == "cuda" and dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
+    """``None`` or ``"cuda"`` -> the current CUDA device; raises RP110
+    when no GPU is visible.  Any other device is taken as given."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type != "cuda":
         return dev
     if not torch.cuda.is_available():
         raise DiagnosticError([_diag(
             "RP110",
-            "compile() runs on a CUDA device by default and none is "
+            "repro_torch runs on a CUDA device by default and none is "
             "visible",
             hint="run on a GPU host, or pass device='cpu' for the plain "
-                 "PyTorch versions of the kernels")])
-    return torch.device("cuda", torch.cuda.current_device())
+                 "PyTorch versions")])
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
 
 
 def stencil(program: StencilProgram,

@@ -917,3 +917,45 @@ def test_mesh_shards_on_two_streams_keep_their_coefficients(cuda_device):
         want = repro_torch.stencil(star, dist.coeffs).compile(
             grid, steps=4, plan=plan).run(g)
         torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def _lm_engine_run(model, device, batch=2, cache_len=32):
+    """Every decode call's logits (float64, on the host) and the tokens
+    of a seeded mixed-length run that refills slots."""
+    import numpy as np
+    from repro_torch.launch import serve
+    rng = np.random.RandomState(3)
+    reqs = [serve.Request(rid=i, prompt=rng.randint(0, model.cfg.vocab,
+                                                     size=(n,)), max_new=g)
+            for i, (n, g) in enumerate(((7, 4), (3, 6), (12, 3), (5, 5),
+                                        (9, 2)))]
+    engine = serve.ServeEngine(model, batch, cache_len, device=device)
+    decode, calls = engine.decode, []
+
+    def record(*args):
+        logits, caches = decode(*args)
+        calls.append(logits.double().cpu())
+        return logits, caches
+
+    engine.decode = record
+    engine.run(reqs)
+    return calls, [r.generated for r in reqs]
+
+
+@pytest.mark.parametrize("arch", ["gemma3-4b", "starcoder2-7b",
+                                  "gemma2-27b"])
+def test_lm_serve_engine_on_the_card_equals_the_cpu(cuda_device, arch):
+    """Reduced width, float32: the card's engine against the CPU's (the
+    path tests/test_torch_lm.py holds to the JAX package), call for call
+    at atol 1e-3, rtol 1e-4, the tokens identical."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer
+    cfg = get_arch(arch).reduced()
+    cpu = transformer.build(cfg, device="cpu", seed=2)
+    card = transformer.build(cfg, device=cuda_device, seed=2)
+    card.load_state_dict(cpu.state_dict())
+    card_calls, card_gen = _lm_engine_run(card, cuda_device)
+    cpu_calls, cpu_gen = _lm_engine_run(cpu, "cpu")
+    assert card_gen == cpu_gen and len(card_calls) == len(cpu_calls) > 40
+    for got, want in zip(card_calls, cpu_calls):
+        torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-4)

@@ -254,7 +254,10 @@ def test_import_does_not_load_jax_or_the_reference():
             "repro_torch.core.perf_model, repro_torch.obs, "
             "repro_torch.obs.report, repro_torch.launch.stencil_serve, "
             "repro_torch.lint, repro_torch.lint.dataflow, "
-            "repro_torch.lint.sanitize, repro_torch.lint.__main__; "
+            "repro_torch.lint.sanitize, repro_torch.lint.__main__, "
+            "repro_torch.models, repro_torch.models.transformer, "
+            "repro_torch.runtime.trainer, repro_torch.launch.serve, "
+            "repro_torch.configs; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); "
             "sys.exit(1 if bad else 0)")
