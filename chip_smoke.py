@@ -8,7 +8,8 @@ Phases (any failure raises, so the exit code is non-zero):
 
 1. device: ``nvidia-smi`` name and power limit, the card's properties,
    and the build of every CUDA kernel from ``src/repro_torch/kernels/csrc``
-   (one ``nvcc`` per source, all at once);
+   (one ``nvcc`` per source and grid dtype, float32, bfloat16 and
+   float16, all nine at once; each library's seconds);
 2. the main path, ``repro_torch.stencil(...).compile(...).run(grid)``, at
    the paper's single-device workloads under each kernel variant, and the
    pre-padded superstep through ``repro_torch.backends.lower(...)``
@@ -80,7 +81,8 @@ Phases (any failure raises, so the exit code is non-zero):
     instantiation on the same local shape; ``DistributedStencil.
     superstep`` (B5 with shard origins); ``compile(devices=4,
     plan="model")``; ``StencilServer(mesh_devices=4)``;
-12. the ``ptxas`` report of every instantiation: no stack frame;
+12. the ``ptxas`` report of every instantiation in every dtype: no stack
+    frame;
 13. the LM serving path (:func:`lm_phase`; it reaches none of the six
     kernels, and their launch counts, zeroed before, stay 0): (a)
     gemma3-4b at full width in its own dtypes (float32 params, bfloat16
@@ -106,12 +108,31 @@ Phases (any failure raises, so the exit code is non-zero):
     starcoder2-7b at full width (gemma3 freed first): one engine run of 4
     requests at batch 4, tokens/s and decode ms against its bound.
 
+14. 16-bit grids (:func:`half_phase`, run before 12 and 13): the main
+    path of phase 2 again with the program in bfloat16 at the paper shapes
+    (:data:`HALF_CASES`: B1 on both bodies, B2, B3, B4, B5 and B6 on both
+    bodies; a 16-bit star of radius 4 runs the streamed body, so the
+    register queues run at ``3d_r2_paper``) and in float16 at one
+    configuration per body, launch counts
+    zeroed before and read after (all of the dtype's library), the run
+    against the port's oracle on the card at 0 (the coefficients rounded
+    to the grid's dtype, as the kernels take them), each kernel against
+    its plain version at 0 and timed as in phase 3 beside its bound at 2
+    bytes a cell and a convolution in the grid's dtype; each front-door
+    variant on the card against the CPU at 0 on one block of the grid;
+    a bfloat16 mesh run (2d_r4_paper on 2x2 shards of the card) against
+    the single device at 0; ``plan="model"`` at 2d_r4_paper in bfloat16
+    against the pinned plan at 0, with both walls; the NaN canary on B1,
+    B3, B4 and B2 in bfloat16 at paper width, clean and equal to the front
+    door at 0.  The 16-bit records carry their ``dtype``.
+
 The last lines are the ``{"kernels": [...]}`` record, the ``nvidia-smi``
 line, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import os
@@ -131,8 +152,12 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 ULP = dict(atol=1e-6, rtol=1e-5)
 #: float32 run vs the float64 oracle (the repo's TOL).
 TOL = 5e-4
-#: a float32 convolution vs the float32 oracle: cuDNN sums in its own order.
-LIBRARY_TOL = 1e-4
+#: a convolution vs the port's oracle in the grid's dtype: cuDNN sums in
+#: its own order, in float32 and for a 16-bit grid rounds once per step,
+#: where the oracle rounds after every multiply and add (a bfloat16 ulp
+#: near 1 is 2^-7, a float16 one 2^-10, and a step of up to 25 taps
+#: rounds 49 times).
+LIBRARY_TOLS = {"float32": 1e-4, "bfloat16": 0.125, "float16": 0.02}
 RUNS = 7
 
 
@@ -193,10 +218,24 @@ def bound(bytes_moved: float, flops: float, chip):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def random_grid(shape, seed: int):
+def random_grid(shape, seed: int, dtype: str = "float32"):
+    """Uniform in [-1, 1) on the card, drawn in float32 from ``seed`` and
+    rounded to ``dtype``."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    return torch.rand(shape, generator=gen, device="cuda") * 2 - 1
+    grid = torch.rand(shape, generator=gen, device="cuda") * 2 - 1
+    return grid.to(getattr(torch, dtype))
+
+
+def cast_coeffs(prog, coeffs):
+    """``coeffs`` rounded to the program's dtype, as the kernels and their
+    plain versions take them (``kernels/common.grid_coeffs``): what the
+    port's oracle must be given to compute the same function."""
+    import torch
+    import repro_torch
+    dt = getattr(torch, prog.dtype)
+    return repro_torch.ProgramCoeffs(coeffs.center.to(dt),
+                                     coeffs.taps.to(dt))
 
 
 def library_step(program, coeffs, grid, steps: int):
@@ -208,7 +247,7 @@ def library_step(program, coeffs, grid, steps: int):
     r = program.halo_radius
     nd = program.ndim
     k = 2 * r + 1
-    weight = torch.zeros((k,) * nd, device=grid.device)
+    weight = torch.zeros((k,) * nd, device=grid.device, dtype=grid.dtype)
     weight[(r,) * nd] = coeffs.center
     for c, off in zip(coeffs.taps, program.neighbor_taps):
         weight[tuple(o + r for o in off)] = c
@@ -328,7 +367,7 @@ def drive_main_path(case, chip):
     prog = work.spec
     plan = case.get("plan") or work.plan()
     shape = case.get("grid", work.grid_shape)
-    grid = random_grid(shape, seed=0)
+    grid = random_grid(shape, seed=0, dtype=prog.dtype)
     if "backend" in case:
         low = lower(prog, plan, backend=case["backend"])
         steps = plan.par_time
@@ -344,7 +383,7 @@ def drive_main_path(case, chip):
         how = f"compile(variant={cs.variant!r}).run"
     print(f"\n== main path: {case['name']} {how} grid={shape} steps={steps} "
           f"block={plan.block_shape} par_time={plan.par_time} "
-          f"{prog.shape} r={prog.radius} {prog.boundary}")
+          f"{prog.shape} r={prog.radius} {prog.boundary} {prog.dtype}")
     if "reduced" in case:
         print(f"  reduced: {case['reduced']}")
     cuda.reset_launches()
@@ -352,15 +391,20 @@ def drive_main_path(case, chip):
     torch.cuda.synchronize()
     counts = cuda.launches()
     want = {k: case["expect"].get(k, 0) for k in counts}
-    print(f"  launches {counts} (expected {want})")
-    if counts != want:
+    print(f"  launches {counts} (expected {want}), of the {prog.dtype} "
+          f"library {cuda.launches(prog.dtype)}")
+    if counts != want or cuda.launches(prog.dtype) != want:
         raise AssertionError(f"launch counts {counts} != {want}")
-    if tuple(out.shape) != tuple(shape) or not bool(out.isfinite().all()):
-        raise AssertionError("output has the wrong shape or non-finite "
-                             "values")
-    ref = program_nsteps(prog, coeffs, grid, steps)
-    check_close("main path vs program_nsteps (float32, same card)",
-                out, ref, **ULP)
+    if tuple(out.shape) != tuple(shape) or not bool(out.isfinite().all()) \
+            or out.dtype != grid.dtype:
+        raise AssertionError("output has the wrong shape, dtype or "
+                             "non-finite values")
+    # the oracle with the coefficients the kernels take: float32 at the
+    # repo's ULP, 16 bits exact (the same roundings in the same order)
+    ref = program_nsteps(prog, cast_coeffs(prog, coeffs), grid, steps)
+    check_close(f"main path vs program_nsteps ({prog.dtype}, same card)",
+                out, ref, **(ULP if prog.dtype == "float32"
+                             else dict(atol=0.0, rtol=0.0)))
     del ref, out
     # wall time of one more run (host clock around a synchronised run)
     torch.cuda.synchronize()
@@ -372,7 +416,7 @@ def drive_main_path(case, chip):
     print(f"  run: {wall * 1e3!r} ms, {cells / wall / 1e6!r} MCell/s, "
           f"{cells * prog.flops_per_cell / wall / 1e9!r} GFLOP/s")
     return dict(counts=counts, grid=grid, coeffs=coeffs, prog=prog,
-                plan=plan, steps=steps)
+                plan=plan, steps=steps, wall_ms=wall * 1e3)
 
 
 #: library yardstick times already taken in this run, by (case, steps)
@@ -384,13 +428,15 @@ def library_ms(name, prog, coeffs, grid, steps):
     the oracle first; taken once per case name and step count."""
     import torch
     from repro_torch.core.reference import program_nsteps
-    key = (name, tuple(grid.shape), steps)
+    key = (name, tuple(grid.shape), steps, prog.dtype)
     if key not in _LIBRARY_MS:
         torch.backends.cudnn.allow_tf32 = False
+        coeffs = cast_coeffs(prog, coeffs)
         lib = library_step(prog, coeffs, grid, steps)
         ref = program_nsteps(prog, coeffs, grid, steps)
-        check_close(f"library yardstick ({steps} steps) vs program_nsteps",
-                    lib, ref, atol=LIBRARY_TOL, rtol=0.0)
+        check_close(f"library yardstick ({steps} steps, {prog.dtype}) vs "
+                    f"program_nsteps", lib, ref,
+                    atol=LIBRARY_TOLS[prog.dtype], rtol=0.0)
         del lib, ref
         _LIBRARY_MS[key] = median_ms(lambda: library_step(prog, coeffs, grid,
                                                           steps))
@@ -414,7 +460,8 @@ def record(name, kernel, source, replaces, design, state, err, ms,
                replaces=f"src/repro/kernels/common.py:{replaces}",
                launches=state["counts"][kernel], max_abs_err=err, ms=ms,
                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-               library_ms=lib_ms, design=DESIGNS[design])
+               library_ms=lib_ms, design=DESIGNS[design],
+               dtype=state["prog"].dtype)
     return rec
 
 
@@ -446,7 +493,7 @@ def check_carry(case, state, chip):
           f"ring H={layout.halo}")
     if layout.wrap_axes:
         # random values in the ring and slack, so that every copy shows
-        src = random_grid(layout.padded_shape, seed=1)
+        src = random_grid(layout.padded_shape, seed=1, dtype=prog.dtype)
         src[interior] = state["grid"]
         got = src.clone()
         cuda.refresh_wrap_halo(got, layout)
@@ -464,7 +511,7 @@ def check_carry(case, state, chip):
         # every shell cell written once and its interior source read once
         shell = math.prod(layout.padded_shape) - math.prod(
             layout.local_shape)
-        moved = 2 * 4 * shell
+        moved = 2 * plan.itemsize * shell
         print(f"  wrap_halo: one launch per refresh, "
               f"{len(cuda.wrap_boxes(layout))} boxes, {shell} shell cells")
         records.append(record(name, "wrap_halo", "wrap_halo.cu", 678,
@@ -514,7 +561,7 @@ def check_padded(case, state, chip, variant, layout=None, src=None,
         src, got, center, taps, program=prog, plan=eff, layout=layout))
     lib = library_ms(case["name"], prog, coeffs, grid, eff.par_time)
     cells = math.prod(grid.shape)
-    moved = 4 * (math.prod(layout.padded_shape) + cells)
+    moved = plan.itemsize * (math.prod(layout.padded_shape) + cells)
     flops = cells * eff.par_time * prog.flops_per_cell
     tile = cuda.pick_tile(plan, kernel, cuda.smem_optin(grid.device.index))
     print(f"  {kernel}: CTA tile {tile}, "
@@ -566,7 +613,7 @@ def check_prepadded(case, state, chip):
     ms = median_ms(kernel_call, label=kernel)
     plain_ms = median_ms(plain_call)
     lib = library_ms(case["name"], prog, coeffs, grid, plan.par_time)
-    moved = 4 * (math.prod(padded.shape) + math.prod(rounded))
+    moved = plan.itemsize * (math.prod(padded.shape) + math.prod(rounded))
     flops = math.prod(n) * plan.par_time * prog.flops_per_cell
     tile = cuda.pick_tile(plan, kernel, cuda.smem_optin(grid.device.index))
     print(f"  {kernel}: CTA tile {tile}, "
@@ -1526,13 +1573,14 @@ def check_sharded(label, kernel, dist, state, chip):
     lib = library_ms(f"{label} shard", prog, coeffs, interior, plan.par_time)
     del interior, got
     cells = math.prod(local)
-    moved = 4 * (math.prod(layout.padded_shape) + cells)
+    moved = plan.itemsize * (math.prod(layout.padded_shape) + cells)
     flops = cells * plan.par_time * prog.flops_per_cell
     print(f"  {kernel}: {ms!r} ms against the unsharded instantiation's "
           f"{unsharded_ms!r} ms on the same local shape {local} "
           f"({ms / unsharded_ms!r}x)")
     rec = record(label, base, BODY_SOURCES[body], replaces, body,
-                 {"counts": {base: state["counts"].get(kernel, 0)}},
+                 {"counts": {base: state["counts"].get(kernel, 0)},
+                  "prog": prog},
                  max(errs), ms, plain_ms, moved, flops, lib, chip)
     rec["name"] = f"{base}@{label}"
     rec["unsharded_ms"] = unsharded_ms
@@ -1715,11 +1763,12 @@ def mesh_superstep(chip):
     interior = grid[dist.slices[j]].contiguous()
     lib = library_ms("2d_r4_paper shard", prog, c, interior, plan.par_time)
     cells = math.prod(interior.shape)
-    moved = 4 * (block.numel() + cells)
+    moved = plan.itemsize * (block.numel() + cells)
     flops = cells * plan.par_time * prog.flops_per_cell
     body = plan.body("superstep")
     rec = record("mesh_2d_r4_paper", "superstep", BODY_SOURCES[body], 181,
-                 body, {"counts": counts}, err, ms, plain_ms, moved, flops,
+                 body, {"counts": counts, "prog": prog}, err, ms, plain_ms,
+                 moved, flops,
                  lib, chip)
     del got, want, block, interior, grid
     return rec
@@ -1805,10 +1854,13 @@ def mesh_served(smi):
 
 
 #: The kernels ``ptxas_report`` reads, by source: each instantiation's
-#: name in the log, and how many instantiations the source has.
-PTXAS = {"streamed_superstep.cu": (("streamed_kernel",), 36),
-         "queued_superstep.cu": (("queue_kernel",), 42),
-         "wrap_halo.cu": (("wrap_halo_kernel",), 1)}
+#: name in the log, and how many instantiations the source has in float32
+#: and in 16 bits (the queued source leaves four register queues out of
+#: its 16-bit libraries, for both instantiations each:
+#: ``core/blocking.QUEUE_STEPS_16``).
+PTXAS = {"streamed_superstep.cu": (("streamed_kernel",), 36, 36),
+         "queued_superstep.cu": (("queue_kernel",), 42, 34),
+         "wrap_halo.cu": (("wrap_halo_kernel",), 1, 1)}
 
 
 def ptxas_report():
@@ -1816,25 +1868,27 @@ def ptxas_report():
     build's log of the library this run loaded; raises when one has a
     stack frame or an instantiation has no report."""
     from repro_torch.kernels import build
-    for source, (names, count) in PTXAS.items():
+    for (source, (names, count32, count16)), dtype in itertools.product(
+            PTXAS.items(), build.DTYPES):
+        count = count32 if dtype == "float32" else count16
         entry = None
         found = 0
-        for line in build.build_log(source).splitlines():
+        for line in build.build_log(source, dtype).splitlines():
             if "Compiling entry function" in line:
                 entry = line if any(n in line for n in names) else None
                 if entry:
-                    print(f"ptxas {source}: {entry.strip()}")
+                    print(f"ptxas {source} ({dtype}): {entry.strip()}")
                 continue
             if entry and ("stack frame" in line or "Used " in line):
-                print(f"ptxas {source}:   {line.strip()}")
+                print(f"ptxas {source} ({dtype}):   {line.strip()}")
                 if "stack frame" in line:
                     found += 1
                     if not line.strip().startswith("0 bytes stack frame"):
                         raise AssertionError(f"{source}: a kernel has a "
                                              f"stack frame: {line.strip()}")
         if found != count:
-            raise AssertionError(f"{source}: ptxas reported {found} "
-                                 f"instantiations, expected {count}")
+            raise AssertionError(f"{source} ({dtype}): ptxas reported "
+                                 f"{found} instantiations, expected {count}")
 
 
 #: Phase 13 (module docstring): the full-width models, the decode-vs-
@@ -2132,6 +2186,198 @@ def lm_phase(smi, chip):
     print(f"  phase 13: {time.perf_counter() - t_phase!r} s")
 
 
+#: Phase 14 (module docstring): the 16-bit main path.  Each case of
+#: :func:`cases` and :func:`queue_cases` whose name and check are listed
+#: runs again with its program in the dtype; bfloat16 covers B1-B6 on
+#: both bodies at the paper shapes, float16 one configuration per body.
+#: A 16-bit star of radius 4 runs the streamed body
+#: (``core/blocking.QUEUE_STEPS_16``), so the register queues run at
+#: ``3d_r2_paper``.
+HALF_CASES = {
+    "bfloat16": (("2d_r4_paper", "carry"), ("3d_r4_paper", "carry"),
+                 ("2d_box_periodic_pod", "carry"), ("3d_r2_paper", "carry"),
+                 ("2d_r4_paper", "temporal"), ("3d_r4_paper", "pipelined"),
+                 ("2d_box_periodic_pod", "pipelined"),
+                 ("2d_r4_paper", "prepadded"), ("3d_r4_paper", "prepadded"),
+                 ("2d_box_periodic_pod", "prepadded"),
+                 ("3d_r2_paper", "prepadded")),
+    "float16": (("3d_r2_paper", "carry"), ("2d_box_periodic_pod", "carry"),
+                ("2d_r4_paper", "temporal"),
+                ("2d_box_periodic_pod", "pipelined"),
+                ("3d_r2_paper", "prepadded"),
+                ("2d_box_periodic_pod", "prepadded")),
+}
+
+
+def queue_cases():
+    """The register-queue body at ``3d_r2_paper`` (par_time 2): a plain
+    run of 5 steps (2 full supersteps and a remainder of 1), B5 and B6
+    through ``lower()``."""
+    from repro_torch.configs import stencil3d
+    r2 = stencil3d.workloads()["3d_r2_paper"]
+    return [
+        dict(name="3d_r2_paper", work=r2, steps=5,
+             expect={"padded_superstep": 3}, check="carry"),
+        dict(name="3d_r2_paper", work=r2, backend="cuda",
+             expect={"superstep": 1}, check="prepadded"),
+        dict(name="3d_r2_paper", work=r2, backend="cuda-pipelined",
+             expect={"pipelined_superstep": 1}, check="prepadded"),
+    ]
+#: The card-against-CPU check of each front-door variant runs on a cut of
+#: the paper grid: the plain versions on the CPU would take minutes at full
+#: width.
+HALF_CPU_GRIDS = {2: (1024, 1024), 3: (32, 64, 704)}
+
+
+def half_cases(dtype):
+    """The :func:`cases` of :data:`HALF_CASES` with their programs (and
+    so their plans) in ``dtype``; a backend case keeps its backend."""
+    import dataclasses
+    out = []
+    for case in cases() + queue_cases():
+        if "plan" in case:
+            continue
+        for name, check in HALF_CASES[dtype]:
+            if case["name"] == name and case["check"] == check:
+                work = case["work"]
+                out.append(dict(case, work=dataclasses.replace(
+                    work, spec=dataclasses.replace(work.spec,
+                                                   dtype=dtype))))
+    found = {(c["name"], c["check"]) for c in out}
+    if found != set(HALF_CASES[dtype]):
+        raise AssertionError(f"{dtype} cases: {sorted(found)}")
+    return out
+
+
+def half_phase(smi, chip):
+    """Phase 14 (module docstring): every kernel in bfloat16 at the paper
+    shapes and float16 at one configuration per body, through the front
+    door with counts zeroed before and read after, each kernel against its
+    plain version at 0 and timed; each front-door variant's result on the
+    card against the CPU at 0; one bfloat16 mesh run; the NaN canary on
+    B1-B4; ``plan="model"``.  Returns the kernel records."""
+    import dataclasses
+    import torch
+    import repro_torch
+    from repro_torch.configs import stencil2d, stencil3d
+    from repro_torch.core.distributed import ENV_DEVICE_COUNT as ENV_MESH
+    from repro_torch.kernels import cuda
+    from repro_torch.lint import sanitize_run
+    from repro_torch.lint.sanitize import canary_grid
+
+    t_phase = time.perf_counter()
+    records = []
+    for dtype in ("bfloat16", "float16"):
+        print(f"\n== 16-bit grids: {dtype} ({smi})")
+        for case in half_cases(dtype):
+            state = drive_main_path(case, chip)
+            records += check_kernels(case, state, chip)
+            if "backend" not in case:
+                # the same front door on a cut of the grid, card against CPU
+                prog, plan = state["prog"], state["plan"]
+                shape = HALF_CPU_GRIDS[prog.ndim]
+                g = random_grid(shape, seed=5, dtype=dtype)
+                kw = dict(steps=state["steps"], plan=plan,
+                          variant=case.get("variant"))
+                on_card = repro_torch.stencil(prog).compile(shape, **kw).run(
+                    g)
+                on_cpu = repro_torch.stencil(prog).compile(
+                    shape, device="cpu", **kw).run(g.cpu())
+                check_close(f"{case['name']} {dtype} "
+                            f"{case.get('variant') or 'plain'} on the card "
+                            f"vs the CPU at {shape}", on_card.cpu(), on_cpu,
+                            atol=0.0, rtol=0.0)
+                del g, on_card, on_cpu
+            del state
+            torch.cuda.empty_cache()
+
+    works = {**stencil2d.workloads(), **stencil3d.workloads()}
+    work = works["2d_r4_paper"]
+    prog = dataclasses.replace(work.spec, dtype="bfloat16")
+    plan = dataclasses.replace(work.plan(), spec=prog)
+    shape = work.grid_shape
+    grid = random_grid(shape, seed=6, dtype="bfloat16")
+
+    print(f"\n== bfloat16 mesh: 2d_r4_paper on 2x2 shards of one card "
+          f"({ENV_MESH}={MESH_DEVICES})")
+    saved = os.environ.get(ENV_MESH)
+    os.environ[ENV_MESH] = str(MESH_DEVICES)
+    try:
+        mesh = repro_torch.stencil(prog).compile(shape, steps=9, plan=plan,
+                                                 devices=(2, 2))
+        cuda.reset_launches()
+        got = mesh.run(grid)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in cuda.launches("bfloat16").items() if v}
+    finally:
+        if saved is None:
+            del os.environ[ENV_MESH]
+        else:
+            os.environ[ENV_MESH] = saved
+    print(f"  {mesh.describe()}: launches {counts}")
+    if counts != {"padded_superstep_sharded": 4 * 5}:
+        raise AssertionError(f"bfloat16 mesh launched {counts}")
+    one = repro_torch.stencil(prog).compile(shape, steps=9, plan=plan)
+    check_close("bfloat16 mesh 2x2 vs the single device", got,
+                one.run(grid), atol=0.0, rtol=0.0)
+    del got, mesh
+
+    print("\n== bfloat16 plan=\"model\" at 2d_r4_paper")
+    cs = repro_torch.stencil(prog).compile(shape, steps=9, plan="model")
+    print(f"  plan block {cs.plan.block_shape} par_time "
+          f"{cs.plan.par_time}, body {cs.plan.body('padded_superstep')}, "
+          f"model {cs.predicted_seconds(9) * 1e3!r} ms")
+    cuda.reset_launches()
+    planned = cs.run(grid)
+    torch.cuda.synchronize()
+    print(f"  launches {dict((k, v) for k, v in cuda.launches().items() if v)}")
+    check_close("bfloat16 plan=model vs the pinned plan", planned,
+                one.run(grid), atol=0.0, rtol=0.0)
+    walls = {"model": [], "pinned": []}
+    for _ in range(3):
+        for key, exe in (("model", cs), ("pinned", one)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            exe.run(grid)
+            torch.cuda.synchronize()  # lint-ok: RP302
+            walls[key].append(time.perf_counter() - t0)
+    for key, w in walls.items():
+        med = statistics.median(w)
+        print(f"  {key}: median wall of 3 {med * 1e3!r} ms, "
+              f"{math.prod(shape) * 9 / med / 1e6!r} MCell/s")
+    del planned, grid, cs, one
+
+    for name, variant, steps, want in CANARIES[:3] + CANARIES[3:4]:
+        work = works[name]
+        prog = dataclasses.replace(work.spec, dtype="bfloat16")
+        plan = dataclasses.replace(work.plan(), spec=prog)
+        shape = (16384, 16384) if name == "2d_box_periodic_pod" \
+            else work.grid_shape
+        coeffs = prog.default_coeffs(0)
+        cuda.reset_launches()
+        t0 = time.perf_counter()
+        report = sanitize_run(prog, plan, shape, steps=steps,
+                              variant=variant, coeffs=coeffs)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in cuda.launches("bfloat16").items() if v}
+        print(f"  bfloat16 canary {name} {variant} {steps} steps: "
+              f"{report.describe()}; "
+              f"{time.perf_counter() - t0!r} s; launches {counts}")
+        if not report.ok or counts != want:
+            raise AssertionError(f"bfloat16 canary {name} {variant}: "
+                                 f"{report}")
+        cs = repro_torch.stencil(prog, coeffs).compile(
+            shape, steps=steps, plan=plan, variant=variant)
+        g = torch.from_numpy(canary_grid(shape)).to("cuda", torch.bfloat16)
+        check_close(f"bfloat16 canary {name} {variant} interior vs the "
+                    f"front door's run", report.interior, cs.run(g),
+                    atol=0.0, rtol=0.0)
+        del report, g, cs
+        torch.cuda.empty_cache()
+    print(f"  phase 14: {time.perf_counter() - t_phase!r} s")
+    return records
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2149,11 +2395,13 @@ def main() -> int:
           f"data sheet: {chip.hbm_bytes_per_s!r} B/s, "
           f"{chip.peak_fp32_flops!r} FP32 FLOP/s")
     t0 = time.perf_counter()
-    logs = build.build()
-    for src, log in logs.items():
-        print(f"nvcc {src}:\n{log.strip()}")
+    logs = build.build(dtypes=tuple(build.DTYPES))
+    for (src, dtype), log in logs.items():
+        print(f"nvcc {src} ({dtype}):\n{log.strip()}")
     print(f"kernel build: {time.perf_counter() - t0!r} s "
-          f"({len(logs)} built in parallel)")
+          f"({len(logs)} libraries built in parallel)")
+    for (src, dtype), secs in sorted(build.BUILD_SECONDS.items()):
+        print(f"  build {src} {dtype}: done {secs!r} s after the start")
 
     records = []
     for case in cases():
@@ -2172,11 +2420,15 @@ def main() -> int:
     recorder_phase(smi)
     preflight_phase(smi)
     records += mesh_phase(smi, chip)
+    records += half_phase(smi, chip)
     ptxas_report()
     lm_phase(smi, chip)
-    ported = {r["name"].split("@")[0] for r in records}
-    if len(ported) != 6:
-        raise AssertionError(f"kernel records cover {sorted(ported)}")
+    for dtype in ("float32", "bfloat16"):
+        ported = {r["name"].split("@")[0] for r in records
+                  if r["dtype"] == dtype}
+        if len(ported) != 6:
+            raise AssertionError(f"{dtype} kernel records cover "
+                                 f"{sorted(ported)}")
     for (kernel, name), ms in EARLIER_MS.items():
         unit = "ms/refresh" if kernel == "wrap_halo" else "ms/launch"
         print(f"earlier design of {kernel}@{name}, quoted from PERF.md's "

@@ -7,7 +7,9 @@ One front door, as in the reference::
 
     program = repro_torch.StencilProgram(ndim=2, radius=4)
     cs = repro_torch.stencil(program).compile((16384, 16384), steps=9)
-    out = cs.run(grid)          # grid: float32 tensor on the card
+    out = cs.run(grid)          # grid: a tensor on the card in the
+                                # program's dtype (float32 by default,
+                                # or bfloat16, float16)
 
 ``compile`` plans with the autotuner by default (``plan="auto"``);
 ``plan="model"`` asks the H100 planner, and a ``BlockPlan`` pins a plan.

@@ -28,7 +28,7 @@ import torch
 from repro_torch.configs.base import (ArchConfig, AttnCfg, LayerCfg,
                                       MambaCfg, MoECfg, RwkvCfg)
 from repro_torch.core.blocking import BlockPlan
-from repro_torch.core.program import ProgramCoeffs, StencilProgram
+from repro_torch.core.program import DTYPES, ProgramCoeffs, StencilProgram
 from repro_torch.models.transformer import LMModel
 
 
@@ -45,13 +45,26 @@ def plan_from_fields(*, spec: Mapping, block_shape: Sequence[int],
                      block_shape=tuple(block_shape), par_time=int(par_time))
 
 
+def _tensor_from_numpy(a, device) -> torch.Tensor:
+    """A tensor of ``a`` in its own dtype where the kernels take it
+    (float32, float16, and bfloat16 from ``ml_dtypes`` through float32,
+    which holds it exactly), else in float32."""
+    a = np.asarray(a)
+    name = a.dtype.name
+    if name not in DTYPES:
+        return torch.tensor(a.astype(np.float32), device=device)
+    t = torch.tensor(a.astype(np.float32) if name == "bfloat16" else a)
+    return t.to(device=device, dtype=DTYPES[name])
+
+
 def coeffs_from_numpy(center, taps, device="cpu") -> ProgramCoeffs:
-    """Port coefficients (float32 tensors on ``device``) from array-likes."""
+    """Port coefficients on ``device`` from array-likes, each in its own
+    dtype when the kernels take it (so the reference's bfloat16 center and
+    float32 taps of a bfloat16 program cross as they are), else in
+    float32."""
     return ProgramCoeffs(
-        center=torch.tensor(np.asarray(center, dtype=np.float32),
-                            device=device),
-        taps=torch.tensor(np.asarray(taps, dtype=np.float32).reshape(-1),
-                          device=device))
+        center=_tensor_from_numpy(center, device),
+        taps=_tensor_from_numpy(np.asarray(taps).reshape(-1), device))
 
 
 def arch_from_fields(**fields) -> ArchConfig:

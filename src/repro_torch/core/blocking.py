@@ -23,11 +23,9 @@ import itertools
 import math
 from typing import List, Optional, Sequence, Tuple
 
-import numpy as np
-
 from repro_torch.analysis.hw import GpuChip, H100_SXM
 from repro_torch.core import h100_calibration as cal
-from repro_torch.core.program import StencilProgram
+from repro_torch.core.program import StencilProgram, dtype_bytes
 
 #: Kernel-variant names shared with the reference.
 VARIANTS = ("plain", "pipelined", "temporal")
@@ -59,6 +57,13 @@ COLUMN_PLANES = {2: 4, 3: 2}
 #: (``queued_superstep.cu:choose_queue`` instantiates these; a 3D star of
 #: radius 4 at 2 steps spilled 168 bytes).
 QUEUE_STEPS = {2: {1: 4, 2: 3, 3: 2, 4: 2}, 3: {1: 4, 2: 3, 3: 2, 4: 1}}
+#: The same for a 16-bit grid (``csrc/elem.cuh``): every multiply and add
+#: rounds to the grid's dtype, and those roundings take registers, so
+#: ptxas spilled the 2D instantiations of radius 4 (1 and 2 steps; radius 3
+#: at 2 steps on a mesh shard) and the 3D one of radius 4 at 128
+#: registers; those run the streamed kernel (``queued_superstep.cu:
+#: choose_queue`` leaves them out of the 16-bit libraries).
+QUEUE_STEPS_16 = {2: {1: 4, 2: 3, 3: 1}, 3: {1: 4, 2: 3, 3: 2}}
 #: Queue values per cell a thread keeps in registers over all stages: each
 #: stage's queue holds ``3r`` planes (a group of ``r`` computed in a step
 #: and ``r`` on either side); a star with ``steps*3r > QUEUE_REGS`` leaves
@@ -69,6 +74,15 @@ QUEUE_THREADS = 256
 #: Bytes of stage-0 planes a queued CTA keeps in flight (at least one and
 #: at most 8 groups ahead): about 16 KB a CTA, 32 KB an SM.
 QUEUE_INFLIGHT = 16384
+#: Bytes of one vector copy of the kernels (``cp.async``, ``cp.async.bulk``
+#: rows, the wrap refresh): rows and pitches align to it.
+VEC_BYTES = 16
+
+
+def vec_cells(cell_bytes: int) -> int:
+    """Cells of one 16-byte copy: 4 in float32, 8 in 16 bits
+    (``csrc/elem.cuh:kVecCells``)."""
+    return VEC_BYTES // cell_bytes
 
 
 def check_kernel(kernel: str) -> str:
@@ -85,8 +99,9 @@ class StreamedRings:
     of stage ``s``'s output (ring 0: the planes loaded from the source)
     clipped to that stage's in-plane region, ``radius`` fewer cells per
     side per stage on each blocked axis (``ry`` is 0 on a 2D grid's dummy
-    y), rows a multiple of 4 floats apart (for 16-byte copies).  Each
-    iteration adds ``group`` planes per stage, so a ring holds
+    y), rows a multiple of 16 bytes apart (for 16-byte copies: 4 cells in
+    float32, 8 in 16 bits; ``itemsize`` is the grid's bytes per cell).
+    Each iteration adds ``group`` planes per stage, so a ring holds
     ``2r + group`` planes, and the loaded ring ``group`` more: the next
     group's copy is in flight while the current one computes."""
 
@@ -97,6 +112,7 @@ class StreamedRings:
     group: int
     depth0: int
     depth: int
+    itemsize: int = 4
 
     @property
     def pitch(self) -> int:
@@ -105,7 +121,8 @@ class StreamedRings:
     def stage_plane(self, s: int) -> Tuple[int, int]:
         """(rows, pitch) of ring ``s``."""
         return (self.plane[0] - 2 * s * self.ry,
-                round_up(self.plane[1] - 2 * s * self.radius, 4))
+                round_up(self.plane[1] - 2 * s * self.radius,
+                         vec_cells(self.itemsize)))
 
     @property
     def ring_planes(self) -> int:
@@ -115,17 +132,19 @@ class StreamedRings:
         return sum((self.depth0 if s == 0 else self.depth) * math.prod(
             self.stage_plane(s)) for s in range(self.steps))
 
-    def bytes(self, ntaps: int, itemsize: int = 4) -> int:
+    def bytes(self, ntaps: int) -> int:
         """The rings, a tap-offset table per ring (a row of ``ntaps``
-        offsets per ring phase) and the coefficients."""
-        return itemsize * self.ring_cells() + \
+        offsets per ring phase) and the coefficients (floats)."""
+        return self.itemsize * self.ring_cells() + \
             4 * ntaps * (self.ring_planes + 1)
 
 
 def streamed_rings(ndim: int, radius: int, steps: int,
-                   tile: Tuple[int, ...]) -> StreamedRings:
+                   tile: Tuple[int, ...], itemsize: int = 4
+                   ) -> StreamedRings:
     """The :class:`StreamedRings` of a streamed CTA with in-plane column
-    tile ``tile`` (``(tx,)`` in 2D, ``(ty, tx)`` in 3D)."""
+    tile ``tile`` (``(tx,)`` in 2D, ``(ty, tx)`` in 3D) on a grid of
+    ``itemsize`` bytes per cell."""
     if len(tile) != ndim - 1 or min(tile) < 1:
         raise ValueError(f"a streamed {ndim}D tile has {ndim - 1} positive "
                          f"in-plane extents (got {tile})")
@@ -136,21 +155,24 @@ def streamed_rings(ndim: int, radius: int, steps: int,
     depth = 2 * radius + group
     return StreamedRings(steps=steps, radius=radius,
                          ry=0 if ndim == 2 else radius, plane=plane,
-                         group=group, depth0=depth + group, depth=depth)
+                         group=group, depth0=depth + group, depth=depth,
+                         itemsize=itemsize)
 
 
 def streamed_smem_bytes(ndim: int, radius: int, ntaps: int, steps: int,
                         tile: Tuple[int, ...], itemsize: int = 4) -> int:
-    return streamed_rings(ndim, radius, steps, tile).bytes(
-        ntaps, itemsize)
+    return streamed_rings(ndim, radius, steps, tile, itemsize).bytes(ntaps)
 
 
 def queue_path(program: StencilProgram, steps: int) -> bool:
     """Whether ``steps`` fused steps of ``program`` take the register-queue
     path of ``csrc/queued_superstep.cu`` (a star of radius 1..4 and at
-    most :data:`QUEUE_STEPS` steps)."""
+    most :data:`QUEUE_STEPS` steps; :data:`QUEUE_STEPS_16` on a 16-bit
+    grid)."""
+    table = QUEUE_STEPS if dtype_bytes(program.dtype) == 4 \
+        else QUEUE_STEPS_16
     return program.shape == "star" and \
-        steps <= QUEUE_STEPS[program.ndim].get(program.halo_radius, 0)
+        steps <= table[program.ndim].get(program.halo_radius, 0)
 
 
 def kernel_body(program: StencilProgram, kernel: str, steps: int) -> str:
@@ -173,20 +195,33 @@ class QueuedPlanes:
     in-plane column tile ``tile`` (``(tx,)`` in 2D, ``(ty, tx)`` in 3D).
 
     Planes have the stage-0 extent (tile + 2h per blocked axis, one row in
-    2D), rows :attr:`pitch` floats apart (the stage-0 extent rounded to 4
-    floats plus 12: room for the 4..7-float shift that aligns a shared row
-    with its source row, and the strips' 16-byte reads past it).  Stage-0
+    2D), rows :attr:`pitch` cells apart (the stage-0 extent rounded to
+    ``A`` = :attr:`vec` cells, the cells of 16 bytes, plus ``3A``: room
+    for the ``A..2A-1``-cell shift that aligns a shared row with its
+    source row, and the strips' reads past it).  Stage-0
     planes arrive in groups of :attr:`group` = ``r`` planes, one barrier a
     group, into a ring of :attr:`groups` groups: those read behind the
     current group (the centre planes of stage 1, ``r`` back, or all its
     streamed-axis taps, ``2r`` back), the current one and :attr:`ahead` in
     flight.  Each later stage holds two groups of centre planes.  Then a
-    guard of 16 floats and an 8-byte mbarrier per loaded group."""
+    guard of 16 cells and an 8-byte mbarrier per loaded group.  Cells are
+    ``itemsize`` bytes (the grid's dtype)."""
 
     ndim: int
     radius: int
     steps: int
     tile: Tuple[int, ...]
+    itemsize: int = 4
+
+    @property
+    def vec(self) -> int:
+        """Cells of one 16-byte copy."""
+        return vec_cells(self.itemsize)
+
+    @property
+    def pads(self) -> range:
+        """The x shifts a row can take (``queued.x_shift``)."""
+        return range(self.vec, 2 * self.vec)
 
     @property
     def extent(self) -> Tuple[int, int]:
@@ -197,7 +232,7 @@ class QueuedPlanes:
 
     @property
     def pitch(self) -> int:
-        return round_up(self.extent[1], 4) + 12
+        return round_up(self.extent[1], self.vec) + 3 * self.vec
 
     @property
     def plane(self) -> int:
@@ -211,7 +246,8 @@ class QueuedPlanes:
     def ahead(self) -> int:
         """Groups in flight: :data:`QUEUE_INFLIGHT` bytes, 1 to 8."""
         return min(8, max(1, -(-QUEUE_INFLIGHT //
-                               (4 * self.group * self.plane))))
+                               (self.itemsize * self.group *
+                                self.plane))))
 
     @property
     def stage0_in_registers(self) -> bool:
@@ -233,11 +269,12 @@ class QueuedPlanes:
         return self.depth0 + (self.steps - 1) * 2 * self.group
 
     def bytes(self) -> int:
-        return 4 * (self.plane * self.planes + 16) + 8 * self.groups
+        return self.itemsize * (self.plane * self.planes + 16) + \
+            8 * self.groups
 
     def strips(self, pad: int) -> Tuple[int, int, int]:
         """(rows, strips per row, first strip) of the threads at x shift
-        ``pad``: strips of 4 cells at 16-byte aligned shared columns over
+        ``pad``: strips of 4 cells at 4-cell aligned shared columns over
         the stage-1 region."""
         r = self.radius
         E1, E2 = self.extent
@@ -253,14 +290,14 @@ class QueuedPlanes:
         E1, E2 = self.extent
         computed = self.steps * 4 * max(
             rows * nx for rows, nx, _ in
-            (self.strips(pad) for pad in range(4, 8)))
+            (self.strips(pad) for pad in self.pads))
         return (E1 * E2 + computed) / math.prod(self.tile)
 
     @property
     def threads_fit(self) -> bool:
         """Every x shift leaves at most one strip per thread."""
         return all(rows * nx <= QUEUE_THREADS for rows, nx, _ in
-                   (self.strips(pad) for pad in range(4, 8)))
+                   (self.strips(pad) for pad in self.pads))
 
 
 def queued_planes(program: StencilProgram, steps: int,
@@ -271,7 +308,7 @@ def queued_planes(program: StencilProgram, steps: int,
         raise ValueError(f"a queued {nd}D tile has {nd - 1} positive "
                          f"in-plane extents (got {tile})")
     return QueuedPlanes(ndim=nd, radius=program.halo_radius, steps=steps,
-                        tile=tile)
+                        tile=tile, itemsize=dtype_bytes(program.dtype))
 
 
 def normalize_variant(variant=None) -> str:
@@ -308,7 +345,7 @@ class BlockPlan:
 
     @property
     def itemsize(self) -> int:
-        return np.dtype(self.spec.dtype).itemsize
+        return dtype_bytes(self.spec.dtype)
 
     @property
     def halo(self) -> int:
@@ -425,21 +462,26 @@ def efficiency(plan: BlockPlan, kernel: str) -> float:
     ``plan`` (``core/h100_calibration.py``)."""
     prog = plan.spec
     return _efficiency((launcher(plan, kernel), prog.shape, prog.ndim,
-                        prog.radius, plan.kernel_steps(kernel)))
+                        prog.radius, plan.kernel_steps(kernel),
+                        plan.itemsize))
 
 
 @functools.lru_cache(maxsize=None)
 def _efficiency(key) -> float:
     """The row of ``key``; for fused steps not measured, the row of the
-    nearest measured steps of the same launcher and tap set (the fewer on
-    a tie); for a tap set not measured, its launcher's median."""
+    nearest measured steps of the same launcher, tap set and bytes per
+    cell (the fewer on a tie); for a tap set not measured, the median of
+    its launcher at that many bytes per cell.  A 16-bit launch never takes
+    a float32 row: its kernels convert every operand and round every
+    result."""
     if key in cal.EFFICIENCY:
         return cal.EFFICIENCY[key]
-    near = [k for k in cal.EFFICIENCY if k[:4] == key[:4]]
+    near = [k for k in cal.EFFICIENCY
+            if k[:4] == key[:4] and k[5] == key[5]]
     if near:
         return cal.EFFICIENCY[min(near, key=lambda k: (abs(k[4] - key[4]),
                                                        k[4]))]
-    return cal.LAUNCHER_EFFICIENCY[(key[0], key[2])]
+    return cal.LAUNCHER_EFFICIENCY[(key[0], key[2], key[5])]
 
 
 @dataclasses.dataclass(frozen=True)

@@ -57,7 +57,8 @@ import torch
 from repro_torch import obs
 from repro_torch.core.blocking import BlockPlan
 from repro_torch.core.codegen import boundary_pad
-from repro_torch.core.program import ProgramCoeffs, StencilProgram
+from repro_torch.core.program import (ProgramCoeffs, StencilProgram,
+                                      torch_dtype)
 from repro_torch.kernels import common
 
 AxisNames = Tuple[str, ...]
@@ -445,10 +446,14 @@ class DistributedStencil:
         self._exes: Dict[Tuple[int, int], MeshRun] = {}
 
     def coeffs_on(self, device: torch.device) -> ProgramCoeffs:
-        """The coefficients on ``device``, copied there once."""
+        """The coefficients on ``device`` in the grid's dtype (the
+        kernels' cast, ``common.grid_coeffs``), made there once."""
         c = self._coeffs.get(device)
         if c is None:
-            c = self._coeffs[device] = self.coeffs.to(device)
+            dt = torch_dtype(self.program.dtype)
+            c = self._coeffs[device] = ProgramCoeffs(
+                self.coeffs.center.to(device, dt),
+                self.coeffs.taps.to(device, dt))
         return c
 
     def run_fn(self, rem: int = 0, nb: int = 0) -> MeshRun:

@@ -34,6 +34,26 @@ Offset = Tuple[int, ...]
 SHAPES = ("star", "box", "diamond")
 BOUNDARIES = ("clamp", "periodic", "constant")
 SHARING = ("pertap", "distance")
+#: The grid dtypes of the kernels, by the program's ``dtype`` name: numpy
+#: cannot name bfloat16, so sizes and casts read this table.
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float16": torch.float16}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """The torch dtype of a program's ``dtype`` name (a name the kernels
+    take, or any other that torch knows, such as float64)."""
+    if name in DTYPES:
+        return DTYPES[name]
+    t = getattr(torch, str(name), None)
+    if not isinstance(t, torch.dtype):
+        raise ValueError(f"dtype {name!r} names no torch dtype")
+    return t
+
+
+def dtype_bytes(name: str) -> int:
+    """Bytes per cell of a program's ``dtype`` name."""
+    return torch_dtype(name).itemsize
 
 
 @functools.lru_cache(maxsize=None)
@@ -153,28 +173,50 @@ class StencilProgram:
     @property
     def bytes_per_cell(self) -> int:
         """One read + one write at full on-chip reuse (paper Table I)."""
-        return 2 * np.dtype(self.dtype).itemsize
+        return 2 * dtype_bytes(self.dtype)
 
     def default_coeffs(self, seed: int = 0) -> "ProgramCoeffs":
         """Per-tap coefficients whose magnitudes sum to 1 (constant grids
         are fixed points).  Draws the same ``RandomState`` stream as the
-        reference, so both packages get identical values for a seed."""
+        reference, so both packages get identical values and dtypes for a
+        seed: ``center`` in the grid's dtype, ``taps`` too but for
+        bfloat16, where the reference's numpy promotes them to float32
+        (:func:`_bf16_taps`)."""
         rng = np.random.RandomState(seed)
         n = self.num_neighbor_taps
+        # bfloat16 draws in float64 here and rounds in _bf16_taps
+        draw = "float64" if self.dtype == "bfloat16" else self.dtype
         if self.coeff_sharing == "distance":
             shell = rng.uniform(0.2, 1.0,
-                                size=(self.num_shells,)).astype(self.dtype)
+                                size=(self.num_shells,)).astype(draw)
             raw = shell[np.asarray(self.tap_groups)]
         elif self.shape == "star":
             # legacy draw shape: (2*ndim, radius), direction-major flatten
             raw = rng.uniform(0.2, 1.0, size=(2 * self.ndim, self.radius))
-            raw = raw.astype(self.dtype).ravel()
+            raw = raw.astype(draw).ravel()
         else:
-            raw = rng.uniform(0.2, 1.0, size=(n,)).astype(self.dtype)
+            raw = rng.uniform(0.2, 1.0, size=(n,)).astype(draw)
+        if self.dtype == "bfloat16":
+            return ProgramCoeffs(
+                center=torch.tensor(0.5, dtype=torch.bfloat16),
+                taps=_bf16_taps(raw))
         raw = raw / (2.0 * raw.sum())
         center = np.asarray(0.5, dtype=self.dtype)
         return ProgramCoeffs(center=torch.from_numpy(center),
                              taps=torch.from_numpy(np.ascontiguousarray(raw)))
+
+
+def _bf16_taps(raw: np.ndarray) -> torch.Tensor:
+    """The reference's ``raw / (2.0 * raw.sum())`` on ``raw`` cast to
+    bfloat16 (``ml_dtypes``): the draw rounded through float32 to
+    bfloat16, summed in order with a rounding to bfloat16 after every add,
+    then ``2.0 * sum`` and the division in float32, the dtype numpy
+    promotes a bfloat16 array and a Python float to."""
+    b = torch.from_numpy(raw.astype(np.float32)).to(torch.bfloat16)
+    total = b[0]
+    for v in b[1:]:
+        total = total + v
+    return b.float() / (2.0 * total.float())
 
 
 @dataclasses.dataclass

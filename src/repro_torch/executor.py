@@ -62,14 +62,15 @@ from repro_torch.core.blocking import (TEMPORAL_CHUNK, BlockPlan,
 from repro_torch.core.distributed import (ENV_DEVICE_COUNT, Decomposition,
                                           DistributedStencil, make_mesh,
                                           visible_devices)
-from repro_torch.core.program import ProgramCoeffs, StencilProgram
+from repro_torch.core.program import (ProgramCoeffs, StencilProgram,
+                                      torch_dtype)
 from repro_torch.kernels import cuda, ops
 from repro_torch.lint.dataflow import check_dataflow
 from repro_torch.lint.diagnostics import DiagnosticError, raise_on_error
 from repro_torch.lint.diagnostics import error as _diag
 from repro_torch.lint.sanitize import SanitizeReport, sanitize_run
 from repro_torch.lint.verify import check as _preflight
-from repro_torch.lint.verify import smem_diagnostics
+from repro_torch.lint.verify import dtype_diagnostics, smem_diagnostics
 from repro_torch.tuning.cache import cache_key
 from repro_torch.tuning.model_rank import exchange_seconds, rank
 from repro_torch.tuning.space import (Candidate, MeshDecomposition,
@@ -360,6 +361,8 @@ class Stencil:
                     hint="drop batch= for a single grid, or stack "
                          "independent grids along a leading axis")])
             batch = b
+        # RP109 before any planning arithmetic sizes a cell by the dtype
+        raise_on_error(dtype_diagnostics(prog), source="verify")
         decomp_axes, n_devices = _normalize_devices(prog, devices)
         concrete = None if variant in (None, "auto") else variant
         name, version, traits = resolve_backend(backend, variant=concrete)
@@ -590,10 +593,14 @@ class CompiledStencil:
                 f"compiled for {self.device}",
                 hint=f"move the grid with .to({str(self.device)!r}) or "
                      f"compile for its device")])
-        if grid.dtype != torch.float32:
+        want = torch_dtype(self.program.dtype)
+        if grid.dtype != want:
             raise DiagnosticError([_diag(
-                "RP109", f"grid dtype {grid.dtype}: the kernels take "
-                         f"float32", hint="use float32")])
+                "RP109", f"grid dtype {grid.dtype}: this executable runs "
+                         f"the program's dtype {want}",
+                hint=f"cast the grid with .to({want}), or compile a "
+                     f"program of dtype {str(grid.dtype).split('.')[-1]!r}"
+            )])
         want = self.grid_shape if self.batch is None \
             else (self.batch,) + self.grid_shape
         if tuple(grid.shape) == want:
@@ -627,8 +634,10 @@ class CompiledStencil:
     def run(self, grid: torch.Tensor,
             steps: Optional[int] = None) -> torch.Tensor:
         """Advance ``steps`` time steps (default: the compiled count) and
-        return a new tensor; ``grid`` is not written.  A count whose
-        kernels fit no CTA tile is RP105, before any launch.
+        return a new tensor in the grid's dtype; ``grid`` is not written
+        and has the program's dtype (float32, bfloat16 or float16;
+        another is RP109).  A count whose kernels fit no CTA tile is
+        RP105, before any launch.
 
         With the flight recorder on, the run is timed under a ``run`` span
         (:meth:`_run_recorded`), which synchronises the device; off, it is

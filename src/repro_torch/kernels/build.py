@@ -1,11 +1,13 @@
 """Build the CUDA kernels at first use and load them with ctypes.
 
 Each ``csrc/*.cu`` file has a plain C interface and compiles on its own
-with ``nvcc`` into ``build/repro_torch/<name>-<hash>.so`` under the repo
-root; the hash covers the source, every ``csrc`` header it includes, and
-the flags, so an edited source or header rebuilds and an unchanged one
-loads.  The compiler's output (the ``-Xptxas=-v`` register, shared-memory
-and stack report) is kept beside the library as ``<name>-<hash>.log``, so
+with ``nvcc``, once per grid dtype of :data:`DTYPES` (the element type is
+``-DREPRO_DTYPE=<code>``, ``csrc/elem.cuh``), into
+``build/repro_torch/<name>-<dtype>-<hash>.so`` under the repo root; the
+hash covers the source, every ``csrc`` header it includes, and the flags,
+so an edited source or header rebuilds and an unchanged one loads.  The
+compiler's output (the ``-Xptxas=-v`` register, shared-memory and stack
+report) is kept beside the library as ``<name>-<dtype>-<hash>.log``, so
 :func:`build_log` reads it whether or not this process built the library.
 :func:`build` starts one ``nvcc`` per missing library, all at once.
 Nothing but the sources in the repo and the CUDA toolkit is used.
@@ -19,18 +21,27 @@ import os
 import re
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from typing import Dict, Iterable, Tuple
 
 from repro_torch import obs
+from repro_torch.core.program import DTYPES as GRID_DTYPES
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("queued_superstep.cu", "streamed_superstep.cu", "wrap_halo.cu")
+#: The grid dtypes (``core/program.DTYPES``): each source builds one
+#: library per dtype, its element type ``-DREPRO_DTYPE=<code>``, the code
+#: being the dtype's place in that table (``csrc/elem.cuh``).
+DTYPES = {name: code for code, name in enumerate(GRID_DTYPES)}
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
-_LIBS: Dict[str, ctypes.CDLL] = {}
+_LIBS: Dict[Tuple[str, str], ctypes.CDLL] = {}
+#: Seconds from the start of this process's last parallel build to the
+#: end of each library's ``nvcc``, by ``(source, dtype)``.
+BUILD_SECONDS: Dict[Tuple[str, str], float] = {}
 
 
 def nvcc() -> str:
@@ -59,64 +70,89 @@ def includes(source: str) -> Tuple[str, ...]:
     return tuple(seen)
 
 
-def library_path(source: str) -> Path:
+def _flags(dtype: str) -> Tuple[str, ...]:
+    if dtype not in DTYPES:
+        raise ValueError(f"no kernel library for dtype {dtype!r}: the "
+                         f"kernels take {tuple(DTYPES)}")
+    return FLAGS + (f"-DREPRO_DTYPE={DTYPES[dtype]}",)
+
+
+def library_path(source: str, dtype: str = "float32") -> Path:
     h = hashlib.sha256()
     for name in (source,) + includes(source):
         h.update(name.encode() + b"\0" + (CSRC / name).read_bytes())
-    h.update(" ".join(FLAGS).encode())
+    h.update(" ".join(_flags(dtype)).encode())
     digest = h.hexdigest()[:16]
-    return BUILD_DIR / f"{Path(source).stem}-{digest}.so"
+    return BUILD_DIR / f"{Path(source).stem}-{dtype}-{digest}.so"
 
 
-def log_path(source: str) -> Path:
-    return library_path(source).with_suffix(".log")
+def log_path(source: str, dtype: str = "float32") -> Path:
+    return library_path(source, dtype).with_suffix(".log")
 
 
-def build_log(source: str) -> str:
-    """The compiler's output for the library of ``source`` as it stands,
-    built first if missing."""
-    if not log_path(source).exists():
-        build([source])
-    return log_path(source).read_text(encoding="utf-8")
+def build_log(source: str, dtype: str = "float32") -> str:
+    """The compiler's output for the ``dtype`` library of ``source`` as it
+    stands, built first if missing."""
+    if not log_path(source, dtype).exists():
+        build([source], (dtype,))
+    return log_path(source, dtype).read_text(encoding="utf-8")
 
 
-def build(sources: Iterable[str] = SOURCES) -> Dict[str, str]:
-    """Compile every source whose library or log is missing, one ``nvcc``
-    each, in parallel.  Returns the compiler's output (also kept in
-    :func:`log_path`) per source it built; raises on a failure.  With the
-    flight recorder on, a build runs inside a ``kernels.build`` span naming
-    the sources built (its ``dur_s`` is the build's seconds)."""
-    missing = [s for s in sources
-               if not (library_path(s).exists() and log_path(s).exists())]
+def build(sources: Iterable[str] = SOURCES,
+          dtypes: Iterable[str] = ("float32",)
+          ) -> Dict[Tuple[str, str], str]:
+    """Compile every (source, dtype) library whose file or log is missing,
+    one ``nvcc`` each, all in parallel.  Returns the compiler's output
+    (also kept in :func:`log_path`) per ``(source, dtype)`` it built;
+    raises on a failure.  With the flight recorder on, a build runs inside
+    a ``kernels.build`` span naming the sources and dtypes built (its
+    ``dur_s`` is the build's seconds)."""
+    missing = [(s, d) for s in sources for d in dtypes
+               if not (library_path(s, d).exists()
+                       and log_path(s, d).exists())]
     if not missing:
         return {}
-    with obs.span("kernels.build", sources=missing):
+    with obs.span("kernels.build",
+                  sources=list(dict.fromkeys(s for s, _ in missing)),
+                  dtypes=list(dict.fromkeys(d for _, d in missing))):
         return _build(missing)
 
 
-def _build(sources) -> Dict[str, str]:
+def _build(libraries) -> Dict[Tuple[str, str], str]:
+    compiler = nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = {}
+    t0 = time.perf_counter()
     try:
-        for source in sources:
-            out = library_path(source)
+        for source, dtype in libraries:
+            out = library_path(source, dtype)
             tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-            proc = subprocess.Popen(
-                [nvcc(), *FLAGS, "-o", str(tmp), str(CSRC / source)],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            jobs[source] = (proc, tmp, out)
+            log = out.with_name(f"{tmp.name}.log")
+            with open(log, "w", encoding="utf-8") as f:
+                proc = subprocess.Popen(
+                    [compiler, *_flags(dtype), "-o", str(tmp),
+                     str(CSRC / source)],
+                    stdout=f, stderr=subprocess.STDOUT)
+            jobs[source, dtype] = (proc, tmp, out, log)
+        waiting = dict(jobs)
+        while waiting:
+            for key, (proc, _, _, _) in list(waiting.items()):
+                if proc.poll() is not None:
+                    BUILD_SECONDS[key] = time.perf_counter() - t0
+                    del waiting[key]
+            if waiting:
+                time.sleep(0.05)
         logs, failed = {}, []
-        for source, (proc, tmp, out) in jobs.items():
-            logs[source] = proc.communicate()[0]
+        for key, (proc, tmp, out, log) in jobs.items():
+            logs[key] = log.read_text(encoding="utf-8")
             if proc.returncode == 0:
-                log = out.with_name(f"{tmp.name}.log")
-                log.write_text(logs[source], encoding="utf-8")
                 os.replace(tmp, out)
                 os.replace(log, out.with_suffix(".log"))
             else:
-                failed.append(f"{source}:\n{logs[source]}")
+                log.unlink()
+                failed.append(f"{key[0]} ({key[1]}):\n{logs[key]}")
     finally:
-        for proc, _, _ in jobs.values():
+        for proc, _, _, _ in jobs.values():
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
@@ -125,12 +161,13 @@ def _build(sources) -> Dict[str, str]:
     return logs
 
 
-def load(source: str) -> ctypes.CDLL:
-    """The loaded library of ``source``, built first if missing."""
-    lib = _LIBS.get(source)
+def load(source: str, dtype: str = "float32") -> ctypes.CDLL:
+    """The loaded ``dtype`` library of ``source``, built first if
+    missing."""
+    lib = _LIBS.get((source, dtype))
     if lib is None:
-        path = library_path(source)
-        if not (path.exists() and log_path(source).exists()):
-            build([source])
-        lib = _LIBS[source] = ctypes.CDLL(str(path))
+        path = library_path(source, dtype)
+        if not (path.exists() and log_path(source, dtype).exists()):
+            build([source], (dtype,))
+        lib = _LIBS[source, dtype] = ctypes.CDLL(str(path))
     return lib

@@ -27,6 +27,13 @@ Each dispatches on where the tensor lies: a CUDA tensor launches the
 hand-written kernel (``kernels/cuda.py``), a CPU tensor takes the plain
 version, and any other device raises.
 
+A grid is float32, bfloat16 or float16 (the program's ``dtype``), and so
+is the carry.  The coefficients are cast to the grid's dtype at each
+entry (:func:`grid_coeffs`), as the reference's kernels cast them
+(``repro/kernels/common.py:336-337``, ``:968-969``): a 16-bit grid's plain
+version then rounds after every multiply and add on exactly the values
+the kernel's coefficient bank holds.
+
 On a mesh (``core/distributed.py``) each shard keeps such a carry of its
 local extent; ``ring_schedule(decomp=)`` records the exchange strips of
 :func:`exchange_copies` beside the wrap copies, and ``padded_superstep``
@@ -56,6 +63,15 @@ from repro_torch.core.blocking import (CARRY_KERNELS, BlockPlan,
 from repro_torch.core.codegen import boundary_pad, tap_interior_update
 from repro_torch.core.program import ProgramCoeffs, StencilProgram
 from repro_torch.kernels import cuda
+
+
+def grid_coeffs(center: torch.Tensor, taps: torch.Tensor,
+                grid: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``center`` and ``taps`` in ``grid``'s dtype on its device.  Torch
+    takes a 0-dim tensor as a scalar at its own precision, so without the
+    cast a float32 coefficient would multiply a 16-bit grid unrounded."""
+    return (center.to(grid.device, grid.dtype),
+            taps.to(grid.device, grid.dtype))
 
 
 def batch_dims(program: StencilProgram, grid_ndim: int) -> int:
@@ -411,6 +427,7 @@ def padded_superstep_plain(src: torch.Tensor, dst: torch.Tensor,
     inner edges stay as they are.  Without them, one device: origin 0 in
     ``layout.local_shape``.
     """
+    center, taps = grid_coeffs(center, taps, src)
     h = plan.halo
     H = layout.halo
     off = H - h
@@ -522,6 +539,7 @@ def superstep_plain(padded: torch.Tensor, center: torch.Tensor,
     h = plan.halo
     offs = [0] * program.ndim if offsets is None else [int(o)
                                                        for o in offsets]
+    center, taps = grid_coeffs(center, taps, padded)
     return _fused_steps(program, ProgramCoeffs(center, taps), padded,
                         [o - h for o in offs], true_shape, plan.par_time)
 
@@ -625,6 +643,7 @@ def run_call(grid: torch.Tensor, center: torch.Tensor, taps: torch.Tensor,
     true interior.
     """
     v = normalize_variant(variant)
+    center, taps = grid_coeffs(center, taps, grid)
     period = plan.par_time * (TEMPORAL_CHUNK if v == "temporal" else 1)
     sched = ring_schedule(program, plan, true_shape, full * period + rem,
                           variant=v)

@@ -30,9 +30,10 @@
 // is a column tile (ty, tx) of output cells and a segment [a, e) of output
 // planes.  Stage 0 is the source planes [a - h, e + h) (h = T*r), copied
 // in groups of B = R planes into a ring of G groups of the stage-0 extent
-// (ty + 2h, tx + 2h), rows P floats apart, stage-0 column c at shared
-// column c + pad (pad in 4..7, so that a source row and its shared row
-// are 16-byte aligned together).  One barrier per group.
+// (ty + 2h, tx + 2h), rows P cells apart, stage-0 column c at shared
+// column c + pad (pad in A..2A-1, A = kVecCells the cells of 16 bytes, so
+// that a source row and its shared row are 16-byte aligned together).
+// One barrier per group.
 //
 // A thread owns one strip of 4 consecutive x cells of the stage-1 region
 // (tile + 2(h - r) per blocked axis).  For each stage s it keeps 3R values
@@ -45,7 +46,8 @@
 // centre planes that the threads write from q[s-1] at the start of the
 // step.  So one barrier per group of R planes publishes the loaded group
 // and every centre group.  A thread reads the 4 + 2R x values its strip
-// needs with three 16-byte loads and each y row with one.
+// needs with three 4-cell loads (16 bytes in float32, 8 in 16 bits) and
+// each y row with one.
 //
 // Copies: warp 0 issues one cp.async.bulk per row of a group's planes,
 // completing on the ring slot's mbarrier, `ahead` groups ahead of the step
@@ -54,7 +56,8 @@
 // cudaGetDriverEntryPoint and a descriptor per launch), and the carry's
 // boundary mapping picks a source row per row anyway.  The launcher checks
 // the alignment before the launch: a row pitch that is not a multiple of
-// 4 floats (odd rings, no paper shape) loads every cell with plain loads.
+// 16 bytes (4 cells in float32, 8 in 16 bits: odd rings, no paper shape)
+// loads every cell with plain loads.
 // Cells a bulk copy cannot take (the clamp/constant mapping of the padded
 // carry's ring, unaligned row ends) are loaded by all threads with plain
 // loads; cells past the source's end are not loaded (no stored output
@@ -75,8 +78,11 @@
 //     overwrite the queue entries of planes -R..-1 with it.
 //
 // Arithmetic: acc = c0*v0, then acc = acc + ck*vk in canonical tap order
-// with __fmul_rn/__fadd_rn (no FMA contraction), so every output equals
-// the plain version's bit for bit.  Coefficients sit in constant memory
+// with __fmul_rn/__fadd_rn (no FMA contraction), each rounded to the grid's
+// dtype (elem.cuh), so every output equals the plain version's bit for
+// bit.  The grid and the shared planes hold the grid's dtype (one library
+// per dtype, kernels/build.py); the register queues hold floats, which
+// hold a 16-bit value exactly.  Coefficients sit in constant memory
 // (copied on the launch's stream before the launch), so the fixed-tap
 // multiplies take them as operands and spend no registers.  The bank is
 // one per device: a launch's stream waits for the previous launch of this
@@ -100,12 +106,14 @@
 #include <cstdint>
 #include <mutex>
 
+#include "elem.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kV = 4;  // x cells of one thread's strip (queue path)
 constexpr int kMaxTaps = 1024;
-constexpr int kGuard = 16;  // floats of slack after the last plane
+constexpr int kGuard = 16;  // cells of slack after the last plane
 // Queue values per cell a thread may hold over all stages: with more,
 // stage 0's values stay in the loaded ring, which then holds 2R planes
 // behind the current group, and stage 1 reads its streamed-axis taps from
@@ -140,8 +148,9 @@ enum Field {
   kFields
 };
 
-// The coefficients of the running launch: one bank per device, so
-// launches on different streams take turns (launch() below).
+// The coefficients of the running launch, rounded to the grid's dtype by
+// the host and held as floats: one bank per device, so launches on
+// different streams take turns (launch() below).
 __constant__ float c_coef[kMaxTaps];
 
 // Extents and offsets are 32-bit (the launcher checks they fit); flat
@@ -168,7 +177,10 @@ struct Geo {
   int bulk;  // rows may be copied with cp.async.bulk
 };
 
-__host__ __device__ inline int round4(int v) { return (v + 3) / 4 * 4; }
+// rounded up to whole 16-byte copies
+__host__ __device__ inline int round_vec(int v) {
+  return (v + kVecCells - 1) / kVecCells * kVecCells;
+}
 
 // Flat index of (b, z, y, x) in a grid of extent (e0, e1, e2) per batch.
 __host__ __device__ inline long long flat(int b, int z, int y, int x, int e0,
@@ -186,7 +198,7 @@ inline int plane_count(const Geo& g) {
 // group.  The host counts the same bytes
 // (core/blocking.py:QueuedPlanes.bytes).
 inline size_t smem_bytes(const Geo& g) {
-  return sizeof(float) * ((size_t)g.plane * plane_count(g) + kGuard) +
+  return sizeof(elem) * ((size_t)g.plane * plane_count(g) + kGuard) +
          sizeof(unsigned long long) * g.G;
 }
 
@@ -219,8 +231,8 @@ inline bool make_geo(const long long* a, int steps, int batch, int ntaps,
   g->h0 = steps * g->r0, g->h1 = steps * g->r1, g->h2 = steps * g->r2;
   g->E1 = g->ty + 2 * g->h1;
   g->E2 = g->tx + 2 * g->h2;
-  g->pad = 4 + ((g->so2 - g->h2) & 3);
-  g->P = round4(g->E2) + 12;
+  g->pad = kVecCells + ((g->so2 - g->h2) & (kVecCells - 1));
+  g->P = round_vec(g->E2) + 3 * kVecCells;
   g->plane = g->E1 * g->P;
   // loaded planes read behind the current group's first: the centre
   // planes of stage 1 (R), or all its streamed-axis taps (2R)
@@ -304,7 +316,7 @@ __device__ __forceinline__ void mbar_wait(unsigned long long* bar,
       : "memory");
 }
 
-__device__ __forceinline__ void bulk_copy(float* dst, const float* src,
+__device__ __forceinline__ void bulk_copy(elem* dst, const elem* src,
                                           uint32_t bytes,
                                           unsigned long long* bar) {
   asm volatile(
@@ -385,11 +397,12 @@ __device__ __forceinline__ PlaneLoad plane_load(const Geo& g, const Item& it,
     lo = max(lo, -(gx0 + ox));
     hi = min(hi, g.n2 - (gx0 + ox));
   }
-  // 16-byte aligned ends, at most 3 cells past the stage-0 extent
-  int sc0 = lo + g.pad > 4 ? lo + g.pad : 4;
-  int sc1 = min(hi + g.pad, round4(g.E2 + g.pad));
-  sc0 = (sc0 + 3) / 4 * 4;
-  sc1 = sc1 / 4 * 4;
+  // 16-byte aligned ends, at most kVecCells - 1 cells past the stage-0
+  // extent
+  int sc0 = lo + g.pad > kVecCells ? lo + g.pad : kVecCells;
+  int sc1 = min(hi + g.pad, round_vec(g.E2 + g.pad));
+  sc0 = round_vec(sc0);
+  sc1 = sc1 / kVecCells * kVecCells;
   pl.bulk = g.bulk && !pl.fill && sc1 > sc0;
   pl.sc0 = pl.bulk ? sc0 : 0;
   pl.sc1 = pl.bulk ? sc1 : 0;
@@ -412,7 +425,7 @@ __device__ __forceinline__ PlaneLoad plane_load(const Geo& g, const Item& it,
 // bulk copies or with rows of the boundary value, else only the columns
 // left and right of the bulk range.
 template <bool SH>
-__device__ void issue_group(const float* __restrict__ src, float* ring0,
+__device__ void issue_group(const elem* __restrict__ src, elem* ring0,
                             unsigned long long* bars, const Geo& g,
                             const Item& it, int kg, int slot, int boundary,
                             float bval) {
@@ -426,7 +439,7 @@ __device__ void issue_group(const float* __restrict__ src, float* ring0,
       if (!pl.bulk) continue;
       for (int iy = lane; iy < g.E1; iy += 32)
         if (row_source<SH>(g, it, pl, iy, boundary, &row) == 0)
-          bytes += (uint32_t)(pl.sc1 - pl.sc0) * sizeof(float);
+          bytes += (uint32_t)(pl.sc1 - pl.sc0) * sizeof(elem);
     }
     bytes = __reduce_add_sync(0xffffffffu, bytes);
     if (lane == 0) mbar_arrive_tx(bar, bytes);
@@ -437,12 +450,12 @@ __device__ void issue_group(const float* __restrict__ src, float* ring0,
     for (int j = 0; j < g.B; ++j) {
       const PlaneLoad pl = plane_load<SH>(g, it, kg * g.B + j, boundary);
       if (!pl.bulk) continue;
-      float* out = ring0 + (slot * g.B + j) * g.plane;
+      elem* out = ring0 + (slot * g.B + j) * g.plane;
       for (int iy = lane; iy < g.E1; iy += 32) {
         if (row_source<SH>(g, it, pl, iy, boundary, &row) != 0) continue;
         bulk_copy(out + iy * g.P + pl.sc0,
                   src + row + pl.sx0 + (pl.sc0 - g.pad),
-                  (uint32_t)(pl.sc1 - pl.sc0) * sizeof(float), bar);
+                  (uint32_t)(pl.sc1 - pl.sc0) * sizeof(elem), bar);
       }
     }
   }
@@ -453,7 +466,7 @@ __device__ void issue_group(const float* __restrict__ src, float* ring0,
     const PlaneLoad pl = plane_load<SH>(g, it, kg * g.B + j, boundary);
     if (!pl.cells) continue;
     wrote = true;
-    float* out = ring0 + (slot * g.B + j) * g.plane;
+    elem* out = ring0 + (slot * g.B + j) * g.plane;
     // columns per row: all of [in0, in1), or the edges [in0, left) and
     // [right, in1) around the bulk range
     const int left = pl.rows ? pl.in1 : max(pl.in0, pl.sc0 - g.pad);
@@ -466,7 +479,7 @@ __device__ void issue_group(const float* __restrict__ src, float* ring0,
       if (c >= left) c += right - left;
       const int how = row_source<SH>(g, it, pl, iy, boundary, &row);
       if (how == 2) continue;  // past the source: not read
-      float v = bval;
+      elem v = to_e(bval);
       if (how == 0) {
         int gx = gx0 + c;
         bool fill = false;
@@ -475,7 +488,7 @@ __device__ void issue_group(const float* __restrict__ src, float* ring0,
           fill = boundary == kConstant;
           gx = clampi(gx + ox, 0, g.n2 - 1) - ox;
         }
-        v = fill ? bval : src[row + gx + g.so2];
+        v = fill ? to_e(bval) : src[row + gx + g.so2];
       }
       out[iy * g.P + c + g.pad] = v;
     }
@@ -488,8 +501,8 @@ __device__ void issue_group(const float* __restrict__ src, float* ring0,
 // start of item `lin` (= `it`), the `count`-th group of the CTA.  A
 // position past the CTA's last item issues nothing.
 template <bool SH>
-__device__ __forceinline__ void issue_at(const float* __restrict__ src,
-                                         float* ring0,
+__device__ __forceinline__ void issue_at(const elem* __restrict__ src,
+                                         elem* ring0,
                                          unsigned long long* bars,
                                          const Geo& g, int lin, Item it,
                                          int pos, unsigned count,
@@ -502,10 +515,6 @@ __device__ __forceinline__ void issue_at(const float* __restrict__ src,
   }
   issue_group<SH>(src, ring0, bars, g, it, pos, (int)(count % g.G),
                   boundary, bval);
-}
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
 }
 
 // In-plane placement of one work item: global coordinate of stage-0 cell
@@ -548,8 +557,8 @@ __device__ __forceinline__ void init_barriers(unsigned long long* bars,
 
 // The first `ahead` groups of the CTA's first work item (or items).
 template <bool SH>
-__device__ __forceinline__ void issue_first(const float* __restrict__ src,
-                                           float* ring0,
+__device__ __forceinline__ void issue_first(const elem* __restrict__ src,
+                                           elem* ring0,
                                            unsigned long long* bars,
                                            const Geo& g, int boundary,
                                            float bval) {
@@ -575,9 +584,9 @@ struct StarIdx {
 // One stage's four outputs of a strip: in-plane taps from the plane `in`
 // (cell at `at`), streamed-axis taps `zval(d)` (the stage before at plane
 // offset d: from its queue, or for stage 1 from the loaded ring), summed
-// in canonical order.
+// in canonical order, each multiply and add rounded to the grid's dtype.
 template <int R, int ND, class Z>
-__device__ __forceinline__ void star_strip(const float* in, int at, int P,
+__device__ __forceinline__ void star_strip(const elem* in, int at, int P,
                                            Z zval, float (&acc)[kV]) {
   using I = StarIdx<R, ND>;
   float w[12];
@@ -588,17 +597,17 @@ __device__ __forceinline__ void star_strip(const float* in, int at, int P,
     w[8] = c.x, w[9] = c.y, w[10] = c.z, w[11] = c.w;
   }
 #pragma unroll
-  for (int v = 0; v < kV; ++v) acc[v] = __fmul_rn(c_coef[0], w[4 + v]);
+  for (int v = 0; v < kV; ++v) acc[v] = mul_r(c_coef[0], w[4 + v]);
 #pragma unroll
   for (int d = 1; d <= R; ++d)
 #pragma unroll
     for (int v = 0; v < kV; ++v)
-      acc[v] = __fadd_rn(acc[v], __fmul_rn(c_coef[I::xm + d - 1], w[4 + v - d]));
+      acc[v] = add_r(acc[v], mul_r(c_coef[I::xm + d - 1], w[4 + v - d]));
 #pragma unroll
   for (int d = 1; d <= R; ++d)
 #pragma unroll
     for (int v = 0; v < kV; ++v)
-      acc[v] = __fadd_rn(acc[v], __fmul_rn(c_coef[I::xp + d - 1], w[4 + v + d]));
+      acc[v] = add_r(acc[v], mul_r(c_coef[I::xp + d - 1], w[4 + v + d]));
   if constexpr (ND == 3) {
 #pragma unroll
     for (int d = 1; d <= R; ++d) {
@@ -606,7 +615,7 @@ __device__ __forceinline__ void star_strip(const float* in, int at, int P,
       const float yv[4] = {y.x, y.y, y.z, y.w};
 #pragma unroll
       for (int v = 0; v < kV; ++v)
-        acc[v] = __fadd_rn(acc[v], __fmul_rn(c_coef[I::ym + d - 1], yv[v]));
+        acc[v] = add_r(acc[v], mul_r(c_coef[I::ym + d - 1], yv[v]));
     }
 #pragma unroll
     for (int d = 1; d <= R; ++d) {
@@ -614,7 +623,7 @@ __device__ __forceinline__ void star_strip(const float* in, int at, int P,
       const float yv[4] = {y.x, y.y, y.z, y.w};
 #pragma unroll
       for (int v = 0; v < kV; ++v)
-        acc[v] = __fadd_rn(acc[v], __fmul_rn(c_coef[I::yp + d - 1], yv[v]));
+        acc[v] = add_r(acc[v], mul_r(c_coef[I::yp + d - 1], yv[v]));
     }
   }
 #pragma unroll
@@ -623,7 +632,7 @@ __device__ __forceinline__ void star_strip(const float* in, int at, int P,
     const float zv[4] = {z.x, z.y, z.z, z.w};
 #pragma unroll
     for (int v = 0; v < kV; ++v)
-      acc[v] = __fadd_rn(acc[v], __fmul_rn(c_coef[I::zm + d - 1], zv[v]));
+      acc[v] = add_r(acc[v], mul_r(c_coef[I::zm + d - 1], zv[v]));
   }
 #pragma unroll
   for (int d = 1; d <= R; ++d) {
@@ -631,7 +640,7 @@ __device__ __forceinline__ void star_strip(const float* in, int at, int P,
     const float zv[4] = {z.x, z.y, z.z, z.w};
 #pragma unroll
     for (int v = 0; v < kV; ++v)
-      acc[v] = __fadd_rn(acc[v], __fmul_rn(c_coef[I::zp + d - 1], zv[v]));
+      acc[v] = add_r(acc[v], mul_r(c_coef[I::zp + d - 1], zv[v]));
   }
 }
 
@@ -651,14 +660,16 @@ __device__ __forceinline__ float4 f4(const float (&v)[kV]) {
 // (row_source).
 template <int ND, int R, int T, bool SH>
 __global__ void __launch_bounds__(kThreads, 2)
-queue_kernel(const float* __restrict__ src, float* __restrict__ dst,
+queue_kernel(const elem* __restrict__ src, elem* __restrict__ dst,
              Geo g, int boundary, float bval) {
   constexpr int Q = queue_len(R);
   constexpr int S0 = stage0_in_registers(R, T) ? 0 : 1;
-  extern __shared__ __align__(16) float smem[];
-  float* ring0 = smem;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  elem* smem = reinterpret_cast<elem*>(smem_raw);
+  elem* ring0 = smem;
   // centre plane j of stage s at parity p: group 2(s-1) + p
-  float* cbuf = smem + g.D0 * g.plane;
+  elem* cbuf = smem + g.D0 * g.plane;
+  bval = rnd(bval);  // the host rounded it to the grid's dtype already
   unsigned long long* bars = reinterpret_cast<unsigned long long*>(
       smem + g.plane * g.planes + kGuard);
   init_barriers(bars, g.G);
@@ -708,8 +719,7 @@ queue_kernel(const float* __restrict__ src, float* __restrict__ dst,
             val[v] = q[s - S0][2 * R + j][v];
             if (constant && fr.outside(g, iy, c0 + v)) val[v] = bval;
           }
-          *reinterpret_cast<float4*>(
-              cbuf + ((2 * (s - 1) + par) * R + j) * g.plane + at) = f4(val);
+          st4(cbuf + ((2 * (s - 1) + par) * R + j) * g.plane + at, f4(val));
         }
       }
       mbar_wait(bars + slot, parity);
@@ -724,7 +734,7 @@ queue_kernel(const float* __restrict__ src, float* __restrict__ dst,
           if (iy < ylo || iy >= yhi) continue;
 #pragma unroll
           for (int j = 0; j < R; ++j) {
-            float* pl = cbuf + ((2 * (s - 1) + par) * R + j) * g.plane;
+            elem* pl = cbuf + ((2 * (s - 1) + par) * R + j) * g.plane;
 #pragma unroll
             for (int v = 0; v < kV; ++v) {
               const int c = c0 + v;
@@ -785,7 +795,7 @@ queue_kernel(const float* __restrict__ src, float* __restrict__ dst,
 #pragma unroll
         for (int j = 0; j < R; ++j) {
           const int p = z - s * R + j;  // this output's plane (local)
-          const float* in =
+          const elem* in =
               s == 1 ? ring(j - R) + 0
                      : cbuf + ((2 * (s - 2) + par) * R + j) * g.plane;
           float acc[kV];
@@ -802,13 +812,13 @@ queue_kernel(const float* __restrict__ src, float* __restrict__ dst,
           }
           if (s == T) {
             if (p < it.a || p >= it.e) continue;
-            float* row = dst + flat(it.b, p + g.do0,
+            elem* row = dst + flat(it.b, p + g.do0,
                                     it.y0 + iy - g.h1 + g.do1,
                                     it.x0 - g.h2 + g.do2, g.d0, g.d1, g.d2);
 #pragma unroll
             for (int v = 0; v < kV; ++v) {
               const int c = c0 + v;
-              if (c >= g.h2 && c < g.h2 + tw) row[c] = acc[v];
+              if (c >= g.h2 && c < g.h2 + tw) row[c] = to_e(acc[v]);
             }
             continue;
           }
@@ -837,12 +847,14 @@ queue_kernel(const float* __restrict__ src, float* __restrict__ dst,
   }
 }
 
-using QueueFn = void (*)(const float*, float*, Geo, int, float);
+using QueueFn = void (*)(const elem*, elem*, Geo, int, float);
 
 // The queue path's instantiations: stars of radius 1..4 in 2D and 3D,
 // up to QUEUE_STEPS[ndim][R] fused steps (core/blocking.py), what fits
 // 128 registers without spilling; each for one device's carry and the
-// pre-padded grids (SH false) and for a mesh shard's carry (SH true).
+// pre-padded grids (SH false) and for a mesh shard's carry (SH true).  A
+// 16-bit build leaves out what spilled there (QUEUE_STEPS_16): 2D radius
+// 4, 2D radius 3 at 2 steps, 3D radius 4.
 template <bool SH>
 QueueFn choose_queue(int nd, int r, int t) {
   switch (nd * 100 + r * 10 + t) {
@@ -854,9 +866,11 @@ QueueFn choose_queue(int nd, int r, int t) {
     case 222: return queue_kernel<2, 2, 2, SH>;
     case 223: return queue_kernel<2, 2, 3, SH>;
     case 231: return queue_kernel<2, 3, 1, SH>;
+#if REPRO_DTYPE == 0
     case 232: return queue_kernel<2, 3, 2, SH>;
     case 241: return queue_kernel<2, 4, 1, SH>;
     case 242: return queue_kernel<2, 4, 2, SH>;
+#endif
     case 311: return queue_kernel<3, 1, 1, SH>;
     case 312: return queue_kernel<3, 1, 2, SH>;
     case 313: return queue_kernel<3, 1, 3, SH>;
@@ -866,7 +880,9 @@ QueueFn choose_queue(int nd, int r, int t) {
     case 323: return queue_kernel<3, 2, 3, SH>;
     case 331: return queue_kernel<3, 3, 1, SH>;
     case 332: return queue_kernel<3, 3, 2, SH>;
+#if REPRO_DTYPE == 0
     case 341: return queue_kernel<3, 4, 1, SH>;
+#endif
     default: return nullptr;
   }
 }
@@ -889,7 +905,8 @@ int launch(const void* src, void* dst, const void* coef, int ntaps,
   Geo g;
   if (!make_geo(geometry, steps, batch, ntaps, &g))
     return cudaErrorInvalidConfiguration;
-  g.bulk = g.s2 % 4 == 0 && reinterpret_cast<uintptr_t>(src) % 16 == 0;
+  g.bulk = g.s2 % kVecCells == 0 &&
+           reinterpret_cast<uintptr_t>(src) % 16 == 0;
   const int nd = g.r1 == 0 ? 2 : 3;
   const QueueFn q = g.sharded ? choose_queue<true>(nd, g.r0, g.T)
                               : choose_queue<false>(nd, g.r0, g.T);
@@ -926,7 +943,7 @@ int launch(const void* src, void* dst, const void* coef, int ntaps,
                                 cudaMemcpyDeviceToDevice, st);
   if (err != cudaSuccess) return err;
   q<<<(unsigned)blocks, kThreads, smem, st>>>(
-      static_cast<const float*>(src), static_cast<float*>(dst), g, boundary,
+      static_cast<const elem*>(src), static_cast<elem*>(dst), g, boundary,
       bval);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;

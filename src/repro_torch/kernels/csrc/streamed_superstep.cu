@@ -70,8 +70,11 @@
 //   whole grid.
 //
 // Arithmetic: every output is acc = c0*v0, then acc = acc + ck*vk in the
-// canonical tap order with __fmul_rn/__fadd_rn (no FMA contraction), so
-// the kernel equals its plain version bit for bit.
+// canonical tap order with __fmul_rn/__fadd_rn (no FMA contraction), each
+// rounded to the grid's dtype (elem.cuh), so the kernel equals its plain
+// version bit for bit.  The grid and the rings hold the grid's dtype (one
+// library per dtype, kernels/build.py); coefficients are floats holding
+// the values the host rounded to it.
 //
 // What bounds it on the H100.  At the paper's shapes one read of the
 // source and one write of the output is a few milliseconds of device
@@ -86,12 +89,16 @@
 // group, so its index arithmetic is paid once per B outputs and a ring
 // cell that feeds several of its outputs is read once.  Any other tap set
 // takes a flat path: up to kV outputs per thread, offsets from a table
-// row per ring phase.  Loads are cp.async, 16 bytes where the row is
-// 16-byte aligned and the four cells need no boundary mapping, else 4
-// bytes.
+// row per ring phase.  Loads go in chunks of 16 bytes (kVecCells cells:
+// 4 in float32, 8 in 16 bits): one 16-byte cp.async where the source
+// chunk is 16-byte aligned and needs no boundary mapping, else cell by
+// cell (a 4-byte cp.async in float32; in 16 bits, which cp.async cannot
+// copy, a plain load and store).
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
+
+#include "elem.cuh"
 
 namespace {
 
@@ -156,12 +163,12 @@ struct Geo {
 
 // Ring s (stage s's output; 0: the loaded planes) is clipped to stage s's
 // region: r fewer cells per side per stage on each blocked axis, rows
-// `pitch` floats apart (a multiple of 4, for 16-byte copies).
+// `pitch` cells apart (a multiple of kVecCells, for 16-byte copies).
 struct Ring {
   int pitch, plane;  // row pitch, cells per plane
   int oy, ox;        // stage-0 coordinate of the ring's cell (0, 0)
   int depth;
-  int base;          // float offset in shared memory
+  int base;          // cell offset in shared memory
   int tab;           // int offset of its tap-offset table
 };
 
@@ -170,7 +177,7 @@ struct Ring {
 __host__ __device__ inline Ring first_ring(const Geo& g) {
   Ring r;
   r.oy = r.ox = r.base = r.tab = 0;
-  r.pitch = (g.E2 + 3) / 4 * 4;
+  r.pitch = (g.E2 + kVecCells - 1) / kVecCells * kVecCells;
   r.plane = g.E1 * r.pitch;
   r.depth = g.D0;
   return r;
@@ -181,7 +188,7 @@ __host__ __device__ inline Ring next_ring(const Geo& g, const Ring& r,
   Ring n;
   n.oy = r.oy + g.r1;
   n.ox = r.ox + g.r2;
-  n.pitch = (g.E2 - 2 * n.ox + 3) / 4 * 4;
+  n.pitch = (g.E2 - 2 * n.ox + kVecCells - 1) / kVecCells * kVecCells;
   n.plane = (g.E1 - 2 * n.oy) * n.pitch;
   n.depth = g.D;
   n.base = r.base + r.depth * r.plane;
@@ -244,7 +251,7 @@ inline bool make_geo(const long long* a, int steps, int batch, Geo* g) {
 // plan; the launcher rejects a geometry whose count differs.
 inline size_t smem_bytes(const Geo& g, int ntaps) {
   const Ring end = ring_of(g, g.T, ntaps);
-  return sizeof(float) * (size_t)end.base + sizeof(int) * (size_t)end.tab +
+  return sizeof(elem) * (size_t)end.base + sizeof(int) * (size_t)end.tab +
          sizeof(float) * ntaps;
 }
 
@@ -290,32 +297,34 @@ __device__ __forceinline__ int divmod(int f, int d, float inv, int* r) {
   return q;
 }
 
-// Source planes [zlo, zhi) of item `it` into the loaded ring, in 4-cell
-// chunks: one 16-byte cp.async where the source chunk is aligned and needs
-// no boundary mapping, else per cell a 4-byte cp.async of the (clamped)
-// source cell, the boundary value (constant) or zero (past the source's
-// end, unmapped loads only: such cells feed no stored output).  `raw`
+// Source planes [zlo, zhi) of item `it` into the loaded ring, in chunks of
+// kVecCells cells: one 16-byte cp.async where the source chunk is aligned
+// and needs no boundary mapping, else per cell the (clamped) source cell
+// (a 4-byte cp.async in float32, a plain copy in 16 bits), the boundary
+// value (constant) or zero (past the source's end, unmapped loads only:
+// such cells feed no stored output).  `raw`
 // copies the source as it is: a pre-padded source, or a periodic carry;
 // any other carry maps the t = 0 boundary at global coordinates, (oz, oy,
 // ox) being the global coordinate of local 0 (0 but on a mesh shard).
 __device__ __forceinline__ void load_planes(
-    const float* __restrict__ src, float* ring0, const Ring& r0,
+    const elem* __restrict__ src, elem* ring0, const Ring& r0,
     const Geo& g, const Item& it, long long z0, long long zlo,
     long long zhi, int boundary, float bval, bool raw, long long oz,
     long long oy, long long ox) {
-  const int nchunk = (g.E2 + 3) >> 2;
+  constexpr int C = kVecCells;
+  const int nchunk = (g.E2 + C - 1) / C;
   const int rows = (int)(zhi - zlo) * g.E1;
   const int items = rows * nchunk;
   const long long gy0 = it.y0 - g.h1, gx0 = it.x0 - g.h2;
   const long long src_plane = g.s1 * g.s2;
-  const float* batch_src = src + it.b * g.s0 * src_plane;
+  const elem* batch_src = src + it.b * g.s0 * src_plane;
   const int dz0 = (int)(zlo - z0);
   for (int w = threadIdx.x; w < items; w += kThreads) {
     const int row = w / nchunk, c = w - row * nchunk;
     const int jz = row / g.E1, iy = row - jz * g.E1;
     const long long z = zlo + jz, gy = gy0 + iy;
-    float* out = ring0 + ((dz0 + jz) % r0.depth) * r0.plane +
-                 iy * r0.pitch + 4 * c;
+    elem* out = ring0 + ((dz0 + jz) % r0.depth) * r0.plane +
+                iy * r0.pitch + C * c;
     bool fill = false;  // the whole row is the boundary value
     long long zs = z, ys = gy;
     if (!raw) {
@@ -328,36 +337,41 @@ __device__ __forceinline__ void load_planes(
     const long long pz = zs + g.so0, py = ys + g.so1;
     const bool row_ok = !fill && pz >= 0 && pz < g.s0 && py >= 0 &&
                         py < g.s1;
-    const float* srow = row_ok ? batch_src + pz * src_plane + py * g.s2
-                               : batch_src;
-    const long long gx = gx0 + 4 * c;
+    const elem* srow = row_ok ? batch_src + pz * src_plane + py * g.s2
+                              : batch_src;
+    const long long gx = gx0 + C * c;
     const long long px = gx + g.so2;
-    bool vec = row_ok && 4 * c + 4 <= g.E2 && px >= 0 && px + 3 < g.s2;
-    if (vec && !raw) vec = gx + ox >= 0 && gx + ox + 3 < g.n2;
+    bool vec = row_ok && C * c + C <= g.E2 && px >= 0 && px + C - 1 < g.s2;
+    if (vec && !raw) vec = gx + ox >= 0 && gx + ox + C - 1 < g.n2;
     if (vec) vec = (reinterpret_cast<size_t>(srow + px) & 15) == 0;
     if (vec) {
       __pipeline_memcpy_async(out, srow + px, 16);
       continue;
     }
-    for (int k = 0; k < 4 && 4 * c + k < g.E2; ++k) {
-      float* cell = out + k;
+    for (int k = 0; k < C && C * c + k < g.E2; ++k) {
+      elem* cell = out + k;
       if (!row_ok) {
-        *cell = fill ? bval : 0.0f;
+        *cell = to_e(fill ? bval : 0.0f);
         continue;
       }
       long long xs = gx + k;
       if (!raw) {
         if (boundary == kConstant && (xs + ox < 0 || xs + ox >= g.n2)) {
-          *cell = bval;
+          *cell = to_e(bval);
           continue;
         }
         xs = clampll(xs + ox, 0, g.n2 - 1) - ox;
       }
       const long long q = xs + g.so2;
-      if (q >= 0 && q < g.s2)
+      if (q >= 0 && q < g.s2) {
+#if REPRO_DTYPE == 0
         __pipeline_memcpy_async(cell, srow + q, sizeof(float));
-      else
-        *cell = 0.0f;
+#else
+        *cell = srow[q];  // cp.async copies 4, 8 or 16 bytes, not 2
+#endif
+      } else {
+        *cell = to_e(0.0f);
+      }
     }
   }
 }
@@ -367,9 +381,9 @@ __device__ __forceinline__ void load_planes(
 // from ring `ri` (its cells at `in`, its offset table at `tab`), written
 // into ring `ro` (at `out`) or, for the last stage, into `dst`.
 struct Pass {
-  const float* in;
+  const elem* in;
   const int* tab;
-  float* out;
+  elem* out;
   Ring ri, ro;
   long long qlo, qhi;
   int ylo, yhi, xlo, xhi;
@@ -422,7 +436,7 @@ template <int NV>
 __device__ __forceinline__ void flat_cells(
     const Pass& p, const Plane& pl, int base, int count, const Geo& g,
     long long z0, const float* s_coef, int ntaps, int boundary, float bval,
-    float* __restrict__ dst) {
+    elem* __restrict__ dst) {
   const int nx = p.xhi - p.xlo;
   const int per_plane = (p.yhi - p.ylo) * nx;
   const float inv_pp = 1.0f / (float)per_plane, inv_nx = 1.0f / (float)nx;
@@ -465,17 +479,17 @@ __device__ __forceinline__ void flat_cells(
   float acc[NV];
   const float c0 = s_coef[0];
 #pragma unroll
-  for (int v = 0; v < NV; ++v) acc[v] = __fmul_rn(c0, p.in[cen[v]]);
+  for (int v = 0; v < NV; ++v) acc[v] = mul_r(c0, to_f(p.in[cen[v]]));
   for (int k = 1; k < ntaps; ++k) {
     const float c = s_coef[k];
 #pragma unroll
     for (int v = 0; v < NV; ++v)
-      acc[v] = __fadd_rn(acc[v], __fmul_rn(c, p.in[cen[v] + trow[v][k]]));
+      acc[v] = add_r(acc[v], mul_r(c, to_f(p.in[cen[v] + trow[v][k]])));
   }
 #pragma unroll
   for (int v = 0; v < NV; ++v) {
     if (!live[v]) continue;
-    const float val = fill[v] ? bval : acc[v];
+    const elem val = to_e(fill[v] ? bval : acc[v]);
     if (p.last)
       dst[at[v]] = val;
     else
@@ -487,7 +501,7 @@ __device__ __forceinline__ void flat_pass(const Pass& p, const Geo& g,
                                           const Item& it, long long z0,
                                           const float* s_coef, int ntaps,
                                           int boundary, float bval,
-                                          float* __restrict__ dst) {
+                                          elem* __restrict__ dst) {
   const Plane pl(p, g, it, boundary);
   const int count = (int)(p.qhi - p.qlo) * (p.yhi - p.ylo) *
                     (p.xhi - p.xlo);
@@ -528,32 +542,33 @@ struct FixedCoef {
 //         streamed axis in 2D) - and +; then (3D) the streamed axis - and +.
 //   box:  center; then every offset by Chebyshev shell 1..R, each shell in
 //         lexicographic order of the grid's axes.
-// acc = c0*v0, acc = acc + ck*vk with __fmul_rn/__fadd_rn.
+// acc = c0*v0, acc = acc + ck*vk with __fmul_rn/__fadd_rn, each rounded to
+// the grid's dtype.
 template <int S, int R, int ND, class Val>
 __device__ __forceinline__ float fixed_sum(const float* c, Val val) {
-  float a = __fmul_rn(c[0], val(0, 0, 0));
+  float a = mul_r(c[0], val(0, 0, 0));
   int k = 1;
   if constexpr (S == kStar) {
 #pragma unroll
     for (int j = 1; j <= R; ++j)
-      a = __fadd_rn(a, __fmul_rn(c[k++], val(0, 0, -j)));
+      a = add_r(a, mul_r(c[k++], val(0, 0, -j)));
 #pragma unroll
     for (int j = 1; j <= R; ++j)
-      a = __fadd_rn(a, __fmul_rn(c[k++], val(0, 0, j)));
+      a = add_r(a, mul_r(c[k++], val(0, 0, j)));
     if constexpr (ND == 3) {
 #pragma unroll
       for (int j = 1; j <= R; ++j)
-        a = __fadd_rn(a, __fmul_rn(c[k++], val(0, -j, 0)));
+        a = add_r(a, mul_r(c[k++], val(0, -j, 0)));
 #pragma unroll
       for (int j = 1; j <= R; ++j)
-        a = __fadd_rn(a, __fmul_rn(c[k++], val(0, j, 0)));
+        a = add_r(a, mul_r(c[k++], val(0, j, 0)));
     }
 #pragma unroll
     for (int j = 1; j <= R; ++j)
-      a = __fadd_rn(a, __fmul_rn(c[k++], val(-j, 0, 0)));
+      a = add_r(a, mul_r(c[k++], val(-j, 0, 0)));
 #pragma unroll
     for (int j = 1; j <= R; ++j)
-      a = __fadd_rn(a, __fmul_rn(c[k++], val(j, 0, 0)));
+      a = add_r(a, mul_r(c[k++], val(j, 0, 0)));
   } else if constexpr (S == kBox) {
     constexpr int RY = ND == 3 ? R : 0;
 #pragma unroll
@@ -567,7 +582,7 @@ __device__ __forceinline__ float fixed_sum(const float* c, Val val) {
             const int az = z < 0 ? -z : z, ay = y < 0 ? -y : y;
             const int ax = x < 0 ? -x : x;
             const int m = az > ay ? (az > ax ? az : ax) : (ay > ax ? ay : ax);
-            if (m == n) a = __fadd_rn(a, __fmul_rn(c[k++], val(z, y, x)));
+            if (m == n) a = add_r(a, mul_r(c[k++], val(z, y, x)));
           }
         }
       }
@@ -585,7 +600,7 @@ template <int S, int R, int ND>
 __device__ __forceinline__ void column_pass(
     const Pass& p, const Geo& g, const Item& it, long long z0,
     const FixedCoef<S, R, ND>& fc, int boundary, float bval,
-    float* __restrict__ dst) {
+    elem* __restrict__ dst) {
   constexpr int P = column_planes<ND>();
   constexpr int NB = P + 2 * R;  // ring planes read
   const Plane pl(p, g, it, boundary);
@@ -614,18 +629,18 @@ __device__ __forceinline__ void column_pass(
     const int ix = p.xlo + rx;
     int my, mx;
     const bool fill = !pl.map(p, boundary, iy, ix, &my, &mx);
-    const float* q = p.in + (my - p.ri.oy) * pitch + mx - p.ri.ox;
+    const elem* q = p.in + (my - p.ri.oy) * pitch + mx - p.ri.ox;
     float acc[P];
 #pragma unroll
     for (int v = 0; v < P; ++v)
       acc[v] = fixed_sum<S, R, ND>(fc.c, [&](int dz, int dy, int dx) {
-        return q[rb[v + R + dz] + dy * pitch + dx];
+        return to_f(q[rb[v + R + dz] + dy * pitch + dx]);
       });
     int os = out0;
 #pragma unroll
     for (int v = 0; v < P; ++v) {
       if (v < nq) {
-        const float val = fill ? bval : acc[v];
+        const elem val = to_e(fill ? bval : acc[v]);
         if (p.last)
           dst[pl.dst0 + v * dplane + (long long)iy * g.d2 + ix] = val;
         else
@@ -642,19 +657,19 @@ __device__ __forceinline__ void column_pass(
 // planes local, at or after the item's first loaded plane z0).  A thread
 // copies the same cells in every call, so a chain of copies, each from
 // the plane the one before wrote, needs no barrier.
-__device__ __forceinline__ void ghost_plane(float* ring, const Ring& r,
+__device__ __forceinline__ void ghost_plane(elem* ring, const Ring& r,
                                             long long z0, long long to,
                                             long long from, bool fill,
                                             float bval, int ylo, int yhi,
                                             int xlo, int xhi) {
   const int nx = xhi - xlo;
   const int count = (yhi - ylo) * nx;
-  float* dst = ring + (int)((to - z0) % r.depth) * r.plane;
-  const float* src = ring + (int)((from - z0) % r.depth) * r.plane;
+  elem* dst = ring + (int)((to - z0) % r.depth) * r.plane;
+  const elem* src = ring + (int)((from - z0) % r.depth) * r.plane;
   for (int f = threadIdx.x; f < count; f += kThreads) {
     const int yy = f / nx;
     const int at = (ylo + yy - r.oy) * r.pitch + xlo + (f - yy * nx) - r.ox;
-    dst[at] = fill ? bval : src[at];
+    dst[at] = fill ? to_e(bval) : src[at];
   }
 }
 
@@ -666,10 +681,12 @@ __device__ __forceinline__ void ghost_plane(float* ring, const Ring& r,
 // pre-padded mode read it.
 template <int S, int R, int ND, int M>
 __global__ void __launch_bounds__(kThreads, 2)
-streamed_kernel(const float* __restrict__ src, float* __restrict__ dst,
+streamed_kernel(const elem* __restrict__ src, elem* __restrict__ dst,
                 const float* __restrict__ coef, const int* __restrict__ offs,
                 int ntaps, int boundary, float bval, Geo g) {
-  extern __shared__ __align__(16) float smem[];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  elem* smem = reinterpret_cast<elem*>(smem_raw);
+  bval = rnd(bval);  // the host rounded it to the grid's dtype already
   const Ring end = ring_of(g, g.T, ntaps);
   int* tabs = reinterpret_cast<int*>(smem + end.base);
   float* s_coef = reinterpret_cast<float*>(tabs + end.tab);
@@ -812,7 +829,7 @@ streamed_kernel(const float* __restrict__ src, float* __restrict__ dst,
   }
 }
 
-using KernelFn = void (*)(const float*, float*, const float*, const int*,
+using KernelFn = void (*)(const elem*, elem*, const float*, const int*,
                           int, int, float, Geo);
 
 // The instantiation for the geometry: a fixed tap set (star of radius
@@ -877,7 +894,7 @@ int launch(const void* src, void* dst, const void* coef, const void* offs,
   }
   fn<<<(unsigned)blocks, kThreads, smem,
        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(src), static_cast<float*>(dst),
+      static_cast<const elem*>(src), static_cast<elem*>(dst),
       static_cast<const float*>(coef), static_cast<const int*>(offs), ntaps,
       boundary, bval, g);
   return cudaGetLastError();

@@ -26,10 +26,14 @@
 // the launch is short and its fixed cost dominates, which is why it is one
 // launch per refresh and not one per axis.  Each CTA copies part of one
 // box (found with one barrier, each thread testing one row): consecutive
-// threads take consecutive cells of a row, 16 bytes each where the box's
-// rows are 16-byte aligned on both sides, else 4.
+// threads take consecutive cells of a row, 16 bytes each (kVecCells cells)
+// where the box's rows are 16-byte aligned on both sides, else one cell.
+// The copy moves the grid's cells as they are, in its dtype (one library
+// per dtype, kernels/build.py).
 
 #include <cuda_runtime.h>
+
+#include "elem.cuh"
 
 namespace {
 
@@ -45,14 +49,14 @@ enum BoxField {
   kLo2,
   kE0,      // extent on axes 0 and 1
   kE1,
-  kEx,      // items along axis 2 (cells, or 4-cell vectors)
+  kEx,      // items along axis 2 (cells, or 16-byte vectors)
   kDelta,   // source index - destination index
-  kVec,     // 1: an item is 4 cells, 16-byte aligned on both sides
+  kVec,     // 1: an item is kVecCells cells, 16-byte aligned on both sides
   kBoxFields
 };
 
 __global__ void __launch_bounds__(kThreads)
-wrap_halo_kernel(float* __restrict__ buf, const long long* __restrict__ boxes,
+wrap_halo_kernel(elem* __restrict__ buf, const long long* __restrict__ boxes,
                  int nbox, long long P0, long long P1, long long P2) {
   // the CTA's box: the last whose first CTA is at or before this one (box
   // 0 starts at CTA 0), one row per thread and one barrier
@@ -81,7 +85,8 @@ wrap_halo_kernel(float* __restrict__ buf, const long long* __restrict__ boxes,
     const unsigned z = t % e0;
     const unsigned bi = t / e0;
     const long long at =
-        ((bi * P0 + lo0 + z) * P1 + lo1 + y) * P2 + lo2 + (vec ? 4 * x : x);
+        ((bi * P0 + lo0 + z) * P1 + lo1 + y) * P2 + lo2 +
+        (vec ? kVecCells * x : x);
     if (vec)
       *reinterpret_cast<float4*>(buf + at) =
           *reinterpret_cast<const float4*>(buf + at + delta);
@@ -111,7 +116,7 @@ int wrap_halo_launch(void* buf, const void* boxes, int nbox, int blocks,
   if (err != cudaSuccess) return err;
   wrap_halo_kernel<<<(unsigned)blocks, kThreads, 0,
                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<float*>(buf), static_cast<const long long*>(boxes), nbox,
+      static_cast<elem*>(buf), static_cast<const long long*>(boxes), nbox,
       P0, P1, P2);
   return cudaGetLastError();
 }

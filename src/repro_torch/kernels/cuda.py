@@ -4,7 +4,12 @@ Each wrapper checks device, dtype, contiguity and shape, launches its
 kernel on PyTorch's current stream, raises when the C launcher returns a
 non-zero ``cudaError_t``, and adds one to its kernel's ``launches`` count
 per launch.  Nothing here runs at import: the library is built and loaded
-at the first launch (``kernels/build.py``).
+at the first launch (``kernels/build.py``), one per source and grid dtype
+(float32, bfloat16, float16: the program's ``dtype``, which the grid must
+have); the launch counts add up over the dtypes, and :func:`launches` by
+dtype tells them apart.  The coefficients reach the kernels rounded to
+the grid's dtype, as the TPU kernels cast them
+(``repro/kernels/common.py:_superstep_pallas``), held as floats.
 
 Which TPU kernel of ``repro/kernels/common.py`` each one replaces (the
 source headers say what bounds each on the card and what its design does
@@ -49,6 +54,8 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.analysis.hw import GpuChip
+from repro_torch.core.blocking import vec_cells
+from repro_torch.core.program import DTYPES
 from repro_torch.kernels import build, queued, streamed
 
 _P = ctypes.c_void_p
@@ -59,38 +66,45 @@ BOUNDARY_CODES = {"clamp": 0, "periodic": 1, "constant": 2}
 
 
 class Kernel:
-    """One C launcher of a built library, and its launch count."""
+    """One C launcher of the built libraries, and its launch counts per
+    grid dtype (``by_dtype``)."""
 
     def __init__(self, source: str, symbol: str, argtypes):
         self.source = source
         self.symbol = symbol
         self.argtypes = argtypes
-        self.launches = 0
-        self._fn = None
-        self._errstr = None
+        self.by_dtype = {}
+        self._bound_fns = {}
 
-    def _bound(self):
-        if self._fn is None:
-            lib = build.load(self.source)
+    @property
+    def launches(self) -> int:
+        return sum(self.by_dtype.values())
+
+    def _bound(self, dtype: str):
+        bound = self._bound_fns.get(dtype)
+        if bound is None:
+            lib = build.load(self.source, dtype)
             fn = getattr(lib, self.symbol)
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
             errstr = getattr(lib, self.source.split(".")[0] + "_error_string")
             errstr.argtypes = [ctypes.c_int]
             errstr.restype = ctypes.c_char_p
-            self._fn, self._errstr = fn, errstr
-        return self._fn, self._errstr
+            bound = self._bound_fns[dtype] = (fn, errstr)
+        return bound
 
-    def __call__(self, *args, route: Optional["Kernel"] = None) -> None:
-        """Launch through this kernel's C launcher, or through ``route``'s
-        (another source's launcher computing the same function); the
-        launch counts as this kernel's."""
-        fn, errstr = (route or self)._bound()
+    def __call__(self, *args, dtype: str,
+                 route: Optional["Kernel"] = None) -> None:
+        """Launch through this kernel's C launcher of the ``dtype``
+        library, or through ``route``'s (another source's launcher
+        computing the same function); the launch counts as this
+        kernel's."""
+        fn, errstr = (route or self)._bound(dtype)
         code = fn(*args)
         if code != 0:
-            raise RuntimeError(f"{fn.__name__}: CUDA error {code} "
+            raise RuntimeError(f"{fn.__name__} ({dtype}): CUDA error {code} "
                                f"({errstr(code).decode()})")
-        self.launches += 1
+        self.by_dtype[dtype] = self.by_dtype.get(dtype, 0) + 1
 
 
 #: (src, dst, coef, offs, ntaps, steps, boundary, bval, geometry, batch,
@@ -136,11 +150,15 @@ KERNELS = {
 
 def reset_launches() -> None:
     for k in KERNELS.values():
-        k.launches = 0
+        k.by_dtype = {}
 
 
-def launches() -> dict:
-    return {name: k.launches for name, k in KERNELS.items()}
+def launches(dtype: Optional[str] = None) -> dict:
+    """Launches per kernel since :func:`reset_launches`: of every dtype,
+    or of the ``dtype`` library alone."""
+    if dtype is None:
+        return {name: k.launches for name, k in KERNELS.items()}
+    return {name: k.by_dtype.get(dtype, 0) for name, k in KERNELS.items()}
 
 
 @functools.lru_cache(maxsize=None)
@@ -183,12 +201,25 @@ def _stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev.index).cuda_stream
 
 
-def _check(t: torch.Tensor, name: str, shape: Tuple[int, ...]) -> None:
+def grid_dtype(program) -> str:
+    """The kernels' library dtype of ``program`` (its ``dtype``); raises
+    for a dtype the kernels do not take."""
+    if program.dtype not in build.DTYPES:
+        raise ValueError(f"the kernels take grids of {tuple(build.DTYPES)},"
+                         f" not {program.dtype!r}")
+    return program.dtype
+
+
+def _check(t: torch.Tensor, name: str, shape: Tuple[int, ...],
+           dtype: str) -> None:
+    """``t`` a contiguous CUDA tensor of the kernels' ``dtype`` and of
+    ``shape`` behind at most one batch axis."""
     if t.device.type != "cuda":
         raise ValueError(f"{name} lies on {t.device}, the kernel needs a "
                          f"CUDA tensor")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name} is {t.dtype}, the kernel takes float32")
+    if t.dtype != DTYPES[dtype]:
+        raise ValueError(f"{name} is {t.dtype}, the kernel of a {dtype} "
+                         f"program takes {DTYPES[dtype]}")
     if not t.is_contiguous():
         raise ValueError(f"{name} is not contiguous")
     if tuple(t.shape[-len(shape):]) != tuple(shape) \
@@ -197,10 +228,11 @@ def _check(t: torch.Tensor, name: str, shape: Tuple[int, ...]) -> None:
                          f"{tuple(shape)} behind at most one batch axis")
 
 
-def _check_pair(src: torch.Tensor, dst: torch.Tensor, layout) -> None:
+def _check_pair(src: torch.Tensor, dst: torch.Tensor, layout,
+                program) -> None:
     P = layout.padded_shape
-    _check(src, "src", P)
-    _check(dst, "dst", P)
+    _check(src, "src", P, grid_dtype(program))
+    _check(dst, "dst", P, grid_dtype(program))
     if dst.shape != src.shape or dst.device != src.device:
         raise ValueError(f"dst {tuple(dst.shape)} on {dst.device} does not "
                          f"match src {tuple(src.shape)} on {src.device}")
@@ -219,15 +251,18 @@ def _superstep_launch(kernel: Kernel, src, dst, center, taps, geo, program,
     """One superstep launch of ``geo`` (a ``queued.QueuedGeometry`` or a
     ``streamed.StreamedGeometry``) through ``kernel``'s launcher, or
     through ``route``'s (the same function on another source): taps as
-    (streamed, y, x) rows."""
+    (streamed, y, x) rows.  The coefficients and the boundary value go
+    rounded to the grid's dtype, as floats."""
     dev = src.device
-    coef = torch.cat([center.reshape(1), taps.reshape(-1)]).to(
-        device=dev, dtype=torch.float32).contiguous()
+    coef = torch.cat([center.reshape(1).to(dev, src.dtype),
+                      taps.reshape(-1).to(dev, src.dtype)]).to(
+        torch.float32).contiguous()
+    bval = torch.tensor(program.boundary_value, dtype=src.dtype).item()
     kernel(src.data_ptr(), dst.data_ptr(), coef.data_ptr(),
            streamed_tap_table(program, dev).data_ptr(), coef.numel(),
-           geo.steps, BOUNDARY_CODES[program.boundary],
-           float(program.boundary_value), _host_array(geo), geo.batch,
-           dev.index, _stream(dev), route=route)
+           geo.steps, BOUNDARY_CODES[program.boundary], float(bval),
+           _host_array(geo), geo.batch, dev.index, _stream(dev),
+           dtype=grid_dtype(program), route=route)
 
 
 def _shard(layout, offsets, global_shape) -> dict:
@@ -253,7 +288,7 @@ def padded_superstep(src, dst, center, taps, *, program, plan, layout,
     geometry is then ``sharded`` and the launch runs (and counts as) the
     sharded instantiation.  ``tile`` (in-plane) and ``segment`` override
     the picks."""
-    _check_pair(src, dst, layout)
+    _check_pair(src, dst, layout, program)
     batch = src.shape[0] if src.ndim > program.ndim else 1
     kw = dict(batch=batch, smem_limit=smem_optin(src.device.index),
               tile=tile, segment=segment,
@@ -273,7 +308,7 @@ def _streamed(kernel: Kernel, name: str, src, dst, center, taps, *,
               global_shape=None, sharded: Optional[Kernel] = None) -> None:
     """B3 or B4: a streamed superstep of the padded carry, geometry from
     ``streamed.carry_geometry``; a shard's launch counts as ``sharded``."""
-    _check_pair(src, dst, layout)
+    _check_pair(src, dst, layout, program)
     batch = src.shape[0] if src.ndim > program.ndim else 1
     geo = streamed.carry_geometry(
         program, plan.kernel_steps(name), layout, batch=batch,
@@ -315,7 +350,7 @@ def _rounded(padded: torch.Tensor, program, plan) -> Tuple[int, ...]:
     if any(s < 1 for s in rounded):
         raise ValueError(f"padded grid {spatial} is not larger than twice "
                          f"the halo {plan.halo}")
-    _check(padded, "padded", spatial)
+    _check(padded, "padded", spatial, grid_dtype(program))
     return rounded
 
 
@@ -414,19 +449,21 @@ def wrap_boxes(layout) -> Tuple[Tuple[Tuple[int, int, int], ...], ...]:
     return tuple(boxes)
 
 
-def wrap_rows(layout, batch: int, aligned: bool):
+def wrap_rows(layout, batch: int, aligned: bool, itemsize: int = 4):
     """The ``wrap_halo.cu:BoxField`` rows of :func:`wrap_boxes` for a
-    ``batch`` of grids, the launch's CTAs and the padded extent as three
-    axes (a 2D grid's first is 1).  A box copies 16 bytes an item where its
+    ``batch`` of grids of ``itemsize`` bytes per cell, the launch's CTAs
+    and the padded extent as three axes (a 2D grid's first is 1).  A box
+    copies 16 bytes (4 cells in float32, 8 in 16 bits) an item where its
     rows are 16-byte aligned on both sides (``aligned``: the buffer is)."""
     nd = len(layout.padded_shape)
     P3 = (1,) * (3 - nd) + tuple(layout.padded_shape)
+    a = vec_cells(itemsize)
     rows, blocks = [], 0
     for box in wrap_boxes(layout):
         (l0, e0, s0), (l1, e1, s1), (l2, e2, s2) = \
             ((0, 1, 0),) * (3 - nd) + box
-        vec = aligned and all(v % 4 == 0 for v in (P3[2], l2, e2, s2))
-        ex = e2 // 4 if vec else e2
+        vec = aligned and all(v % a == 0 for v in (P3[2], l2, e2, s2))
+        ex = e2 // a if vec else e2
         count = batch * e0 * e1 * ex
         if count >= 1 << 31:
             raise ValueError(f"a wrap box of {count} items needs 64-bit "
@@ -438,23 +475,31 @@ def wrap_rows(layout, batch: int, aligned: bool):
 
 
 @functools.lru_cache(maxsize=64)
-def _wrap_launch(layout, batch: int, device: torch.device, aligned: bool):
+def _wrap_launch(layout, batch: int, device: torch.device, aligned: bool,
+                 itemsize: int):
     """The launch arguments of :func:`wrap_rows` after the buffer:
     ``(rows on the device, boxes, CTAs, P0, P1, P2)``, made once per
-    layout, batch and device (the device array is kept alive here)."""
-    rows, blocks, P3 = wrap_rows(layout, batch, aligned)
+    layout, batch, device and bytes per cell (the device array is kept
+    alive here)."""
+    rows, blocks, P3 = wrap_rows(layout, batch, aligned, itemsize)
     table = torch.tensor(rows, dtype=torch.int64, device=device)
     torch.cuda.current_stream(device.index).synchronize()
     return table, (table.data_ptr(), len(rows), blocks) + P3
 
 
+#: The kernels' dtype name of each grid dtype they take.
+_DTYPE_NAMES = {t: name for name, t in DTYPES.items()}
+
+
 def refresh_wrap_halo(src: torch.Tensor, layout) -> None:
     """B2: refresh every wrap axis of ``src`` in place in one launch
     (:func:`wrap_boxes`; the launch arguments are cached per layout, so a
-    refresh is one ctypes call).  Refuses a wrap-degenerate layout."""
+    refresh is one ctypes call), in the library of ``src``'s dtype (the
+    copy moves cells as they are).  Refuses a wrap-degenerate layout."""
     P = layout.padded_shape
-    _check(src, "src", P)
+    dtype = _DTYPE_NAMES.get(src.dtype, "float32")
+    _check(src, "src", P, dtype)
     ptr, dev = src.data_ptr(), src.device
     _, args = _wrap_launch(layout, src.shape[0] if src.ndim > len(P) else 1,
-                           dev, ptr % 16 == 0)
-    WRAP_HALO(ptr, *args, dev.index, _stream(dev))
+                           dev, ptr % 16 == 0, src.element_size())
+    WRAP_HALO(ptr, *args, dev.index, _stream(dev), dtype=dtype)

@@ -24,11 +24,12 @@ import math
 from typing import List, Optional, Sequence, Tuple
 
 from repro_torch.core.blocking import (QUEUE_THREADS, QueuedPlanes,
-                                       queue_path, queued_planes)
+                                       queue_path, queued_planes, vec_cells)
+from repro_torch.core.program import dtype_bytes
 from repro_torch.kernels import streamed
 
-#: In-plane tile candidates: x a multiple of 8 (a strip's 16-byte reads
-#: need x origins on 4-float boundaries), y only in 3D.
+#: In-plane tile candidates: x a multiple of 8 (a strip's 4-cell reads
+#: need x origins on 4-cell boundaries), y only in 3D.
 QUEUED_TX = tuple(range(32, 1025, 8))
 QUEUED_TY = (1, 2, 4, 6, 8, 10, 12, 14, 16, 20, 24, 32)
 #: Work items a launch aims for before segments shorten: about eight
@@ -49,10 +50,12 @@ ROW_COPY_CELLS = 64
 CTA_RESERVED = 1024
 
 
-def x_shift(src_off_x: int, halo_x: int) -> int:
-    """Shared column of stage-0 column 0: 4..7, so that a row's source
-    cells and its shared cells have the same 16-byte alignment."""
-    return 4 + (src_off_x - halo_x) % 4
+def x_shift(src_off_x: int, halo_x: int, itemsize: int = 4) -> int:
+    """Shared column of stage-0 column 0: ``A..2A-1`` for ``A`` the cells
+    of 16 bytes (4..7 in float32, 8..15 in 16 bits), so that a row's
+    source cells and its shared cells have the same 16-byte alignment."""
+    a = vec_cells(itemsize)
+    return a + (src_off_x - halo_x) % a
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,7 +65,8 @@ class QueuedGeometry:
     coordinate 0; ``origin`` its global coordinate (the shard offsets:
     the boundary acts outside ``[0, true)`` in global coordinates).
     ``carry`` marks the padded carry (the t = 0 boundary applied on load),
-    ``persistent`` a grid of resident CTAs that walk the work items."""
+    ``persistent`` a grid of resident CTAs that walk the work items;
+    ``itemsize`` is the grid's bytes per cell (the library it runs)."""
 
     ndim: int
     steps: int
@@ -79,6 +83,7 @@ class QueuedGeometry:
     batch: int
     carry: bool
     persistent: bool
+    itemsize: int = 4
 
     @property
     def sharded(self) -> bool:
@@ -102,7 +107,8 @@ class QueuedGeometry:
     def planes(self) -> QueuedPlanes:
         in_plane = (self.tile[1],) if self.ndim == 2 else self.tile
         return QueuedPlanes(ndim=self.ndim, radius=self.radius,
-                            steps=self.steps, tile=in_plane)
+                            steps=self.steps, tile=in_plane,
+                            itemsize=self.itemsize)
 
     @property
     def smem_bytes(self) -> int:
@@ -112,7 +118,7 @@ class QueuedGeometry:
 
     @property
     def pad(self) -> int:
-        return x_shift(self.src_off[2], self.halo[2])
+        return x_shift(self.src_off[2], self.halo[2], self.itemsize)
 
     @property
     def strips(self) -> Tuple[int, int, int]:
@@ -155,8 +161,9 @@ def _candidates(ndim: int):
 
 
 @functools.lru_cache(maxsize=None)
-def _fits(ndim, radius, steps, smem_limit):
-    planes = [QueuedPlanes(ndim=ndim, radius=radius, steps=steps, tile=t)
+def _fits(ndim, radius, steps, smem_limit, itemsize):
+    planes = [QueuedPlanes(ndim=ndim, radius=radius, steps=steps, tile=t,
+                           itemsize=itemsize)
               for t in _candidates(ndim)]
     usable = [p for p in planes if p.threads_fit]
     return usable, [p for p in usable if p.bytes() <= smem_limit]
@@ -164,7 +171,8 @@ def _fits(ndim, radius, steps, smem_limit):
 
 def smallest_queued_tile(program, steps: int) -> Tuple[int, ...]:
     """The usable candidate with the least shared memory."""
-    usable, _ = _fits(program.ndim, program.halo_radius, steps, 1 << 62)
+    usable, _ = _fits(program.ndim, program.halo_radius, steps, 1 << 62,
+                      dtype_bytes(program.dtype))
     return min(usable, key=lambda p: p.bytes()).tile
 
 
@@ -179,7 +187,7 @@ def pick_queued_tile(program, steps: int,
     (``__launch_bounds__(256, 2)``) allows two CTAs per SM, so a tile that
     allows only one halves the warps that hide the copies and barriers."""
     nd, r = program.ndim, program.halo_radius
-    _, fits = _fits(nd, r, steps, smem_limit)
+    _, fits = _fits(nd, r, steps, smem_limit, dtype_bytes(program.dtype))
     if not fits:
         small = smallest_queued_tile(program, steps)
         need = queued_planes(program, steps, small).bytes()
@@ -223,7 +231,8 @@ def _geometry(program, steps, *, true, src, src_off, dst, dst_off, written,
         ndim=nd, steps=steps, radius=program.halo_radius, true=true, src=src,
         src_off=src_off, dst=dst, dst_off=dst_off, written=written,
         origin=origin, tile=tile2, segment=int(segment), batch=batch,
-        carry=carry, persistent=persistent)
+        carry=carry, persistent=persistent,
+        itemsize=dtype_bytes(program.dtype))
     rows, nx, _ = geo.strips
     if rows * nx > QUEUE_THREADS:
         raise ValueError(f"column tile {tile} needs {rows * nx} strips, a "

@@ -32,6 +32,7 @@ from typing import List, Optional, Tuple
 
 from repro_torch.core.blocking import (StreamedRings, streamed_rings,
                                        streamed_smem_bytes)
+from repro_torch.core.program import dtype_bytes
 
 #: In-plane column-tile candidates: x (contiguous) a multiple of 32 so a
 #: warp reads whole 128-byte rows; y only in 3D.
@@ -65,7 +66,8 @@ class StreamedGeometry:
     the code of a tap set the kernel takes at fixed offsets with
     coefficients in registers (:data:`FIXED_TAPS`), or 0 for the
     offset-table path.  ``prepadded`` loads the source as it is, without
-    the carry's t = 0 boundary mapping."""
+    the carry's t = 0 boundary mapping.  ``itemsize`` is the grid's bytes
+    per cell (the library it runs)."""
 
     ndim: int
     steps: int
@@ -83,6 +85,7 @@ class StreamedGeometry:
     fixed: int = 0
     origin: Tuple[int, int, int] = (0, 0, 0)
     prepadded: bool = False
+    itemsize: int = 4
 
     @property
     def sharded(self) -> bool:
@@ -106,7 +109,8 @@ class StreamedGeometry:
     @property
     def rings(self) -> StreamedRings:
         in_plane = (self.tile[1],) if self.ndim == 2 else self.tile
-        return streamed_rings(self.ndim, self.radius, self.steps, in_plane)
+        return streamed_rings(self.ndim, self.radius, self.steps, in_plane,
+                              self.itemsize)
 
     @property
     def smem_bytes(self) -> int:
@@ -187,7 +191,8 @@ def _candidates(ndim: int):
 def streamed_need(program, steps: int, tile: Tuple[int, ...]) -> int:
     """Shared memory of one streamed CTA at in-plane tile ``tile``."""
     return streamed_smem_bytes(program.ndim, program.halo_radius,
-                               program.num_taps, steps, tile)
+                               program.num_taps, steps, tile,
+                               dtype_bytes(program.dtype))
 
 
 @functools.lru_cache(maxsize=None)
@@ -252,7 +257,7 @@ def _geometry(program, steps, *, true, src, src_off, dst, dst_off,
         src=src, src_off=src_off, dst=dst, dst_off=dst_off, written=written,
         tile=tile2, segment=int(segment), batch=batch,
         ntaps=program.num_taps, fixed=fixed_code(program), origin=origin,
-        prepadded=prepadded)
+        prepadded=prepadded, itemsize=dtype_bytes(program.dtype))
 
 
 def shard_rows(nd: int, layout, origin, true_shape):

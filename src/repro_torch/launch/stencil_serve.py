@@ -56,11 +56,12 @@ import math
 import time
 from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch import obs
 from repro_torch.analysis.hw import GpuChip
-from repro_torch.core.program import StencilProgram
+from repro_torch.core.program import StencilProgram, torch_dtype
 from repro_torch.executor import (CompiledStencil, _mesh_devices,
                                   _resolve_device, stencil)
 from repro_torch.lint.diagnostics import DiagnosticError
@@ -131,6 +132,16 @@ class ServeStats:
     def latency_percentiles(self) -> Dict[str, float]:
         """{"p50": s, "p95": s, "p99": s} of submit->result latency."""
         return self.recorder.percentiles("serve.request_latency_s")
+
+
+def _as_grid(grid, program: StencilProgram, device) -> torch.Tensor:
+    """``grid`` as a tensor of the program's dtype on ``device``.  A numpy
+    bfloat16 array (``ml_dtypes``), which torch cannot read, goes through
+    float32, which holds it exactly."""
+    if getattr(getattr(grid, "dtype", None), "name", None) == "bfloat16":
+        grid = np.asarray(grid, dtype=np.float32)
+    return torch.as_tensor(grid, dtype=torch_dtype(program.dtype),
+                           device=device)
 
 
 def wait_ready(out: torch.Tensor,
@@ -211,11 +222,12 @@ class StencilServer:
 
     def submit(self, program: StencilProgram, grid, steps: int) -> int:
         """Queue one run; returns the request id ``flush()`` resolves.  The
-        grid moves to the server's device as float32."""
+        grid moves to the server's device in the program's dtype, as the
+        reference casts it."""
         if not isinstance(program, StencilProgram):
             raise TypeError(f"program must be a StencilProgram (got "
                             f"{type(program).__name__})")
-        grid = torch.as_tensor(grid, dtype=torch.float32, device=self.device)
+        grid = _as_grid(grid, program, self.device)
         if grid.ndim != program.ndim:
             raise ValueError(
                 f"request grid rank {grid.ndim} != program ndim "

@@ -57,9 +57,10 @@ CODE_INFO = {
                    hint="shrink par_time or use variant='plain'"),
     "RP106": _info("eq. 6 advisory: streamed window is not lane/sublane "
                    "aligned", "warning",
-                   hint="on the card: pick par_time so that "
-                        "par_time*radius is even (a carry row pitch of a "
-                        "multiple of 4 floats keeps the 16-byte row copies)"),
+                   hint="on the card: pick par_time so that the carry row "
+                        "pitch is a multiple of 16 bytes (par_time*radius "
+                        "even in float32, a multiple of 4 in 16 bits), "
+                        "which keeps the 16-byte row copies"),
     "RP107": _info("decomposition infeasible: shard/divisibility/halo bound "
                    "broken",
                    hint="devices=<count> or plan='auto' searches blocking "
@@ -69,7 +70,7 @@ CODE_INFO = {
                    hint="grow the axis, shrink par_time, or pick a dividing "
                         "block"),
     "RP109": _info("program dtype outside the kernels' supported set",
-                   hint="use float32"),
+                   hint="use float32, bfloat16 or float16"),
     "RP110": _info("device placement invalid for this backend/host",
                    hint="run on one visible CUDA device, or pass "
                         "device='cpu'"),

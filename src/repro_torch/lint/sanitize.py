@@ -41,10 +41,12 @@ import numpy as np
 import torch
 
 from repro_torch.core.blocking import BlockPlan
+from repro_torch.core.program import torch_dtype
 from repro_torch.lint.diagnostics import (Diagnostic, DiagnosticError,
                                           error)
 
-#: Destination fill: exact in float32 and out of reach of the stencil on
+#: Destination fill: exact in float32, bfloat16 and float16 (-1984 =
+#: -0b11111000000, six significant bits) and out of reach of the stencil on
 #: the canary grid (uniform in [0.5, 1.5), coefficient magnitudes summing
 #: to 1), so a sentinel left in the interior is a cell nothing wrote.
 SENTINEL = -1984.0
@@ -170,9 +172,11 @@ def sanitize_run(program, plan: BlockPlan, grid_shape, *,
     local = layout.local_shape
     inner = tuple(slice(H, H + n) for n in local)
 
-    src = torch.full(layout.padded_shape, float("nan"), dtype=torch.float32,
+    # the carry in the program's dtype: the canary grid rounded to it
+    dtype = torch_dtype(program.dtype)
+    src = torch.full(layout.padded_shape, float("nan"), dtype=dtype,
                      device=dev)
-    src[inner] = torch.from_numpy(canary_grid(local, seed)).to(dev)
+    src[inner] = torch.from_numpy(canary_grid(local, seed)).to(dev, dtype)
     dst = torch.full_like(src, SENTINEL)
 
     diags: List[Diagnostic] = []

@@ -919,6 +919,268 @@ def test_mesh_shards_on_two_streams_keep_their_coefficients(cuda_device):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
+# ---- 16-bit grids ----------------------------------------------------------
+#
+# Every kernel in bfloat16 and float16 (one library per dtype, the element
+# type of ``csrc/elem.cuh``) against its plain version on the card, at 0:
+# both round to the grid's dtype after every multiply and every add.  A
+# boundary value of 0.3 is not exact in 16 bits, so its rounding shows.
+
+DT16 = ["bfloat16", "float16"]
+
+
+def _random16(shape, device, seed, dtype):
+    return _random(shape, device, seed).to(getattr(torch, dtype))
+
+
+def _prog16(ndim, boundary, shape, radius, dtype):
+    return repro_torch.StencilProgram(ndim=ndim, radius=radius, shape=shape,
+                                      boundary=boundary, boundary_value=0.3,
+                                      dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype", DT16)
+@pytest.mark.parametrize("ndim", [2, 3])
+@pytest.mark.parametrize("boundary", ["clamp", "periodic", "constant"])
+@pytest.mark.parametrize("shape,radius,steps", QUEUED)
+@pytest.mark.parametrize("variant", ["plain", "temporal", "pipelined"])
+def test_16bit_carry_kernels_equal_plain_versions(cuda_device, dtype, ndim,
+                                                  boundary, shape, radius,
+                                                  steps, variant):
+    """B1 (both bodies), B3 (at par_time 1: a chunk of 4 steps) and B4 in
+    16 bits against ``padded_superstep_plain`` on a random padded carry,
+    batch 2, exact; B2 exact on the periodic ring."""
+    prog = _prog16(ndim, boundary, shape, radius, dtype)
+    par_time = 1 if variant == "temporal" else steps
+    plan = repro_torch.BlockPlan(spec=prog, block_shape=BLOCKS[ndim],
+                                 par_time=par_time)
+    grid = (23, 30, 150) if ndim == 3 else (37, 150)
+    layout = common.ring_schedule(prog, plan, grid, par_time,
+                                  variant=variant).layout
+    src = _random16((2,) + layout.padded_shape, cuda_device, ndim, dtype)
+    coeffs = prog.default_coeffs(seed=1).to(cuda_device)
+    before = cuda.launches(dtype)
+    if layout.wrap_axes:
+        got = src.clone()
+        common.refresh_wrap_halo(got, layout)
+        src = common.refresh_wrap_halo_plain(src, layout)
+        torch.testing.assert_close(got, src, rtol=0, atol=0)
+    got, want = torch.zeros_like(src), torch.zeros_like(src)
+    common.padded_superstep(src, got, coeffs.center, coeffs.taps,
+                            program=prog, plan=plan, layout=layout,
+                            variant=variant)
+    name = {"plain": "padded_superstep", "temporal": "temporal_superstep",
+            "pipelined": "padded_pipelined"}[variant]
+    after = cuda.launches(dtype)
+    assert after[name] == before[name] + 1
+    assert after["wrap_halo"] == before["wrap_halo"] + \
+        int(bool(layout.wrap_axes))
+    deep = common.deep_plan(plan) if variant == "temporal" else plan
+    common.padded_superstep_plain(src, want, coeffs.center, coeffs.taps,
+                                  program=prog, plan=deep, layout=layout)
+    ix = _interior(layout)
+    assert got.dtype == want.dtype == getattr(torch, dtype)
+    torch.testing.assert_close(got[ix], want[ix], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", DT16)
+@pytest.mark.parametrize("ndim", [2, 3])
+@pytest.mark.parametrize("boundary", ["clamp", "periodic", "constant"])
+@pytest.mark.parametrize("variant", ["plain", "pipelined"])
+@pytest.mark.parametrize("shape", ["star", "box", "diamond"])
+def test_16bit_prepadded_kernels_equal_plain_versions(cuda_device, dtype,
+                                                      ndim, boundary,
+                                                      variant, shape):
+    """B5 and B6 in 16 bits through ``superstep_call`` against
+    ``superstep_plain`` (batch 2, a shard origin in a larger grid): the
+    register queues (star) and the streamed pre-padded mode, exact."""
+    prog = _prog16(ndim, boundary, shape, 2, dtype)
+    plan = repro_torch.BlockPlan(spec=prog, block_shape=BLOCKS[ndim],
+                                 par_time=2)
+    grid = GRIDS[ndim]
+    h = plan.halo
+    rounded = tuple(common.round_up(n, b) for n, b in zip(grid,
+                                                           BLOCKS[ndim]))
+    g = _random16((2,) + grid, cuda_device, ndim, dtype)
+    padded = boundary_pad(prog, g, [(0, 0)] + [
+        (h, r - n + h) for n, r in zip(grid, rounded)]).contiguous()
+    coeffs = prog.default_coeffs(seed=2).to(cuda_device)
+    offsets, global_shape = (3,) * ndim, tuple(n + 7 for n in grid)
+    kernel = "pipelined_superstep" if variant == "pipelined" \
+        else "superstep"
+    before = cuda.launches(dtype)[kernel]
+    got = common.superstep_call(padded, coeffs.center, coeffs.taps,
+                                program=prog, plan=plan,
+                                true_shape=global_shape, offsets=offsets,
+                                variant=variant)
+    assert cuda.launches(dtype)[kernel] == before + 1
+    want = common.superstep_plain(padded, coeffs.center, coeffs.taps,
+                                  program=prog, plan=plan,
+                                  true_shape=global_shape, offsets=offsets)
+    ix = (Ellipsis,) + tuple(slice(0, n) for n in grid)
+    assert got.dtype == getattr(torch, dtype)
+    torch.testing.assert_close(got[ix], want[ix], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", DT16)
+@pytest.mark.parametrize("ndim", [2, 3])
+@pytest.mark.parametrize("boundary", ["clamp", "periodic", "constant"])
+@pytest.mark.parametrize("shape,radius,steps", [("star", 2, 3),
+                                                ("box", 1, 2)])
+@pytest.mark.parametrize("where", sorted(SHARD_ORIGINS))
+@pytest.mark.parametrize("variant", ["plain", "pipelined"])
+def test_16bit_sharded_carry_equals_plain_version(cuda_device, dtype, ndim,
+                                                  boundary, shape, radius,
+                                                  steps, where, variant):
+    """The sharded instantiations of B1 and B4 in 16 bits, exact."""
+    prog, plan, layout, offsets, global_shape, src, coeffs = _shard_case(
+        ndim, boundary, shape, radius, steps, where, cuda_device)
+    prog = dataclasses.replace(prog, dtype=dtype)
+    plan = dataclasses.replace(plan, spec=prog)
+    src = src.to(getattr(torch, dtype))
+    launch, name = (cuda.padded_superstep, "padded_superstep_sharded") \
+        if variant == "plain" else (cuda.padded_pipelined,
+                                    "padded_pipelined_sharded")
+    got, want = torch.zeros_like(src), torch.zeros_like(src)
+    before = cuda.launches(dtype)
+    launch(src, got, coeffs.center, coeffs.taps, program=prog, plan=plan,
+           layout=layout, offsets=offsets, global_shape=global_shape)
+    after = cuda.launches(dtype)
+    assert {k: v - before[k] for k, v in after.items()
+            if v != before[k]} == {name: 1}
+    common.padded_superstep_plain(src, want, coeffs.center, coeffs.taps,
+                                  program=prog, plan=plan, layout=layout,
+                                  offsets=offsets,
+                                  global_shape=global_shape)
+    ix = _interior(layout)
+    torch.testing.assert_close(got[ix], want[ix], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", DT16)
+@pytest.mark.parametrize("layout_case", WRAP_LAYOUTS)
+@pytest.mark.parametrize("offset", [0, 1, 4])
+def test_16bit_wrap_refresh_equals_plain(cuda_device, dtype, layout_case,
+                                         offset):
+    """B2 on a 16-bit carry, batch 3: 8-cell (16-byte) copies on an
+    aligned buffer, cell copies on one 2 or 8 bytes off; exact."""
+    ndim, variant, radius, par_time, grid = layout_case
+    prog = _prog16(ndim, "periodic", "star", radius, dtype)
+    plan = repro_torch.BlockPlan(spec=prog, block_shape=BLOCKS[ndim],
+                                 par_time=par_time)
+    layout = common.ring_schedule(prog, plan, grid, par_time,
+                                  variant=variant).layout
+    shape = (3,) + layout.padded_shape
+    n = int(np.prod(shape))
+    store = _random16((n + offset,), cuda_device, ndim, dtype)
+    src = store[offset:].view(shape)
+    want = common.refresh_wrap_halo_plain(src.clone(), layout)
+    before = cuda.launches(dtype)["wrap_halo"]
+    common.refresh_wrap_halo(src, layout)
+    assert cuda.launches(dtype)["wrap_halo"] == before + 1
+    torch.testing.assert_close(src, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", DT16)
+@pytest.mark.parametrize("ndim", [2, 3])
+@pytest.mark.parametrize("boundary", ["clamp", "periodic", "constant"])
+@pytest.mark.parametrize("variant", ["plain", "pipelined", "temporal"])
+def test_16bit_front_door_on_the_card_equals_the_cpu(cuda_device, dtype,
+                                                     ndim, boundary,
+                                                     variant):
+    """A 16-bit grid through the front door, 9 steps at par_time 2 (a
+    remainder), batch 2: the kernels on the card equal the plain versions
+    on the CPU at 0 (the same roundings), the result in the grid's dtype;
+    a float32 grid is RP109."""
+    prog = _prog16(ndim, boundary, "star", 2, dtype)
+    plan = repro_torch.BlockPlan(spec=prog, block_shape=BLOCKS[ndim],
+                                 par_time=2)
+    g = _random16((2,) + GRIDS[ndim], cuda_device, ndim, dtype)
+    cs = repro_torch.stencil(prog).compile(GRIDS[ndim], steps=9, batch=2,
+                                           plan=plan, variant=variant)
+    cuda.reset_launches()
+    on_card = cs.run(g)
+    torch.cuda.synchronize()
+    assert on_card.dtype == g.dtype
+    assert sum(cuda.launches(dtype).values()) == \
+        sum(cuda.launches().values()) > 0
+    on_cpu = repro_torch.stencil(prog).compile(
+        GRIDS[ndim], steps=9, batch=2, plan=plan, variant=variant,
+        device="cpu").run(g.cpu())
+    torch.testing.assert_close(on_card.cpu(), on_cpu, rtol=0, atol=0)
+    with pytest.raises(DiagnosticError, match="RP109"):
+        cs.run(g.float())
+
+
+@pytest.mark.parametrize("dtype", DT16)
+@pytest.mark.parametrize("variant", ["plain", "pipelined"])
+def test_16bit_mesh_on_one_card_equals_the_single_device_run(
+        cuda_device, dtype, variant):
+    """Four shards of a 16-bit grid on one card: the sharded kernels of
+    the dtype, equal to the single device's run at 0."""
+    prog = _prog16(2, "clamp", "star", 2, dtype)
+    plan = repro_torch.BlockPlan(spec=prog, block_shape=(16, 64),
+                                 par_time=2)
+    grid = (64, 256)
+    dist = _mesh(prog, plan, grid, (2, 2), variant, cuda_device)
+    g = _random16((2,) + grid, cuda_device, 2, dtype)
+    cuda.reset_launches()
+    got = dist.run(g, 5)
+    torch.cuda.synchronize()
+    name = "padded_superstep" if variant == "plain" else "padded_pipelined"
+    assert {k: v for k, v in cuda.launches(dtype).items() if v} == \
+        {f"{name}_sharded": 4 * 3}
+    want = repro_torch.stencil(prog, prog.default_coeffs(seed=3)).compile(
+        grid, steps=5, batch=2, plan=plan, variant=variant).run(g)
+    assert got.dtype == want.dtype == g.dtype
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", DT16)
+@pytest.mark.parametrize("boundary", ["clamp", "periodic", "constant"])
+@pytest.mark.parametrize("variant", ["plain", "pipelined", "temporal"])
+def test_16bit_canary_on_the_kernels_is_clean(cuda_device, dtype, boundary,
+                                              variant):
+    """The NaN canary on a 16-bit carry (B1, B3, B4, B2): clean, and equal
+    to the front door's run at 0."""
+    from repro_torch.lint import sanitize_run
+    from repro_torch.lint.sanitize import canary_grid
+    prog = _prog16(3, boundary, "star", 2, dtype)
+    plan = repro_torch.BlockPlan(spec=prog, block_shape=BLOCKS[3],
+                                 par_time=2)
+    grid = CANARY_GRIDS[3]
+    steps = 2 * plan.par_time * (TEMPORAL_CHUNK if variant == "temporal"
+                                 else 1) + 1
+    report = sanitize_run(prog, plan, grid, steps=steps, variant=variant)
+    torch.cuda.synchronize()
+    assert report.ok, report.describe()
+    cs = repro_torch.stencil(prog, prog.default_coeffs(0)).compile(
+        grid, steps=steps, plan=plan, variant=variant)
+    g = torch.from_numpy(canary_grid(grid)).to(cuda_device,
+                                               getattr(torch, dtype))
+    assert report.interior.dtype == g.dtype
+    torch.testing.assert_close(report.interior, cs.run(g), rtol=0, atol=0)
+
+
+def test_16bit_served_request_comes_back_in_its_dtype(cuda_device):
+    """A served bfloat16 request (a float32 array) runs in bfloat16 on the
+    card under the planner's plan for 2-byte cells, equal to the front
+    door's run under that plan at 0."""
+    from repro_torch.launch.stencil_serve import StencilServer
+    from repro_torch.tuning.cache import program_fingerprint
+    prog = _prog16(2, "clamp", "star", 2, "bfloat16")
+    g = np.random.RandomState(4).uniform(-1, 1, (48, 256)).astype(
+        np.float32)
+    server = StencilServer(max_batch=2)
+    rid = server.submit(prog, g, 5)
+    out = server.flush()[rid]
+    assert not server.failed and out.dtype == torch.bfloat16
+    plan, backend = server._resolved[(program_fingerprint(prog), (48, 256))]
+    want = repro_torch.stencil(prog).compile(
+        (48, 256), steps=5, plan=plan, backend=backend).run(
+        torch.from_numpy(g).to(cuda_device, torch.bfloat16))
+    torch.testing.assert_close(out, want, rtol=0, atol=0)
+
+
 def _lm_engine_run(model, device, batch=2, cache_len=32):
     """Every decode call's logits (float64, on the host) and the tokens
     of a seeded mixed-length run that refills slots."""

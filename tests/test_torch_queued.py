@@ -39,7 +39,8 @@ from repro.kernels import common as ref_common
 import repro_torch
 from repro_torch.analysis.hw import H100_SXM
 from repro_torch.configs import stencil2d, stencil3d
-from repro_torch.core.blocking import (QUEUE_STEPS, QueuedPlanes, queue_path,
+from repro_torch.core.blocking import (QUEUE_STEPS, QUEUE_STEPS_16,
+                                       QueuedPlanes, queue_path,
                                        queued_planes, round_up)
 from repro_torch.core.codegen import boundary_pad
 from repro_torch.kernels import common, cuda, queued, streamed
@@ -52,9 +53,10 @@ BLOCKS = {2: (8, 32), 3: (4, 8, 32)}
 NAN = float("nan")
 
 
-def _program(ndim, boundary, shape="star", radius=2):
+def _program(ndim, boundary, shape="star", radius=2, dtype="float32"):
     return repro_torch.StencilProgram(ndim=ndim, radius=radius, shape=shape,
-                                      boundary=boundary, boundary_value=0.25)
+                                      boundary=boundary, boundary_value=0.25,
+                                      dtype=dtype)
 
 
 # ---- the torch replay of the kernel's schedule --------------------------------
@@ -76,7 +78,9 @@ class _Replay:
         self.batched = src.ndim > nd
         s3 = src if self.batched else src[None]
         self.src = s3[:, :, None, :] if nd == 2 else s3
-        self.out = torch.zeros((self.src.shape[0],) + geo.dst)
+        self.dt = src.dtype
+        self.out = torch.zeros((self.src.shape[0],) + geo.dst,
+                               dtype=self.dt)
         self.coef = torch.cat([center.reshape(1), taps.reshape(-1)])
         self.offs = streamed.streamed_taps(program)
         planes = geo.planes
@@ -110,7 +114,7 @@ class _Replay:
         const = self.bnd == "constant"
         z = it["a"] - h0 + k
         if mapped and const and not 0 <= z + oz < n0:
-            return torch.full((E1, E2), self.bval)
+            return torch.full((E1, E2), self.bval, dtype=self.dt)
         zs = _clip(z + oz, 0, n0 - 1) - oz if mapped else z
         pz = zs + g.src_off[0]
         gy = it["y0"] - h1 + torch.arange(E1)
@@ -185,7 +189,7 @@ class _Replay:
     def shifted(self, plane, dy, dx):
         """``plane`` read at offset (dy, dx), NaN past its extent."""
         E1, E2 = self.E1, self.E2
-        out = torch.full((E1, E2), NAN)
+        out = torch.full((E1, E2), NAN, dtype=self.dt)
         ys = slice(max(0, -dy), min(E1, E1 - dy))
         xs = slice(max(0, -dx), min(E2, E2 - dx))
         yt = slice(max(0, dy), min(E1, E1 + dy))
@@ -210,10 +214,11 @@ class _Replay:
         T, r = g.steps, g.radius
         B, G, Q = planes.group, planes.groups, 3 * g.radius
         const, clamp = self.bnd == "constant", self.bnd == "clamp"
-        ring = [torch.full((E1, E2), NAN) for _ in range(D0)]
-        cbuf = [[[torch.full((E1, E2), NAN) for _ in range(B)]
+        ring = [torch.full((E1, E2), NAN, dtype=self.dt)
+                for _ in range(D0)]
+        cbuf = [[[torch.full((E1, E2), NAN, dtype=self.dt) for _ in range(B)]
                  for _ in range(2)] for _ in range(T - 1)]
-        q = [[torch.full((E1, E2), NAN) for _ in range(Q)]
+        q = [[torch.full((E1, E2), NAN, dtype=self.dt) for _ in range(Q)]
              for _ in range(T)]
         in_regs = planes.stage0_in_registers
         groups = ((it, kg) for lin in lins for it in [self.item(lin)]
@@ -296,8 +301,8 @@ class _Replay:
                         acc = self.mask(acc, s)
                         gp = g.origin[0] + p
                         if const and not 0 <= gp < g.true[0]:
-                            acc = self.mask(torch.full((E1, E2), self.bval),
-                                            s)
+                            acc = self.mask(torch.full(
+                                (E1, E2), self.bval, dtype=self.dt), s)
                         elif clamp and gp >= g.true[0]:
                             acc = new[Q - B + j - 1]
                         new[Q - B + j] = acc
@@ -319,14 +324,16 @@ def replay(program, center, taps, src, geo, ctas=None):
 # ---- B1, B5 and B6 cases -----------------------------------------------------
 
 
-def _carry_case(ndim, boundary, shape, radius, steps, seed=0, **geometry):
-    prog = _program(ndim, boundary, shape, radius)
+def _carry_case(ndim, boundary, shape, radius, steps, seed=0,
+                dtype="float32", **geometry):
+    prog = _program(ndim, boundary, shape, radius, dtype)
     plan = repro_torch.BlockPlan(spec=prog, block_shape=BLOCKS[ndim],
                                  par_time=steps)
     lay = common.ring_schedule(prog, plan, GRIDS[ndim], steps).layout
     rng = np.random.RandomState(seed)
     src = torch.from_numpy(rng.uniform(
-        -1, 1, (2,) + lay.padded_shape).astype(np.float32))
+        -1, 1, (2,) + lay.padded_shape).astype(np.float32)).to(
+        getattr(torch, dtype))
     if lay.wrap_axes:
         common.refresh_wrap_halo_plain(src, lay)
     coeffs = prog.default_coeffs(seed=seed)
@@ -376,6 +383,29 @@ def test_queue_replay_equals_plain_superstep(ndim, boundary, radius, steps,
         program=prog, plan=plan, layout=lay)
     ix = _interior(lay)
     assert not torch.isnan(got[ix]).any()
+    torch.testing.assert_close(got[ix], want[ix], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("ndim", [2, 3])
+@pytest.mark.parametrize("boundary", ["clamp", "constant", "periodic"])
+@pytest.mark.parametrize("radius,steps", [(1, 4), (3, 1)])
+def test_queue_replay_in_16_bits_equals_plain_superstep(dtype, ndim,
+                                                        boundary, radius,
+                                                        steps):
+    """B1's queue path on a 16-bit carry at the tile the 2-byte planes
+    pick, batch 2: bit for bit the plain version (each multiply and add
+    rounded to the grid's dtype on both sides)."""
+    prog, plan, lay, src, coeffs, geo = _carry_case(
+        ndim, boundary, "star", radius, steps, dtype=dtype)
+    assert geo.itemsize == 2 and geo.pad in range(8, 16)
+    center, taps = common.grid_coeffs(coeffs.center, coeffs.taps, src)
+    got = replay(prog, center, taps, src, geo)
+    want = common.padded_superstep_plain(
+        src, torch.zeros_like(src), coeffs.center, coeffs.taps,
+        program=prog, plan=plan, layout=lay)
+    ix = _interior(lay)
+    assert got.dtype == want.dtype == src.dtype
     torch.testing.assert_close(got[ix], want[ix], rtol=0, atol=0)
 
 
@@ -625,6 +655,27 @@ def test_strips_cover_the_stage_one_region(ndim, radius, steps, pad):
     prog = _program(ndim, "clamp", radius=radius)
     tile = queued.pick_queued_tile(prog, steps, LIMIT)
     planes = queued_planes(prog, steps, tile)
+    rows, nx, first = planes.strips(pad)
+    E1, E2 = planes.extent
+    r = radius
+    assert rows == (1 if ndim == 2 else E1 - 2 * r) and rows * nx <= 256
+    assert 4 * first <= r + pad and 4 * (first + nx) >= E2 - r + pad
+    assert 4 * first - 4 >= 0 and 4 * (first + nx) + 4 <= planes.pitch
+
+
+@pytest.mark.parametrize("ndim", [2, 3])
+@pytest.mark.parametrize("radius,steps", [(1, 4), (2, 3), (3, 2)])
+@pytest.mark.parametrize("pad", range(8, 16))
+def test_strips_cover_the_stage_one_region_in_16_bits(ndim, radius, steps,
+                                                       pad):
+    """At 2 bytes a cell the x shift is 8..15 (16-byte copies are 8
+    cells): the strips still cover the stage-1 region inside the row and
+    fit the CTA at the picked tile, for every queue of a 16-bit grid."""
+    steps = min(steps, QUEUE_STEPS_16[ndim][radius])
+    prog = _program(ndim, "clamp", radius=radius, dtype="bfloat16")
+    tile = queued.pick_queued_tile(prog, steps, LIMIT)
+    planes = queued_planes(prog, steps, tile)
+    assert planes.itemsize == 2 and pad in planes.pads
     rows, nx, first = planes.strips(pad)
     E1, E2 = planes.extent
     r = radius

@@ -44,9 +44,10 @@ GRIDS = {2: (13, 75), 3: (9, 11, 70)}
 BLOCKS = {2: (8, 32), 3: (4, 8, 32)}
 
 
-def _program(ndim, boundary, shape="star", radius=2):
+def _program(ndim, boundary, shape="star", radius=2, dtype="float32"):
     return repro_torch.StencilProgram(ndim=ndim, radius=radius, shape=shape,
-                                      boundary=boundary, boundary_value=0.25)
+                                      boundary=boundary, boundary_value=0.25,
+                                      dtype=dtype)
 
 
 def _layout(prog, steps, grid, ring=None):
@@ -75,7 +76,7 @@ def replay(program, center, taps, src, geo: streamed.StreamedGeometry):
     s3 = src if batched else src[None]
     if nd == 2:
         s3 = s3[:, :, None, :]                  # (batch, Y, 1, X)
-    out = torch.zeros((s3.shape[0],) + geo.dst)
+    out = torch.zeros((s3.shape[0],) + geo.dst, dtype=src.dtype)
     coef = torch.cat([center.reshape(1), taps.reshape(-1)])
     offs = streamed.streamed_taps(program)
     rings_geo = geo.rings
@@ -101,8 +102,8 @@ def replay(program, center, taps, src, geo: streamed.StreamedGeometry):
         ly0, lx0 = y0 - h1, x0 - h2             # local
         gy0, gx0 = ly0 + o1, lx0 + o2           # global
         z0, zend = a - h0, e + h0
-        rings = [torch.full((D0 if s == 0 else D, E1, E2), float("nan"))
-                 for s in range(T)]
+        rings = [torch.full((D0 if s == 0 else D, E1, E2), float("nan"),
+                            dtype=src.dtype) for s in range(T)]
 
         def load(lo, hi):
             # the carry's mapping at global coordinates (origin + local:
@@ -217,13 +218,14 @@ def replay(program, center, taps, src, geo: streamed.StreamedGeometry):
 
 
 def _case(ndim, boundary, shape, radius, steps, *, tile=None,
-          segment=None, ring=None, seed=0):
-    prog = _program(ndim, boundary, shape, radius)
+          segment=None, ring=None, seed=0, dtype="float32"):
+    prog = _program(ndim, boundary, shape, radius, dtype)
     grid = GRIDS[ndim]
     plan, lay = _layout(prog, steps, grid, ring)
     rng = np.random.RandomState(seed)
     src = torch.from_numpy(rng.uniform(
-        -1, 1, (2,) + lay.padded_shape).astype(np.float32))
+        -1, 1, (2,) + lay.padded_shape).astype(np.float32)).to(
+        getattr(torch, dtype))
     if lay.wrap_axes:
         common.refresh_wrap_halo_plain(src, lay)
     coeffs = prog.default_coeffs(seed=seed)
@@ -269,6 +271,31 @@ def test_replay_equals_plain_superstep(ndim, boundary, shape, radius, steps,
         program=prog, plan=plan, layout=lay)
     ix = _interior(lay)
     assert not torch.isnan(got[ix]).any()
+    torch.testing.assert_close(got[ix], want[ix], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("ndim", [2, 3])
+@pytest.mark.parametrize("boundary", ["clamp", "constant", "periodic"])
+@pytest.mark.parametrize("shape,radius,steps,tile,segment", REPLAYS[1:4])
+def test_replay_in_16_bits_equals_plain_superstep(dtype, ndim, boundary,
+                                                  shape, radius, steps,
+                                                  tile, segment):
+    """A 16-bit carry, batch 2, at a narrow column tile: the rings of
+    2-byte cells (pitch a multiple of 8 cells) and the rounding after
+    every multiply and add give the plain version bit for bit."""
+    narrow = (32,) if ndim == 2 else (2, 32)
+    prog, plan, lay, src, coeffs, geo = _case(
+        ndim, boundary, shape, radius, steps, tile=tile or narrow,
+        segment=segment, dtype=dtype)
+    assert geo.itemsize == 2 and geo.rings.pitch % 8 == 0
+    center, taps = common.grid_coeffs(coeffs.center, coeffs.taps, src)
+    got = replay(prog, center, taps, src, geo)
+    want = common.padded_superstep_plain(
+        src, torch.zeros_like(src), coeffs.center, coeffs.taps,
+        program=prog, plan=plan, layout=lay)
+    ix = _interior(lay)
+    assert got.dtype == want.dtype == src.dtype
     torch.testing.assert_close(got[ix], want[ix], rtol=0, atol=0)
 
 

@@ -319,10 +319,11 @@ def test_pick_tile_fits_shared_memory(ndim, halo, steps, taps):
 def test_kernel_build_key_covers_included_headers(tmp_path, monkeypatch):
     """An edited header changes the library path of every source that
     includes it, directly or through another header, and only of those.
-    No source includes a header today, so a copy of one source includes
-    a header that includes a second."""
+    Every source includes ``elem.cuh`` (the element type); a copy of one
+    source, in a directory without it, includes a header that includes a
+    second."""
     for src in build.SOURCES:
-        assert build.includes(src) == ()
+        assert build.includes(src) == ("elem.cuh",)
         (tmp_path / src).write_bytes((build.CSRC / src).read_bytes())
     (tmp_path / "outer.cuh").write_text('#include "inner.cuh"\n')
     (tmp_path / "inner.cuh").write_text("// inner\n")

@@ -1,7 +1,7 @@
 """Measure the carry kernels on one card and write the H100 planner's
 calibration, ``src/repro_torch/core/h100_calibration.py``.
 
-    python3 tools/planner_calibration.py [OUT]   # from the repo root
+    python3 tools/planner_calibration.py [OUT] [--dtype D]   # repo root
 
 For every paper configuration of ``configs/`` (2D star r1-r4 at 16384^2,
 3D star r1-r4 at 512x1024x704, the periodic box at 16384^2) and every
@@ -19,6 +19,12 @@ synchronised run) gives the run executor's fills and copies:
 ``COPY_EFFICIENCY`` is the median of their bytes over the memory rate,
 over the run's wall time less its launch.
 
+Keys carry the grid's bytes per cell: ``--dtype`` (float32, bfloat16 or
+float16; default float32) times the same launches on a carry of that
+dtype, and the module keeps the current module's rows of every other
+cell size as they are.  ``COPY_EFFICIENCY`` is measured in float32 runs
+only (a 16-bit run keeps the current value).
+
 Every row prints as a JSON line, then the module, which is also written
 to ``OUT`` (default ``build/repro_torch/h100_calibration.py``); copy it over
 ``src/repro_torch/core/h100_calibration.py`` to take it.  Needs a CUDA
@@ -27,6 +33,8 @@ card; exits non-zero without one.
 
 from __future__ import annotations
 
+import argparse
+import dataclasses
 import json
 import math
 import os
@@ -72,7 +80,9 @@ def wall_ms(fn) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
-def configs():
+def configs(dtype: str = "float32"):
+    """``(workload, grid)`` of the paper configurations, their programs
+    in ``dtype``."""
     from repro_torch.configs import stencil2d, stencil3d
     w2 = stencil2d.workloads()
     w3 = stencil3d.workloads()
@@ -80,7 +90,9 @@ def configs():
     out += [(w3[f"3d_r{r}_paper"], w3[f"3d_r{r}_paper"].grid_shape)
             for r in (1, 2, 3, 4)]
     out.append((w2["2d_box_periodic_pod"], (16384, 16384)))
-    return out
+    return [(dataclasses.replace(
+        w, spec=dataclasses.replace(w.spec, dtype=dtype)), g)
+        for w, g in out]
 
 
 def launches(work, chip):
@@ -96,18 +108,18 @@ def launches(work, chip):
             steps = plan.kernel_steps(kernel)
             if steps in STEPS:
                 key = (blocking.launcher(plan, kernel), prog.shape,
-                       prog.ndim, prog.radius, steps)
+                       prog.ndim, prog.radius, steps, plan.itemsize)
                 out.setdefault(key, (variant, plan))
     return out
 
 
-def time_kernels(chip):
-    """One row per calibration key."""
+def time_kernels(chip, dtype: str = "float32"):
+    """One row per calibration key of ``dtype``."""
     import torch
     from repro_torch.core import blocking
     from repro_torch.kernels import common, cuda
     rows = []
-    for work, shape in configs():
+    for work, shape in configs(dtype):
         prog = work.spec
         coeffs = prog.default_coeffs().to("cuda")
         for key, (variant, plan) in sorted(launches(work, chip).items()):
@@ -117,7 +129,7 @@ def time_kernels(chip):
                                           variant=variant).layout
             gen = torch.Generator(device="cuda").manual_seed(0)
             src = torch.rand(layout.padded_shape, generator=gen,
-                             device="cuda")
+                             device="cuda").to(getattr(torch, dtype))
             dst = torch.zeros_like(src)
             ms = median_ms(lambda: launch(
                 src, dst, coeffs.center, coeffs.taps, program=prog,
@@ -152,7 +164,7 @@ def time_runs(chip, rows):
         prog, plan = work.spec, work.plan()
         k = launch_ms.get((blocking.launcher(plan, "padded_superstep"),
                            prog.shape, prog.ndim, prog.radius,
-                           plan.par_time))
+                           plan.par_time, plan.itemsize))
         if k is None:
             continue
         grid = torch.rand(shape, device="cuda")
@@ -175,13 +187,15 @@ def time_runs(chip, rows):
     return out
 
 
-def module(card, rows, runs) -> str:
-    """The text of ``core/h100_calibration.py``."""
+def module(card, rows, copy, kept=()) -> str:
+    """The text of ``core/h100_calibration.py``: the measured ``rows``
+    and the ``kept`` rows (``{"key", "efficiency"}``) of the other cell
+    sizes."""
+    rows = list(rows) + list(kept)
     per = {}
     for r in rows:
-        per.setdefault((r["key"][0], r["key"][2]), []).append(
+        per.setdefault((r["key"][0], r["key"][2], r["key"][5]), []).append(
             r["efficiency"])
-    copy = statistics.median(r["copy_efficiency"] for r in runs)
     lines = [
         '"""Measured efficiencies of the carry kernels, for the H100 '
         'planner',
@@ -209,17 +223,18 @@ def module(card, rows, runs) -> str:
         "one-superstep",
         "#: front-door run's wall time less its launch.",
         f"COPY_EFFICIENCY = {copy!r}",
-        "#: (launcher, shape, ndim, radius, fused steps) -> share of the "
-        "bound.",
+        "#: (launcher, shape, ndim, radius, fused steps, bytes per cell) -> "
+        "share of",
+        "#: the bound.",
         "EFFICIENCY = {",
     ]
     for r in sorted(rows, key=lambda r: r["key"]):
         lines.append(f"    {tuple(r['key'])!r}: {r['efficiency']!r},")
     lines += [
         "}",
-        "#: (launcher, ndim) -> the median of its rows above, for tap sets "
-        "not",
-        "#: measured.",
+        "#: (launcher, ndim, bytes per cell) -> the median of its rows "
+        "above, for",
+        "#: tap sets not measured.",
         "LAUNCHER_EFFICIENCY = {",
     ]
     for key in sorted(per):
@@ -228,25 +243,39 @@ def module(card, rows, runs) -> str:
     return "\n".join(lines) + "\n"
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("out", nargs="?", default=os.path.join(
+        ROOT, "build", "repro_torch", "h100_calibration.py"))
+    ap.add_argument("--dtype", default="float32",
+                    choices=("float32", "bfloat16", "float16"))
+    args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("planner_calibration: no CUDA device visible", file=sys.stderr)
         return 2
     from repro_torch.analysis.hw import GpuChip
+    from repro_torch.core import h100_calibration as current
+    from repro_torch.core.program import dtype_bytes
     from repro_torch.kernels import build
-    build.build()
+    build.build(dtypes=(args.dtype,))
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     print(f"nvidia-smi: {card}")
     chip = GpuChip.from_device(0)
-    rows = time_kernels(chip)
-    runs = time_runs(chip, rows)
-    text = module(card, rows, runs)
-    out = sys.argv[1] if len(sys.argv) > 1 else os.path.join(
-        ROOT, "build", "repro_torch", "h100_calibration.py")
-    os.makedirs(os.path.dirname(out), exist_ok=True)
+    rows = time_kernels(chip, args.dtype)
+    if args.dtype == "float32":
+        runs = time_runs(chip, rows)
+        copy = statistics.median(r["copy_efficiency"] for r in runs)
+    else:
+        copy = current.COPY_EFFICIENCY
+    size = dtype_bytes(args.dtype)
+    kept = [dict(key=list(k), efficiency=e)
+            for k, e in current.EFFICIENCY.items() if k[5] != size]
+    text = module(card, rows, copy, kept)
+    out = args.out
+    os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
     with open(out, "w", encoding="utf-8") as f:
         f.write(text)
     print(text)
