@@ -125,6 +125,31 @@ Phases (any failure raises, so the exit code is non-zero):
     against the pinned plan at 0, with both walls; the NaN canary on B1,
     B3, B4 and B2 in bfloat16 at paper width, clean and equal to the front
     door at 0.  The 16-bit records carry their ``dtype``.
+15. the remaining LM families (:func:`families_phase`, after 13;
+    :data:`FAMILIES`; the six kernels' launch counts, zeroed before, stay
+    0): minicpm3-4b (MLA), llava-next-34b (the projector),
+    granite-moe-3b-a800m, rwkv6-7b and musicgen-large at full width and
+    depth, grok-1-314b at full width cut to 4 layers and jamba-v0.1-52b
+    to one 8-layer unit (:func:`family_config`; the MoE configs at
+    ``capacity_factor = num_experts / top_k``, where the forward drops
+    no token).  Each family: (a) drawn on the card from a seed, its
+    parameter count and peak memory (llava: its frontend embeddings
+    projected and prepended); (c) ``ServeEngine(batch=4, cache_len=64)``,
+    8 requests of 16 + 16 tokens, as phase 13 (c) (musicgen: the
+    engine's ``ValueError`` before any step); (b) a prompt of 256 tokens
+    (jamba: 512) through ``forward`` and a token at a time through
+    ``decode_step`` in two rows (:func:`decode_against_forward`; granite
+    and rwkv6 rebuilt in float32 compute, whose bf16 decode drifts from
+    forward on a correct model): the larger of the logits' reading (as
+    phase 13's) and the first layer's mixer output's at most 0.15 of the
+    forward row's spread on row 0, while row 1, whose cache and state
+    writes are skipped from half the prompt on, must read above it at
+    three quarters and at the end (:func:`family_positions`); (d) the
+    reduced config in float32 on the card against the CPU, forward and
+    16 decode steps at atol 1e-3, rtol 1e-4; then a summary line per
+    family and the phase's
+    seconds.  A failing check is collected and the phase raises after
+    the last family.
 
 The last lines are the ``{"kernels": [...]}`` record, the ``nvidia-smi``
 line, and ``{"ok": true, "device": {...}}``.
@@ -2007,6 +2032,9 @@ def lm_serve(label, model, smi, chip, requests, prompt=16, gen=16,
           f"run's wall; the costliest kernels per step:")
     for name, n, k_ms in top:
         print(f"    {k_ms!r} ms over {n!r} launches: {name}")
+    return {"tokens_per_s": stats["tokens_per_s"], "step_ms": ms,
+            "bound_ms": bound_ms, "busy_share": busy_ms / ms,
+            "kernels": kernels}
 
 
 def lm_recorded_run(model, device, reqs, batch, cache_len):
@@ -2184,6 +2212,317 @@ def lm_phase(smi, chip):
     print(f"  stencil kernel launches during the LM path: {counts} (none: "
           f"the LM path reaches no pallas_call in the reference)")
     print(f"  phase 13: {time.perf_counter() - t_phase!r} s")
+
+
+#: Phase 15 (module docstring): each family at full width, (name, layers
+#: kept or None for all, the compute dtype of check (b) or None for the
+#: config's own, the prompt that decode is held to forward over).  256
+#: tokens cross RWKV's chunks of 64, 512 Mamba's chunk of 256.  In bf16
+#: a correct granite and rwkv6 decode drifts from their forward by more
+#: than ``LM_SPREAD`` on the card (granite's top-8 of 40 experts flips on
+#: one bf16 rounding, RWKV carries the roundings through its state; see
+#: PERF.md), so their check (b) runs in float32; their engine runs in
+#: bf16.
+FAMILIES = (("minicpm3-4b", None, None, 256),
+            ("llava-next-34b", None, None, 256),
+            ("granite-moe-3b-a800m", None, "float32", 256),
+            ("grok-1-314b", 4, None, 256),
+            ("rwkv6-7b", None, "float32", 256),
+            ("jamba-v0.1-52b", 8, None, 512),
+            ("musicgen-large", None, None, 256))
+
+
+def family_positions(prompt: int):
+    """The positions read of a prompt, the position from which row 1's
+    cache and state writes are skipped (the planted fault), and the
+    positions where that fault must read above ``LM_SPREAD``."""
+    half, late = prompt // 2, 3 * prompt // 4
+    return ((0, 63, 64, half - 1, half, late - 1, prompt - 1), half,
+            (late - 1, prompt - 1))
+
+
+def family_config(name, layers, compute=None):
+    """The family's published config, cut to ``layers`` layers, in
+    ``compute`` (None: its own compute dtype); an MoE config with
+    ``capacity_factor = num_experts / top_k``, at which the forward over
+    the prompt drops no token (decode never does: one token's k experts
+    fit any capacity >= top_k)."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    cfg = get_arch(name)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    if compute is not None:
+        cfg = dataclasses.replace(cfg, compute_dtype=compute)
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+    return cfg
+
+
+def _written(cache, t):
+    """The entries of row 1 that decode step ``t`` writes: the slot of
+    position ``t`` of an attention cache (``pos`` left as written), the
+    whole row of a recurrent state."""
+    if hasattr(cache, "pos"):
+        slot = t % cache.pos.shape[1]
+        return [f[1, slot] for n, f in zip(cache._fields, cache)
+                if n != "pos"]
+    return [f[1] for f in cache]
+
+
+def _spread_readings(got, want, echo=None):
+    """max |got - want| over the spread (standard deviation) of each row
+    of ``want`` (V entries), the ``echo`` entries left out of both; got
+    (2, rows, V), want (rows, V).  A constant row reads 0 where ``got``
+    equals it, else infinity."""
+    import torch
+    if echo is None:
+        echo = torch.zeros_like(want, dtype=torch.bool)
+    rest = want.masked_fill(echo, float("nan"))
+    spread = torch.sqrt(torch.nanmean((rest - torch.nanmean(
+        rest, -1, keepdim=True)) ** 2, -1))
+    diff = (got - want).abs().masked_fill(echo, 0.0).amax(-1)
+    # a constant row (RWKV's first output, u = 0 at init): 0 if equal
+    return torch.where(spread > 0, diff / spread,
+                       torch.where(diff > 0, float("inf"), 0.0))
+
+
+def decode_against_forward(model, decode, prompt_len):
+    """Phase 15 (b): a prompt of ``prompt_len`` tokens through ``forward``
+    and, a token at a time, through ``decode`` in two batch rows, row 1
+    with its cache and state writes skipped from the fault position of
+    :func:`family_positions` on.  Returns each row's
+    readings per position: max |decode - forward| over the forward row's
+    spread, the larger of the logits' (the input token's entry left out
+    of both; the largest over musicgen's codebooks) and the first layer's
+    mixer output's (its attention, Mamba or RWKV output, which reads the
+    cache or state before the residual stream can round it away: grok's
+    embedding is scaled by sqrt(d_model))."""
+    import torch
+    from repro_torch.models import attention, mamba, rwkv
+    cfg = model.cfg
+    K = cfg.num_codebooks
+    read_at, fault_from, _ = family_positions(prompt_len)
+    gen = torch.Generator(device=model.device).manual_seed(1)
+    shape = (1, prompt_len, K) if K > 1 else (1, prompt_len)
+    prompt = torch.randint(0, cfg.vocab, shape, generator=gen,
+                           dtype=torch.int32, device=model.device)
+    pos_list = list(read_at)
+    first = []                      # the first mixer output of each call
+    mixers = ((attention, "apply_attention"), (mamba, "apply_mamba"),
+              (rwkv, "apply_time_mix"))
+    saved_fns = [getattr(mod, fn) for mod, fn in mixers]
+
+    def recording(fn):
+        def call(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            if not first:
+                first.append(out[0])
+            return out
+        return call
+
+    for (mod, fn), orig in zip(mixers, saved_fns):
+        setattr(mod, fn, recording(orig))
+    try:
+        with torch.no_grad():
+            want = model(prompt).logits[0, pos_list, ..., :cfg.vocab]
+        want_mix = first.pop()[0, pos_list]                  # (n, d)
+        caches = model.init_caches(2, prompt_len + 16)
+        tokens = prompt.expand(2, *prompt.shape[1:])
+        positions = torch.arange(prompt_len, dtype=torch.int32,
+                                 device=model.device).expand(2, -1)
+        got, got_mix = [], []
+        for t in range(prompt_len):
+            saved = None
+            if t >= fault_from:
+                saved = [[f.clone() for f in _written(c, t)]
+                         for c in caches]
+            logits, caches = decode(caches, tokens[:, t:t + 1],
+                                    positions[:, t:t + 1])
+            mix = first.pop()
+            if saved is not None:
+                for c, fields in zip(caches, saved):
+                    for f, old in zip(_written(c, t), fields):
+                        f.copy_(old)
+            if t in read_at:
+                got.append(logits[:, 0, ..., :cfg.vocab])
+                got_mix.append(mix[:, 0])
+    finally:
+        for (mod, fn), orig in zip(mixers, saved_fns):
+            setattr(mod, fn, orig)
+    got = torch.stack(got, dim=1)             # (2, positions[, K], V)
+    V = want.shape[-1]
+    want, got = want.reshape(-1, V), got.reshape(2, -1, V)
+    echo = torch.zeros_like(want, dtype=torch.bool)
+    echo[torch.arange(want.shape[0]),
+         prompt[0, pos_list].reshape(-1).long()] = True
+    logit_readings = _spread_readings(got, want, echo).reshape(
+        2, len(pos_list), -1).amax(-1)
+    mix_readings = _spread_readings(torch.stack(got_mix, dim=1).float(),
+                                    want_mix.float())
+    return (torch.maximum(logit_readings, mix_readings).tolist(),
+            logit_readings.tolist(), mix_readings.tolist())
+
+
+def families_phase(smi, chip):
+    """The remaining LM families at full width (module docstring, phase
+    15)."""
+    import gc
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import cuda
+    from repro_torch.launch import serve
+    from repro_torch.models import common, transformer
+    from repro_torch.runtime.trainer import make_decode_step
+
+    print(f"\n== the remaining LM families at full width ({smi})")
+    t_phase = time.perf_counter()
+    cuda.reset_launches()
+    failures, rows = [], []
+    for name, layers, check_dtype, prompt_len in FAMILIES:
+        t_family = time.perf_counter()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = family_config(name, layers)
+        published = get_arch(name)
+
+        # (a) build on the card from a seed
+        t0 = time.perf_counter()
+        model = transformer.build(cfg, seed=0)
+        torch.cuda.synchronize()
+        built = torch.cuda.max_memory_allocated() / 2**30
+        print(f"  {name} (a): {cfg.n_layers} of {published.n_layers} "
+              f"layers, {common.param_count(model)} parameters (param "
+              f"{cfg.param_dtype}, compute {cfg.compute_dtype}), drawn on "
+              f"the card in {time.perf_counter() - t0!r} s, peak memory "
+              f"{built!r} GiB")
+        if cfg.frontend_dim:
+            fe = torch.randn((1, cfg.img_tokens, cfg.frontend_dim),
+                             generator=torch.Generator(
+                                 device=model.device).manual_seed(3),
+                             device=model.device)
+            toks = torch.zeros((1, 16), dtype=torch.int32,
+                               device=model.device)
+            with torch.no_grad():
+                lg = model(toks, frontend_embeds=fe).logits
+            ok = lg.shape == (1, cfg.img_tokens + 16, cfg.padded_vocab) \
+                and bool(torch.isfinite(lg[..., :cfg.vocab]).all())
+            print(f"    frontend: {cfg.img_tokens} embeddings of "
+                  f"{cfg.frontend_dim} projected and prepended to 16 "
+                  f"tokens: logits {tuple(lg.shape)}, finite {ok}")
+            if not ok:
+                failures.append(f"{name}: the frontend forward")
+            del lg, fe
+
+        # (c) the serving engine, batch 4, cache 64, 8 requests of 16 + 16
+        served = None
+        if cfg.num_codebooks > 1:
+            try:
+                serve.ServeEngine(model, 4, 64)
+                failures.append(f"{name}: the engine served codebooks")
+            except ValueError as e:
+                print(f"  {name} (c): the engine refuses it before any step "
+                      f"(ValueError: {str(e)[:90]}...)")
+        else:
+            served = lm_serve(f"{name} (c)", model, smi, chip, requests=8)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+
+        # (b) decode against forward, with the planted fault in row 1
+        if check_dtype is not None:
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+            model = transformer.build(family_config(name, layers,
+                                                    check_dtype), seed=0)
+        read_at, fault_from, fault_at = family_positions(prompt_len)
+        t0 = time.perf_counter()
+        readings, logit_r, mix_r = decode_against_forward(
+            model, make_decode_step(model), prompt_len)
+        torch.cuda.synchronize()
+        print(f"  {name} (b): compute {model.cfg.compute_dtype}, a "
+              f"{prompt_len}-token prompt, forward and {prompt_len} decode "
+              f"steps in {time.perf_counter() - t0!r} s; max |decode - "
+              f"forward| / spread of the forward row, the larger of the "
+              f"logits' (input token left out) and the first mixer "
+              f"output's; row 0 as built, row 1 with its writes skipped "
+              f"from position {fault_from}:")
+        for i, p in enumerate(read_at):
+            print(f"    position {p}: {readings[0][i]!r} (logits "
+                  f"{logit_r[0][i]!r}, mixer {mix_r[0][i]!r}); with the "
+                  f"fault {readings[1][i]!r} (logits {logit_r[1][i]!r}, "
+                  f"mixer {mix_r[1][i]!r})")
+        if not all(math.isfinite(v) and v <= LM_SPREAD
+                   for v in readings[0]):
+            failures.append(f"{name}: decode disagrees with forward: "
+                            f"{readings[0]} (limit {LM_SPREAD})")
+        missed = [p for i, p in enumerate(read_at)
+                  if p in fault_at and not readings[1][i] > LM_SPREAD]
+        if missed:
+            failures.append(f"{name}: the limit {LM_SPREAD} passes skipped "
+                            f"writes at positions {missed}: {readings[1]}")
+        rows.append((name, cfg.n_layers, common.param_count(model), built,
+                     peak, model.cfg.compute_dtype, max(readings[0]),
+                     min(readings[1][i] for i, p in enumerate(read_at)
+                         if p in fault_at), served))
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (d) reduced width, float32: the card against the CPU
+        small = get_arch(name).reduced()
+        cpu = transformer.build(small, device="cpu", seed=2)
+        card = transformer.build(small, seed=2)
+        card.load_state_dict(cpu.state_dict())
+        g = torch.Generator().manual_seed(4)
+        K = small.num_codebooks
+        toks = torch.randint(0, small.vocab, (2, 32, K) if K > 1 else
+                             (2, 32), generator=g, dtype=torch.int32)
+        fe = torch.randn((2, small.img_tokens, small.frontend_dim),
+                         generator=g) if small.frontend_dim else None
+        pairs = [[m(toks.to(m.device), None if fe is None else
+                    fe.to(m.device)).logits.double().cpu()
+                  for m in (cpu, card)]]
+        caches = [m.init_caches(2, 16) for m in (cpu, card)]
+        for t in range(16):
+            pos = torch.full((2, 1), t, dtype=torch.int32)
+            outs = []
+            for i, m in enumerate((cpu, card)):
+                lg, caches[i] = m.decode_step(
+                    caches[i], toks[:, t:t + 1].to(m.device),
+                    pos.to(m.device))
+                outs.append(lg.double().cpu())
+            pairs.append(outs)
+        worst = max(max_err(b, a) for a, b in pairs)
+        if not all(torch.allclose(b, a, **LM_TOL) for a, b in pairs):
+            failures.append(f"{name}: reduced card against CPU, "
+                            f"max_abs_err {worst}")
+        print(f"  {name} (d): reduced, float32, forward over 32 tokens "
+              f"(llava's with its frontend) and 16 decode steps, card against CPU max_abs_err {worst!r} "
+              f"(atol {LM_TOL['atol']}, rtol {LM_TOL['rtol']})")
+        del cpu, card
+        print(f"  {name}: {time.perf_counter() - t_family!r} s")
+
+    print(f"  summary ({smi}): name, layers, parameters, GiB after build, "
+          f"peak GiB (build and engine), compute of (b), worst decode "
+          f"reading, least fault reading, tokens/s, step ms, bound ms, busy "
+          f"share, kernels per step")
+    for name, n, params, built, peak, dt, ok, fault, served in rows:
+        tail = "no engine (codebooks)" if served is None else (
+            f"{served['tokens_per_s']!r} {served['step_ms']!r} "
+            f"{served['bound_ms']!r} {served['busy_share']!r} "
+            f"{served['kernels']!r}")
+        print(f"    {name} {n} {params} {built!r} {peak!r} {dt} {ok!r} "
+              f"{fault!r} {tail}")
+    counts = cuda.launches()
+    if any(counts.values()):
+        failures.append(f"the LM families launched stencil kernels: "
+                        f"{counts}")
+    print(f"  stencil kernel launches during phase 15: {counts}")
+    print(f"  phase 15: {time.perf_counter() - t_phase!r} s")
+    if failures:
+        raise AssertionError("phase 15: " + "; ".join(failures))
 
 
 #: Phase 14 (module docstring): the 16-bit main path.  Each case of
@@ -2423,6 +2762,7 @@ def main() -> int:
     records += half_phase(smi, chip)
     ptxas_report()
     lm_phase(smi, chip)
+    families_phase(smi, chip)
     for dtype in ("float32", "bfloat16"):
         ported = {r["name"].split("@")[0] for r in records
                   if r["dtype"] == dtype}

@@ -29,7 +29,7 @@ from repro_torch.configs.base import (ArchConfig, AttnCfg, LayerCfg,
                                       MambaCfg, MoECfg, RwkvCfg)
 from repro_torch.core.blocking import BlockPlan
 from repro_torch.core.program import DTYPES, ProgramCoeffs, StencilProgram
-from repro_torch.models.transformer import LMModel
+from repro_torch.models.transformer import KEEP_F32, LMModel
 
 
 def program_from_fields(**fields) -> StencilProgram:
@@ -97,7 +97,9 @@ def lm_params_from_numpy(cfg: ArchConfig, tree: Mapping,
     layer ``units * len(pattern) + p``.  Each leaf is placed as the model
     places it: layer leaves cast from ``param_dtype`` to
     ``compute_dtype`` (the reference casts them at use; norm scales then
-    held in float32), the rest in ``param_dtype``.
+    held in float32) but the ``KEEP_F32`` leaves, which keep their own
+    dtype; the rest (the embedding tables, ``frontend_proj``, the head,
+    ``final_norm``) in ``param_dtype``.
     """
     held = {k: v.dtype for k, v in
             LMModel(cfg, device="meta").state_dict().items()}
@@ -111,7 +113,7 @@ def lm_params_from_numpy(cfg: ArchConfig, tree: Mapping,
                 flat[f"layers.{u * P + p}.{name}"] = v[u]
     for p, layer in enumerate(tree["tail"]):
         _flatten(layer, f"layers.{cfg.units * P + p}.", flat)
-    for name in ("embed", "lm_head", "final_norm"):
+    for name in ("embed", "frontend_proj", "lm_head", "final_norm"):
         if name in tree:
             _flatten(tree[name], f"{name}.", flat)
     param = getattr(torch, cfg.param_dtype)
@@ -121,8 +123,10 @@ def lm_params_from_numpy(cfg: ArchConfig, tree: Mapping,
         v = np.asarray(v)
         if v.dtype.name == "bfloat16":
             v = v.astype(np.float32)        # exact: ml_dtypes bfloat16
-        t = torch.tensor(v).to(param)
-        if name.startswith("layers."):
-            t = t.to(compute)
+        t = torch.tensor(v)
+        if name.rsplit(".", 1)[-1] not in KEEP_F32:
+            t = t.to(param)
+            if name.startswith("layers."):
+                t = t.to(compute)
         out[name] = t.to(held[name]).to(device)
     return out

@@ -14,12 +14,21 @@ reference's, exactly, two of its behaviours included (ROADMAP C):
   decode feeds the slot's previous token (0 at start) at position
   ``len(prompt)``, and the prefill's last logits are dropped.
 
+The same holds for recurrent state (RWKV, Mamba): every slot advances on
+each prompt token of another slot's prefill, re-reading its current
+token, and a refilled slot starts from the previous request's state,
+which nothing resets.  Every architecture serves but musicgen's
+``num_codebooks > 1``: the reference's engine feeds (B, 1) tokens where
+its ``decode_step`` needs (B, 1, K) and fails in ``decode_attention``
+(ROADMAP C), so this engine refuses such a model before any step.
+
 Where this differs from the reference: the engine takes a port model (it
 holds its weights) on ``device`` (None: the card, RP110 without one;
 ``"cpu"`` runs there) and decodes into its caches in place.
 
-Usage (on the card; ``--device cpu --reduced`` runs anywhere):
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-4b \\
+Usage (on the card; ``--device cpu --reduced`` runs anywhere; ``--arch``
+takes any name of ``repro_torch.configs.ARCHS``):
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \\
         --requests 8 --batch 4 --prompt-len 16 --gen-len 16
 """
 
@@ -33,7 +42,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from repro_torch.configs import get_arch
+from repro_torch.configs import ARCHS, get_arch
 from repro_torch.executor import _resolve_device
 from repro_torch.models import transformer
 from repro_torch.runtime.trainer import make_decode_step
@@ -54,6 +63,14 @@ class ServeEngine:
     def __init__(self, model: transformer.LMModel, batch: int,
                  cache_len: int, device=None):
         self.device = _resolve_device(device)
+        if model.cfg.num_codebooks > 1:
+            raise ValueError(
+                f"{model.cfg.name}: the slot engine feeds (batch, 1) tokens "
+                f"and num_codebooks = {model.cfg.num_codebooks} needs "
+                f"(batch, 1, {model.cfg.num_codebooks}); the reference's "
+                f"engine fails there too (TypeError: cannot reshape in "
+                f"decode_attention), so codebooks are not served (drive "
+                f"LMModel.decode_step with (batch, 1, K) tokens)")
         if model.device != self.device:
             raise ValueError(f"the model lies on {model.device}, the engine "
                              f"on {self.device}")
@@ -128,7 +145,7 @@ class ServeEngine:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True, choices=sorted(ARCHS))
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--batch", type=int, default=4)

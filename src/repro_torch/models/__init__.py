@@ -1,5 +1,5 @@
-"""The LM stack of the port: the dense GQA family (attention, common,
-transformer).  MoE, MLA, Mamba and RWKV come with later slices."""
+"""The LM stack of the port: attention (GQA, MLA), common, MoE, Mamba,
+RWKV and the model factory (transformer) for all ten architectures."""
 
 from repro_torch.models.transformer import LMModel, build
 

@@ -1,15 +1,20 @@
-"""Grouped-query attention — counterpart of ``repro/models/attention.py``
-(the GQA half; MLA is ROADMAP A10).
+"""Attention — counterpart of ``repro/models/attention.py``.
 
 * GQA with optional sliding window (gemma local layers), attention-logit
   softcap (gemma2) and QK-norm (gemma3).
+* MLA (minicpm3): low-rank q/kv compression with decoupled RoPE at
+  ``rope_dim``; prefill materialises per-head keys and values (``v``
+  padded to ``nope + rope`` for the shared chunked softmax, sliced after),
+  decode runs the absorbed form against a ``(c_kv, k_rope)`` cache.
 * Prefill uses the reference's chunked online softmax over key chunks
   (no S x S materialisation), with its ``Sk % chunk == 0`` rule.
 * Decode uses a full cache or a ring (sliding-window) cache; masking is
   positional (``cache.pos``, -1 = empty), so ring wraparound needs no
-  special casing.  The query position is ``max(cache.pos)`` per batch
+  special casing.  The GQA query position is ``max(cache.pos)`` per batch
   row, as in the reference (``decode_attention``): entries a previous
-  request left at later positions of the same cache stay unmasked.
+  request left at later positions of the same cache stay unmasked.  The
+  MLA query position is the step's own (``positions[:, :1]``, the
+  reference's ``apply_mla``), so there such entries are masked.
 
 Plain torch ops, the reference's math and dtype steps: ``q`` is scaled in
 its own dtype, scores and softmax are float32, ``v`` is cast to float32.
@@ -17,15 +22,17 @@ No library attention kernel: the reference computes attention in
 ``jnp`` outside any Pallas kernel.
 
 Where this differs from the reference: decode writes the new key, value
-and position into the cache tensors in place and returns the same
-``KVCache`` (the reference's ``.at[].set`` returns new arrays; the values
+(or latent) and position into the cache tensors in place and returns the
+same cache (the reference's ``.at[].set`` returns new arrays; the values
 are the same, and a serving cache of gigabytes is not copied per step).
-``apply_gqa`` takes its RoPE tables, QK-norm weights and decode slot and
-mask made by the caller (``transformer.LMModel`` makes each once per call
-for all the layers that share it), and ``decode_attention`` takes the
-mask (``decode_bias``) in place of the window.
+``apply_gqa``/``apply_mla`` take their RoPE tables, norm weights and
+decode slot and mask made by the caller (``transformer.LMModel`` makes
+each once per call for all the layers that share it), and
+``decode_attention`` takes the mask (``decode_bias``) in place of the
+window.
 
-Cache layout: (batch, cache_len, kv_heads, head_dim).
+Cache layout: (batch, cache_len, kv_heads, head_dim); MLA (batch,
+cache_len, kv_lora) and (batch, cache_len, rope_dim).
 """
 
 from __future__ import annotations
@@ -37,13 +44,9 @@ import torch
 
 from repro_torch.configs.base import AttnCfg
 from repro_torch.models.common import (Params, dense_param, rms_norm,
-                                       rotate, softcap)
+                                       rotate, softcap, zeros_param)
 
 NEG_INF = -2.0e38
-
-MLA_TODO = ("MLA attention (minicpm3) is not ported yet: ROADMAP A10 "
-            "(item 1, MLA and the llava frontend)")
-
 
 # =============================================================================
 # Caches
@@ -56,10 +59,17 @@ class KVCache(NamedTuple):
     pos: torch.Tensor          # (B, L) int32 absolute positions, -1 = empty
 
 
+class MLACache(NamedTuple):
+    c_kv: torch.Tensor         # (B, L, kv_lora)
+    k_rope: torch.Tensor       # (B, L, rope_dim)
+    pos: torch.Tensor          # (B, L) int32 absolute positions, -1 = empty
+
+
 class RingStep(NamedTuple):
     """One decode step's write slot and mask for a cache whose ``pos``
     already holds the step's position (``write_positions``), made once
-    for every layer sharing that ``pos`` tensor and window."""
+    for every layer sharing that ``pos`` tensor and window (GQA:
+    ``decode_bias``; MLA: ``mla_decode_bias``)."""
     bidx: torch.Tensor         # (B,) batch rows
     slot: torch.Tensor         # (B,) int64 write slot of the position
     bias: torch.Tensor         # (B, L) float32 additive decode mask
@@ -71,6 +81,18 @@ def init_kv_cache(cfg: AttnCfg, batch: int, length: int, dtype,
     return KVCache(
         k=torch.zeros(shape, dtype=dtype, device=device),
         v=torch.zeros(shape, dtype=dtype, device=device),
+        pos=torch.full((batch, length), -1, dtype=torch.int32,
+                       device=device),
+    )
+
+
+def init_mla_cache(cfg: AttnCfg, batch: int, length: int, dtype,
+                   device=None) -> MLACache:
+    return MLACache(
+        c_kv=torch.zeros((batch, length, cfg.kv_lora), dtype=dtype,
+                         device=device),
+        k_rope=torch.zeros((batch, length, cfg.rope_dim), dtype=dtype,
+                           device=device),
         pos=torch.full((batch, length), -1, dtype=torch.int32,
                        device=device),
     )
@@ -101,12 +123,21 @@ def decode_bias(pos: torch.Tensor, window: Optional[int]) -> torch.Tensor:
     return torch.where(ok, 0.0, NEG_INF)
 
 
+def mla_decode_bias(pos: torch.Tensor,
+                    positions: torch.Tensor) -> torch.Tensor:
+    """The MLA decode mask as an additive float32 bias (B, L): entries at
+    or before the step's own position ``positions[:, :1]`` (not
+    ``max(pos)``: a stale entry at a later position is masked)."""
+    ok = (pos >= 0) & (pos <= positions[:, :1])
+    return torch.where(ok, 0.0, NEG_INF)
+
+
 def init_cache(cfg: AttnCfg, batch: int, length: int,
-               window: Optional[int], dtype, device=None) -> KVCache:
+               window: Optional[int], dtype, device=None):
     """Window layers get a ring cache of size min(window, length)."""
-    if cfg.kind == "mla":
-        raise NotImplementedError(MLA_TODO)
     L = min(window, length) if window is not None else length
+    if cfg.kind == "mla":
+        return init_mla_cache(cfg, batch, L, dtype, device)
     return init_kv_cache(cfg, batch, L, dtype, device)
 
 
@@ -183,8 +214,8 @@ def init_gqa(gen: Optional[torch.Generator], d_model: int, cfg: AttnCfg,
                              ("wv", (d_model, KV * D)),
                              ("wo", (H * D, d_model)))}
     if cfg.qk_norm:
-        p["q_scale"] = torch.zeros((D,), dtype=dtype, device=device)
-        p["k_scale"] = torch.zeros((D,), dtype=dtype, device=device)
+        p["q_scale"] = zeros_param((D,), dtype, device)
+        p["k_scale"] = zeros_param((D,), dtype, device)
     return p
 
 
@@ -264,13 +295,101 @@ def decode_attention(q, cache: KVCache, *, bias: torch.Tensor,
 
 
 # =============================================================================
+# MLA (minicpm3)
+# =============================================================================
+
+def init_mla(gen: Optional[torch.Generator], d_model: int, cfg: AttnCfg,
+             dtype, device=None) -> Params:
+    """Up-projections stored flattened (rank, H*dim), as the reference
+    stores them; ``q_norm``/``kv_norm`` are zero-centred RMS scales."""
+    H = cfg.n_heads
+    qk_dim = cfg.nope_dim + cfg.rope_dim
+
+    def dense(shape):
+        return dense_param(gen, shape, dtype, device=device)
+
+    return {
+        "wq_a": dense((d_model, cfg.q_lora)),
+        "q_norm": zeros_param((cfg.q_lora,), dtype, device),
+        "wq_b": dense((cfg.q_lora, H * qk_dim)),
+        "wkv_a": dense((d_model, cfg.kv_lora + cfg.rope_dim)),
+        "kv_norm": zeros_param((cfg.kv_lora,), dtype, device),
+        "wk_b": dense((cfg.kv_lora, H * cfg.nope_dim)),
+        "wv_b": dense((cfg.kv_lora, H * cfg.v_dim)),
+        "wo": dense((H * cfg.v_dim, d_model)),
+    }
+
+
+def _mla_qkr(params: Params, x, cfg: AttnCfg, rope, norm_weights):
+    """Shared q / compressed-kv projections; ``rope``: the tables at
+    ``rope_dim``; ``norm_weights``: ``1 + q_norm``, ``1 + kv_norm``."""
+    B, S, _ = x.shape
+    qk_dim = cfg.nope_dim + cfg.rope_dim
+    wq, wkv = norm_weights
+    ql = rms_norm(x @ params["wq_a"], wq)
+    q = (ql @ params["wq_b"]).reshape(B, S, cfg.n_heads, qk_dim)
+    q_nope = q[..., :cfg.nope_dim]
+    q_rope = rotate(q[..., cfg.nope_dim:], rope)
+
+    kv = x @ params["wkv_a"]
+    c_kv = rms_norm(kv[..., :cfg.kv_lora], wkv)
+    # the shared (per-token, head-less) rope key, on a singleton head axis
+    k_rope = rotate(kv[..., None, cfg.kv_lora:], rope)[..., 0, :]
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def apply_mla(params: Params, x, cfg: AttnCfg, *, positions, rope,
+              norm_weights, cache: Optional[MLACache] = None,
+              ring: Optional[RingStep] = None, chunk: int = 1024):
+    """x: (B, S, d).  Prefill (materialised) when cache is None; else the
+    absorbed one-step decode writing into the cache, ``ring`` holding the
+    step's slot and ``mla_decode_bias``.  Returns (out, cache)."""
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    qk_dim = cfg.nope_dim + cfg.rope_dim
+    scale = cfg.query_scale if cfg.query_scale is not None \
+        else 1.0 / math.sqrt(qk_dim)
+    q_nope, q_rope, c_kv, k_rope = _mla_qkr(params, x, cfg, rope,
+                                            norm_weights)
+
+    if cache is None:
+        k_nope = (c_kv @ params["wk_b"]).reshape(B, S, H, cfg.nope_dim)
+        v = (c_kv @ params["wv_b"]).reshape(B, S, H, cfg.v_dim)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+            B, S, H, cfg.rope_dim)], dim=-1)
+        v_p = torch.nn.functional.pad(v, (0, qk_dim - cfg.v_dim))
+        out = chunked_attention(q, k, v_p, positions, positions, window=None,
+                                cap=None, scale=scale, chunk=chunk)
+        out = out[..., :cfg.v_dim]
+    else:
+        bidx, slot, bias = ring
+        cache.c_kv[bidx, slot] = c_kv[:, 0]
+        cache.k_rope[bidx, slot] = k_rope[:, 0]
+        # q_eff[h, l] = q_nope[h, :] @ wk_b[l, h, :]  (absorbed form)
+        wk_b = params["wk_b"].reshape(cfg.kv_lora, H, cfg.nope_dim)
+        q_eff = torch.einsum("bshk,lhk->bshl", q_nope, wk_b)
+        s = torch.einsum("bshl,bLl->bshL", (q_eff * scale).float(),
+                         cache.c_kv.float())
+        s = s + torch.einsum("bshk,bLk->bshL", (q_rope * scale).float(),
+                             cache.k_rope.float())
+        s = s + bias[:, None, None, :]
+        p = torch.softmax(s, dim=-1)
+        ctx = torch.einsum("bshL,bLl->bshl", p,
+                           cache.c_kv.float()).to(x.dtype)
+        wv_b = params["wv_b"].reshape(cfg.kv_lora, H, cfg.v_dim)
+        out = torch.einsum("bshl,lhk->bshk", ctx, wv_b)
+    return out.reshape(B, S, H * cfg.v_dim) @ params["wo"], cache
+
+
+# =============================================================================
 # Unified entry
 # =============================================================================
 
 def init_attention(gen: Optional[torch.Generator], d_model: int,
                    cfg: AttnCfg, dtype, device=None) -> Params:
     if cfg.kind == "mla":
-        raise NotImplementedError(MLA_TODO)
+        return init_mla(gen, d_model, cfg, dtype, device)
     return init_gqa(gen, d_model, cfg, dtype, device)
 
 
@@ -278,8 +397,12 @@ def apply_attention(params: Params, x, cfg: AttnCfg, *, positions,
                     window: Optional[int] = None, rope=None,
                     qk_weights=None, cache=None,
                     ring: Optional[RingStep] = None, chunk: int = 1024):
+    """``qk_weights``: GQA's QK-norm weights, or MLA's ``1 + q_norm`` and
+    ``1 + kv_norm`` (MLA has no window)."""
     if cfg.kind == "mla":
-        raise NotImplementedError(MLA_TODO)
+        return apply_mla(params, x, cfg, positions=positions, rope=rope,
+                         norm_weights=qk_weights, cache=cache, ring=ring,
+                         chunk=chunk)
     return apply_gqa(params, x, cfg, positions=positions, window=window,
                      rope=rope, qk_weights=qk_weights, cache=cache,
                      ring=ring, chunk=chunk)

@@ -55,12 +55,18 @@ def dense_param(gen: Optional[torch.Generator], shape, dtype,
     return v.to(dtype)
 
 
+def zeros_param(shape, dtype, device=None) -> torch.Tensor:
+    """The reference's ``zeros_param``: a zero leaf (a bias, a mix, a
+    zero-centred scale)."""
+    return torch.zeros(tuple(shape), dtype=dtype, device=device)
+
+
 def init_norm(d: int, dtype, kind: str, device=None) -> Params:
     if kind == "rms":          # weight stored zero-centered, applied as (1+w)
-        return {"scale": torch.zeros((d,), dtype=dtype, device=device)}
+        return {"scale": zeros_param((d,), dtype, device)}
     if kind == "layer":
         return {"scale": torch.ones((d,), dtype=dtype, device=device),
-                "bias": torch.zeros((d,), dtype=dtype, device=device)}
+                "bias": zeros_param((d,), dtype, device)}
     raise ValueError(kind)
 
 

@@ -1,4 +1,4 @@
-"""LM model factory for the dense GQA family — counterpart of
+"""LM model factory for all ten architectures — counterpart of
 ``repro/models/transformer.py``.
 
 A model is ``units`` repetitions of ``cfg.pattern`` plus a tail for
@@ -9,22 +9,28 @@ runs them: layer ``u * P + p`` for unit ``u`` and pattern position ``p``,
 then the tail (``convert.lm_params_from_numpy`` unstacks a reference
 tree in that order).
 
-Mixed precision as the reference does it (``_cast_layer_params``): layer
-weights, norm scales included, are used in ``compute_dtype``.  A layer
-holds its weights as that cast, made once when they are placed (at init
-or load; the values equal a cast at use); norm scales and biases, which
-the norms then read in float32, are held as the float32 copy of that
-cast (the same values, one cast fewer per call).  The embedding table, the
-untied head and ``final_norm`` stay in ``param_dtype``.  The tied head
-multiplies a ``compute_dtype`` activation by the ``param_dtype`` table,
-which JAX promotes: with float32 params it is a float32 product, which
-PyTorch runs without TF32 by default.  Padded-vocab logits are -1e9.
+Layer kinds: attention (GQA or MLA), Mamba, RWKV time mix; FFN kinds:
+dense (SwiGLU/GeLU), MoE, RWKV channel mix.  llava's projector maps
+precomputed frontend embeddings (``frontend_dim``) to ``d_model`` and
+prepends them; musicgen embeds ``num_codebooks`` token streams (summed)
+and predicts each with its own head, logits (B, S, K, V).
 
-Not ported yet (ROADMAP A10): MLA attention, MoE, Mamba and RWKV layers,
-``num_codebooks > 1`` (musicgen) and the ``frontend_dim`` projector
-(llava); building such a config raises ``NotImplementedError``.  The
-serving path needs no autograd: parameters are made with
-``requires_grad=False``.
+Mixed precision as the reference does it (``_cast_layer_params``): layer
+weights, norm scales included, are used in ``compute_dtype``, except the
+``KEEP_F32`` leaves (decay, SSM and group-norm parameters), which are
+used as stored.  A layer holds its weights as that cast, made once when
+they are placed (at init or load; the values equal a cast at use); norm
+scales and biases, which the norms then read in float32, are held as the
+float32 copy of that cast (the same values, one cast fewer per call).
+The embedding table(s), the frontend projector, the untied head and
+``final_norm`` stay in ``param_dtype``.  The tied head multiplies a
+``compute_dtype`` activation by the ``param_dtype`` table, which JAX
+promotes: with float32 params it is a float32 product, which PyTorch
+runs without TF32 by default.  Padded-vocab logits are -1e9.
+
+Decode state is written in place: attention caches (``KVCache``,
+``MLACache``), ``MambaState`` and ``RwkvState``.  The serving path needs
+no autograd: parameters are made with ``requires_grad=False``.
 """
 
 from __future__ import annotations
@@ -38,41 +44,31 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig, LayerCfg
 from repro_torch.executor import _resolve_device
-from repro_torch.models import attention, common
+from repro_torch.models import attention, common, mamba, moe, rwkv
 from repro_torch.models.common import apply_norm, softcap
 
-#: attention leaves that are norm scales (QK-norm), held like the norms
-NORM_SCALES = frozenset({"q_scale", "k_scale"})
+#: mixer leaves that are zero-centred RMS scales (GQA's QK-norm, MLA's
+#: latent norms), held like the norms
+NORM_SCALES = frozenset({"q_scale", "k_scale", "q_norm", "kv_norm"})
+#: leaves never cast to ``compute_dtype`` (the reference's ``_KEEP_F32``)
+KEEP_F32 = frozenset({"a_log", "d", "w0", "u", "ln_scale", "ln_bias",
+                      "dt_bias"})
+#: the auxiliary losses a forward sums over its MoE layers
+AUX_KEYS = ("lb_loss", "z_loss")
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelOutputs:
-    """The reference's forward output; ``aux`` (the MoE losses) comes
-    with the MoE slice."""
+    """The reference's forward output: logits and the summed MoE losses
+    (``AUX_KEYS``, float32 zeros without MoE layers)."""
     logits: torch.Tensor
-
-
-def unported(cfg: ArchConfig) -> Optional[str]:
-    """What of ``cfg`` the port cannot build yet, or None."""
-    layers = cfg.pattern + cfg.tail
-    if any(l.kind == "mamba" for l in layers):
-        return "Mamba layers (ROADMAP A10, item 3)"
-    if any(l.kind == "rwkv" for l in layers):
-        return "RWKV layers (ROADMAP A10, item 3)"
-    if any(l.ffn == "moe" for l in layers):
-        return "MoE FFNs (ROADMAP A10, item 2)"
-    if cfg.attn is not None and cfg.attn.kind == "mla":
-        return "MLA attention (ROADMAP A10, item 1)"
-    if cfg.frontend_dim:
-        return "the frontend_dim projector (ROADMAP A10, item 1)"
-    if cfg.num_codebooks > 1:
-        return "num_codebooks > 1 (ROADMAP A10, item 4)"
-    return None
+    aux: Dict[str, torch.Tensor]
 
 
 class Layer(nn.Module):
-    """One attention layer and its dense FFN, with the reference's norms;
-    every weight held in ``compute_dtype``."""
+    """One mixer (attention, Mamba or RWKV time mix) and its FFN (dense,
+    MoE or RWKV channel mix), with the reference's norms; every weight
+    held in ``compute_dtype`` but the ``KEEP_F32`` leaves."""
 
     def __init__(self, cfg: ArchConfig, lcfg: LayerCfg,
                  gen: Optional[torch.Generator], device):
@@ -80,27 +76,45 @@ class Layer(nn.Module):
         self.cfg, self.lcfg = cfg, lcfg
         pdt = getattr(torch, cfg.param_dtype)
         compute = getattr(torch, cfg.compute_dtype)
+        d = cfg.d_model
+
+        def held(name, t, norm):
+            if name in KEEP_F32:
+                return t                      # used as stored
+            t = t.to(pdt).to(compute)         # the cast at use
+            return t.float() if norm or name in NORM_SCALES else t
 
         def placed(tensors, norm=False):
-            # the reference keeps param_dtype and casts at use
             return nn.ParameterDict({
-                n: nn.Parameter(t.to(pdt).to(compute).to(
-                    torch.float32 if norm or n in NORM_SCALES else compute),
-                    requires_grad=False)
+                n: nn.Parameter(held(n, t, norm), requires_grad=False)
                 for n, t in tensors.items()})
 
         def norm():
-            return placed(common.init_norm(cfg.d_model, pdt, cfg.norm,
-                                           device), norm=True)
+            return placed(common.init_norm(d, pdt, cfg.norm, device),
+                          norm=True)
 
         self.pre_norm = norm()
-        self.mixer = placed(attention.init_attention(gen, cfg.d_model,
-                                                     cfg.attn, pdt, device))
+        if lcfg.kind == "attn":
+            mixer = attention.init_attention(gen, d, cfg.attn, pdt, device)
+        elif lcfg.kind == "mamba":
+            mixer = mamba.init_mamba(gen, d, cfg.mamba, pdt, device)
+        elif lcfg.kind == "rwkv":
+            mixer = rwkv.init_time_mix(gen, d, cfg.rwkv, pdt, device)
+        else:
+            raise ValueError(lcfg.kind)
+        self.mixer = placed(mixer)
         if cfg.post_norms:
             self.post_mixer_norm = norm()
         self.ffn_norm = norm()
-        self.ffn = placed(common.init_mlp(gen, cfg.d_model, cfg.d_ff, pdt,
-                                          cfg.mlp, device))
+        if lcfg.ffn == "dense":
+            ffn = common.init_mlp(gen, d, cfg.d_ff, pdt, cfg.mlp, device)
+        elif lcfg.ffn == "moe":
+            ffn = moe.init_moe(gen, d, cfg.moe, pdt, cfg.mlp, device)
+        elif lcfg.ffn == "rwkv":
+            ffn = rwkv.init_channel_mix(gen, d, cfg.d_ff, pdt, device)
+        else:
+            raise ValueError(lcfg.ffn)
+        self.ffn = placed(ffn)
         if cfg.post_norms:
             self.post_ffn_norm = norm()
 
@@ -110,17 +124,16 @@ class Layer(nn.Module):
                              "post_ffn_norm")
                  if self.cfg.norm == "rms" and hasattr(self, n)]
         out = [(n, getattr(self, n)["scale"]) for n in names]
-        if self.cfg.attn.qk_norm:
-            out += [(n, self.mixer[n]) for n in sorted(NORM_SCALES)]
-        return out
+        return out + [(n, self.mixer[n]) for n in sorted(NORM_SCALES)
+                      if n in self.mixer]
 
     def forward(self, x, positions, weights, rope, cache=None, ring=None):
         """``weights``: ``1 + scale`` of the layer's RMS scales by name
-        (``LMModel._rms_weights``); ``rope``: the RoPE tables at the
-        layer's theta; ``ring``: the decode step's slot and mask."""
+        (``LMModel._rms_weights``); ``rope``: the RoPE tables of an
+        attention layer; ``cache``: the layer's decode state; ``ring``:
+        an attention layer's decode slot and mask.  Returns (x, the MoE
+        losses or None)."""
         cfg, lcfg = self.cfg, self.lcfg
-        qk = (weights["q_scale"], weights["k_scale"]) \
-            if cfg.attn.qk_norm else None
 
         def norm(name, t):
             if cfg.norm == "rms":
@@ -128,47 +141,71 @@ class Layer(nn.Module):
             return apply_norm(getattr(self, name), t, cfg.norm)
 
         h = norm("pre_norm", x)
-        out, cache = attention.apply_attention(
-            self.mixer, h, cfg.attn, positions=positions, window=lcfg.window,
-            rope=rope, qk_weights=qk, cache=cache, ring=ring)
+        if lcfg.kind == "attn":
+            names = ("q_norm", "kv_norm") if cfg.attn.kind == "mla" \
+                else ("q_scale", "k_scale")
+            out, _ = attention.apply_attention(
+                self.mixer, h, cfg.attn, positions=positions,
+                window=lcfg.window, rope=rope,
+                qk_weights=tuple(weights[n] for n in names)
+                if names[0] in self.mixer else None,
+                cache=cache, ring=ring)
+        elif lcfg.kind == "mamba":
+            out, _ = mamba.apply_mamba(self.mixer, h, cfg.mamba, state=cache)
+        else:
+            out, _ = rwkv.apply_time_mix(self.mixer, h, cfg.rwkv,
+                                         state=cache)
         if cfg.post_norms:
             out = norm("post_mixer_norm", out)
         x = x + out.to(x.dtype)
 
         h = norm("ffn_norm", x)
-        out = common.apply_mlp(self.ffn, h, cfg.mlp, cfg.act)
+        aux = None
+        if lcfg.ffn == "dense":
+            out = common.apply_mlp(self.ffn, h, cfg.mlp, cfg.act)
+        elif lcfg.ffn == "moe":
+            out, aux = moe.apply_moe(self.ffn, h, cfg.moe, cfg.mlp, cfg.act)
+        else:
+            # reads the state's old shift_cm (the time mix left it)
+            out, _ = rwkv.apply_channel_mix(self.ffn, h, state=cache)
         if cfg.post_norms:
             out = norm("post_ffn_norm", out)
-        return x + out.to(x.dtype), cache
+        return x + out.to(x.dtype), aux
 
 
 class LMModel(nn.Module):
-    """The dense GQA language model; parameters on ``device`` (None: the
-    card, RP110 without one; ``"cpu"`` and ``"meta"`` as asked), drawn
-    from ``generator``."""
+    """The language model; parameters on ``device`` (None: the card,
+    RP110 without one; ``"cpu"`` and ``"meta"`` as asked), drawn from
+    ``generator``."""
 
     def __init__(self, cfg: ArchConfig, *, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         device = _resolve_device(device)
         self.cfg = cfg.validate()
-        missing = unported(cfg)
-        if missing:
-            raise NotImplementedError(
-                f"{cfg.name}: {missing} is not ported to PyTorch yet")
         pdt = getattr(torch, cfg.param_dtype)
         self.compute_dtype = getattr(torch, cfg.compute_dtype)
-        pv = cfg.padded_vocab
-        self.embed = nn.Parameter(common.init_embed(generator, pv,
-                                                    cfg.d_model, pdt, device),
-                                  requires_grad=False)
-        self.lm_head = None if cfg.tie_embeddings else nn.Parameter(
-            common.dense_param(generator, (cfg.d_model, pv), pdt,
-                               device=device),
-            requires_grad=False)
+        pv, d, K = cfg.padded_vocab, cfg.d_model, cfg.num_codebooks
+
+        def param(t):
+            return nn.Parameter(t, requires_grad=False)
+
+        if K > 1:
+            self.embed = param(torch.stack([
+                common.init_embed(generator, pv, d, pdt, device)
+                for _ in range(K)]))                          # (K, pv, d)
+        else:
+            self.embed = param(common.init_embed(generator, pv, d, pdt,
+                                                 device))
+        self.frontend_proj = param(common.dense_param(
+            generator, (cfg.frontend_dim, d), pdt, device=device)) \
+            if cfg.frontend_dim else None
+        head = (K, d, pv) if K > 1 else (d, pv)
+        self.lm_head = None if cfg.tie_embeddings else param(
+            common.dense_param(generator, head, pdt, device=device))
         self.final_norm = nn.ParameterDict({
-            n: nn.Parameter(t, requires_grad=False) for n, t in
-            common.init_norm(cfg.d_model, pdt, cfg.norm, device).items()})
+            n: param(t) for n, t in
+            common.init_norm(d, pdt, cfg.norm, device).items()})
         self.layer_cfgs: Tuple[LayerCfg, ...] = (
             cfg.pattern * cfg.units + cfg.tail)
         self.layers = nn.ModuleList(Layer(cfg, lcfg, generator, device)
@@ -180,35 +217,61 @@ class LMModel(nn.Module):
 
     # ------------------------------------------------------------- embedding
 
-    def _embed(self, tokens, positions):
+    def _embed_tokens(self, tokens):
+        """tokens (B, S) or (B, S, K) -> their embedding (summed over the
+        codebooks, in codebook order), scaled, in ``param_dtype``."""
         cfg = self.cfg
-        x = common.take_embed(self.embed, tokens)
+        if cfg.num_codebooks > 1:
+            x = common.take_embed(self.embed[0], tokens[..., 0])
+            for i in range(1, cfg.num_codebooks):
+                x = x + common.take_embed(self.embed[i], tokens[..., i])
+        else:
+            x = common.take_embed(self.embed, tokens)
         if cfg.embed_scale:
             x = (x.float() * math.sqrt(float(cfg.d_model))).to(x.dtype)
+        return x
+
+    def _place(self, x, positions):
+        """Cast to ``compute_dtype`` and add the sinusoidal positions."""
         x = x.to(self.compute_dtype)
-        if cfg.pos == "sinusoidal":
-            pe = common.sinusoidal_embedding(positions, cfg.d_model)
+        if self.cfg.pos == "sinusoidal":
+            pe = common.sinusoidal_embedding(positions, self.cfg.d_model)
             x = x + pe.to(x.dtype)
         return x
 
-    def embed_inputs(self, tokens):
-        """tokens: (B, S) -> (x, positions)."""
-        B, S = tokens.shape[:2]
+    def embed_inputs(self, tokens, frontend_embeds=None):
+        """tokens: (B, S) or (B, S, K); frontend_embeds: (B, T, F) or
+        None, projected in ``param_dtype`` and prepended.  Returns (x,
+        positions), positions covering T + S."""
+        x = self._embed_tokens(tokens)
+        if frontend_embeds is not None:
+            proj = frontend_embeds.to(x.dtype) @ self.frontend_proj
+            x = torch.cat([proj, x], dim=1)
+        B, S = x.shape[:2]
         positions = torch.arange(S, dtype=torch.int32,
-                                 device=tokens.device).expand(B, S)
-        return self._embed(tokens, positions), positions
+                                 device=x.device).expand(B, S)
+        return self._place(x, positions), positions
 
     def _ropes(self, positions) -> Dict[float, tuple]:
-        """One rotation table per RoPE theta the layers use."""
+        """One rotation table per RoPE theta the attention layers use, at
+        ``head_dim`` (GQA) or ``rope_dim`` (MLA)."""
         attn = self.cfg.attn
-        if not attn.use_rope:
+        if attn is None or not attn.use_rope:
             return {}
-        return {t: common.rope_tables(positions, attn.head_dim, t)
-                for t in {self._theta(l) for l in self.layer_cfgs}}
+        dim = attn.rope_dim if attn.kind == "mla" else attn.head_dim
+        return {t: common.rope_tables(positions, dim, t)
+                for t in {self._theta(l) for l in self.layer_cfgs
+                          if l.kind == "attn"}}
 
-    def _theta(self, lcfg: LayerCfg) -> float:
-        return lcfg.rope_theta if lcfg.rope_theta is not None \
-            else self.cfg.attn.rope_theta
+    def _theta(self, lcfg: LayerCfg) -> Optional[float]:
+        """An attention layer's RoPE theta (MLA takes the config's, as
+        the reference's ``apply_mla`` does); None for other layers."""
+        attn = self.cfg.attn
+        if lcfg.kind != "attn":
+            return None
+        if lcfg.rope_theta is not None and attn.kind != "mla":
+            return lcfg.rope_theta
+        return attn.rope_theta
 
     def _rms_weights(self) -> List[Dict[str, torch.Tensor]]:
         """Every layer's RMS weights ``1 + scale`` (float32, as the norms
@@ -221,21 +284,32 @@ class LMModel(nn.Module):
 
     # ---------------------------------------------------------------- forward
 
-    def forward(self, tokens) -> ModelOutputs:
-        """tokens: (B, S) -> logits (B, S, padded_vocab), float32."""
-        x, positions = self.embed_inputs(tokens)
+    def forward(self, tokens, frontend_embeds=None) -> ModelOutputs:
+        """tokens: (B, S) or (B, S, K) -> logits (B, T + S, padded_vocab)
+        or (B, S, K, padded_vocab), float32, and the MoE losses."""
+        x, positions = self.embed_inputs(tokens, frontend_embeds)
         ropes = self._ropes(positions)
+        aux = {k: torch.zeros((), dtype=torch.float32, device=x.device)
+               for k in AUX_KEYS}
         for lcfg, layer, w in zip(self.layer_cfgs, self.layers,
                                   self._rms_weights()):
-            x, _ = layer(x, positions, w, ropes.get(self._theta(lcfg)))
+            x, a = layer(x, positions, w, ropes.get(self._theta(lcfg)))
+            if a is not None:
+                aux = {k: aux[k] + a[k] for k in AUX_KEYS}
         x = apply_norm(self.final_norm, x, self.cfg.norm)
-        return ModelOutputs(logits=self._head(x))
+        return ModelOutputs(logits=self._head(x), aux=aux)
 
     def _head(self, x):
         cfg = self.cfg
-        w = self.embed.T if cfg.tie_embeddings else self.lm_head
+        w = self.embed if cfg.tie_embeddings else self.lm_head
         dt = torch.promote_types(x.dtype, w.dtype)
-        logits = softcap((x.to(dt) @ w.to(dt)).float(), cfg.logit_softcap)
+        x, w = x.to(dt), w.to(dt)
+        if cfg.num_codebooks > 1:
+            logits = torch.einsum("bsd,kvd->bskv", x, w) \
+                if cfg.tie_embeddings else torch.einsum("bsd,kdv->bskv", x, w)
+        else:
+            logits = x @ (w.T if cfg.tie_embeddings else w)
+        logits = softcap(logits.float(), cfg.logit_softcap)
         if cfg.padded_vocab != cfg.vocab:
             # padded-vocab logits (Megatron-style) are never sampled
             logits[..., cfg.vocab:] = -1e9
@@ -243,40 +317,57 @@ class LMModel(nn.Module):
 
     # ---------------------------------------------------------------- decode
 
-    def init_caches(self, batch: int,
-                    cache_len: int) -> List[attention.KVCache]:
-        """One cache per layer, in layer order, in ``compute_dtype``.
-        Layers whose caches have one length share one ``pos`` tensor:
-        every layer writes the same positions, so theirs are equal."""
+    def init_caches(self, batch: int, cache_len: int) -> list:
+        """Each layer's decode state, in layer order: a ``KVCache`` or
+        ``MLACache`` (in ``compute_dtype``), a ``MambaState`` or an
+        ``RwkvState``.  Attention caches of one length share one ``pos``
+        tensor: every layer writes the same positions, so theirs are
+        equal."""
+        cfg, dt, dev = self.cfg, self.compute_dtype, self.device
         caches, shared = [], {}
         for lcfg in self.layer_cfgs:
-            c = attention.init_cache(self.cfg.attn, batch, cache_len,
-                                     lcfg.window, self.compute_dtype,
-                                     self.device)
-            caches.append(c._replace(pos=shared.setdefault(c.pos.shape[1],
-                                                           c.pos)))
+            if lcfg.kind == "mamba":
+                caches.append(mamba.init_state(cfg.mamba, batch, dt, dev))
+            elif lcfg.kind == "rwkv":
+                caches.append(rwkv.init_state(cfg.rwkv, cfg.d_model, batch,
+                                              dt, dev))
+            else:
+                c = attention.init_cache(cfg.attn, batch, cache_len,
+                                         lcfg.window, dt, dev)
+                caches.append(c._replace(pos=shared.setdefault(
+                    c.pos.shape[1], c.pos)))
         return caches
 
-    def _ring_steps(self, caches, pos) -> List[attention.RingStep]:
+    def _ring_steps(self, caches, pos) -> list:
         """Write this step's position into each ``pos`` tensor (one per
         ring length, ``init_caches``) once and make each (length, window)
-        mask once: the slot and mask every layer would compute from it."""
-        slots, steps = {}, {}
-        keys = [(c.pos.shape[1], l.window)
-                for l, c in zip(self.layer_cfgs, caches)]
-        for (n, window), c in zip(keys, caches):
+        mask once: the slot and mask every attention layer would compute
+        from it (None for the recurrent layers).  GQA masks up to
+        ``max(pos)`` (``decode_bias``), MLA up to the step's position
+        (``mla_decode_bias``)."""
+        mla = self.cfg.attn is not None and self.cfg.attn.kind == "mla"
+        slots, steps, keys = {}, {}, []
+        for l, c in zip(self.layer_cfgs, caches):
+            if l.kind != "attn":
+                keys.append(None)
+                continue
+            n = c.pos.shape[1]
+            keys.append((n, l.window))
             if n not in slots:
                 slots[n] = attention.write_positions(c.pos, pos)
-            if (n, window) not in steps:
-                steps[(n, window)] = attention.RingStep(
-                    *slots[n], attention.decode_bias(c.pos, window))
-        return [steps[k] for k in keys]
+            if keys[-1] not in steps:
+                bias = attention.mla_decode_bias(c.pos, pos) if mla \
+                    else attention.decode_bias(c.pos, l.window)
+                steps[keys[-1]] = attention.RingStep(*slots[n], bias)
+        return [None if k is None else steps[k] for k in keys]
 
     def decode_step(self, caches, tokens, pos):
-        """One decode step.  tokens: (B, 1); pos: (B, 1) absolute.
+        """One decode step.  tokens: (B, 1) or (B, 1, K); pos: (B, 1)
+        absolute.
 
-        Writes into ``caches`` and returns (logits (B, 1, V), caches)."""
-        x = self._embed(tokens, pos)
+        Writes into ``caches`` and returns (logits (B, 1[, K], V),
+        caches)."""
+        x = self._place(self._embed_tokens(tokens), pos)
         ropes = self._ropes(pos)
         rings = self._ring_steps(caches, pos)
         for lcfg, layer, cache, ring, w in zip(

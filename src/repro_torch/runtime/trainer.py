@@ -19,7 +19,8 @@ from repro_torch.models.transformer import LMModel
 def make_prefill_step(model: LMModel) -> Callable:
     @torch.inference_mode()
     def prefill(batch) -> torch.Tensor:
-        return model.forward(batch["tokens"]).logits[:, -1]
+        return model.forward(batch["tokens"],
+                             batch.get("frontend_embeds")).logits[:, -1]
 
     return prefill
 

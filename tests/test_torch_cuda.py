@@ -1205,7 +1205,10 @@ def _lm_engine_run(model, device, batch=2, cache_len=32):
 
 
 @pytest.mark.parametrize("arch", ["gemma3-4b", "starcoder2-7b",
-                                  "gemma2-27b"])
+                                  "gemma2-27b", "minicpm3-4b",
+                                  "llava-next-34b", "granite-moe-3b-a800m",
+                                  "grok-1-314b", "rwkv6-7b",
+                                  "jamba-v0.1-52b"])
 def test_lm_serve_engine_on_the_card_equals_the_cpu(cuda_device, arch):
     """Reduced width, float32: the card's engine against the CPU's (the
     path tests/test_torch_lm.py holds to the JAX package), call for call
@@ -1221,3 +1224,43 @@ def test_lm_serve_engine_on_the_card_equals_the_cpu(cuda_device, arch):
     assert card_gen == cpu_gen and len(card_calls) == len(cpu_calls) > 40
     for got, want in zip(card_calls, cpu_calls):
         torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "llava-next-34b",
+                                  "granite-moe-3b-a800m", "grok-1-314b",
+                                  "rwkv6-7b", "jamba-v0.1-52b",
+                                  "musicgen-large"])
+def test_lm_family_on_the_card_equals_the_cpu(cuda_device, arch):
+    """Reduced width, float32, the same weights: ``forward`` over 32
+    tokens (llava's with its frontend embeddings, musicgen's in 4
+    codebooks) and 16 ``decode_step`` calls into caches of 16 (the rings
+    wrap, the recurrent states carry) on the card against the CPU at
+    atol 1e-3, rtol 1e-4, with the MoE losses."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer
+    cfg = get_arch(arch).reduced()
+    cpu = transformer.build(cfg, device="cpu", seed=2)
+    card = transformer.build(cfg, device=cuda_device, seed=2)
+    card.load_state_dict(cpu.state_dict())
+    g = torch.Generator().manual_seed(4)
+    K = cfg.num_codebooks
+    toks = torch.randint(0, cfg.vocab, (2, 32, K) if K > 1 else (2, 32),
+                         generator=g, dtype=torch.int32)
+    fe = torch.randn((2, cfg.img_tokens, cfg.frontend_dim), generator=g) \
+        if cfg.frontend_dim else None
+    outs = [m(toks.to(m.device), None if fe is None else fe.to(m.device))
+            for m in (cpu, card)]
+    torch.testing.assert_close(outs[1].logits.cpu(), outs[0].logits,
+                               atol=1e-3, rtol=1e-4)
+    for k in outs[0].aux:
+        torch.testing.assert_close(outs[1].aux[k].cpu(), outs[0].aux[k],
+                                   atol=1e-5, rtol=1e-4)
+    caches = [m.init_caches(2, 16) for m in (cpu, card)]
+    for t in range(16):
+        pos = torch.full((2, 1), t, dtype=torch.int32)
+        got = []
+        for i, m in enumerate((cpu, card)):
+            logits, caches[i] = m.decode_step(
+                caches[i], toks[:, t:t + 1].to(m.device), pos.to(m.device))
+            got.append(logits.cpu())
+        torch.testing.assert_close(got[1], got[0], atol=1e-3, rtol=1e-4)

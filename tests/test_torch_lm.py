@@ -9,7 +9,11 @@ models at atol 1e-3, rtol 1e-4 (logits are about 100 in size); bfloat16
 compute at 2e-2 of each row's max |logit|.
 
 Random-init models echo their input under greedy decode, so the engine's
-tokens prove little: every decode call's logits are compared too.
+tokens prove little: every decode call's logits are compared too.  All
+ten architectures: the dense GQA family, MLA (minicpm3), the llava
+projector, MoE (granite, grok), RWKV-6, jamba's Mamba/attention/MoE
+mix and musicgen's codebooks; the modules of the new families are held
+one by one in ``tests/test_torch_lm_families.py``.
 """
 
 import dataclasses
@@ -38,7 +42,10 @@ from repro_torch.runtime import trainer
 MODULE_TOL = dict(atol=1e-5, rtol=1e-5)
 MODEL_TOL = dict(atol=1e-3, rtol=1e-4)
 BF16_SHARE = 2e-2
-DENSE = ("gemma3-4b", "starcoder2-7b", "gemma2-27b")
+ALL = tuple(sorted(REF_ARCHS))
+#: every architecture but musicgen, whose engine the reference cannot run
+SERVED = tuple(n for n in ALL if REF_ARCHS[n].num_codebooks == 1)
+RECURRENT = ("rwkv6-7b", "jamba-v0.1-52b")
 
 
 def _rng(seed=0):
@@ -60,10 +67,20 @@ def _close_to_row_max(got: torch.Tensor, want, share=BF16_SHARE):
     assert np.all(err <= share * np.abs(want).max(axis=-1)), err.max()
 
 
+#: leaves drawn N(centre, 0.1^2) (norm scales and biases, mixes, the
+#: decay and SSM constants); ``dt_bias`` as the reference draws it
+_AROUND = {"scale": 0.0, "bias": 0.0, "q_scale": 0.0, "k_scale": 0.0,
+           "q_norm": 0.0, "kv_norm": 0.0, "conv_b": 0.0, "mu_x": 0.5,
+           "mu": 0.5, "mu_k": 0.5, "mu_r": 0.5, "w0": -0.6, "u": 0.0,
+           "ln_scale": 1.0, "ln_bias": 0.0, "d": 1.0}
+
+
 def _ref_params(ref_model, seed=0):
     """The reference's params tree (its ``init`` structure and shapes),
     drawn with numpy: dense weights N(0, 1/fan_in), embeddings N(0, 1),
-    norm scales and biases N(0, 0.1^2), so that every scale matters."""
+    norm scales, biases and the other vectors of ``_AROUND`` about their
+    centre, ``a_log`` about the S4D-real log(1..d_state), so that every
+    leaf matters."""
     with ref_common.abstract_init():
         tree = ref_common.split_params(ref_model.init(
             jax.random.PRNGKey(0)))[0]
@@ -72,8 +89,13 @@ def _ref_params(ref_model, seed=0):
     def draw(path, sds):
         name = str(getattr(path[-1], "key", ""))
         x = r.standard_normal(sds.shape)
-        if name in ("scale", "bias", "q_scale", "k_scale"):
-            x = x * 0.1
+        if name in _AROUND:
+            x = _AROUND[name] + x * 0.1
+        elif name == "a_log":
+            x = np.log(np.arange(1, sds.shape[-1] + 1)) + x * 0.1
+        elif name == "dt_bias":
+            x = np.log(np.expm1(np.exp(r.uniform(np.log(1e-3),
+                                                 np.log(1e-1), sds.shape))))
         elif name != "embed":
             x = x / np.sqrt(sds.shape[-2])
         return jnp.asarray(x.astype(np.float32), sds.dtype)
@@ -97,6 +119,25 @@ def _pair(name: str, **over):
     return ref_cfg, ref_model, params, ref_decode, model
 
 
+@functools.lru_cache(maxsize=None)
+def _ref_forward(name: str, **over):
+    """The reference's jitted forward (logits, aux) for ``_pair(name,
+    **over)``, compiled once for every test of the model."""
+    ref_model = _pair(name, **over)[1]
+    return jax.jit(lambda p, t, f: dataclasses.astuple(
+        ref_model.forward(p, t, f)))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Intra-op threads: one.  These CPU tensors are small, and the test
+    workers share the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # ---- configs ------------------------------------------------------------------
 
 @pytest.mark.parametrize("name", sorted(REF_ARCHS))
@@ -115,7 +156,7 @@ def test_arch_configs_equal_the_reference(name):
     assert sorted(ARCHS) == sorted(REF_ARCHS)
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", ALL)
 def test_full_width_parameter_counts_equal_the_reference(name):
     ref_model = ref_transformer.build(REF_ARCHS[name])
     with ref_common.abstract_init():
@@ -124,17 +165,6 @@ def test_full_width_parameter_counts_equal_the_reference(name):
     model = transformer.build(get_arch(name), device="meta")
     assert common.param_count(model) == want
     assert model.embed.device.type == "meta"
-
-
-@pytest.mark.parametrize("name", sorted(set(REF_ARCHS) - set(DENSE)))
-def test_unported_families_raise_naming_the_roadmap(name):
-    cfg = get_arch(name).reduced()
-    if cfg.attn is not None and cfg.attn.kind == "gqa" and \
-            not cfg.frontend_dim and cfg.num_codebooks == 1 and \
-            all(l.kind == "attn" and l.ffn == "dense" for l in cfg.pattern):
-        pytest.fail(f"{name} is a dense GQA config")
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        transformer.build(cfg, device="cpu")
 
 
 # ---- common --------------------------------------------------------------------
@@ -337,28 +367,39 @@ def test_decode_equals_prefill_in_the_port(window):
         torch.testing.assert_close(got[:, 0], full[:, t], **MODULE_TOL)
 
 
-def test_mla_is_not_ported_yet():
-    cfg = dataclasses.replace(_attn_cfg(), kind="mla")
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        attention.init_cache(cfg, 1, 8, None, torch.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        attention.init_attention(None, 64, cfg, torch.float32)
-
-
 # ---- whole models ---------------------------------------------------------
 
 def _tokens(cfg, B, S, seed):
-    return _rng(seed).integers(0, cfg.vocab, size=(B, S)).astype(np.int32)
+    """(B, S) tokens, or (B, S, K) for ``num_codebooks`` K > 1."""
+    shape = (B, S, cfg.num_codebooks) if cfg.num_codebooks > 1 else (B, S)
+    return _rng(seed).integers(0, cfg.vocab, size=shape).astype(np.int32)
+
+
+def _frontend(cfg, B, seed=16):
+    """llava's precomputed patch embeddings (B, img_tokens, frontend_dim),
+    or None."""
+    if not cfg.frontend_dim:
+        return None
+    return _rng(seed).standard_normal(
+        (B, cfg.img_tokens, cfg.frontend_dim)).astype(np.float32)
 
 
 def _forward_and_decode(name, steps, close, **over):
+    """forward (with llava's frontend embeddings) and its MoE losses, then
+    ``steps`` decode steps from empty caches of 32, each step's logits
+    held to the reference's by ``close``."""
     ref_cfg, ref_model, params, ref_decode, model = _pair(name, **over)
-    toks = _tokens(ref_cfg, 2, 32, 14)
-    want = jax.jit(lambda p, t: ref_model.forward(p, t).logits)(
-        params, jnp.asarray(toks))
-    got = model(_t(toks)).logits
-    assert got.dtype == torch.float32 and got.shape == want.shape
-    close(got, want)
+    toks, fe = _tokens(ref_cfg, 2, 32, 14), _frontend(ref_cfg, 2)
+    ref_fe = None if fe is None else jnp.asarray(fe)
+    logits, aux = _ref_forward(name, **over)(params, jnp.asarray(toks),
+                                             ref_fe)
+    got = model(_t(toks), None if fe is None else _t(fe))
+    assert got.logits.dtype == torch.float32
+    assert got.logits.shape == logits.shape
+    close(got.logits, logits)
+    assert sorted(got.aux) == sorted(aux) == ["lb_loss", "z_loss"]
+    for k in got.aux:
+        _close(got.aux[k], aux[k], MODEL_TOL)
 
     ref_caches = ref_model.init_caches(2, 32)
     caches = model.init_caches(2, 32)
@@ -371,28 +412,64 @@ def _forward_and_decode(name, steps, close, **over):
         got, caches = trainer.make_decode_step(model)(
             caches, _t(stream[:, t:t + 1]), _t(pos))
         close(got, want)
-    return ref_model, params, model, toks
+    return ref_model, params, model, toks, fe
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", ALL)
 def test_forward_and_decode_match_the_reference(name):
     """Reduced widths, float32; 40 decode steps into caches of 32, so the
-    window rings (16) and the global caches both wrap."""
-    ref_model, params, model, toks = _forward_and_decode(
+    window rings (16) and the global caches both wrap, and the recurrent
+    states run 40 steps; the prefill step (llava's with its frontend
+    embeddings)."""
+    ref_model, params, model, toks, fe = _forward_and_decode(
         name, 40, lambda g, w: _close(g, w, MODEL_TOL))
+    batch = {"tokens": toks} if fe is None else {"tokens": toks,
+                                                 "frontend_embeds": fe}
     want = ref_trainer.make_prefill_step(ref_model)(
-        params, {"tokens": jnp.asarray(toks)})
-    _close(trainer.make_prefill_step(model)({"tokens": _t(toks)}), want,
-           MODEL_TOL)
+        params, {k: jnp.asarray(v) for k, v in batch.items()})
+    _close(trainer.make_prefill_step(model)(
+        {k: _t(v) for k, v in batch.items()}), want, MODEL_TOL)
 
 
-@pytest.mark.parametrize("name", DENSE)
+def _bf16_share(name, wants) -> float:
+    """The share of each row's max |logit| that the port's bfloat16 run
+    is held to: ``BF16_SHARE``, or for ``RECURRENT`` twice the largest
+    share by which the reference's own bfloat16 logits ``wants`` (forward
+    and 12 decode steps) differ from its float32 run on the same weights
+    and inputs, where that is larger (RWKV and Mamba carry bfloat16
+    rounding through their recurrences: at these widths the reference's
+    own bfloat16 is further off its float32 than ``BF16_SHARE``)."""
+    if name not in RECURRENT:
+        return BF16_SHARE
+    f32 = []
+    _forward_and_decode(name, 12, lambda g, w: f32.append(
+        np.asarray(w, dtype=np.float64)))
+    noise = max((np.abs(np.asarray(a, dtype=np.float64) - b).max(-1)
+                 / np.abs(b).max(-1)).max() for a, b in zip(wants, f32))
+    return max(BF16_SHARE, 2 * noise)
+
+
+@pytest.mark.parametrize("name", ALL)
 def test_bfloat16_compute_matches_the_reference(name):
-    model = _forward_and_decode(name, 12, _close_to_row_max,
+    """bfloat16 compute, 12 decode steps, at ``_bf16_share``: layer
+    weights held as their bfloat16 cast, the ``KEEP_F32`` leaves as
+    stored (float32), the embedding(s), projector and head in the param
+    dtype."""
+    pairs = []
+    model = _forward_and_decode(name, 12, lambda g, w: pairs.append((g, w)),
                                 compute_dtype="bfloat16")[2]
-    assert model.layers[0].mixer["wq"].dtype == torch.bfloat16
+    share = _bf16_share(name, [w for _, w in pairs])
+    for got, want in pairs:
+        _close_to_row_max(got, want, share)
+    for layer in model.layers:
+        for n, w in layer.mixer.items():
+            want = torch.float32 if n in transformer.KEEP_F32 \
+                or n in transformer.NORM_SCALES else torch.bfloat16
+            assert w.dtype == want, n
     assert model.embed.dtype == model.final_norm["scale"].dtype \
         == torch.float32
+    if model.frontend_proj is not None:
+        assert model.frontend_proj.dtype == torch.float32
 
 
 def test_untied_head_and_padded_vocab_match_the_reference():
@@ -420,13 +497,17 @@ def _recorded(engine, calls):
     engine.decode = record
 
 
-def _serve_both(name, prompts, max_new, batch, cache_len):
+def _serve_both(name, prompts, max_new, batch, cache_len, seeds=None):
+    """Both engines over requests of these prompt lengths (prompt ``i``
+    drawn from seed ``seeds[i]``, default ``20 + i``): each one's calls,
+    generated tokens and token count."""
     ref_cfg, _, params, ref_decode, model = _pair(name)
+    seeds = seeds or [20 + i for i in range(len(prompts))]
     out = []
     for ref in (True, False):
         reqs = [(ref_serve if ref else serve).Request(
-            rid=i, prompt=_tokens(ref_cfg, 1, n, 20 + i)[0], max_new=m)
-            for i, (n, m) in enumerate(zip(prompts, max_new))]
+            rid=i, prompt=_tokens(ref_cfg, 1, n, s)[0], max_new=m)
+            for i, (n, m, s) in enumerate(zip(prompts, max_new, seeds))]
         engine = (ref_serve.ServeEngine(ref_cfg, params, batch, cache_len)
                   if ref else serve.ServeEngine(model, batch, cache_len,
                                                 device="cpu"))
@@ -439,9 +520,10 @@ def _serve_both(name, prompts, max_new, batch, cache_len):
     return out
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", SERVED)
 def test_serve_engine_matches_the_reference_call_for_call(name):
-    """Batch 2, five requests of mixed prompt lengths: slots refill."""
+    """Batch 2, five requests of mixed prompt lengths: slots refill (a
+    recurrent slot carrying the previous request's state)."""
     (ref_calls, ref_gen, ref_n), (calls, gen, n) = _serve_both(
         name, prompts=(7, 3, 12, 5, 9), max_new=(4, 6, 3, 5, 2), batch=2,
         cache_len=32)
@@ -472,6 +554,46 @@ def test_refilled_slot_reads_stale_cache_like_the_reference():
     assert calls[26][0][0, 0] == int(np.argmax(calls[20][2][0, 0]))
 
 
+@pytest.mark.parametrize("name", RECURRENT + ("minicpm3-4b",))
+def test_refilled_slot_carries_state_like_the_reference(name):
+    """One slot: a 20-token prompt, then a 5-token one.  Nothing resets a
+    recurrent state, so the second request starts from the first one's
+    RWKV/Mamba state (the reference does the same): every call of its
+    prompt differs from a fresh engine's on the same prompt.  MLA masks
+    cache entries past the step's own position, so minicpm3's refilled
+    slot reads only its own entries and equals the fresh engine."""
+    (ref_calls, _, _), (calls, _, _) = _serve_both(
+        name, prompts=(20, 5), max_new=(1, 2), batch=1, cache_len=32)
+    (_, _, _), (fresh, _, _) = _serve_both(
+        name, prompts=(5,), max_new=(2,), batch=1, cache_len=32, seeds=(21,))
+    assert len(calls) == len(ref_calls) == 28
+    for (t, p, logits), (rt, rp, want) in zip(calls, ref_calls):
+        assert np.array_equal(t, rt) and np.array_equal(p, rp)
+        np.testing.assert_allclose(logits, want, **MODEL_TOL)
+    refilled = [c[2] for c in calls[21:26]]       # its prompt, positions 0-4
+    gaps = [np.abs(a - b[2]).max() for a, b in zip(refilled, fresh[:5])]
+    if name in RECURRENT:
+        assert min(gaps) > 1e-2, gaps
+    else:
+        assert max(gaps) < 1e-3, gaps
+
+
+def test_serve_engine_refuses_codebooks_before_any_step():
+    """musicgen's (B, 1, K) tokens: the reference's engine feeds (B, 1)
+    and fails in ``decode_attention``; the port's refuses at once."""
+    ref_cfg, _, params, _, model = _pair("musicgen-large")
+    reqs = [ref_serve.Request(rid=0, prompt=_tokens(ref_cfg, 1, 3, 1)[0, :,
+                                                                        0],
+                              max_new=2)]
+    with pytest.raises(TypeError, match="cannot reshape"):
+        ref_serve.ServeEngine(ref_cfg, params, 2, 16).run(reqs)
+    with pytest.raises(ValueError, match="num_codebooks = 4"):
+        serve.ServeEngine(model, 2, 16, device="cpu")
+    with pytest.raises(ValueError, match="decode_attention"):
+        serve.main(["--arch", "musicgen-large", "--reduced", "--device",
+                    "cpu"])
+
+
 # ---- no quiet fallback to the CPU --------------------------------------------
 
 def test_no_gpu_raises_rp110(monkeypatch):
@@ -493,3 +615,13 @@ def test_main_serves_on_the_cpu_when_asked(capsys):
                         "--cache-len", "16", "--seed", "3"])
     assert stats["tokens"] == 9
     assert "device=cpu" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("name", ["rwkv6-7b", "jamba-v0.1-52b",
+                                  "minicpm3-4b"])
+def test_main_serves_every_family_on_the_cpu(capsys, name):
+    stats = serve.main(["--arch", name, "--reduced", "--device", "cpu",
+                        "--requests", "3", "--batch", "2", "--prompt-len",
+                        "4", "--gen-len", "3", "--cache-len", "16"])
+    assert stats["tokens"] == 9
+    assert f"arch={name} device=cpu" in capsys.readouterr().out
