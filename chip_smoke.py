@@ -151,6 +151,33 @@ Phases (any failure raises, so the exit code is non-zero):
     seconds.  A failing check is collected and the phase raises after
     the last family.
 
+16. LM training (:func:`train_phase`, after 15; the six kernels' launch
+    counts, zeroed before, stay 0): (a) ``launch.train.build_run`` of
+    gemma3-4b at full width and depth with ``accum = train_accum`` (8),
+    float32 params and moments, bf16 compute: its parameter count against
+    the meta model's, the state's bytes (params, grads, two moments) and
+    peak memory; (c) 4 steps of ``train_loop`` over ``SyntheticLM(batch
+    8, seq 2048)`` (past the 1024-token local window), each synchronised:
+    ce, grad_norm and lr finite, the median step after the first and
+    tokens/s beside the bound of :func:`step_bound`, then one step under
+    ``torch.profiler`` (busy share, kernels, the costliest); (b) the
+    gradient at full width in float32 compute (:func:`grad_check`):
+    ``<g, v>`` over a local, a global and a tail layer and the tied
+    embedding against the central difference, within ``GRAD_GAP``, and
+    above it with the global layers' attention output detached; (d)
+    reduced width: an interrupted run resumed from its checkpoint equal
+    to an uninterrupted one within 1e-5, and grok-1's bf16 moments
+    restored bit for bit; (e) each reduced config's ``make_train_step``
+    (accum 2, AdamW state at step 3) on the card against the CPU
+    (:func:`step_gaps`): the loss at atol 1e-3, rtol 1e-4, each leaf's
+    gradient, parameter change and moments within ``STEP_SHARE`` of the
+    CPU's max in the leaf (a bf16 moment one ulp besides; a step whose
+    gradient is summed in bf16, one ulp of it), and a step that left the
+    state as it was, or did not write its moments back, above it; (f)
+    ``examples/train_lm.py``'s recipe (starcoder2 family, d 512, 8
+    layers, vocab 32768, float32) for 200 steps with a checkpoint every
+    50: ce below 0.7 of its first value.
+
 The last lines are the ``{"kernels": [...]}`` record, the ``nvidia-smi``
 line, and ``{"ok": true, "device": {...}}``.
 """
@@ -194,7 +221,7 @@ def nvidia_smi() -> str:
 
 
 def max_err(a, b) -> float:
-    return float((a.double() - b.double()).abs().max())
+    return float((a.detach().double() - b.detach().double()).abs().max())
 
 
 def check_close(what: str, got, want, atol: float, rtol: float) -> float:
@@ -2525,6 +2552,486 @@ def families_phase(smi, chip):
         raise AssertionError("phase 15: " + "; ".join(failures))
 
 
+#: Phase 16 (module docstring): gemma3-4b training at full width and
+#: depth, 4 steps of 8 microbatches of one 2048-token sequence (past the
+#: 1024-token local window).
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "gemma3-4b", 8, 2048, 4
+#: bf16 dense tensor-core peak by data sheet (the bound's layer term)
+BF16_PEAK = {"NVIDIA H100 SXM": 989e12, "NVIDIA H100 PCIe": 756e12}
+#: (b): the step sizes of the central difference, the gap's limit (the
+#: least float64-mean gap over the steps; on an H100 the planted fault
+#: reads about 0.28, the float32 loss's own difference of a correct
+#: gradient under 5e-3 where its rounding does not swamp the step) and
+#: the layers ``v`` spans: local layer 0, the first global layer 5, tail
+#: layer 30 and the tied embedding
+GRAD_EPS = (3e-2, 1e-2, 3e-3, 1e-3)
+GRAD_GAP = 1e-2
+GRAD_LAYERS = (0, 5, 30)
+#: (e): the share of a leaf's max |value| on the CPU (gradient,
+#: parameter change, moment) within which the card's step must agree
+#: (about twice the largest reading on an H100, jamba's parameter change
+#: at 9.0e-5), and one bfloat16 ulp (relative): the slack of each
+#: element of a bfloat16 moment, and the share for a step whose gradient
+#: is summed in bfloat16 (grok-1's ``accum_dtype``), where a float32
+#: value near a tie rounds either way
+STEP_SHARE = 2e-4
+BF16_SLACK = 2.0 ** -7
+#: (f): examples/train_lm.py's recipe
+EXAMPLE_STEPS, EXAMPLE_SEQ, EXAMPLE_BATCH = 200, 128, 8
+
+
+def train_state(model, seed, device):
+    """An AdamW state at step 3 for ``model`` on ``device`` (moments in
+    ``moment_dtype``, ``mu`` about 1e-3, ``nu`` positive about 1e-5),
+    drawn on the CPU: from zero moments the first update turns a
+    gradient's last bit near zero into a whole ±lr."""
+    import torch
+    from repro_torch.optim import AdamWState
+    g = torch.Generator().manual_seed(seed)
+    dt = getattr(torch, model.cfg.moment_dtype)
+    names = [(n, p.shape) for n, p in model.named_parameters()]
+    mu = {n: (torch.randn(s, generator=g) * 1e-3).to(dt).to(device)
+          for n, s in names}
+    nu = {n: (torch.randn(s, generator=g).abs() * 1e-5).to(dt).to(device)
+          for n, s in names}
+    return AdamWState(torch.tensor(3, dtype=torch.int32), mu, nu)
+
+
+def step_bound(cfg, chip, tokens, seq):
+    """(bound ms, its parts): the layers' bf16 matmul FLOPs (6 N tokens,
+    N the layer parameters) and the attention the causal and window
+    masks need (4 H D a query-key pair, forward and backward, 3x) at the
+    bf16 peak, plus the tied head's float32 product (2 tokens d V, 3x)
+    at the FP32 peak; the AdamW state's bytes (read params, grads and
+    moments, write params and moments) at the HBM rate, for comparison."""
+    import dataclasses
+    from repro_torch.models import common, transformer
+    model = transformer.LMModel(cfg, device="meta")
+    n_layers = common.param_count(model.layers)
+    n_all = common.param_count(model)
+    attn = cfg.attn
+    pairs = 0
+    for l in cfg.pattern * cfg.units + cfg.tail:
+        w = seq if l.window is None else l.window
+        pairs += sum(min(i + 1, w) for i in range(seq))
+    seqs = tokens // seq
+    attn_flops = 3 * 4 * attn.n_heads * attn.head_dim * pairs * seqs
+    layer_flops = 6 * n_layers * tokens
+    head_flops = 3 * 2 * tokens * cfg.d_model * cfg.padded_vocab
+    bf16 = BF16_PEAK[chip.name]
+    compute_ms = ((layer_flops + attn_flops) / bf16
+                  + head_flops / chip.peak_fp32_flops) * 1e3
+    state_bytes = n_all * 4 * (3 + 2 * 2)   # f32 params, grads, 2 moments
+    bytes_ms = state_bytes / chip.hbm_bytes_per_s * 1e3
+    return max(compute_ms, bytes_ms), dict(
+        layer_flops=layer_flops, attn_flops=attn_flops,
+        head_flops=head_flops, compute_ms=compute_ms, bytes_ms=bytes_ms)
+
+
+def step_gaps(got, want, slack):
+    """Phase 16 (e): per kind (``grad``, ``delta``, ``mu``, ``nu``), the
+    largest share by which a leaf of ``got`` differs from its leaf in
+    ``want`` (both float64 on the CPU, by kind and parameter name), of
+    that leaf's max |value| in ``want``, past each element's ``slack``
+    (by kind and name; none where absent)."""
+    out = {}
+    for kind, leaves in want.items():
+        worst = 0.0
+        for n, w in leaves.items():
+            err = (got[kind][n] - w).abs() - slack[kind].get(n, 0.0)
+            worst = max(worst, max(err.max().item(), 0.0)
+                        / max(w.abs().max().item(), 1e-30))
+        out[kind] = worst
+    return out
+
+
+def grad_check(cfg, batch):
+    """Phase 16 (b): the directional derivative ``<g, v>`` of
+    ``LMModel.loss`` at float32 compute against its central difference
+    at each step of ``GRAD_EPS``; ``v`` drawn from a seed over the layers
+    of ``GRAD_LAYERS`` and the tied embedding, each leaf scaled by its
+    rms (at least 1e-2).  The difference is taken twice: of
+    ``LMModel.loss`` itself, whose float32 value (about 2500 for the
+    random-init gemma3, so an ulp of 2.4e-4) swamps a small step, and of
+    the same per-token float32 cross entropies (a dense model: no MoE
+    term; no label ignored) averaged in float64.  The planted fault
+    detaches the global layers' attention output, which changes the
+    gradient and not the forward: one difference serves both.  Returns
+    ({"clean": <g, v>, "fault": <g, v> with the fault}, {eps: (float32
+    difference, float64-mean difference)}, loss)."""
+    import dataclasses
+    import torch
+    from repro_torch.models import attention, transformer
+    model = transformer.build(dataclasses.replace(cfg,
+                                                  compute_dtype="float32"),
+                              seed=0, train=True)
+    batch = {k: torch.as_tensor(v).to(model.device) for k, v in batch.items()}
+    names = [n for n, _ in model.named_parameters()
+             if n == "embed" or any(n.startswith(f"layers.{i}.")
+                                    for i in GRAD_LAYERS)]
+    params = dict(model.named_parameters())
+    gen = torch.Generator(device=model.device).manual_seed(7)
+    v = {}
+    for n in names:
+        p = params[n].detach()
+        scale = max(p.float().pow(2).mean().sqrt().item(), 1e-2)
+        v[n] = torch.randn(p.shape, generator=gen, device=p.device) * scale
+    apply = attention.apply_attention
+
+    def detached(*args, **kwargs):
+        out, cache = apply(*args, **kwargs)
+        return (out.detach() if kwargs.get("window") is None else out), \
+            cache
+
+    def losses():
+        """(LMModel.loss, the float64 mean of its per-token terms)."""
+        total = model.loss(batch)[0].double().item()
+        logp = torch.log_softmax(model(batch["tokens"]).logits, dim=-1)
+        nll = -torch.gather(logp, -1, batch["labels"].long()[..., None])
+        return total, nll.double().mean().item()
+
+    gv = {}
+    for case, fn in (("clean", apply), ("fault", detached)):
+        for p in params.values():
+            p.grad = None
+        attention.apply_attention = fn
+        try:
+            total, _ = model.loss(batch)
+            total.backward()
+        finally:
+            attention.apply_attention = apply
+        # a leaf the fault cuts off has no gradient: 0
+        gv[case] = sum((params[n].grad.double() * v[n].double()).sum().item()
+                       for n in names if params[n].grad is not None)
+    base = {n: params[n].detach().clone() for n in names}
+    readings = {}
+    with torch.no_grad():
+        for eps in GRAD_EPS:
+            sides = []
+            for sign in (1.0, -1.0):
+                for n in names:
+                    params[n].copy_(base[n] + sign * eps * v[n])
+                sides.append(losses())
+            readings[eps] = tuple((sides[0][i] - sides[1][i]) / (2 * eps)
+                                  for i in (0, 1))
+        for n in names:
+            params[n].copy_(base[n])
+    loss = total.item()
+    del model, params, base, v
+    return gv, readings, loss
+
+
+def card_against_cpu_steps():
+    """Phase 16 (e): one ``make_train_step`` (accum 2, AdamW state at step
+    3) of each reduced config on the card against the CPU from the same
+    params and batch, read by :func:`step_gaps`, and the same readings of
+    two planted faults: a step that left the state as it was, and one
+    that did not write its moments back."""
+    import torch
+    from repro_torch.configs import ARCHS, get_arch
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import transformer
+    from repro_torch.optim import AdamW, WarmupCosine
+    from repro_torch.runtime.trainer import make_train_step
+    worst, loss_err, planted, limits = {}, {}, {}, {}
+    for name in sorted(ARCHS):
+        small = get_arch(name).reduced()
+        cpu = transformer.build(small, device="cpu", seed=2, train=True)
+        card = transformer.build(small, seed=2, train=True)
+        card.load_state_dict(cpu.state_dict())
+        batch = SyntheticLM(vocab=small.vocab, seq_len=32, global_batch=4,
+                            seed=5, num_codebooks=small.num_codebooks,
+                            frontend=(small.img_tokens, small.frontend_dim)
+                            if small.frontend_dim else None).batch(0)
+        outs = []
+        for m in (cpu, card):
+            b = {k: torch.as_tensor(v).to(m.device) for k, v in batch.items()}
+            total, _ = m.loss(b)
+            total.backward()
+            grads = {k: p.grad.double().cpu()
+                     for k, p in m.named_parameters()}
+            before = {k: p.detach().double().cpu()
+                      for k, p in m.named_parameters()}
+            state = train_state(m, 6, m.device)
+            moments = {k: {n: t.double().cpu() for n, t in
+                           getattr(state, k).items()} for k in ("mu", "nu")}
+            opt = AdamW(schedule=WarmupCosine(peak_lr=1e-3, warmup_steps=2,
+                                              total_steps=10),
+                        moment_dtype=small.moment_dtype)
+            state = make_train_step(m, opt, accum=2)(state, None, b)[0]
+            leaves = {"grad": grads,
+                      "delta": {k: p.detach().double().cpu() - before[k]
+                                for k, p in m.named_parameters()},
+                      "mu": {n: t.double().cpu()
+                             for n, t in state.mu.items()},
+                      "nu": {n: t.double().cpu()
+                             for n, t in state.nu.items()}}
+            outs.append((total.detach().double().cpu(), leaves, moments))
+        (loss_cpu, want, moments), (loss, got, _) = outs
+        slack = {"grad": {}, "delta": {}, **{
+            k: {n: BF16_SLACK * want[k][n].abs()
+                for n, t in getattr(state, k).items()
+                if t.dtype == torch.bfloat16} for k in ("mu", "nu")}}
+        stepped = BF16_SLACK if small.accum_dtype == "bfloat16" \
+            else STEP_SHARE
+        limits[name] = {"grad": STEP_SHARE, "delta": stepped, "mu": stepped,
+                        "nu": stepped}
+
+        def over(gaps):
+            """The largest reading as a multiple of its limit."""
+            return max(gaps[k] / limits[name][k] for k in gaps)
+
+        loss_err[name] = max_err(loss, loss_cpu)
+        worst[name] = step_gaps(got, want, slack)
+        zero = {n: 0.0 * t for n, t in want["delta"].items()}
+        planted[name] = min(
+            over(step_gaps(dict(got, **fault), want, slack))
+            for fault in ({"delta": zero, **moments}, moments))
+        if not torch.allclose(loss, loss_cpu, **LM_TOL):
+            raise AssertionError(f"{name}: the card's loss differs from "
+                                 f"the CPU's by {loss_err[name]}")
+        if not over(worst[name]) <= 1.0:
+            raise AssertionError(f"{name}: the card's train step differs "
+                                 f"from the CPU's by {worst[name]} of the "
+                                 f"leaves' max (limits {limits[name]})")
+        if not planted[name] > 1.0:
+            raise AssertionError(f"{name}: the limits {limits[name]} pass a "
+                                 f"step that wrote no state back: "
+                                 f"{planted[name]} of them")
+    print(f"  (e) reduced, float32, one make_train_step(accum=2) from the "
+          f"same params, AdamW state (step 3) and batch, card against CPU: "
+          f"loss max_abs_err {loss_err} (atol {LM_TOL['atol']}, rtol "
+          f"{LM_TOL['rtol']}); the largest share of a leaf's max by kind "
+          f"against its limit (bf16 moments {BF16_SLACK} of each element "
+          f"besides):")
+    for name, gaps in worst.items():
+        print(f"    {name}: {gaps} (limits {limits[name]}); the state left "
+              f"as it was or the moments not written back: at least "
+              f"{planted[name]!r} times the limit")
+
+
+def train_phase(smi, chip):
+    """LM training on the card (module docstring, phase 16)."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import cuda
+    from repro_torch.launch import train
+    from repro_torch.models import common, transformer
+
+    print(f"\n== LM training ({smi})")
+    if torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("TF32 is on: the float32 head would not be "
+                             "the reference's float32 product")
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cuda.reset_launches()
+
+    # (a) build_run at full width and depth, accum = train_accum
+    cfg = get_arch(TRAIN_ARCH)
+    counted = common.param_count(transformer.LMModel(cfg, device="meta"))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run = train.build_run(cfg, steps=TRAIN_STEPS, accum=cfg.train_accum,
+                          seed=0)
+    torch.cuda.synchronize()
+    n = common.param_count(run.model)
+    if n != counted:
+        raise AssertionError(f"{n} parameters, the meta model has {counted}")
+    state_bytes = sum(2 * p.numel() * p.element_size()
+                      for p in run.params.values())
+    state_bytes += sum(t.numel() * t.element_size()
+                       for m in (run.opt_state.mu, run.opt_state.nu)
+                       for t in m.values())
+    print(f"  (a) {cfg.name}: build_run(accum={cfg.train_accum}) in "
+          f"{time.perf_counter() - t0!r} s: {n} parameters "
+          f"({cfg.n_layers} layers, d {cfg.d_model}, {cfg.padded_vocab}-"
+          f"entry tied head; param {cfg.param_dtype}, moments "
+          f"{cfg.moment_dtype}, compute {cfg.compute_dtype}, remat "
+          f"{cfg.remat}); params, grads and two moments "
+          f"{state_bytes / 1e9!r} GB; peak memory after build "
+          f"{torch.cuda.max_memory_allocated() / 2**30!r} GiB")
+
+    # (c) 4 steps of train_loop, each synchronised and timed
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                       global_batch=TRAIN_BATCH, seed=0)
+    step_fn, times, seen = run.train_step, [], []
+
+    def timed(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step_fn(*args)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        seen.append({k: float(v) for k, v in out[2].items()})
+        return out
+
+    run.train_step = timed
+    train.train_loop(run, data, TRAIN_STEPS, log_every=1, quiet=True)
+    run.train_step = step_fn
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for i, (sec, m) in enumerate(zip(times, seen)):
+        print(f"    step {i}: {sec!r} s, ce {m['ce']!r}, grad_norm "
+              f"{m['grad_norm']!r}, lr {m['lr']!r}, tokens {m['tokens']!r}")
+        if not all(math.isfinite(m[k]) for k in ("ce", "grad_norm", "lr")):
+            raise AssertionError(f"step {i}: metrics not finite: {m}")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    step_s = statistics.median(times[1:])
+    bound_ms, parts = step_bound(cfg, chip, tokens, TRAIN_SEQ)
+    print(f"  (c) {TRAIN_STEPS} steps of train_loop over SyntheticLM(batch "
+          f"{TRAIN_BATCH}, seq {TRAIN_SEQ}), {cfg.train_accum} microbatches "
+          f"a step: step {step_s * 1e3!r} ms (median of steps 1-"
+          f"{TRAIN_STEPS - 1}, synchronised), {tokens / step_s!r} tokens/s; "
+          f"bound {bound_ms!r} ms (layers {parts['layer_flops']!r} + "
+          f"attention {parts['attn_flops']!r} FLOP at "
+          f"{BF16_PEAK[chip.name] / 1e12!r} TFLOP/s bf16, head "
+          f"{parts['head_flops']!r} FLOP at "
+          f"{chip.peak_fp32_flops / 1e12!r} TFLOP/s fp32; the AdamW "
+          f"state's bytes {parts['bytes_ms']!r} ms), "
+          f"{step_s * 1e3 / bound_ms!r}x bound; peak memory {peak!r} GiB "
+          f"({smi})")
+    batch = {k: torch.as_tensor(v).to(run.device)
+             for k, v in data.batch(TRAIN_STEPS).items()}
+
+    def one_step():
+        run.opt_state, run.comp_error, _ = run.train_step(
+            run.opt_state, run.comp_error, batch)
+
+    busy_ms, kernels, top = device_busy(one_step, steps=1)
+    print(f"  device busy over one step {busy_ms!r} ms over {kernels!r} "
+          f"kernels (torch.profiler): {busy_ms / (step_s * 1e3)!r} of the "
+          f"step; the costliest kernels:")
+    for name, k, k_ms in top:
+        print(f"    {k_ms!r} ms over {k!r} launches: {name}")
+    del run, batch, step_fn, timed
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the gradient at full width in float32 compute, and a planted
+    # fault (the global layers' attention output detached)
+    one = {k: v[:1] for k, v in data.batch(0).items()}
+    t0 = time.perf_counter()
+    gv, readings, loss = grad_check(cfg, one)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def gaps(case, i):
+        return [abs(r[i] - gv[case]) / abs(gv[case])
+                for r in readings.values()]
+
+    gap, fault_gap = min(gaps("clean", 1)), min(gaps("fault", 1))
+    print(f"  (b) one microbatch (1 x {TRAIN_SEQ}) at compute float32, loss "
+          f"{loss!r}: <g, v> over layers {GRAD_LAYERS} and the embedding "
+          f"{gv['clean']!r}; with the global layers' attention output "
+          f"detached {gv['fault']!r}; in {time.perf_counter() - t0!r} s; "
+          f"the central difference of LMModel.loss (float32) and of its "
+          f"per-token terms' float64 mean, gap |difference - <g, v>| / "
+          f"|<g, v>|:")
+    for (eps, (fd32, fd64)), r32, r64, f32, f64 in zip(
+            readings.items(), gaps("clean", 0), gaps("clean", 1),
+            gaps("fault", 0), gaps("fault", 1)):
+        print(f"    eps {eps}: float32 {fd32!r} (gap {r32!r}), float64 mean "
+              f"{fd64!r} (gap {r64!r}); with the fault: gaps {f32!r}, "
+              f"{f64!r}")
+    print(f"    least float64-mean gap {gap!r} (limit {GRAD_GAP}), with "
+          f"the fault {fault_gap!r}")
+    if not gap <= GRAD_GAP:
+        raise AssertionError(f"the gradient disagrees with the loss: gap "
+                             f"{gap} > {GRAD_GAP}")
+    if not fault_gap > GRAD_GAP:
+        raise AssertionError(f"the limit {GRAD_GAP} passes a detached "
+                             f"attention output: gap {fault_gap}")
+
+    # (d) checkpoint and resume on the card, reduced width
+    small = dataclasses.replace(get_arch("starcoder2-7b").reduced(
+        d_model=64, vocab=128), n_layers=2)
+    stream = SyntheticLM(vocab=small.vocab, seq_len=16, global_batch=4,
+                         seed=2)
+    kw = dict(steps=30, lr=1e-3, seed=3)
+    with tempfile.TemporaryDirectory() as tmp:
+        run_a = train.build_run(small, **kw)
+        train.train_loop(run_a, stream, 30, quiet=True)
+        run_b = train.build_run(small, ckpt_dir=tmp, **kw)
+        train.train_loop(run_b, stream, 15, checkpoint_every=5, quiet=True)
+        run_c = train.build_run(small, ckpt_dir=tmp, **kw)
+        train.train_loop(run_c, stream, 30, checkpoint_every=50, quiet=True)
+        resumed = max(max_err(run_c.params[k], p)
+                      for k, p in run_a.params.items())
+    if not resumed <= 1e-5:
+        raise AssertionError(f"resumed run differs by {resumed}")
+    grok = get_arch("grok-1-314b").reduced()
+    with tempfile.TemporaryDirectory() as tmp:
+        run_g = train.build_run(grok, steps=2, ckpt_dir=tmp)
+        train.train_loop(run_g, SyntheticLM(vocab=grok.vocab, seq_len=16,
+                                            global_batch=2, seed=1), 1,
+                         quiet=True)
+        fresh = train.build_run(grok, steps=2, seed=9)
+        fresh.load_state_tree(run_g.ckpt.restore(1, fresh.state_tree()))
+    unequal = [n for a, b in ((run_g.params, fresh.params),
+                              (run_g.opt_state.mu, fresh.opt_state.mu),
+                              (run_g.opt_state.nu, fresh.opt_state.nu))
+               for n, t in a.items()
+               if b[n].dtype != t.dtype or not torch.equal(
+                   b[n].view(torch.int16) if t.dtype == torch.bfloat16
+                   else b[n], t.view(torch.int16)
+                   if t.dtype == torch.bfloat16 else t)]
+    if unequal:
+        raise AssertionError(f"restored leaves differ: {unequal[:5]}")
+    print(f"  (d) reduced starcoder2 (2 layers, d 64): 30 steps against 15 "
+          f"+ resume from the step-15 checkpoint to 30, params max |diff| "
+          f"{resumed!r} (limit 1e-5); reduced grok-1 (moments "
+          f"{grok.moment_dtype}) saved and restored into a fresh run, every "
+          f"leaf equal bit for bit")
+    del run_a, run_b, run_c, run_g, fresh
+
+    # (e) card against CPU: one make_train_step per reduced config
+    card_against_cpu_steps()
+
+    # (f) the user path of examples/train_lm.py
+    ex = dataclasses.replace(get_arch("starcoder2-7b").reduced(
+        d_model=512, vocab=32768), n_layers=8, d_ff=2048,
+        compute_dtype="float32")
+    with tempfile.TemporaryDirectory() as tmp:
+        run = train.build_run(ex, steps=EXAMPLE_STEPS, lr=6e-4, ckpt_dir=tmp)
+        stream = SyntheticLM(vocab=ex.vocab, seq_len=EXAMPLE_SEQ,
+                             global_batch=EXAMPLE_BATCH, seed=0)
+        b0 = {k: torch.as_tensor(v).to(run.device)
+              for k, v in stream.batch(0).items()}
+        run.opt_state, run.comp_error, first = run.train_step(
+            run.opt_state, run.comp_error, b0)
+        first_ce = float(first["ce"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = train.train_loop(run, stream, EXAMPLE_STEPS,
+                                   checkpoint_every=50, log_every=20,
+                                   quiet=True)
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t0
+        kept = run.ckpt.steps()
+    print(f"  (f) examples/train_lm.py's recipe: {ex.name} reduced to d "
+          f"{ex.d_model}, {ex.n_layers} layers, vocab {ex.vocab}, "
+          f"{common.param_count(run.model)} parameters, float32: ce "
+          f"{first_ce!r} -> {metrics['ce']!r} over {EXAMPLE_STEPS} steps in "
+          f"{loop_s!r} s ({EXAMPLE_STEPS * EXAMPLE_BATCH * EXAMPLE_SEQ / loop_s!r} "
+          f"tokens/s, checkpoints every 50, kept {kept})")
+    if not metrics["ce"] < 0.7 * first_ce:
+        raise AssertionError(f"ce {metrics['ce']} is not below 0.7 of the "
+                             f"first step's {first_ce}")
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    counts = cuda.launches()
+    if any(counts.values()):
+        raise AssertionError(f"training launched stencil kernels: {counts}")
+    print(f"  stencil kernel launches during phase 16: {counts} (none: the "
+          f"training path reaches no pallas_call in the reference)")
+    print(f"  phase 16: {time.perf_counter() - t_phase!r} s")
+
+
 #: Phase 14 (module docstring): the 16-bit main path.  Each case of
 #: :func:`cases` and :func:`queue_cases` whose name and check are listed
 #: runs again with its program in the dtype; bfloat16 covers B1-B6 on
@@ -2763,6 +3270,7 @@ def main() -> int:
     ptxas_report()
     lm_phase(smi, chip)
     families_phase(smi, chip)
+    train_phase(smi, chip)
     for dtype in ("float32", "bfloat16"):
         ported = {r["name"].split("@")[0] for r in records
                   if r["dtype"] == dtype}

@@ -7,12 +7,13 @@ numpy arrays, then hand both packages the same thing:
     plan = plan_from_fields(**dataclasses.asdict(ref_plan))
     coeffs = coeffs_from_numpy(ref_coeffs.center, ref_coeffs.taps, "cpu")
 
-and an LM configuration and its weights:
+and an LM configuration, its weights and a training state:
 
     cfg = arch_from_fields(**dataclasses.asdict(ref_cfg))
     values, _ = repro.models.common.split_params(ref_model.init(key))
     model.load_state_dict(lm_params_from_numpy(
         cfg, jax.tree.map(np.asarray, values), "cpu"))
+    state = adamw_state_from_numpy(cfg, jax.tree.map(np.asarray, ref_state))
 
 Only plain fields and numpy arrays cross, so this module imports nothing
 of the reference.
@@ -29,7 +30,8 @@ from repro_torch.configs.base import (ArchConfig, AttnCfg, LayerCfg,
                                       MambaCfg, MoECfg, RwkvCfg)
 from repro_torch.core.blocking import BlockPlan
 from repro_torch.core.program import DTYPES, ProgramCoeffs, StencilProgram
-from repro_torch.models.transformer import KEEP_F32, LMModel
+from repro_torch.models.transformer import KEEP_F32, LMModel, reference_leaf
+from repro_torch.optim.adamw import AdamWState
 
 
 def program_from_fields(**fields) -> StencilProgram:
@@ -46,7 +48,7 @@ def plan_from_fields(*, spec: Mapping, block_shape: Sequence[int],
 
 
 def _tensor_from_numpy(a, device) -> torch.Tensor:
-    """A tensor of ``a`` in its own dtype where the kernels take it
+    """A tensor of ``a`` in its own dtype where the port computes in it
     (float32, float16, and bfloat16 from ``ml_dtypes`` through float32,
     which holds it exactly), else in float32."""
     a = np.asarray(a)
@@ -81,52 +83,75 @@ def arch_from_fields(**fields) -> ArchConfig:
 
 def _flatten(tree, prefix: str, out: Dict[str, np.ndarray]):
     if isinstance(tree, Mapping):
-        for k, v in tree.items():
-            _flatten(v, f"{prefix}{k}.", out)
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
     else:
         out[prefix[:-1]] = tree
+        return
+    for k, v in items:
+        _flatten(v, f"{prefix}{k}.", out)
 
 
-def lm_params_from_numpy(cfg: ArchConfig, tree: Mapping,
-                         device="cpu") -> Dict[str, torch.Tensor]:
+def _unstacked(cfg: ArchConfig, tree: Mapping) -> Dict[str, np.ndarray]:
+    """A reference params-shaped tree (params, an AdamW moment, a
+    compression error) as the port model's state-dict names, each
+    parameter's leaf (or its unit's slice of it) as
+    ``transformer.reference_leaf`` finds it."""
+    leaves: Dict[str, np.ndarray] = {}
+    _flatten(tree, "", leaves)
+    flat = {}
+    for name, _ in LMModel(cfg, device="meta").named_parameters():
+        leaf, unit = reference_leaf(cfg, name)
+        flat[name] = leaves[leaf] if unit is None else leaves[leaf][unit]
+    return flat
+
+
+def lm_params_from_numpy(cfg: ArchConfig, tree: Mapping, device="cpu",
+                         train: bool = False) -> Dict[str, torch.Tensor]:
     """The port model's state dict from the reference's params tree (the
-    values of ``common.split_params``, leaves as numpy arrays).
+    values of ``common.split_params``, leaves as numpy arrays), unstacked
+    as ``_unstacked`` does.
 
-    ``tree["units"][p]`` stacks pattern position ``p`` over units; unit
-    ``u`` becomes layer ``u * len(pattern) + p``, and ``tree["tail"][p]``
-    layer ``units * len(pattern) + p``.  Each leaf is placed as the model
-    places it: layer leaves cast from ``param_dtype`` to
-    ``compute_dtype`` (the reference casts them at use; norm scales then
-    held in float32) but the ``KEEP_F32`` leaves, which keep their own
-    dtype; the rest (the embedding tables, ``frontend_proj``, the head,
-    ``final_norm``) in ``param_dtype``.
+    Each leaf is placed as the model places it.  The serving build: layer
+    leaves cast from ``param_dtype`` to ``compute_dtype`` (the reference
+    casts them at use; norm scales then held in float32) but the
+    ``KEEP_F32`` leaves, which keep their own dtype; the rest (the
+    embedding tables, ``frontend_proj``, the head, ``final_norm``) in
+    ``param_dtype``.  The training build (``train``): every leaf in
+    ``param_dtype``, the ``KEEP_F32`` leaves in their own.
     """
     held = {k: v.dtype for k, v in
-            LMModel(cfg, device="meta").state_dict().items()}
-    flat: Dict[str, np.ndarray] = {}
-    P = len(cfg.pattern)
-    for p, stacked in enumerate(tree["units"]):
-        leaves: Dict[str, np.ndarray] = {}
-        _flatten(stacked, "", leaves)
-        for u in range(cfg.units):
-            for name, v in leaves.items():
-                flat[f"layers.{u * P + p}.{name}"] = v[u]
-    for p, layer in enumerate(tree["tail"]):
-        _flatten(layer, f"layers.{cfg.units * P + p}.", flat)
-    for name in ("embed", "frontend_proj", "lm_head", "final_norm"):
-        if name in tree:
-            _flatten(tree[name], f"{name}.", flat)
+            LMModel(cfg, device="meta", train=train).state_dict().items()}
     param = getattr(torch, cfg.param_dtype)
     compute = getattr(torch, cfg.compute_dtype)
     out = {}
-    for name, v in flat.items():
-        v = np.asarray(v)
-        if v.dtype.name == "bfloat16":
-            v = v.astype(np.float32)        # exact: ml_dtypes bfloat16
-        t = torch.tensor(v)
+    for name, v in _unstacked(cfg, tree).items():
+        t = _tensor_from_numpy(v, "cpu")
         if name.rsplit(".", 1)[-1] not in KEEP_F32:
             t = t.to(param)
-            if name.startswith("layers."):
+            if name.startswith("layers.") and not train:
                 t = t.to(compute)
         out[name] = t.to(held[name]).to(device)
     return out
+
+
+def lm_tree_from_numpy(cfg: ArchConfig, tree: Mapping,
+                       device="cpu") -> Dict[str, torch.Tensor]:
+    """A params-shaped reference tree of float32 or bfloat16 leaves (an
+    AdamW moment, a ``GradCompression`` error, a gradient), each leaf in
+    its dtype, as tensors by the port model's parameter names."""
+    return {name: _tensor_from_numpy(v, device)
+            for name, v in _unstacked(cfg, tree).items()}
+
+
+def adamw_state_from_numpy(cfg: ArchConfig, state,
+                           device="cpu") -> AdamWState:
+    """The port's ``AdamWState`` from the reference's (``step``, ``mu``,
+    ``nu``; leaves as numpy arrays): the step a 0-d int32 CPU tensor, the
+    moments in their dtype on ``device``."""
+    step, mu, nu = state
+    return AdamWState(step=torch.tensor(int(np.asarray(step)),
+                                        dtype=torch.int32),
+                      mu=lm_tree_from_numpy(cfg, mu, device),
+                      nu=lm_tree_from_numpy(cfg, nu, device))

@@ -18,10 +18,22 @@ and predicts each with its own head, logits (B, S, K, V).
 Mixed precision as the reference does it (``_cast_layer_params``): layer
 weights, norm scales included, are used in ``compute_dtype``, except the
 ``KEEP_F32`` leaves (decay, SSM and group-norm parameters), which are
-used as stored.  A layer holds its weights as that cast, made once when
-they are placed (at init or load; the values equal a cast at use); norm
-scales and biases, which the norms then read in float32, are held as the
-float32 copy of that cast (the same values, one cast fewer per call).
+used as stored.  Two builds hold them differently and compute the same
+values:
+
+* the serving build (``train=False``) holds a layer's weights as that
+  cast, made once when they are placed (at init or load), and its norm
+  scales and biases, which the norms read in float32, as the float32
+  copy of the cast; every parameter has ``requires_grad=False``;
+* the training build (``train=True``) holds every parameter in
+  ``param_dtype`` (the ``KEEP_F32`` leaves as the reference makes them)
+  with ``requires_grad=True``, and casts the layer weights at each use,
+  so the gradient reaches the stored value.  Its forward runs under
+  ``cfg.remat`` while autograd records: ``"unit"`` one
+  ``torch.utils.checkpoint`` over each unit of ``len(pattern)`` layers,
+  ``"layer"`` one per layer; the tail is never recomputed, as in the
+  reference.
+
 The embedding table(s), the frontend projector, the untied head and
 ``final_norm`` stay in ``param_dtype``.  The tied head multiplies a
 ``compute_dtype`` activation by the ``param_dtype`` table, which JAX
@@ -29,18 +41,20 @@ promotes: with float32 params it is a float32 product, which PyTorch
 runs without TF32 by default.  Padded-vocab logits are -1e9.
 
 Decode state is written in place: attention caches (``KVCache``,
-``MLACache``), ``MambaState`` and ``RwkvState``.  The serving path needs
-no autograd: parameters are made with ``requires_grad=False``.
+``MLACache``), ``MambaState`` and ``RwkvState``; the training forward
+takes none.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, LayerCfg
 from repro_torch.executor import _resolve_device
@@ -68,25 +82,26 @@ class ModelOutputs:
 class Layer(nn.Module):
     """One mixer (attention, Mamba or RWKV time mix) and its FFN (dense,
     MoE or RWKV channel mix), with the reference's norms; every weight
-    held in ``compute_dtype`` but the ``KEEP_F32`` leaves."""
+    held in ``compute_dtype`` but the ``KEEP_F32`` leaves, or with
+    ``train`` in ``param_dtype`` and cast at use."""
 
     def __init__(self, cfg: ArchConfig, lcfg: LayerCfg,
-                 gen: Optional[torch.Generator], device):
+                 gen: Optional[torch.Generator], device, train: bool = False):
         super().__init__()
-        self.cfg, self.lcfg = cfg, lcfg
+        self.cfg, self.lcfg, self.train_build = cfg, lcfg, train
         pdt = getattr(torch, cfg.param_dtype)
-        compute = getattr(torch, cfg.compute_dtype)
+        self.compute = getattr(torch, cfg.compute_dtype)
         d = cfg.d_model
 
         def held(name, t, norm):
             if name in KEEP_F32:
                 return t                      # used as stored
-            t = t.to(pdt).to(compute)         # the cast at use
-            return t.float() if norm or name in NORM_SCALES else t
+            t = t.to(pdt)
+            return t if train else self._cast(name, t, norm)
 
         def placed(tensors, norm=False):
             return nn.ParameterDict({
-                n: nn.Parameter(held(n, t, norm), requires_grad=False)
+                n: nn.Parameter(held(n, t, norm), requires_grad=train)
                 for n, t in tensors.items()})
 
         def norm():
@@ -118,14 +133,38 @@ class Layer(nn.Module):
         if cfg.post_norms:
             self.post_ffn_norm = norm()
 
+    def _cast(self, name: str, t: torch.Tensor, norm: bool) -> torch.Tensor:
+        """A stored weight as the layer uses it: cast to ``compute_dtype``
+        (the reference's cast at use; a norm's scale or bias, and a
+        mixer's RMS scale, then read in float32), a ``KEEP_F32`` leaf as
+        it is."""
+        if name in KEEP_F32:
+            return t
+        t = t.to(self.compute)
+        return t.float() if norm or name in NORM_SCALES else t
+
+    def _use(self, name: str, t: torch.Tensor, norm: bool) -> torch.Tensor:
+        """A parameter as the layer uses it: held so by the serving build,
+        cast from the stored value by the training build."""
+        return self._cast(name, t, norm) if self.train_build else t
+
+    def used(self, module: str) -> Dict[str, torch.Tensor]:
+        """The weights of ``module`` (``"mixer"``, ``"ffn"`` or a norm) as
+        the layer uses them (``_use``)."""
+        params = getattr(self, module)
+        if not self.train_build:
+            return params
+        norm = module not in ("mixer", "ffn")
+        return {n: self._use(n, t, norm) for n, t in params.items()}
+
     def rms_scales(self) -> List[Tuple[str, torch.Tensor]]:
-        """(name, scale) of every RMS scale of the layer."""
+        """(name, scale as used) of every RMS scale of the layer."""
         names = [n for n in ("pre_norm", "post_mixer_norm", "ffn_norm",
                              "post_ffn_norm")
                  if self.cfg.norm == "rms" and hasattr(self, n)]
-        out = [(n, getattr(self, n)["scale"]) for n in names]
-        return out + [(n, self.mixer[n]) for n in sorted(NORM_SCALES)
-                      if n in self.mixer]
+        out = [(n, self.used(n)["scale"]) for n in names]
+        return out + [(n, self._use(n, self.mixer[n], False))
+                      for n in sorted(NORM_SCALES) if n in self.mixer]
 
     def forward(self, x, positions, weights, rope, cache=None, ring=None):
         """``weights``: ``1 + scale`` of the layer's RMS scales by name
@@ -134,27 +173,27 @@ class Layer(nn.Module):
         an attention layer's decode slot and mask.  Returns (x, the MoE
         losses or None)."""
         cfg, lcfg = self.cfg, self.lcfg
+        mixer, ffn = self.used("mixer"), self.used("ffn")
 
         def norm(name, t):
             if cfg.norm == "rms":
                 return common.rms_norm(t, weights[name])
-            return apply_norm(getattr(self, name), t, cfg.norm)
+            return apply_norm(self.used(name), t, cfg.norm)
 
         h = norm("pre_norm", x)
         if lcfg.kind == "attn":
             names = ("q_norm", "kv_norm") if cfg.attn.kind == "mla" \
                 else ("q_scale", "k_scale")
             out, _ = attention.apply_attention(
-                self.mixer, h, cfg.attn, positions=positions,
+                mixer, h, cfg.attn, positions=positions,
                 window=lcfg.window, rope=rope,
                 qk_weights=tuple(weights[n] for n in names)
-                if names[0] in self.mixer else None,
+                if names[0] in mixer else None,
                 cache=cache, ring=ring)
         elif lcfg.kind == "mamba":
-            out, _ = mamba.apply_mamba(self.mixer, h, cfg.mamba, state=cache)
+            out, _ = mamba.apply_mamba(mixer, h, cfg.mamba, state=cache)
         else:
-            out, _ = rwkv.apply_time_mix(self.mixer, h, cfg.rwkv,
-                                         state=cache)
+            out, _ = rwkv.apply_time_mix(mixer, h, cfg.rwkv, state=cache)
         if cfg.post_norms:
             out = norm("post_mixer_norm", out)
         x = x + out.to(x.dtype)
@@ -162,33 +201,52 @@ class Layer(nn.Module):
         h = norm("ffn_norm", x)
         aux = None
         if lcfg.ffn == "dense":
-            out = common.apply_mlp(self.ffn, h, cfg.mlp, cfg.act)
+            out = common.apply_mlp(ffn, h, cfg.mlp, cfg.act)
         elif lcfg.ffn == "moe":
-            out, aux = moe.apply_moe(self.ffn, h, cfg.moe, cfg.mlp, cfg.act)
+            out, aux = moe.apply_moe(ffn, h, cfg.moe, cfg.mlp, cfg.act)
         else:
             # reads the state's old shift_cm (the time mix left it)
-            out, _ = rwkv.apply_channel_mix(self.ffn, h, state=cache)
+            out, _ = rwkv.apply_channel_mix(ffn, h, state=cache)
         if cfg.post_norms:
             out = norm("post_ffn_norm", out)
         return x + out.to(x.dtype), aux
 
 
+def reference_leaf(cfg: ArchConfig, name: str) -> Tuple[str, Optional[int]]:
+    """The leaf of the reference's params tree that holds the parameter
+    ``name``, and the unit it is stacked at: unit layer ``u * P + p``'s
+    ``<rest>`` is slice ``u`` of ``units.<p>.<rest>`` (``P`` the pattern's
+    length), tail layer ``units * P + p``'s is ``tail.<p>.<rest>``, the
+    others keep their name."""
+    top, _, rest = name.partition(".")
+    if top != "layers":
+        return name, None
+    i, _, rest = rest.partition(".")
+    P, i = len(cfg.pattern), int(i)
+    if i < cfg.units * P:
+        return f"units.{i % P}.{rest}", i // P
+    return f"tail.{i - cfg.units * P}.{rest}", None
+
+
 class LMModel(nn.Module):
     """The language model; parameters on ``device`` (None: the card,
     RP110 without one; ``"cpu"`` and ``"meta"`` as asked), drawn from
-    ``generator``."""
+    ``generator``; the training build with ``train`` (module
+    docstring)."""
 
     def __init__(self, cfg: ArchConfig, *, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 train: bool = False):
         super().__init__()
         device = _resolve_device(device)
         self.cfg = cfg.validate()
+        self.train_build = train
         pdt = getattr(torch, cfg.param_dtype)
         self.compute_dtype = getattr(torch, cfg.compute_dtype)
         pv, d, K = cfg.padded_vocab, cfg.d_model, cfg.num_codebooks
 
         def param(t):
-            return nn.Parameter(t, requires_grad=False)
+            return nn.Parameter(t, requires_grad=train)
 
         if K > 1:
             self.embed = param(torch.stack([
@@ -208,8 +266,13 @@ class LMModel(nn.Module):
             common.init_norm(d, pdt, cfg.norm, device).items()})
         self.layer_cfgs: Tuple[LayerCfg, ...] = (
             cfg.pattern * cfg.units + cfg.tail)
-        self.layers = nn.ModuleList(Layer(cfg, lcfg, generator, device)
+        self.layers = nn.ModuleList(Layer(cfg, lcfg, generator, device,
+                                          train)
                                     for lcfg in self.layer_cfgs)
+        # the padded-vocab entries (Megatron-style), which _head masks
+        self.register_buffer(
+            "vocab_pad", torch.arange(pv, device=device) >= cfg.vocab
+            if pv != cfg.vocab else None, persistent=False)
 
     @property
     def device(self) -> torch.device:
@@ -291,13 +354,38 @@ class LMModel(nn.Module):
         ropes = self._ropes(positions)
         aux = {k: torch.zeros((), dtype=torch.float32, device=x.device)
                for k in AUX_KEYS}
-        for lcfg, layer, w in zip(self.layer_cfgs, self.layers,
-                                  self._rms_weights()):
-            x, a = layer(x, positions, w, ropes.get(self._theta(lcfg)))
-            if a is not None:
-                aux = {k: aux[k] + a[k] for k in AUX_KEYS}
+        layers = list(zip(self.layer_cfgs, self.layers, self._rms_weights()))
+
+        def run(span, x, aux):
+            for lcfg, layer, w in span:
+                x, a = layer(x, positions, w, ropes.get(self._theta(lcfg)))
+                if a is not None:
+                    aux = {k: aux[k] + a[k] for k in AUX_KEYS}
+            return x, aux
+
+        for span, remat in self._spans(layers):
+            if remat and self.train_build and torch.is_grad_enabled():
+                # the forward draws no random numbers: no RNG state to keep
+                x, aux = checkpoint(functools.partial(run, span), x, aux,
+                                    use_reentrant=False,
+                                    preserve_rng_state=False)
+            else:
+                x, aux = run(span, x, aux)
         x = apply_norm(self.final_norm, x, self.cfg.norm)
         return ModelOutputs(logits=self._head(x), aux=aux)
+
+    def _spans(self, layers: list):
+        """``layers`` cut into (span, recomputed) by ``cfg.remat``: each
+        unit (``"unit"``) or each unit layer (``"layer"``) recomputed in
+        the backward pass; the tail, and everything under ``"none"``,
+        not."""
+        cfg = self.cfg
+        n = cfg.units * len(cfg.pattern)
+        size = {"unit": len(cfg.pattern), "layer": 1}.get(cfg.remat)
+        if size is None:
+            return [(layers, False)]
+        spans = [(layers[i:i + size], True) for i in range(0, n, size)]
+        return spans + ([(layers[n:], False)] if layers[n:] else [])
 
     def _head(self, x):
         cfg = self.cfg
@@ -310,10 +398,52 @@ class LMModel(nn.Module):
         else:
             logits = x @ (w.T if cfg.tie_embeddings else w)
         logits = softcap(logits.float(), cfg.logit_softcap)
-        if cfg.padded_vocab != cfg.vocab:
-            # padded-vocab logits (Megatron-style) are never sampled
-            logits[..., cfg.vocab:] = -1e9
+        if self.vocab_pad is not None:
+            # padded-vocab logits are never sampled and take no mass in
+            # the loss; out of place, since the softcap's tanh saved its
+            # output for the backward pass
+            logits = logits.masked_fill(self.vocab_pad, -1e9)
         return logits
+
+    # ------------------------------------------------------------------ loss
+
+    def loss(self, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """batch: tokens (B, S[, K]), labels (B, S[, K]) with -100 (any
+        negative label) ignored, optional frontend_embeds.  Next-token
+        cross entropy (labels already shifted by the data pipeline) plus
+        the MoE losses: (total, {"ce", "lb_loss", "z_loss", "tokens"}),
+        float32 0-d tensors."""
+        cfg = self.cfg
+        outs = self.forward(batch["tokens"], batch.get("frontend_embeds"))
+        logits = outs.logits
+        labels = batch["labels"]
+        if cfg.frontend_dim and logits.shape[1] != labels.shape[1]:
+            logits = logits[:, -labels.shape[1]:]     # drop image prefix
+        valid = labels >= 0
+        safe = torch.where(valid, labels, 0).long()
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+        nll = torch.where(valid, nll, 0.0)
+        denom = torch.clamp_min(valid.sum(), 1)
+        ce = nll.sum() / denom
+        total = ce + sum(outs.aux[k] for k in AUX_KEYS)
+        metrics = {"ce": ce, **outs.aux, "tokens": denom.float()}
+        return total, metrics
+
+    def reference_leaves(self) -> Dict[str, str]:
+        """Each parameter's leaf in the reference's params tree
+        (``reference_leaf``)."""
+        return {name: reference_leaf(self.cfg, name)[0]
+                for name, _ in self.named_parameters()}
+
+    def weight_decay_mask(self) -> Dict[str, bool]:
+        """Whether AdamW decays each parameter: the reference decays a
+        leaf with two or more axes, and stacks unit layers on a leading
+        unit axis, so a unit layer's parameter has one axis more there
+        than here (its norm scales are decayed, a tail layer's are not)."""
+        leaves = self.reference_leaves()
+        return {name: p.ndim + leaves[name].startswith("units.") >= 2
+                for name, p in self.named_parameters()}
 
     # ---------------------------------------------------------------- decode
 
@@ -379,11 +509,13 @@ class LMModel(nn.Module):
         return self._head(x), caches
 
 
-def build(cfg: ArchConfig, *, device=None, seed: int = 0) -> LMModel:
-    """The model on ``device`` (as ``LMModel``), its weights drawn there
-    from ``torch.Generator(...).manual_seed(seed)``."""
+def build(cfg: ArchConfig, *, device=None, seed: int = 0,
+          train: bool = False) -> LMModel:
+    """The model on ``device`` (as ``LMModel``, the training build with
+    ``train``), its weights drawn there from
+    ``torch.Generator(...).manual_seed(seed)``."""
     dev = _resolve_device(device)
     gen = None
     if dev.type != "meta":
         gen = torch.Generator(device=dev).manual_seed(seed)
-    return LMModel(cfg, device=dev, generator=gen)
+    return LMModel(cfg, device=dev, generator=gen, train=train)

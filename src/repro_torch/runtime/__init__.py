@@ -1,2 +1,3 @@
-"""Serving step builders of the port (``trainer``); training, fault
-tolerance and the pipeline runtime come with later slices."""
+"""The port's runtime: the train and serve step builders (``trainer``)
+and fault tolerance (``fault``); the mesh rules and the pipeline runtime
+come with later slices."""

@@ -1264,3 +1264,145 @@ def test_lm_family_on_the_card_equals_the_cpu(cuda_device, arch):
                 caches[i], toks[:, t:t + 1].to(m.device), pos.to(m.device))
             got.append(logits.cpu())
         torch.testing.assert_close(got[1], got[0], atol=1e-3, rtol=1e-4)
+
+
+def _train_state(model, seed):
+    """An AdamW state at step 3 for ``model``'s parameters, on the CPU:
+    moments in ``moment_dtype``, ``mu`` about 1e-3, ``nu`` positive
+    about 1e-5 (from zero moments the first update turns a gradient's
+    last bit near zero into a whole ±lr)."""
+    from repro_torch.optim import AdamWState
+    g = torch.Generator().manual_seed(seed)
+    dt = getattr(torch, model.cfg.moment_dtype)
+    names = [(n, p.shape) for n, p in model.named_parameters()]
+    mu = {n: (torch.randn(s, generator=g) * 1e-3).to(dt) for n, s in names}
+    nu = {n: (torch.randn(s, generator=g).abs() * 1e-5).to(dt)
+          for n, s in names}
+    return AdamWState(torch.tensor(3, dtype=torch.int32), mu, nu)
+
+
+@pytest.mark.parametrize("arch", ["gemma3-4b", "starcoder2-7b",
+                                  "gemma2-27b", "minicpm3-4b",
+                                  "llava-next-34b", "granite-moe-3b-a800m",
+                                  "grok-1-314b", "rwkv6-7b",
+                                  "jamba-v0.1-52b", "musicgen-large"])
+def test_lm_train_step_on_the_card_equals_the_cpu(cuda_device, arch):
+    """Reduced width, float32, the same weights, AdamW state and batch:
+    the loss at atol 1e-3, rtol 1e-4, and each leaf's gradient, and after
+    one ``make_train_step`` with ``accum=2`` each parameter's change and
+    moment, on the card against the CPU (the path
+    tests/test_torch_train_lm.py holds to the JAX package) within
+    ``TRAIN_STEP_SHARE`` of the CPU's max in the leaf (``_step_gap``;
+    grok-1's step, whose gradient is summed in bfloat16, within one
+    bfloat16 ulp); a step that left the state as it was, or did not write
+    its moments back, reads above it."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import transformer
+    from repro_torch.optim import AdamW, WarmupCosine
+    from repro_torch.runtime.trainer import make_train_step
+    cfg = get_arch(arch).reduced()
+    cpu = transformer.build(cfg, device="cpu", seed=2, train=True)
+    card = transformer.build(cfg, device=cuda_device, seed=2, train=True)
+    card.load_state_dict(cpu.state_dict())
+    batch = SyntheticLM(vocab=cfg.vocab, seq_len=32, global_batch=4, seed=5,
+                        num_codebooks=cfg.num_codebooks,
+                        frontend=(cfg.img_tokens, cfg.frontend_dim)
+                        if cfg.frontend_dim else None).batch(0)
+    out = []
+    for m in (cpu, card):
+        b = {k: torch.as_tensor(v).to(m.device) for k, v in batch.items()}
+        total, _ = m.loss(b)
+        total.backward()
+        grads = {n: p.grad.double().cpu() for n, p in m.named_parameters()}
+        before = {n: p.detach().double().cpu()
+                  for n, p in m.named_parameters()}
+        state = _train_state(m, 6)
+        moments = {k: {n: t.double() for n, t in getattr(state, k).items()}
+                   for k in ("mu", "nu")}
+        state = state._replace(
+            mu={n: t.to(m.device) for n, t in state.mu.items()},
+            nu={n: t.to(m.device) for n, t in state.nu.items()})
+        opt = AdamW(schedule=WarmupCosine(peak_lr=1e-3, warmup_steps=2,
+                                          total_steps=10),
+                    moment_dtype=cfg.moment_dtype)
+        state, _, metrics = make_train_step(m, opt, accum=2)(state, None, b)
+        leaves = {"grad": grads,
+                  "delta": {n: p.detach().double().cpu() - before[n]
+                            for n, p in m.named_parameters()},
+                  **{k: {n: t.double().cpu()
+                         for n, t in getattr(state, k).items()}
+                     for k in ("mu", "nu")}}
+        out.append((total.detach().cpu(), leaves, moments, state, metrics))
+    (want, want_l, moments, want_s, want_m), (got, got_l, _, got_s, got_m) \
+        = out
+    tol = dict(atol=1e-3, rtol=1e-4)
+    torch.testing.assert_close(got, want, **tol)
+    for k, v in want_m.items():
+        torch.testing.assert_close(got_m[k].cpu(), v, **tol)
+    slack = {"grad": {}, "delta": {}, **{
+        k: {n: BF16_SLACK * want_l[k][n].abs()
+            for n, t in getattr(want_s, k).items()
+            if t.dtype == torch.bfloat16} for k in ("mu", "nu")}}
+    stepped = BF16_SLACK if cfg.accum_dtype == "bfloat16" \
+        else TRAIN_STEP_SHARE
+    limits = {"grad": TRAIN_STEP_SHARE, "delta": stepped, "mu": stepped,
+              "nu": stepped}
+    assert _step_gap(got_l, want_l, slack, limits) <= 1.0
+    zero = {n: 0.0 * t for n, t in want_l["delta"].items()}
+    for fault in ({"delta": zero, **moments}, moments):
+        assert _step_gap(dict(got_l, **fault), want_l, slack, limits) > 1.0
+    assert int(got_s.step) == int(want_s.step) == 4
+
+
+#: the share of a leaf's max |value| on the CPU within which the card's
+#: train step agrees (gradients, parameter changes, moments; about twice
+#: the largest reading on an H100), and one bfloat16 ulp (relative): the
+#: slack of each element of a bfloat16 moment, and the share for a step
+#: whose gradient is summed in bfloat16 (grok-1's ``accum_dtype``)
+TRAIN_STEP_SHARE = 2e-4
+BF16_SLACK = 2.0 ** -7
+
+
+def _step_gap(got, want, slack, limits) -> float:
+    """The largest share by which a leaf of ``got`` differs from its leaf
+    in ``want`` (by kind, then name) of that leaf's max |value|, past
+    each element's ``slack`` (by kind and name; none where absent), as a
+    multiple of its kind's limit."""
+    worst = 0.0
+    for kind, leaves in want.items():
+        for n, w in leaves.items():
+            err = (got[kind][n] - w).abs() - slack[kind].get(n, 0.0)
+            worst = max(worst, max(err.max().item(), 0.0)
+                        / max(w.abs().max().item(), 1e-30) / limits[kind])
+    return worst
+
+
+def test_lm_train_checkpoint_restores_bf16_moments_on_the_card(
+        cuda_device, tmp_path):
+    """grok-1 reduced (bfloat16 moments): a run on the card saved after
+    one step and restored into a fresh run equals it bit for bit."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import train
+    cfg = get_arch("grok-1-314b").reduced()
+    assert cfg.moment_dtype == "bfloat16"
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=16, global_batch=2, seed=1)
+    run = train.build_run(cfg, steps=2, device=cuda_device,
+                          ckpt_dir=str(tmp_path))
+    train.train_loop(run, data, 1, quiet=True)
+    fresh = train.build_run(cfg, steps=2, device=cuda_device, seed=9)
+    fresh.load_state_tree(run.ckpt.restore(1, fresh.state_tree()))
+    assert int(fresh.opt_state.step) == 1
+    for a, b in ((run.params, fresh.params),
+                 (run.opt_state.mu, fresh.opt_state.mu),
+                 (run.opt_state.nu, fresh.opt_state.nu)):
+        for n, t in a.items():
+            assert b[n].dtype == t.dtype and b[n].device == t.device
+            if t.dtype == torch.bfloat16:
+                assert torch.equal(b[n].view(torch.int16),
+                                   t.view(torch.int16)), n
+            else:
+                assert torch.equal(b[n], t), n
+    assert any(t.dtype == torch.bfloat16 and bool(t.ne(0).any())
+               for t in run.opt_state.nu.values())
