@@ -178,6 +178,29 @@ Phases (any failure raises, so the exit code is non-zero):
     layers, vocab 32768, float32) for 200 steps with a checkpoint every
     50: ce below 0.7 of its first value.
 
+17. the LM mesh tooling on one process (:func:`mesh_tooling_phase`, after
+    16; the six kernels' launch counts, zeroed before, stay 0): (a) the
+    sharding dry run (``repro_torch.launch.dryrun``) of every LM cell on
+    both production meshes and every stencil cell, the LM cells in
+    worker processes on the host's cores (meta tensors only: the card is
+    not touched): each cell's three roofline terms, the dominant one,
+    ``fits_hbm`` and its seconds, the cells passed and refused; a cell
+    either passes or is refused with the uneven-sharding ``ValueError``,
+    any other exception fails the phase; (b) ``reshard_tree`` of
+    gemma3-4b's full-width float32 parameters from a (data=2, model=2)
+    local mesh to (data=4, model=1), four mesh devices on the one card
+    (``REPRO_TORCH_FORCE_DEVICE_COUNT=4``, restored after): every leaf's
+    ``full()`` equal to the source at 0, the seconds and peak GiB; (c) a
+    checkpoint saved from the (2, 2) mesh and restored onto (4, 1)
+    through ``restore(shardings=)`` at reduced width, equal at 0 (the
+    15.5 GB disk copy at full width is left out); (d) ``pipeline_apply``
+    over 4 stages, each one pattern unit of gemma3-4b at full width (six
+    layers, ``torch.func.functional_call`` on params stacked on a stage
+    axis), 8 microbatches of (1, 512, 2560) in bf16, against the units
+    applied in turn (0 expected: the same kernels on the same values),
+    its ms beside the sequential run's and ``bubble_fraction(8, 4)``.  A
+    failing check is collected and the phase raises after its report.
+
 The last lines are the ``{"kernels": [...]}`` record, the ``nvidia-smi``
 line, and ``{"ok": true, "device": {...}}``.
 """
@@ -3032,6 +3055,268 @@ def train_phase(smi, chip):
     print(f"  phase 16: {time.perf_counter() - t_phase!r} s")
 
 
+#: Phase 17 (module docstring): the refusal a dry-run cell may end in
+#: (``checkpoint.reshard.NamedSharding.shard_shape``'s uneven dim)
+UNEVEN = "does not divide over mesh axes"
+#: (d): stages, microbatches and the microbatch's shape
+PIPE_STAGES, PIPE_MICRO, PIPE_SHAPE = 4, 8, (1, 512, 2560)
+
+
+def _dryrun_cell(cell):
+    """One dry-run cell in a worker process: (cell, "ok" and its record,
+    "refused" and the message, or "error" and the traceback)."""
+    import traceback
+    from repro_torch.launch import dryrun
+    arch, shape, multi = cell
+    try:
+        return cell, "ok", dryrun.run_lm_cell(arch, shape, multi, None,
+                                              verbose=False)
+    except ValueError as e:
+        if UNEVEN in str(e):
+            return cell, "refused", str(e)
+        return cell, "error", traceback.format_exc()
+    except Exception:                      # noqa: BLE001  reported
+        return cell, "error", traceback.format_exc()
+
+
+def dryrun_cells(smi, failures):
+    """Phase 17 (a): every LM cell on both meshes in worker processes,
+    then every stencil cell."""
+    import multiprocessing
+    from repro_torch.configs import ARCHS, SHAPES
+    from repro_torch.configs import stencil2d, stencil3d
+    from repro_torch.launch import dryrun
+
+    # the cells that count longest first (jamba's token-by-token scan)
+    cells = sorted(((a, s, m) for m in (False, True) for a in ARCHS
+                    for s in SHAPES),
+                   key=lambda c: (not c[0].startswith("jamba"),
+                                  c[1] != "train_4k"))
+    workers = max(1, (os.cpu_count() or 2) - 1)
+    print(f"\n-- (a) the dry run: {len(cells)} LM cells on both "
+          f"production meshes in {workers} worker processes (meta tensors, "
+          f"the host's cores), then the stencil cells")
+    t0 = time.perf_counter()
+    done = {"ok": 0, "refused": 0, "skipped": 0, "error": 0}
+    ctx = multiprocessing.get_context("spawn")
+    with ctx.Pool(workers) as pool:
+        for (arch, shape, multi), status, rec in pool.imap_unordered(
+                _dryrun_cell, cells):
+            mesh = "2x16x16" if multi else "16x16"
+            if status == "ok" and rec.get("skipped"):
+                done["skipped"] += 1
+                print(f"  {arch} x {shape} x {mesh}: skipped "
+                      f"({rec['reason']})")
+                continue
+            done[status] += 1
+            if status == "ok":
+                print(f"  {arch} x {shape} x {mesh}: compute "
+                      f"{rec['t_compute']!r} s, memory {rec['t_memory']!r} "
+                      f"s, collective {rec['t_collective']!r} s, dominant "
+                      f"{rec['dominant']}, fits_hbm {rec['fits_hbm']} "
+                      f"(peak {rec['peak_bytes'] / 2**30!r} GiB), counted "
+                      f"in {rec['count_s']!r} s")
+            elif status == "refused":
+                print(f"  {arch} x {shape} x {mesh}: refused: {rec}")
+            else:
+                print(f"  {arch} x {shape} x {mesh}: ERROR\n{rec}")
+                failures.append(f"dry run {arch}:{shape}:{mesh}")
+        pool.close()
+        pool.join()
+    lm_s = time.perf_counter() - t0
+    wls = {**stencil2d.workloads(4), **stencil3d.workloads(4)}
+    n_stencil = 0
+    for multi in (False, True):
+        for wl in wls.values():
+            if wl.name.endswith("_paper") and multi:
+                continue
+            rec = dryrun.run_stencil_cell(wl, multi, None, verbose=False)
+            n_stencil += 1
+            print(f"  stencil {wl.name} x {rec['mesh']}: compute "
+                  f"{rec['t_compute']!r} s, memory {rec['t_memory']!r} s, "
+                  f"collective {rec['t_collective']!r} s, dominant "
+                  f"{rec['dominant']}, fits_hbm {rec['fits_hbm']}")
+    print(f"  dry run: {done['ok']} LM cells passed, {done['refused']} "
+          f"refused (uneven dims), {done['skipped']} skipped (long_500k "
+          f"on full attention), {done['error']} failed; {n_stencil} stencil "
+          f"cells passed; {lm_s!r} s for the LM cells, "
+          f"{time.perf_counter() - t0!r} s in all ({smi})")
+
+
+def mesh_tooling_phase(smi):
+    """The LM mesh tooling on one process (module docstring, phase 17)."""
+    import gc
+    import torch
+    from repro_torch.checkpoint import (CheckpointManager, reshard_tree,
+                                        shardings_from_specs)
+    from repro_torch.configs import get_arch
+    from repro_torch.core import distributed
+    from repro_torch.kernels import cuda
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import transformer
+    from repro_torch.models.common import LogicalAxes
+    from repro_torch.runtime import mesh_rules
+    from repro_torch.runtime.pipeline_parallel import (bubble_fraction,
+                                                       pipeline_apply)
+
+    print(f"\n== the LM mesh tooling on one process ({smi})")
+    t_phase = time.perf_counter()
+    failures = []
+    gc.collect()
+    torch.cuda.empty_cache()
+    cuda.reset_launches()
+    dryrun_cells(smi, failures)
+
+    env = distributed.ENV_DEVICE_COUNT
+    saved = os.environ.get(env)
+    os.environ[env] = "4"
+    try:
+        # (b) a live reshard of gemma3-4b's parameters, (2, 2) -> (4, 1)
+        cfg = get_arch(TRAIN_ARCH)
+        rules = mesh_rules.default_rules(False)
+        mesh_a = make_local_mesh((2, 2), ("data", "model"))
+        mesh_b = make_local_mesh((4, 1), ("data", "model"))
+        print(f"\n-- (b) reshard_tree of {cfg.name}'s float32 parameters: "
+              f"{mesh_a.shape} -> {mesh_b.shape}, {mesh_a.size} mesh "
+              f"devices on {len(mesh_a.cards())} card(s)")
+        model = transformer.build(cfg, seed=0, train=True)
+        params = {n: p.detach() for n, p in model.named_parameters()}
+        specs = {n: LogicalAxes(a) for n, a in model.logical_axes().items()}
+        sh_a = shardings_from_specs(mesh_a, rules, specs)
+        sh_b = shardings_from_specs(mesh_b, rules, specs)
+        total = sum(p.numel() * p.element_size() for p in params.values())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tree_a = reshard_tree(params, sh_a)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        tree_b = reshard_tree(tree_a, sh_b)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        worst = 0.0
+        for n, p in params.items():
+            for tree in (tree_a, tree_b):
+                got = tree[n].full()
+                if not torch.equal(got, p):
+                    worst = max(worst, float((got - p).abs().max()))
+                del got
+        print(f"  {len(params)} leaves, {total!r} bytes: placed on (2, 2) "
+              f"in {t1 - t0!r} s, resharded to (4, 1) piece by piece in "
+              f"{t2 - t1!r} s, peak {peak!r} GiB; max |full() - source| "
+              f"{worst!r} (0 expected) ({smi})")
+        if worst != 0.0:
+            failures.append(f"(b) reshard off by {worst}")
+        del tree_a, tree_b
+
+        # (c) a checkpoint from (2, 2) restored onto (4, 1), reduced width
+        small = transformer.build(cfg.reduced(), seed=1, train=True)
+        sp = {n: p.detach() for n, p in small.named_parameters()}
+        ss = {n: LogicalAxes(a) for n, a in small.logical_axes().items()}
+        with tempfile.TemporaryDirectory() as tmp:
+            mgr = CheckpointManager(tmp)
+            t0 = time.perf_counter()
+            mgr.save(1, reshard_tree(sp, shardings_from_specs(
+                mesh_a, rules, ss)))
+            back = mgr.restore(1, sp, shardings=shardings_from_specs(
+                mesh_b, rules, ss))
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        off = max(float((back[n].full() - p).abs().max())
+                  for n, p in sp.items())
+        on_b = all(t.sharding.mesh is mesh_b and all(
+            piece.device.type == "cuda" for piece in t.pieces)
+            for t in back.values())
+        print(f"\n-- (c) checkpoint of the reduced {cfg.name} from (2, 2) "
+              f"restored onto (4, 1) through restore(shardings=): "
+              f"{len(sp)} leaves in {dt!r} s, max |full() - source| {off!r}, "
+              f"pieces on the card's (4, 1) mesh: {on_b} (the 15.5 GB "
+              f"full-width disk copy is left out)")
+        if off != 0.0 or not on_b:
+            failures.append(f"(c) restore(shardings=) off by {off}")
+        del small, sp, back
+
+        # (d) 4 pattern units as pipeline stages
+        mesh_p = make_local_mesh((PIPE_STAGES,), ("pod",))
+        units = [transformer.PatternUnit(model, u)
+                 for u in range(PIPE_STAGES)]
+        names = [n for n, _ in units[0].named_parameters()]
+        stacked = {n: torch.stack([dict(u.named_parameters())[n].detach()
+                                   for u in units]) for n in names}
+        del params
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        x = torch.randn((PIPE_MICRO,) + PIPE_SHAPE, generator=gen,
+                        device="cuda").to(torch.bfloat16)
+
+        def stage_fn(p, h):
+            return torch.func.functional_call(units[0], p, (h,))
+
+        def piped():
+            return pipeline_apply(stage_fn, stacked, x, mesh=mesh_p)
+
+        def in_turn():
+            out = torch.empty_like(x)
+            for m in range(PIPE_MICRO):
+                h = x[m]
+                for s in range(PIPE_STAGES):
+                    h = stage_fn({n: t[s] for n, t in stacked.items()}, h)
+                out[m] = h
+            return out
+
+        with torch.no_grad():
+            got, want = piped(), in_turn()
+            direct = x.clone()
+            for m in range(PIPE_MICRO):
+                for u in units:
+                    direct[m] = u(direct[m])
+            torch.cuda.synchronize()
+            ms = {}
+            for name, fn in (("pipeline", piped), ("in turn", in_turn),
+                             ("pipeline again", piped)):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                ms[name] = (time.perf_counter() - t0) * 1e3
+        gap = float((got.float() - want.float()).abs().max())
+        gap_direct = float((got.float() - direct.float()).abs().max())
+        finite = bool(got.isfinite().all())
+        print(f"\n-- (d) pipeline_apply over {PIPE_STAGES} stages (one "
+              f"pattern unit of {cfg.name} each, {len(cfg.pattern)} layers, "
+              f"float32 weights cast to bf16 at use), {PIPE_MICRO} "
+              f"microbatches of {PIPE_SHAPE} bf16: max |pipeline - units "
+              f"in turn| {gap!r}, against the PatternUnit modules "
+              f"{gap_direct!r} (0 expected: the same kernels on the same "
+              f"values), finite {finite}; {ms} ms (host clock, "
+              f"synchronised; the stages of a tick run one after another on "
+              f"the card's stream); bubble_fraction({PIPE_MICRO}, "
+              f"{PIPE_STAGES}) = {bubble_fraction(PIPE_MICRO, PIPE_STAGES)!r}"
+              f" ({smi})")
+        if gap != 0.0 or gap_direct != 0.0 or not finite:
+            failures.append(f"(d) pipeline off by {gap}, {gap_direct}")
+        if bubble_fraction(PIPE_MICRO, PIPE_STAGES) != 3 / 11:
+            failures.append("(d) bubble_fraction(8, 4) != 3/11")
+        del model, units, stacked
+    finally:
+        if saved is None:
+            os.environ.pop(env, None)
+        else:
+            os.environ[env] = saved
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    counts = cuda.launches()
+    print(f"\n-- (e) stencil kernel launches during phase 17: {counts} "
+          f"(none: the mesh tooling reaches no pallas_call in the "
+          f"reference)")
+    if any(counts.values()):
+        failures.append(f"the mesh tooling launched stencil kernels: "
+                        f"{counts}")
+    print(f"  phase 17: {time.perf_counter() - t_phase!r} s")
+    if failures:
+        raise AssertionError("phase 17: " + "; ".join(failures))
+
+
 #: Phase 14 (module docstring): the 16-bit main path.  Each case of
 #: :func:`cases` and :func:`queue_cases` whose name and check are listed
 #: runs again with its program in the dtype; bfloat16 covers B1-B6 on
@@ -3271,6 +3556,7 @@ def main() -> int:
     lm_phase(smi, chip)
     families_phase(smi, chip)
     train_phase(smi, chip)
+    mesh_tooling_phase(smi)
     for dtype in ("float32", "bfloat16"):
         ported = {r["name"].split("@")[0] for r in records
                   if r["dtype"] == dtype}

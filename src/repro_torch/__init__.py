@@ -13,13 +13,27 @@ One front door, as in the reference::
 
 ``compile`` plans with the autotuner by default (``plan="auto"``);
 ``plan="model"`` asks the H100 planner, and a ``BlockPlan`` pins a plan.
+``repro_torch.obs`` is the flight recorder, ``lower`` the backends'
+pre-padded surface, ``autotune`` the tuner: the reference's top-level
+names.
 
 The package imports torch and numpy only, never jax or ``repro``.
 """
 
-from repro_torch.core.blocking import BlockPlan
+from repro_torch import obs
+from repro_torch.backends import (
+    available_backends,
+    backend_traits,
+    default_backend_name,
+    lower,
+    register_backend,
+)
+from repro_torch.core.blocking import BlockPlan, plan_blocking
 from repro_torch.core.program import ProgramCoeffs, StencilProgram
 from repro_torch.executor import CompiledStencil, Stencil, stencil
+from repro_torch.tuning import TunedPlan, autotune
+
+__version__ = "0.3.0"
 
 __all__ = [
     "BlockPlan",
@@ -27,5 +41,15 @@ __all__ = [
     "ProgramCoeffs",
     "Stencil",
     "StencilProgram",
+    "TunedPlan",
+    "autotune",
+    "available_backends",
+    "backend_traits",
+    "default_backend_name",
+    "lower",
+    "obs",
+    "plan_blocking",
+    "register_backend",
     "stencil",
+    "__version__",
 ]

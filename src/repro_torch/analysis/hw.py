@@ -2,9 +2,11 @@
 
 ``GpuChip`` replaces ``TpuChip``: what the kernels size themselves by (SM
 count, the per-block opt-in shared memory) and what a roofline bound
-divides by (memory bandwidth, FP32 peak outside the tensor cores).
-Bandwidth and peak are not device properties, so they come from NVIDIA's
-data sheets, picked by the card's name.
+divides by (memory bandwidth, FP32 peak outside the tensor cores, the
+bf16 dense tensor-core peak, NVLink, the card's memory).  Bandwidth and
+peaks are not device properties, so they come from NVIDIA's data sheets,
+picked by the card's name; the memory is the card's ``total_memory``
+where a card is present.
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ class GpuChip:
     hbm_bytes_per_s: float
     peak_fp32_flops: float       # FP32 outside the tensor cores
     nvlink_bytes_per_s: float = 0.0  # to another card, each way
+    peak_bf16_flops: float = 0.0     # dense bf16 on the tensor cores
+    hbm_bytes: int = 0               # device memory
 
     @classmethod
     def from_device(cls, index: int = 0) -> "GpuChip":
@@ -32,20 +36,25 @@ class GpuChip:
         return dataclasses.replace(
             sheet, name=props.name, sm_count=props.multi_processor_count,
             smem_optin=getattr(props, "shared_memory_per_block_optin",
-                               sheet.smem_optin))
+                               sheet.smem_optin),
+            hbm_bytes=props.total_memory)
 
 
-#: NVIDIA H100 SXM5 data sheet: 3.35 TB/s HBM3, 67 TFLOP/s FP32 (700 W),
-#: NVLink 900 GB/s to the other cards of the host (450 GB/s each way).
+#: NVIDIA H100 SXM5 data sheet: 3.35 TB/s HBM3, 67 TFLOP/s FP32 and
+#: 989 TFLOP/s dense bf16 (700 W), 80 GB, NVLink 900 GB/s to the other
+#: cards of the host (450 GB/s each way).
 H100_SXM = GpuChip(name="NVIDIA H100 SXM", sm_count=132, smem_optin=232448,
                    hbm_bytes_per_s=3.35e12, peak_fp32_flops=67e12,
-                   nvlink_bytes_per_s=450e9)
+                   nvlink_bytes_per_s=450e9, peak_bf16_flops=989e12,
+                   hbm_bytes=80_000_000_000)
 
-#: NVIDIA H100 PCIe data sheet: 2.0 TB/s HBM2e, 51 TFLOP/s FP32 (350 W),
-#: an NVLink bridge of 600 GB/s (300 GB/s each way).
+#: NVIDIA H100 PCIe data sheet: 2.0 TB/s HBM2e, 51 TFLOP/s FP32 and 756
+#: TFLOP/s dense bf16 (350 W), 80 GB, an NVLink bridge of 600 GB/s (300
+#: GB/s each way).
 H100_PCIE = GpuChip(name="NVIDIA H100 PCIe", sm_count=114, smem_optin=232448,
                     hbm_bytes_per_s=2.0e12, peak_fp32_flops=51e12,
-                    nvlink_bytes_per_s=300e9)
+                    nvlink_bytes_per_s=300e9, peak_bf16_flops=756e12,
+                    hbm_bytes=80_000_000_000)
 
 
 def datasheet(name: str) -> GpuChip:

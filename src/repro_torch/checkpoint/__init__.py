@@ -1,5 +1,6 @@
-"""Checkpointing: atomic saves, async writer, retention."""
+"""Checkpointing: atomic saves, async writer, retention, elastic reshard."""
 
 from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.checkpoint.reshard import reshard_tree, shardings_from_specs
 
-__all__ = ["CheckpointManager"]
+__all__ = ["CheckpointManager", "reshard_tree", "shardings_from_specs"]

@@ -17,8 +17,11 @@ and its error surfaces at the next ``wait``.
 bfloat16 has no numpy dtype: such a leaf is stored as its ``uint16``
 bits, ``meta.json`` names its dtype, and ``restore`` gives it back bit
 for bit.  ``restore`` returns the example tree's structure with CPU
-tensors (or on ``device``); it reads the reference's checkpoints too
-(the same layout, without the dtypes).
+tensors (or on ``device``), or with ``shardings`` (a tree of
+``reshard.NamedSharding``) each leaf as a ``reshard.ShardedTensor`` on
+its mesh: a checkpoint saved from one mesh restores onto another.  A
+``ShardedTensor`` leaf is saved whole.  It reads the reference's
+checkpoints too (the same layout, without the dtypes).
 """
 
 from __future__ import annotations
@@ -74,6 +77,8 @@ def _rebuild(tree, leaves):
 def _host(leaf) -> Tuple[np.ndarray, str]:
     """A host copy of a leaf as numpy (bfloat16 as its uint16 bits) and
     the leaf's dtype name."""
+    if hasattr(leaf, "full"):                  # a reshard.ShardedTensor
+        leaf = leaf.full()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().to("cpu", copy=True)
         name = str(t.dtype).replace("torch.", "")
@@ -167,10 +172,13 @@ class CheckpointManager:
         steps = self.steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, example_tree: Any, device=None) -> Any:
+    def restore(self, step: int, example_tree: Any, device=None,
+                shardings: Any = None) -> Any:
         """The tree saved at ``step``, shaped as ``example_tree`` (whose
         leaves are only read for their paths), each leaf a CPU tensor in
-        its saved dtype, or on ``device``."""
+        its saved dtype, or on ``device``; with ``shardings`` (a tree of
+        ``NamedSharding`` of the same structure) each leaf placed on its
+        mesh as a ``ShardedTensor``."""
         path = os.path.join(self.directory, f"step_{step:08d}")
         with open(os.path.join(path, "meta.json")) as f:
             dtypes = json.load(f).get("dtypes", {})  # none: the reference's
@@ -179,4 +187,8 @@ class CheckpointManager:
                       for key, _ in _leaves(example_tree)]
         if device is not None:
             leaves = [t.to(device) for t in leaves]
-        return _rebuild(example_tree, iter(leaves))
+        tree = _rebuild(example_tree, iter(leaves))
+        if shardings is not None:
+            from repro_torch.checkpoint.reshard import reshard_tree
+            tree = reshard_tree(tree, shardings)
+        return tree

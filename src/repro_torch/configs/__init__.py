@@ -1,9 +1,10 @@
 """Workload tables of the PyTorch port: the paper's stencil workloads
-(``stencil2d``, ``stencil3d``) and the ten LM architectures.
+(``stencil2d``, ``stencil3d``), the ten LM architectures and the four
+input shapes of the dry run.
 
 ``get_arch(name)`` / ``ARCHS`` hold the same ``ArchConfig`` values as the
-reference's registry (``repro/configs/__init__.py``).  The dry-run's input
-shapes (``configs/shapes.py``) are not ported yet.
+reference's registry (``repro/configs/__init__.py``); ``SHAPES`` and
+``input_specs`` are ``configs/shapes.py``'s.
 """
 
 from __future__ import annotations
@@ -11,6 +12,8 @@ from __future__ import annotations
 from typing import Dict
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.shapes import (SHAPES, ShapeSpec, input_specs,
+                                        shape_applicable)
 from repro_torch.configs import (  # noqa: E402
     gemma2_27b,
     gemma3_4b,
@@ -40,4 +43,5 @@ def get_arch(name: str) -> ArchConfig:
     return ARCHS[name]
 
 
-__all__ = ["ARCHS", "ArchConfig", "get_arch"]
+__all__ = ["ARCHS", "ArchConfig", "SHAPES", "ShapeSpec", "get_arch",
+           "input_specs", "shape_applicable"]

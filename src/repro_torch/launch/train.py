@@ -3,8 +3,9 @@
 Gradient accumulation, compression, async checkpointing with
 auto-resume and the straggler watchdog, on one CUDA card (RP110 without
 one) or, when asked, on the CPU.  A mesh (``mesh=``/``rules=``, the
-reference's logical-axis shardings) is refused: it comes with the mesh
-runtime (ROADMAP A10 item 6).
+reference's logical-axis shardings) is refused (:data:`MESH_REFUSAL`):
+sharded SPMD training needs a partitioner that one process does not
+have.  Placing a tree on a mesh is ported (``checkpoint.reshard``).
 
 Usage (reduced run on the CPU):
     PYTHONPATH=src python -m repro_torch.launch.train --arch starcoder2-7b \\
@@ -74,15 +75,21 @@ def _copy_into(dst, src):
             _copy_into(d, s)
 
 
+#: why ``mesh=``/``rules=`` are refused, and what exists instead
+MESH_REFUSAL = (
+    "repro_torch trains on one device: sharded SPMD training (mesh=, "
+    "rules=) needs a partitioner that one process does not have; to lay "
+    "a tree on a mesh use checkpoint.shardings_from_specs and "
+    "reshard_tree, or CheckpointManager.restore(shardings=)")
+
+
 def build_run(cfg, *, steps: int, lr: float = 3e-4, accum: int = 1,
               compression: str = "none", ckpt_dir: Optional[str] = None,
               seed: int = 0, mesh=None, rules=None, device=None) -> TrainRun:
     """A training run of ``cfg`` on ``device`` (None: the card), its
     weights drawn there from ``seed``."""
     if mesh is not None or rules is not None:
-        raise ValueError("repro_torch trains on one device: a mesh "
-                         "(mesh=, rules=) comes with the mesh runtime, "
-                         "ROADMAP A10 item 6")
+        raise ValueError(MESH_REFUSAL)
     model = transformer.build(cfg, device=device, seed=seed, train=True)
     optimizer = AdamW(schedule=WarmupCosine(peak_lr=lr, warmup_steps=min(
         100, steps // 10 + 1), total_steps=steps),
@@ -105,9 +112,7 @@ def train_loop(run: TrainRun, data, steps: int, *, checkpoint_every: int = 100,
                log_every: int = 10, resume: bool = True, mesh=None,
                rules=None, quiet: bool = False) -> Dict[str, float]:
     if mesh is not None or rules is not None:
-        raise ValueError("repro_torch trains on one device: a mesh "
-                         "(mesh=, rules=) comes with the mesh runtime, "
-                         "ROADMAP A10 item 6")
+        raise ValueError(MESH_REFUSAL)
     start = 0
     if run.ckpt is not None and resume:
         latest = run.ckpt.latest_step()

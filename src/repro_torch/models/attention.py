@@ -203,6 +203,16 @@ def chunked_attention(q, k, v, q_pos, k_pos, *, window: Optional[int],
 # GQA
 # =============================================================================
 
+#: Each leaf's logical axes (the reference's ``init_gqa``/``init_mla``).
+GQA_AXES = {"wq": ("d_model", "heads"), "wk": ("d_model", "kv_heads"),
+            "wv": ("d_model", "kv_heads"), "wo": ("heads", "d_model"),
+            "q_scale": (None,), "k_scale": (None,)}
+MLA_AXES = {"wq_a": ("d_model", None), "q_norm": (None,),
+            "wq_b": (None, "heads"), "wkv_a": ("d_model", None),
+            "kv_norm": (None,), "wk_b": (None, "heads"),
+            "wv_b": (None, "heads"), "wo": ("heads", "d_model")}
+
+
 def init_gqa(gen: Optional[torch.Generator], d_model: int, cfg: AttnCfg,
              dtype, device=None) -> Params:
     """Projections stored flattened 2-D ((d, H*hd) etc.), as the reference

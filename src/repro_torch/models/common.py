@@ -61,6 +61,35 @@ def zeros_param(shape, dtype, device=None) -> torch.Tensor:
     return torch.zeros(tuple(shape), dtype=dtype, device=device)
 
 
+#: Each leaf's logical axes (the reference's ``Param.axes``), which
+#: ``runtime/mesh_rules`` maps to mesh axes: a norm's, an MLP's, the
+#: embedding table's.
+NORM_AXES = {"scale": ("d_model",), "bias": ("d_model",)}
+MLP_AXES = {"wi_gate": ("d_model", "d_ff"), "wi_up": ("d_model", "d_ff"),
+            "wi": ("d_model", "d_ff"), "wo": ("d_ff", "d_model")}
+EMBED_AXES = ("vocab", "d_model")
+
+
+class LogicalAxes:
+    """A leaf of a spec tree: one parameter's logical axis names, as the
+    reference's ``models.common.LogicalAxes`` (not a tuple, so a tree
+    walk does not descend into it)."""
+
+    __slots__ = ("names",)
+
+    def __init__(self, names):
+        self.names = tuple(names)
+
+    def __repr__(self):
+        return f"LogicalAxes{self.names}"
+
+    def __eq__(self, other):
+        return isinstance(other, LogicalAxes) and self.names == other.names
+
+    def __hash__(self):
+        return hash(self.names)
+
+
 def init_norm(d: int, dtype, kind: str, device=None) -> Params:
     if kind == "rms":          # weight stored zero-centered, applied as (1+w)
         return {"scale": zeros_param((d,), dtype, device)}

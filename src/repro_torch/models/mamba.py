@@ -31,6 +31,14 @@ class MambaState(NamedTuple):
     conv: torch.Tensor     # (B, d_conv - 1, d_inner) trailing inputs
 
 
+#: Each leaf's logical axes (the reference's ``init_mamba``).
+AXES = {"in_proj": ("d_model", "mamba_inner"), "conv_w": (None, "mamba_inner"),
+        "conv_b": ("mamba_inner",), "x_proj": ("mamba_inner", None),
+        "dt_proj": (None, "mamba_inner"), "dt_bias": ("mamba_inner",),
+        "a_log": ("mamba_inner", None), "d": ("mamba_inner",),
+        "out_proj": ("mamba_inner", "d_model")}
+
+
 def dt_rank(cfg: MambaCfg, d_model: int) -> int:
     return cfg.dt_rank or max(1, -(-d_model // 16))
 

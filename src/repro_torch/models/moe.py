@@ -28,6 +28,16 @@ from repro_torch.configs.base import MoECfg
 from repro_torch.models.common import ACTIVATIONS, Params, dense_param
 
 
+def axes(cfg: MoECfg) -> Dict[str, tuple]:
+    """Each leaf's logical axes (the reference's ``_w_axes``): experts
+    over ``experts`` in expert-parallel mode (where ``d_ff`` then finds
+    its mesh axis taken), else replicated."""
+    e = "experts" if cfg.mode == "ep" else None
+    w_in, w_out = (e, "d_model", "d_ff"), (e, "d_ff", "d_model")
+    return {"router": ("d_model", None), "wi_gate": w_in, "wi_up": w_in,
+            "wi": w_in, "wo": w_out}
+
+
 def init_moe(gen: Optional[torch.Generator], d_model: int, cfg: MoECfg,
              dtype, mlp_kind: str, device=None) -> Params:
     E, F = cfg.num_experts, cfg.d_ff

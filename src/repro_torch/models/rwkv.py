@@ -33,6 +33,21 @@ class RwkvState(NamedTuple):
     shift_cm: torch.Tensor     # (B, d) last token seen by channel-mix
 
 
+#: Each leaf's logical axes (the reference's ``init_time_mix`` and
+#: ``init_channel_mix``).
+TIME_MIX_AXES = {
+    "mu_x": (None,), "mix_w1": ("d_model", None),
+    "mix_w2": (None, None, "d_model"), "mu": (None, None), "w0": (None,),
+    "w_lora1": ("d_model", None), "w_lora2": (None, "d_model"),
+    "wr": ("d_model", "rwkv_heads"), "wk": ("d_model", "rwkv_heads"),
+    "wv": ("d_model", "rwkv_heads"), "wg": ("d_model", "rwkv_heads"),
+    "u": (None, None), "ln_scale": (None,), "ln_bias": (None,),
+    "wo": ("rwkv_heads", "d_model")}
+CHANNEL_MIX_AXES = {"mu_k": (None,), "mu_r": (None,),
+                    "wk": ("d_model", "d_ff"), "wv": ("d_ff", "d_model"),
+                    "wr": ("d_model", None)}
+
+
 def init_time_mix(gen: Optional[torch.Generator], d_model: int,
                   cfg: RwkvCfg, dtype, device=None) -> Params:
     """``mix_w2`` N(0, 1) cast to ``dtype`` then times 0.02; ``w0`` -0.6,

@@ -111,10 +111,14 @@ class Layer(nn.Module):
         self.pre_norm = norm()
         if lcfg.kind == "attn":
             mixer = attention.init_attention(gen, d, cfg.attn, pdt, device)
+            mixer_axes = attention.MLA_AXES if cfg.attn.kind == "mla" \
+                else attention.GQA_AXES
         elif lcfg.kind == "mamba":
             mixer = mamba.init_mamba(gen, d, cfg.mamba, pdt, device)
+            mixer_axes = mamba.AXES
         elif lcfg.kind == "rwkv":
             mixer = rwkv.init_time_mix(gen, d, cfg.rwkv, pdt, device)
+            mixer_axes = rwkv.TIME_MIX_AXES
         else:
             raise ValueError(lcfg.kind)
         self.mixer = placed(mixer)
@@ -123,15 +127,28 @@ class Layer(nn.Module):
         self.ffn_norm = norm()
         if lcfg.ffn == "dense":
             ffn = common.init_mlp(gen, d, cfg.d_ff, pdt, cfg.mlp, device)
+            ffn_axes = common.MLP_AXES
         elif lcfg.ffn == "moe":
             ffn = moe.init_moe(gen, d, cfg.moe, pdt, cfg.mlp, device)
+            ffn_axes = moe.axes(cfg.moe)
         elif lcfg.ffn == "rwkv":
             ffn = rwkv.init_channel_mix(gen, d, cfg.d_ff, pdt, device)
+            ffn_axes = rwkv.CHANNEL_MIX_AXES
         else:
             raise ValueError(lcfg.ffn)
         self.ffn = placed(ffn)
         if cfg.post_norms:
             self.post_ffn_norm = norm()
+        #: each parameter's logical axes, as the reference's initialisers
+        #: give them (``LMModel.logical_axes``)
+        self.axes: Dict[str, tuple] = {}
+        for module, table in (("mixer", mixer_axes), ("ffn", ffn_axes)):
+            for n in getattr(self, module):
+                self.axes[f"{module}.{n}"] = table[n]
+        for module in ("pre_norm", "post_mixer_norm", "ffn_norm",
+                       "post_ffn_norm"):
+            for n in getattr(self, module, ()):
+                self.axes[f"{module}.{n}"] = common.NORM_AXES[n]
 
     def _cast(self, name: str, t: torch.Tensor, norm: bool) -> torch.Tensor:
         """A stored weight as the layer uses it: cast to ``compute_dtype``
@@ -264,6 +281,11 @@ class LMModel(nn.Module):
         self.final_norm = nn.ParameterDict({
             n: param(t) for n, t in
             common.init_norm(d, pdt, cfg.norm, device).items()})
+        self._axes = {"embed": (None,) * (K > 1) + common.EMBED_AXES,
+                      "frontend_proj": (None, "d_model"),
+                      "lm_head": (None,) * (K > 1) + ("d_model", "vocab")}
+        self._axes.update({f"final_norm.{n}": common.NORM_AXES[n]
+                           for n in self.final_norm})
         self.layer_cfgs: Tuple[LayerCfg, ...] = (
             cfg.pattern * cfg.units + cfg.tail)
         self.layers = nn.ModuleList(Layer(cfg, lcfg, generator, device,
@@ -336,11 +358,12 @@ class LMModel(nn.Module):
             return lcfg.rope_theta
         return attn.rope_theta
 
-    def _rms_weights(self) -> List[Dict[str, torch.Tensor]]:
-        """Every layer's RMS weights ``1 + scale`` (float32, as the norms
-        use them), made in one foreach add per call of the model rather
-        than one add per norm."""
-        named = [layer.rms_scales() for layer in self.layers]
+    def _rms_weights(self, layers=None) -> List[Dict[str, torch.Tensor]]:
+        """Every layer's (or each of ``layers``') RMS weights ``1 + scale``
+        (float32, as the norms use them), made in one foreach add per call
+        of the model rather than one add per norm."""
+        named = [layer.rms_scales() for layer in
+                 (self.layers if layers is None else layers)]
         flat = [t for per in named for _, t in per]
         added = iter(torch._foreach_add(flat, 1.0) if flat else ())
         return [{n: next(added) for n, _ in per} for per in named]
@@ -436,6 +459,42 @@ class LMModel(nn.Module):
         return {name: reference_leaf(self.cfg, name)[0]
                 for name, _ in self.named_parameters()}
 
+    def logical_axes(self) -> Dict[str, tuple]:
+        """Each parameter's logical axes: its reference leaf's
+        ``Param.axes`` without the leading ``"unit"`` axis of a unit
+        layer (the reference stacks those, ``reference_leaf``)."""
+        out = {}
+        for name, _ in self.named_parameters():
+            top, _, rest = name.partition(".")
+            if top == "layers":
+                i, _, rest = rest.partition(".")
+                out[name] = self.layers[int(i)].axes[rest]
+            else:
+                out[name] = self._axes[name]
+        return out
+
+    def reference_logical_axes(self) -> dict:
+        """The reference's spec tree (``common.split_params``): a
+        ``common.LogicalAxes`` per leaf of its params tree, unit layers
+        stacked on a leading ``"unit"`` axis, nested as its params
+        (``units`` and ``tail`` tuples of one tree per position)."""
+        tree: dict = {}
+        axes = self.logical_axes()
+        for name, leaf in self.reference_leaves().items():
+            names = axes[name]
+            if leaf.startswith("units."):
+                names = ("unit",) + names
+            node, parts = tree, leaf.split(".")
+            for part in parts[:-1]:
+                node = node.setdefault(part, {})
+            node[parts[-1]] = common.LogicalAxes(names)
+        P = len(self.cfg.pattern)
+        tree["units"] = tuple(tree.get("units", {}).get(str(p), {})
+                              for p in range(P))
+        tree["tail"] = tuple(tree.get("tail", {}).get(str(p), {})
+                             for p in range(len(self.cfg.tail)))
+        return tree
+
     def weight_decay_mask(self) -> Dict[str, bool]:
         """Whether AdamW decays each parameter: the reference decays a
         leaf with two or more axes, and stacks unit layers on a leading
@@ -507,6 +566,35 @@ class LMModel(nn.Module):
                          cache=cache, ring=ring)
         x = apply_norm(self.final_norm, x, self.cfg.norm)
         return self._head(x), caches
+
+
+class PatternUnit(nn.Module):
+    """Unit ``u`` of ``model`` (its layers ``u * P`` to ``u * P + P - 1``)
+    as a module of its own: ``forward(x)`` runs them over positions
+    0..S-1 as the model's forward does, without caches.  Every unit has
+    the same parameter names, so one unit applied through
+    ``torch.func.functional_call`` with another's parameters is that
+    unit: the stage of a pipeline (``runtime/pipeline_parallel``)."""
+
+    def __init__(self, model: LMModel, u: int):
+        super().__init__()
+        P = len(model.cfg.pattern)
+        if not 0 <= u < model.cfg.units:
+            raise ValueError(f"unit {u} of {model.cfg.units}")
+        self.layers = nn.ModuleList(model.layers[u * P:(u + 1) * P])
+        self.layer_cfgs = model.cfg.pattern
+        self._model = (model,)          # not a submodule: no parameters
+
+    def forward(self, x):
+        model = self._model[0]
+        B, S = x.shape[:2]
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=x.device).expand(B, S)
+        ropes = model._ropes(positions)
+        for lcfg, layer, w in zip(self.layer_cfgs, self.layers,
+                                  model._rms_weights(self.layers)):
+            x, _ = layer(x, positions, w, ropes.get(model._theta(lcfg)))
+        return x
 
 
 def build(cfg: ArchConfig, *, device=None, seed: int = 0,

@@ -1,3 +1,3 @@
-"""The port's runtime: the train and serve step builders (``trainer``)
-and fault tolerance (``fault``); the mesh rules and the pipeline runtime
-come with later slices."""
+"""The port's runtime: the train and serve step builders (``trainer``),
+fault tolerance (``fault``), the logical-axis rules (``mesh_rules``) and
+pipeline parallelism (``pipeline_parallel``)."""

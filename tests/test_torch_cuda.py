@@ -1406,3 +1406,76 @@ def test_lm_train_checkpoint_restores_bf16_moments_on_the_card(
                 assert torch.equal(b[n], t), n
     assert any(t.dtype == torch.bfloat16 and bool(t.ne(0).any())
                for t in run.opt_state.nu.values())
+
+
+# ---- the LM mesh tooling on the card -----------------------------------------
+
+def _mesh_tree(cuda_device):
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer
+    from repro_torch.models.common import LogicalAxes
+    model = transformer.build(get_arch("gemma3-4b").reduced(),
+                              device=cuda_device, seed=2, train=True)
+    params = {n: p.detach() for n, p in model.named_parameters()}
+    specs = {n: LogicalAxes(a) for n, a in model.logical_axes().items()}
+    return model, params, specs
+
+
+def test_mesh_reshard_tree_on_the_card(cuda_device, monkeypatch, tmp_path):
+    """A reduced gemma3-4b's parameters (2, 2) -> (4, 1) on four mesh
+    devices of the card, live and through restore(shardings=), at 0."""
+    from repro_torch.checkpoint import (CheckpointManager, reshard_tree,
+                                        shardings_from_specs)
+    from repro_torch.core.distributed import ENV_DEVICE_COUNT
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.runtime import mesh_rules
+
+    monkeypatch.setenv(ENV_DEVICE_COUNT, "4")
+    _, params, specs = _mesh_tree(cuda_device)
+    rules = mesh_rules.default_rules(False)
+    sh_a = shardings_from_specs(make_local_mesh((2, 2)), rules, specs)
+    sh_b = shardings_from_specs(make_local_mesh((4, 1)), rules, specs)
+    tree_a = reshard_tree(params, sh_a)
+    live = reshard_tree(tree_a, sh_b)
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(1, tree_a)
+    restored = mgr.restore(1, params, shardings=sh_b)
+    for n, p in params.items():
+        for tree in (tree_a, live, restored):
+            t = tree[n]
+            assert all(piece.device.type == "cuda" for piece in t.pieces)
+            assert torch.equal(t.full(), p), n
+            for idx, piece in zip(t.sharding.indices(t.shape), t.pieces):
+                assert torch.equal(piece, p[idx]), n
+
+
+def test_mesh_pipeline_of_pattern_units_on_the_card(cuda_device,
+                                                    monkeypatch):
+    """Two pattern units of a reduced gemma3-4b as pipeline stages on two
+    mesh devices of the card, against the units in turn, at 0."""
+    from repro_torch.core.distributed import ENV_DEVICE_COUNT
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import transformer
+    from repro_torch.runtime.pipeline_parallel import pipeline_apply
+
+    monkeypatch.setenv(ENV_DEVICE_COUNT, "2")
+    model, _, _ = _mesh_tree(cuda_device)
+    units = [transformer.PatternUnit(model, u) for u in range(2)]
+    stacked = {n: torch.stack([dict(u.named_parameters())[n].detach()
+                               for u in units])
+               for n, _ in units[0].named_parameters()}
+    x = torch.randn(4, 1, 16, model.cfg.d_model, device=cuda_device,
+                    generator=torch.Generator(device=cuda_device)
+                    .manual_seed(3))
+
+    def stage_fn(p, h):
+        return torch.func.functional_call(units[0], p, (h,))
+
+    with torch.no_grad():
+        got = pipeline_apply(stage_fn, stacked, x,
+                             mesh=make_local_mesh((2,), ("pod",)))
+        want = x.clone()
+        for m in range(x.shape[0]):
+            for u in units:
+                want[m] = u(want[m])
+    assert torch.equal(got, want)

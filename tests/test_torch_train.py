@@ -475,10 +475,10 @@ def test_train_loop_matches_the_reference_from_the_same_params(accum):
 
 
 def test_a_mesh_is_refused_and_named():
-    with pytest.raises(ValueError, match="A10 item 6"):
+    with pytest.raises(ValueError, match="partitioner.*shardings_from_specs"):
         train.build_run(_tiny_cfg(), steps=1, device="cpu", mesh=object())
     run = train.build_run(_tiny_cfg(), steps=1, device="cpu")
-    with pytest.raises(ValueError, match="A10 item 6"):
+    with pytest.raises(ValueError, match="partitioner.*shardings_from_specs"):
         train.train_loop(run, None, 1, rules=object())
 
 
