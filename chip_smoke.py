@@ -201,6 +201,25 @@ Phases (any failure raises, so the exit code is non-zero):
     its ms beside the sequential run's and ``bubble_fraction(8, 4)``.  A
     failing check is collected and the phase raises after its report.
 
+18. the legacy surface and the lint tail (:func:`legacy_phase`, after
+    17; :data:`LEGACY_RUNS`): ``StencilEngine.create(StencilSpec(2, 4),
+    ...).run`` (B1) and ``.superstep`` (B5) at 2d_r4_paper,
+    ``ops.stencil_run(pipelined=True)`` (B4) and ``StencilEngine(
+    pipelined=True).superstep`` (B6) at 3d_r4_paper,
+    ``ops.stencil_run(variant="temporal")`` (B3) at 2d_r4_paper and a
+    periodic ``StencilSpec(2, 4)`` engine run at 16384^2 (B2), each with
+    its paper plan pinned: launches zeroed before and read after, equal to
+    the schedule's; the result against the front door's run with the same
+    plan at 0; exactly one DeprecationWarning of the port's; the launch
+    audit (``lint/artifact``) clean over its launches.  Then B1 launched
+    with dst = src and a result that is a view of the grid, which the
+    audit must refuse (RP204); ``check_trace_budget`` over 5 warm engine
+    and front-door runs, which must read 0; and ``python -m
+    repro_torch.lint src/repro_torch tests/test_torch_*.py chip_smoke.py``
+    in a process of its own, started with the phase and run on the host
+    beside it, which must exit 0.  Then the phase's seconds
+    beside the card's name and power limit.
+
 The last lines are the ``{"kernels": [...]}`` record, the ``nvidia-smi``
 line, and ``{"ok": true, "device": {...}}``.
 """
@@ -3317,6 +3336,210 @@ def mesh_tooling_phase(smi):
         raise AssertionError("phase 17: " + "; ".join(failures))
 
 
+#: Phase 18 (module docstring): each legacy run's name, configuration
+#: (``None``: the periodic spec), step count (``None``: one superstep) and
+#: the kernel it must reach.
+LEGACY_RUNS = (
+    ("StencilEngine.create(...).run", "2d_r4_paper", 9, "B1"),
+    ("StencilEngine.create(...).superstep", "2d_r4_paper", None, "B5"),
+    ("ops.stencil_run(pipelined=True)", "3d_r4_paper", 3, "B4"),
+    ("StencilEngine(pipelined=True).superstep", "3d_r4_paper", None, "B6"),
+    ("ops.stencil_run(variant='temporal')", "2d_r4_paper", 19, "B3"),
+    ("StencilEngine.create(periodic spec).run", None, 9, "B2"),
+)
+LEGACY_WARM_RUNS = 5
+
+
+def _own_deprecations(caught):
+    """The DeprecationWarnings of the port's shims among ``caught``."""
+    src = os.path.join(HERE, "src", "repro_torch")
+    return [w for w in caught if issubclass(w.category, DeprecationWarning)
+            and (w.filename.startswith(src) or w.filename == __file__)]
+
+
+def legacy_phase(smi):
+    """The legacy surface and the lint tail on the card (module docstring,
+    phase 18)."""
+    t_phase = time.perf_counter()
+    print(f"\n== phase 18: the legacy surface and the lint tail ({smi})")
+    # the port's linter, in a process of its own on this machine, on the
+    # host's cores while the runs below keep the card busy
+    tests = sorted(os.path.join("tests", f)
+                   for f in os.listdir(os.path.join(HERE, "tests"))
+                   if f.startswith("test_torch_") and f.endswith(".py"))
+    lint = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.lint",
+         os.path.join("src", "repro_torch"), *tests, "chip_smoke.py"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=HERE, env=dict(os.environ, PYTHONPATH=os.path.join(HERE, "src")))
+    try:
+        failures = legacy_runs(lint)
+    finally:
+        if lint.poll() is None:
+            lint.kill()
+            lint.wait()
+    print(f"  phase 18: {time.perf_counter() - t_phase!r} s ({smi})")
+    if failures:
+        raise AssertionError("phase 18: " + "; ".join(failures))
+
+
+def legacy_runs(lint) -> list:
+    """Phase 18's checks (:func:`legacy_phase`); ``lint`` is the running
+    linter, read last.  Returns the failures."""
+    import warnings
+    import torch
+    import repro_torch
+    from repro_torch.backends import lower
+    from repro_torch.configs import stencil2d, stencil3d
+    from repro_torch.core.spec import StencilSpec
+    from repro_torch.core.temporal import StencilEngine
+    from repro_torch.kernels import common, cuda, ops
+    from repro_torch.lint.artifact import (analyze_launches, audit_run,
+                                           check_trace_budget,
+                                           record_launches)
+
+    t_lint = time.perf_counter()
+    work = {**stencil2d.workloads(), **stencil3d.workloads()}
+    failures = []
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        specs = {"2d_r4_paper": StencilSpec(2, 4),
+                 "3d_r4_paper": StencilSpec(3, 4),
+                 None: StencilSpec(2, 4, boundary="periodic")}
+    for i, (label, config, steps, kernel) in enumerate(LEGACY_RUNS):
+        spec = specs[config]
+        prog = spec.to_program()
+        w = work[config or "2d_r4_paper"]
+        plan = w.plan()
+        shape = w.grid_shape
+        coeffs = spec.default_coeffs()
+        pc = prog.coeffs_from_legacy(coeffs)
+        if not (torch.equal(pc.taps, prog.default_coeffs().taps)
+                and torch.equal(pc.center, prog.default_coeffs().center)):
+            failures.append(f"{label}: the spec's coefficients are not the "
+                            f"program's")
+        grid = random_grid(shape, seed=18 + i)
+        variant = "pipelined" if "pipelined" in label else (
+            "temporal" if "temporal" in label else "plain")
+        if label.startswith("StencilEngine.create(") and steps:
+            run = lambda: StencilEngine.create(  # noqa: E731
+                spec, shape, plan=plan).run(grid, steps)
+        elif label.startswith("StencilEngine.create("):
+            run = lambda: StencilEngine.create(  # noqa: E731
+                spec, shape, plan=plan).superstep(grid)
+        elif label.startswith("StencilEngine("):
+            run = lambda: StencilEngine(  # noqa: E731
+                spec=spec, coeffs=coeffs, plan=plan,
+                pipelined=True).superstep(grid)  # legacy-ok
+        elif variant == "pipelined":
+            run = lambda: ops.stencil_run(  # noqa: E731
+                grid, spec, coeffs, plan, steps, pipelined=True)  # legacy-ok
+        else:
+            run = lambda: ops.stencil_run(  # noqa: E731
+                grid, spec, coeffs, plan, steps, variant=variant)
+        cuda.reset_launches()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            with record_launches() as log:
+                out = run()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: n for k, n in cuda.launches().items() if n}
+        if steps is None:
+            want_counts = {"pipelined_superstep" if variant == "pipelined"
+                           else "superstep": 1}
+            low = lower(prog, plan, coeffs=pc, backend="cuda-pipelined"
+                        if variant == "pipelined" else "cuda")
+            want = low.superstep(grid)
+        else:
+            want_counts = expected_launches(prog, plan, steps, variant)
+            cs = repro_torch.stencil(prog, pc).compile(
+                shape, steps=steps, plan=plan, variant=variant)
+            want = cs.run(grid)
+        torch.cuda.synchronize()
+        gap = max_err(out, want)
+        audit = analyze_launches(log.launches, expect_dtype=prog.dtype,
+                                 inputs=(grid,), results=(out,))
+        mine = _own_deprecations(caught)
+        print(f"  {label} ({kernel}) at {config or 'periodic 16384^2'} "
+              f"grid={shape} block={plan.block_shape} "
+              f"par_time={plan.par_time} steps={steps}: launches {counts} "
+              f"(expected {want_counts}), against the front door "
+              f"max_abs_err={gap!r}, {len(mine)} DeprecationWarning "
+              f"({[str(m.message)[:40] for m in mine]}), audit of "
+              f"{len(log.launches)} launches: "
+              f"{[d.code for d in audit] or 'clean'}; {wall!r} s")
+        if counts != want_counts:
+            failures.append(f"{label}: launches {counts} != {want_counts}")
+        if gap != 0.0 or not bool(out.isfinite().all()) \
+                or out.shape != grid.shape:
+            failures.append(f"{label}: off the front door by {gap}")
+        if len(mine) != 1:
+            failures.append(f"{label}: {len(mine)} DeprecationWarnings")
+        if audit:
+            failures.append(f"{label}: audit {[d.describe() for d in audit]}")
+        del out, want, grid
+    torch.cuda.empty_cache()
+
+    # the audit must be able to fail: a planted alias, two ways
+    w = work["2d_r4_paper"]
+    prog, plan = w.plan().spec, w.plan()
+    layout = common.ring_schedule(prog, plan, w.grid_shape,
+                                  plan.par_time).layout
+    c = prog.default_coeffs().to("cuda")
+    src = random_grid(layout.padded_shape, seed=30)
+    with record_launches() as log:
+        cuda.padded_superstep(src, src, c.center, c.taps, program=prog,
+                              plan=plan, layout=layout)
+    torch.cuda.synchronize()
+    planted = [d.code for d in analyze_launches(log.launches)]
+    _, view = audit_run(lambda g: g[1:], src)
+    view = [d.code for d in view]
+    print(f"  planted: B1 with dst = src -> {planted}; a result that is a "
+          f"view of the grid -> {view}")
+    if planted != ["RP204"] or "RP204" not in view:
+        failures.append(f"the planted aliases read {planted}, {view}")
+    del src
+    torch.cuda.empty_cache()
+
+    # RP203: warm loops move no trace counter
+    spec = specs["2d_r4_paper"]
+    grid = random_grid(w.grid_shape, seed=31)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        engine = StencilEngine.create(spec, w.grid_shape, plan=plan)
+    cs = repro_torch.stencil(prog).compile(w.grid_shape, steps=9, plan=plan)
+    engine.run(grid, 9)
+    cs.run(grid)
+    torch.cuda.synchronize()
+    before = common.trace_counts()
+    for _ in range(LEGACY_WARM_RUNS):
+        engine.run(grid, 9)
+        cs.run(grid)
+    torch.cuda.synchronize()
+    delta = common.trace_delta(before)
+    budget = check_trace_budget(delta, 0, context="the warm loops")
+    print(f"  {LEGACY_WARM_RUNS} warm engine and front-door runs: trace "
+          f"delta {delta}, budget {[d.code for d in budget] or 'clean'} "
+          f"(counters {common.trace_counts()})")
+    if budget:
+        failures.append(f"warm loops: {budget[0].describe()}")
+    del grid, engine, cs
+    torch.cuda.empty_cache()
+
+    # the port's linter, started with the phase
+    out, _ = lint.communicate(timeout=600)
+    lines = out.strip().splitlines()
+    print(f"  python -m repro_torch.lint src/repro_torch "
+          f"tests/test_torch_*.py chip_smoke.py: exit {lint.returncode}, "
+          f"done {time.perf_counter() - t_lint!r} s after the phase's "
+          f"start: {lines[-1][-120:] if lines else ''}")
+    if lint.returncode != 0:
+        failures.append("the port's linter: " + "; ".join(lines[-5:]))
+    return failures
+
+
 #: Phase 14 (module docstring): the 16-bit main path.  Each case of
 #: :func:`cases` and :func:`queue_cases` whose name and check are listed
 #: runs again with its program in the dtype; bfloat16 covers B1-B6 on
@@ -3557,6 +3780,7 @@ def main() -> int:
     families_phase(smi, chip)
     train_phase(smi, chip)
     mesh_tooling_phase(smi)
+    legacy_phase(smi)
     for dtype in ("float32", "bfloat16"):
         ported = {r["name"].split("@")[0] for r in records
                   if r["dtype"] == dtype}

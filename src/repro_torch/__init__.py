@@ -26,6 +26,7 @@ from repro_torch.backends import (
     backend_traits,
     default_backend_name,
     lower,
+    pipelined_variant,
     register_backend,
 )
 from repro_torch.core.blocking import BlockPlan, plan_blocking
@@ -48,6 +49,7 @@ __all__ = [
     "default_backend_name",
     "lower",
     "obs",
+    "pipelined_variant",
     "plan_blocking",
     "register_backend",
     "stencil",

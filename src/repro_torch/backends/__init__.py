@@ -13,6 +13,7 @@ from repro_torch.backends.registry import (  # noqa: F401
     default_backend_name,
     get_backend,
     lower,
+    pipelined_variant,
     register_backend,
     resolve_backend,
     variant_of,
@@ -28,6 +29,7 @@ __all__ = [
     "default_backend_name",
     "get_backend",
     "lower",
+    "pipelined_variant",
     "register_backend",
     "resolve_backend",
     "variant_of",

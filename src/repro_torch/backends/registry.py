@@ -26,7 +26,8 @@ from typing import Callable, Dict, Optional, Tuple
 
 from repro_torch.analysis.hw import H100_SXM
 from repro_torch.core.blocking import BlockPlan, normalize_variant, plan_blocking
-from repro_torch.core.program import ProgramCoeffs, StencilProgram
+from repro_torch.core.program import (ProgramCoeffs, StencilProgram,
+                                      as_program, normalize_coeffs)
 from repro_torch.lint.diagnostics import DiagnosticError, error
 
 
@@ -159,19 +160,32 @@ def variant_of(name: str, variant: str) -> Optional[str]:
     return cand if cand in _REGISTRY else None
 
 
+def pipelined_variant(name: str) -> Optional[str]:
+    """The registered double-buffered sibling of ``name``, or None: the
+    deprecated spelling of ``variant_of(name, "pipelined")`` (``cuda`` ->
+    ``cuda-pipelined``, a pipelined name maps to itself, and
+    ``torch-reference``, which has no pipelined lowering, to None)."""
+    return variant_of(name, "pipelined")
+
+
 def resolve_backend(name: Optional[str] = None,
-                    variant: Optional[str] = None
+                    variant: Optional[str] = None,
+                    pipelined: bool = False
                     ) -> "tuple[str, int, BackendTraits]":
     """One resolution rule for every executor: ``(name, version, traits)``.
 
     ``name=None`` picks :func:`default_backend_name`.  ``variant`` resolves
     the named sibling ("plain" strips a variant suffix); ``None`` leaves
-    ``name`` as it is.  A missing lowering raises: running another kernel
-    than the one asked for is never acceptable.
+    ``name`` as it is and defers to the deprecated ``pipelined`` bool,
+    which resolves the ``-pipelined`` sibling when True.  A missing
+    lowering raises: running another kernel than the one asked for is
+    never acceptable.
     """
     name = name or default_backend_name()
+    if variant is None and pipelined:
+        variant = "pipelined"
     if variant is not None:
-        normalize_variant(variant)
+        variant = normalize_variant(variant)
         sibling = variant_of(name, variant)
         if sibling is None and variant != "plain":
             raise ValueError(
@@ -195,8 +209,11 @@ def lower(program: StencilProgram, plan: Optional[BlockPlan] = None, *,
     pick for the fused-run backends (``core/blocking.plan_blocking`` for
     the backend's variant on ``H100_SXM``), round-up
     waste charged for ``grid_shape`` when given; the oracle takes no plan.
-    Anything but a ``BlockPlan`` or None is RP112."""
-    c = program.default_coeffs() if coeffs is None else coeffs
+    Anything but a ``BlockPlan`` or None is RP112.  Takes the legacy
+    (``StencilSpec``, ``StencilCoeffs``) pair too."""
+    program = as_program(program)
+    c = program.default_coeffs() if coeffs is None \
+        else normalize_coeffs(program, coeffs)
     name = backend or default_backend_name()
     factory, v = get_backend(name, version)
     traits = backend_traits(name, v)

@@ -6,6 +6,8 @@ numpy arrays, then hand both packages the same thing:
     prog = program_from_fields(**dataclasses.asdict(ref_program))
     plan = plan_from_fields(**dataclasses.asdict(ref_plan))
     coeffs = coeffs_from_numpy(ref_coeffs.center, ref_coeffs.taps, "cpu")
+    legacy = spec_coeffs_from_numpy(ref_spec_coeffs.center,
+                                    ref_spec_coeffs.neighbors, "cpu")
 
 and an LM configuration, its weights and a training state:
 
@@ -30,6 +32,7 @@ from repro_torch.configs.base import (ArchConfig, AttnCfg, LayerCfg,
                                       MambaCfg, MoECfg, RwkvCfg)
 from repro_torch.core.blocking import BlockPlan
 from repro_torch.core.program import DTYPES, ProgramCoeffs, StencilProgram
+from repro_torch.core.spec import StencilCoeffs
 from repro_torch.models.transformer import KEEP_F32, LMModel, reference_leaf
 from repro_torch.optim.adamw import AdamWState
 
@@ -67,6 +70,16 @@ def coeffs_from_numpy(center, taps, device="cpu") -> ProgramCoeffs:
     return ProgramCoeffs(
         center=_tensor_from_numpy(center, device),
         taps=_tensor_from_numpy(np.asarray(taps).reshape(-1), device))
+
+
+def spec_coeffs_from_numpy(center, neighbors,
+                           device="cpu") -> StencilCoeffs:
+    """The legacy pair's coefficients: a reference ``StencilCoeffs`` as
+    array-likes (``center``, ``neighbors`` of shape (2*ndim, radius))
+    becomes the port's ``StencilCoeffs`` on ``device``, each in its own
+    dtype where the kernels take it, as :func:`coeffs_from_numpy`."""
+    return StencilCoeffs(center=_tensor_from_numpy(center, device),
+                         neighbors=_tensor_from_numpy(neighbors, device))
 
 
 def arch_from_fields(**fields) -> ArchConfig:

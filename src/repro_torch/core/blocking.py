@@ -25,7 +25,7 @@ from typing import List, Optional, Sequence, Tuple
 
 from repro_torch.analysis.hw import GpuChip, H100_SXM
 from repro_torch.core import h100_calibration as cal
-from repro_torch.core.program import StencilProgram, dtype_bytes
+from repro_torch.core.program import StencilProgram, as_program, dtype_bytes
 
 #: Kernel-variant names shared with the reference.
 VARIANTS = ("plain", "pipelined", "temporal")
@@ -311,10 +311,16 @@ def queued_planes(program: StencilProgram, steps: int,
                         tile=tile, itemsize=dtype_bytes(program.dtype))
 
 
-def normalize_variant(variant=None) -> str:
-    """``None`` -> "plain"; a known variant name passes; anything else
-    raises."""
+def normalize_variant(variant=None, pipelined: bool = False) -> str:
+    """One rule for the ``pipelined: bool`` -> ``variant: str`` migration,
+    the reference's: a known variant name passes, a bool (the deprecated
+    knob) maps True -> "pipelined" and False -> "plain", ``None`` defers
+    to ``pipelined``; anything else raises."""
     if variant is None:
+        variant = bool(pipelined)
+    if variant is True:
+        return "pipelined"
+    if variant is False:
         return "plain"
     if variant not in VARIANTS:
         raise ValueError(
@@ -330,7 +336,9 @@ def round_up(x: int, m: int) -> int:
 class BlockPlan:
     """A blocking configuration (same fields as the reference's).
 
-    spec:        the ``StencilProgram``.
+    spec:        the ``StencilProgram``; a legacy ``StencilSpec`` is lifted
+                 into its program here, so a legacy plan equals the front
+                 door's and every planner and kernel reads one IR.
     block_shape: the output tile of the reference's grid step (csize).
     par_time:    time steps fused per superstep.
     """
@@ -338,6 +346,10 @@ class BlockPlan:
     spec: StencilProgram
     block_shape: Tuple[int, ...]
     par_time: int
+
+    def __post_init__(self):
+        if not isinstance(self.spec, StencilProgram):
+            object.__setattr__(self, "spec", as_program(self.spec))
 
     @property
     def program(self) -> StencilProgram:
@@ -678,7 +690,8 @@ def candidate_plans(spec: StencilProgram, chip: GpuChip = H100_SXM,
                         Sequence[Tuple[int, ...]]] = None,
                     variant: Optional[str] = None,
                     grid_shape: Optional[Tuple[int, ...]] = None,
-                    steps: Optional[int] = None) -> List[BlockPlan]:
+                    steps: Optional[int] = None,
+                    pipelined: bool = False) -> List[BlockPlan]:
     """Plans over ``block_candidates`` (default :func:`candidate_blocks`)
     and ``par_time`` 1..``max_par_time`` whose kernels all fit a CTA tile
     in ``chip.smem_optin`` for any step count (``lint/verify.
@@ -686,10 +699,13 @@ def candidate_plans(spec: StencilProgram, chip: GpuChip = H100_SXM,
     ``steps``, for that run too: a wrap-degenerate layout runs other
     kernels) and keep more than :data:`MIN_USEFUL_FRACTION` of their
     computed cells as output.  Neither depends on the block, and both
-    only grow worse with ``par_time``, so the first that fails ends it."""
+    only grow worse with ``par_time``, so the first that fails ends it.
+    ``spec`` may be a legacy ``StencilSpec``, and ``pipelined`` is the
+    deprecated bool spelling of ``variant`` (:func:`normalize_variant`)."""
     # local: lint/ imports this module
     from repro_torch.lint.verify import smem_diagnostics
-    v = normalize_variant(variant)
+    spec = as_program(spec)
+    v = normalize_variant(variant, pipelined)
     if block_candidates is None:
         block_candidates = candidate_blocks(spec.ndim, grid_shape)
     kernel = CARRY_KERNELS[v]
@@ -726,14 +742,17 @@ def plan_blocking(spec: StencilProgram, chip: GpuChip = H100_SXM,
                   grid_shape: Optional[Tuple[int, ...]] = None,
                   max_par_time: int = 64,
                   variant: Optional[str] = None,
-                  steps: Optional[int] = None) -> PlanEstimate:
+                  steps: Optional[int] = None,
+                  pipelined: bool = False) -> PlanEstimate:
     """The model's best plan of :func:`candidate_plans` for ``variant``:
     the highest :func:`plan_rate` on ``grid_shape`` (if given), then the
     least round-up waste, then the smaller ``par_time``, then the larger
     block.  ``steps`` (with
     ``grid_shape``) also requires the run of that many steps to fit.
-    Deterministic: the model is arithmetic on ``chip``'s figures."""
-    v = normalize_variant(variant)
+    Deterministic: the model is arithmetic on ``chip``'s figures.
+    ``spec`` and ``pipelined`` as :func:`candidate_plans` takes them."""
+    spec = as_program(spec)
+    v = normalize_variant(variant, pipelined)
     best = None
     for plan in candidate_plans(spec, chip, max_par_time=max_par_time,
                                 variant=v, grid_shape=grid_shape,

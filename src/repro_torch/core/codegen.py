@@ -9,6 +9,9 @@
   halo-carrying block: one shifted view per tap, accumulated center first
   and then in canonical tap order, never reassociated.  It works on the
   last ``program.ndim`` axes, so a leading batch axis passes through.
+* ``program_update`` is one full-grid step: pad by the halo, then the
+  interior update.  ``interior_update``/``clamped_update`` take the
+  legacy (``StencilSpec``, ``StencilCoeffs``) pair.
 """
 
 from __future__ import annotations
@@ -18,7 +21,8 @@ from typing import Sequence, Tuple, Union
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.program import ProgramCoeffs, StencilProgram
+from repro_torch.core.program import (ProgramCoeffs, StencilProgram,
+                                      as_program, normalize_coeffs)
 
 PadWidth = Union[int, Sequence[Tuple[int, int]]]
 
@@ -78,3 +82,30 @@ def tap_interior_update(program: StencilProgram, coeffs: ProgramCoeffs,
     for k, off in enumerate(program.neighbor_taps):
         acc = acc + coeffs.taps[k] * view(off)
     return acc
+
+
+def program_update(program: StencilProgram, coeffs: ProgramCoeffs,
+                   grid: torch.Tensor) -> torch.Tensor:
+    """One full-grid step under the program's boundary; the output has the
+    grid's shape (a leading batch axis passes through)."""
+    r = program.halo_radius
+    nb = grid.ndim - program.ndim
+    padded = boundary_pad(program, grid, [(0, 0)] * nb
+                          + [(r, r)] * program.ndim)
+    return tap_interior_update(program, coeffs, padded)
+
+
+# ---- legacy StencilSpec entry points (deprecated aliases) ------------------
+
+def interior_update(spec, coeffs, a: torch.Tensor) -> torch.Tensor:
+    """Legacy star entry point: lifts (spec, StencilCoeffs) into the IR;
+    the same arithmetic in the same order as the program's."""
+    prog = as_program(spec)
+    return tap_interior_update(prog, normalize_coeffs(prog, coeffs), a)
+
+
+def clamped_update(spec, coeffs, grid: torch.Tensor) -> torch.Tensor:
+    """Legacy full-grid step (the paper's clamp, §IV.B, unless the spec
+    names another boundary)."""
+    prog = as_program(spec)
+    return program_update(prog, normalize_coeffs(prog, coeffs), grid)

@@ -18,7 +18,7 @@ import dataclasses
 from typing import Optional, Sequence, Tuple
 
 from repro_torch.analysis.hw import GpuChip, H100_SXM
-from repro_torch.core.program import StencilProgram
+from repro_torch.core.program import StencilProgram, as_program
 
 #: DSP blocks of the paper's Arria 10 GX 1150 (paper §V.A).
 ARRIA10_DSPS = 1518
@@ -77,12 +77,13 @@ def predicted_gbps(program: StencilProgram, plan, chip: GpuChip = H100_SXM,
                    variant: Optional[str] = None) -> float:
     """Effective GB/s the H100 model predicts for ``plan`` under
     ``variant``: the useful cell updates per second of one superstep's
-    kernel (``blocking.estimate``) through :func:`gbps_from_cells_per_s`."""
+    kernel (``blocking.estimate``) through :func:`gbps_from_cells_per_s`.
+    Accepts a legacy ``StencilSpec`` for ``program``."""
     # local: core/blocking imports the kernels, which import this package
     from repro_torch.core.blocking import estimate
     return gbps_from_cells_per_s(
         estimate(plan, chip, variant).gcells_per_s * 1e9,
-        cell_bytes=program.bytes_per_cell)
+        cell_bytes=as_program(program).bytes_per_cell)
 
 
 def gbps_to_gcells(gbps: float) -> float:

@@ -137,6 +137,13 @@ class StencilProgram:
                 f"coeff_sharing must be one of {SHARING}, got"
                 f" {self.coeff_sharing}")
 
+    @classmethod
+    def from_spec(cls, spec) -> "StencilProgram":
+        """Lift a legacy ``StencilSpec`` (a star) into the IR."""
+        return cls(ndim=spec.ndim, radius=spec.radius, shape="star",
+                   boundary=getattr(spec, "boundary", "clamp"),
+                   dtype=spec.dtype)
+
     @property
     def neighbor_taps(self) -> Tuple[Offset, ...]:
         """Canonically ordered non-center taps (see module docstring)."""
@@ -166,14 +173,33 @@ class StencilProgram:
         return max(max(abs(c) for c in o) for o in self.neighbor_taps)
 
     @property
+    def muls_per_cell(self) -> int:
+        return self.num_neighbor_taps + 1
+
+    @property
+    def adds_per_cell(self) -> int:
+        return self.num_neighbor_taps
+
+    @property
     def flops_per_cell(self) -> int:
         """One multiply per tap and one add per neighbor tap, as executed."""
-        return 2 * self.num_neighbor_taps + 1
+        return self.muls_per_cell + self.adds_per_cell
+
+    @property
+    def flops_per_cell_shared(self) -> int:
+        """FLOPs if the multiplies of a shared distance shell were collapsed
+        (paper §IV.A): an add per neighbor tap, a multiply per shell and
+        the center's.  Informational: no kernel collapses them."""
+        return self.num_neighbor_taps + self.num_shells + 1
 
     @property
     def bytes_per_cell(self) -> int:
         """One read + one write at full on-chip reuse (paper Table I)."""
         return 2 * dtype_bytes(self.dtype)
+
+    @property
+    def flop_per_byte(self) -> float:
+        return self.flops_per_cell / self.bytes_per_cell
 
     def default_coeffs(self, seed: int = 0) -> "ProgramCoeffs":
         """Per-tap coefficients whose magnitudes sum to 1 (constant grids
@@ -205,6 +231,15 @@ class StencilProgram:
         return ProgramCoeffs(center=torch.from_numpy(center),
                              taps=torch.from_numpy(np.ascontiguousarray(raw)))
 
+    def coeffs_from_legacy(self, legacy) -> "ProgramCoeffs":
+        """Legacy ``StencilCoeffs`` (directions x radius) in tap order: for
+        a star the canonical order is the direction-major flatten of that
+        layout."""
+        if self.shape != "star":
+            raise ValueError("legacy StencilCoeffs only describe star taps")
+        return ProgramCoeffs(center=legacy.center,
+                             taps=legacy.neighbors.reshape(-1))
+
 
 def _bf16_taps(raw: np.ndarray) -> torch.Tensor:
     """The reference's ``raw / (2.0 * raw.sum())`` on ``raw`` cast to
@@ -229,3 +264,21 @@ class ProgramCoeffs:
 
     def to(self, device) -> "ProgramCoeffs":
         return ProgramCoeffs(self.center.to(device), self.taps.to(device))
+
+    def as_tuple(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        return (self.center, self.taps)
+
+
+def as_program(spec_or_program) -> StencilProgram:
+    """A ``StencilProgram`` as it is, a legacy ``StencilSpec`` lifted."""
+    if isinstance(spec_or_program, StencilProgram):
+        return spec_or_program
+    return StencilProgram.from_spec(spec_or_program)
+
+
+def normalize_coeffs(program: StencilProgram, coeffs) -> ProgramCoeffs:
+    """``ProgramCoeffs`` as they are, legacy ``StencilCoeffs`` in tap
+    order."""
+    if isinstance(coeffs, ProgramCoeffs):
+        return coeffs
+    return program.coeffs_from_legacy(coeffs)

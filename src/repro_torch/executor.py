@@ -49,6 +49,7 @@ from __future__ import annotations
 import math
 import operator
 import time
+import warnings
 from typing import Optional, Tuple, Union
 
 import torch
@@ -63,8 +64,9 @@ from repro_torch.core.distributed import (ENV_DEVICE_COUNT, Decomposition,
                                           DistributedStencil, make_mesh,
                                           visible_devices)
 from repro_torch.core.program import (ProgramCoeffs, StencilProgram,
+                                      as_program, normalize_coeffs,
                                       torch_dtype)
-from repro_torch.kernels import cuda, ops
+from repro_torch.kernels import common, cuda, ops
 from repro_torch.lint.dataflow import check_dataflow
 from repro_torch.lint.diagnostics import DiagnosticError, raise_on_error
 from repro_torch.lint.diagnostics import error as _diag
@@ -89,6 +91,32 @@ def _as_int(value) -> Optional[int]:
         return operator.index(value)
     except TypeError:
         return None
+
+
+def _normalize_variant_request(variant: Optional[str],
+                               pipelined: Optional[bool]) -> Optional[str]:
+    """Apply the deprecated ``pipelined=`` shim to a ``variant=`` request,
+    as the reference does.
+
+    ``pipelined`` left at ``None`` means the caller never used the legacy
+    spelling, and ``variant`` passes as it is.  A bool warns and maps
+    (True -> "pipelined", False -> "plain"); both spellings at once is
+    RP114, never a silent precedence rule.
+    """
+    if pipelined is None:
+        return variant
+    if variant is not None:
+        raise DiagnosticError([_diag(
+            "RP114",
+            f"conflicting kernel-variant requests: pipelined={pipelined!r} "
+            f"and variant={variant!r} were both given",
+            hint="pass only variant= ('plain' | 'pipelined' | 'temporal' | "
+                 "'auto'); pipelined= is a deprecated alias for "
+                 "variant='pipelined'")])
+    warnings.warn(
+        "pipelined= is deprecated; pass variant='pipelined' "
+        "(or variant='plain') instead", DeprecationWarning, stacklevel=3)
+    return "pipelined" if pipelined else "plain"
 
 
 def _check_steps(steps, context: str = "") -> int:
@@ -227,8 +255,9 @@ def _resolve_device(device) -> torch.device:
 
 def stencil(program: StencilProgram,
             coeffs: Optional[ProgramCoeffs] = None) -> "Stencil":
-    """The front door: bind a program to its coefficients (default: the
-    program's ``default_coeffs()``)."""
+    """The front door: bind a program (or a legacy ``StencilSpec``) to its
+    coefficients (default: the program's ``default_coeffs()``; legacy
+    ``StencilCoeffs`` are put in tap order)."""
     return Stencil(program, coeffs)
 
 
@@ -237,8 +266,9 @@ class Stencil:
 
     def __init__(self, program: StencilProgram,
                  coeffs: Optional[ProgramCoeffs] = None):
-        self.program = program
-        self.coeffs = program.default_coeffs() if coeffs is None else coeffs
+        self.program = as_program(program)
+        self.coeffs = self.program.default_coeffs() if coeffs is None \
+            else normalize_coeffs(self.program, coeffs)
 
     def compile(self, grid_shape, *, steps: int,
                 batch: Optional[int] = None,
@@ -246,6 +276,7 @@ class Stencil:
                 plan: Union[str, BlockPlan] = "auto",
                 backend: Optional[str] = None,
                 variant: Optional[str] = None,
+                pipelined: Optional[bool] = None,
                 device=None,
                 chip: Optional[GpuChip] = None,
                 max_par_time: int = 32,
@@ -275,6 +306,9 @@ class Stencil:
                       siblings and keeps the model's pick; "plain",
                       "pipelined" or "temporal" picks that sibling, and
                       raises where the backend has none.
+        pipelined     the deprecated bool spelling of ``variant``: a bool
+                      warns and maps to "pipelined"/"plain"; given beside
+                      ``variant`` it is RP114.
         device        None = CUDA (RP110 without a GPU); "cpu" runs the
                       plain versions of the kernels.
         chip          the card the plan is made and checked for: None is
@@ -297,6 +331,7 @@ class Stencil:
         superstep (``BlockPlan.run_bytes_per_superstep``) and its run time
         (``predicted_s``, ``core/blocking.run_seconds``).
         """
+        variant = _normalize_variant_request(variant, pipelined)
         kwargs = dict(steps=steps, batch=batch, devices=devices, plan=plan,
                       backend=backend, variant=variant, device=device,
                       chip=chip, max_par_time=max_par_time, cache=cache,
@@ -404,6 +439,7 @@ class Stencil:
             chip = GpuChip.from_device(dev.index) if dev.type == "cuda" \
                 else H100_SXM
         tuned = None
+        common.note_trace("plan_resolutions")
         try:
             if plan == "auto":
                 # local: the tuner lowers candidates through this package

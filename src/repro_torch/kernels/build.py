@@ -42,6 +42,9 @@ _LIBS: Dict[Tuple[str, str], ctypes.CDLL] = {}
 #: Seconds from the start of this process's last parallel build to the
 #: end of each library's ``nvcc``, by ``(source, dtype)``.
 BUILD_SECONDS: Dict[Tuple[str, str], float] = {}
+#: Libraries built (one ``nvcc`` each) and loaded in this process: what a
+#: warm run must never add to (``kernels/common.trace_counts``, RP203).
+COUNTS: Dict[str, int] = {"builds": 0, "loads": 0}
 
 
 def nvcc() -> str:
@@ -134,6 +137,7 @@ def _build(libraries) -> Dict[Tuple[str, str], str]:
                      str(CSRC / source)],
                     stdout=f, stderr=subprocess.STDOUT)
             jobs[source, dtype] = (proc, tmp, out, log)
+            COUNTS["builds"] += 1
         waiting = dict(jobs)
         while waiting:
             for key, (proc, _, _, _) in list(waiting.items()):
@@ -170,4 +174,5 @@ def load(source: str, dtype: str = "float32") -> ctypes.CDLL:
         if not (path.exists() and log_path(source, dtype).exists()):
             build([source], (dtype,))
         lib = _LIBS[source, dtype] = ctypes.CDLL(str(path))
+        COUNTS["loads"] += 1
     return lib

@@ -51,8 +51,10 @@ interior, plus the refreshed ring for periodic.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import itertools
+import threading
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
@@ -62,7 +64,71 @@ from repro_torch.core.blocking import (CARRY_KERNELS, BlockPlan,
                                        round_up)
 from repro_torch.core.codegen import boundary_pad, tap_interior_update
 from repro_torch.core.program import ProgramCoeffs, StencilProgram
-from repro_torch.kernels import cuda
+from repro_torch.kernels import build, cuda, queued, streamed
+
+
+# ---- what a warm run must never redo (RP203) ------------------------------------
+
+_TRACE_COUNTS: Dict[str, int] = collections.Counter()
+_TRACE_LOCK = threading.Lock()
+
+
+def note_trace(name: str) -> None:
+    """Count one resolution that a warm run must not repeat (the
+    executor's ``plan_resolutions``)."""
+    with _TRACE_LOCK:
+        _TRACE_COUNTS[name] += 1
+
+
+def _misses(*cached) -> int:
+    return sum(fn.cache_info().misses for fn in cached)
+
+
+def trace_counts() -> Dict[str, int]:
+    """The port's counterpart of the reference's retrace counters: what a
+    warm run of a compiled executable must never do again.
+
+    library_builds, library_loads  ``nvcc`` runs and ``ctypes`` loads
+                                   (``kernels/build.py``);
+    wrap_geometry                  misses of ``cuda.wrap_boxes`` and of the
+                                   cached wrap-launch rows on the device;
+    queued_geometry,               misses of the queued and streamed
+    streamed_geometry              launch-geometry caches;
+    plan_resolutions               the executor's plan resolutions (one per
+                                   ``compile``).
+    """
+    with _TRACE_LOCK:
+        counts = dict(_TRACE_COUNTS)
+    counts.update(
+        library_builds=build.COUNTS["builds"],
+        library_loads=build.COUNTS["loads"],
+        wrap_geometry=_misses(cuda.wrap_boxes, cuda._wrap_launch),
+        queued_geometry=_misses(queued.carry_geometry,
+                                queued.prepadded_geometry),
+        streamed_geometry=_misses(streamed.carry_geometry,
+                                  streamed.prepadded_geometry))
+    counts.setdefault("plan_resolutions", 0)
+    return counts
+
+
+def trace_delta(before: Dict[str, int]) -> Dict[str, int]:
+    """The counters of :func:`trace_counts` that moved since ``before``
+    (a ``trace_counts()`` snapshot), by how much;
+    ``repro_torch.lint.check_trace_budget`` turns a non-zero warm delta
+    into RP203."""
+    after = trace_counts()
+    return {k: v - before.get(k, 0) for k, v in after.items()
+            if v != before.get(k, 0)}
+
+
+def _audit_plain(name: str, src: torch.Tensor,
+                 dst: Optional[torch.Tensor],
+                 *operands: torch.Tensor) -> None:
+    """Record a plain version's launch in the launch audit when it is on
+    (``lint/artifact.record_launches``), under the kernel's name."""
+    if cuda.AUDIT is not None:
+        cuda.AUDIT.launch(name, src=src, dst=dst, operands=operands,
+                          route="plain")
 
 
 def grid_coeffs(center: torch.Tensor, taps: torch.Tensor,
@@ -508,10 +574,14 @@ def padded_superstep(src: torch.Tensor, dst: torch.Tensor,
             launch(src, dst, center, taps, program=program, plan=plan,
                    layout=layout, **shard)
         return dst
-    return padded_superstep_plain(
+    padded_superstep_plain(
         src, dst, center, taps, program=program,
         plan=deep_plan(plan) if v == "temporal" else plan, layout=layout,
         **shard)
+    sharded = offsets is not None or global_shape is not None
+    _audit_plain(CARRY_KERNELS[v] + ("_sharded" if sharded else ""), src,
+                 dst, center, taps)
+    return dst
 
 
 def refresh_wrap_halo(src: torch.Tensor,
@@ -521,7 +591,9 @@ def refresh_wrap_halo(src: torch.Tensor,
     if _on_cuda(src):
         cuda.refresh_wrap_halo(src, layout)
         return src
-    return refresh_wrap_halo_plain(src, layout)
+    refresh_wrap_halo_plain(src, layout)
+    _audit_plain("wrap_halo", src, None)
+    return src
 
 
 # ---- executors -----------------------------------------------------------------
@@ -570,8 +642,11 @@ def superstep_call(padded: torch.Tensor, center: torch.Tensor,
             else cuda.superstep
         return launch(padded, center, taps, program=program, plan=plan,
                       true_shape=tuple(true_shape), offsets=offsets)
-    return superstep_plain(padded, center, taps, program=program, plan=plan,
-                           true_shape=tuple(true_shape), offsets=offsets)
+    out = superstep_plain(padded, center, taps, program=program, plan=plan,
+                          true_shape=tuple(true_shape), offsets=offsets)
+    _audit_plain("pipelined_superstep" if v == "pipelined" else "superstep",
+                 padded, out, center, taps)
+    return out
 
 
 def pad_superstep(grid: torch.Tensor, center: torch.Tensor,

@@ -65,14 +65,20 @@ _L = ctypes.c_longlong
 BOUNDARY_CODES = {"clamp": 0, "periodic": 1, "constant": 2}
 
 
+#: The launch audit while it records (``lint/artifact.record_launches``),
+#: else None: a launch then pays this one check.
+AUDIT = None
+
+
 class Kernel:
     """One C launcher of the built libraries, and its launch counts per
-    grid dtype (``by_dtype``)."""
+    grid dtype (``by_dtype``); ``name`` is its key in :data:`KERNELS`."""
 
     def __init__(self, source: str, symbol: str, argtypes):
         self.source = source
         self.symbol = symbol
         self.argtypes = argtypes
+        self.name = symbol
         self.by_dtype = {}
         self._bound_fns = {}
 
@@ -94,17 +100,25 @@ class Kernel:
         return bound
 
     def __call__(self, *args, dtype: str,
-                 route: Optional["Kernel"] = None) -> None:
+                 route: Optional["Kernel"] = None,
+                 src: Optional[torch.Tensor] = None,
+                 dst: Optional[torch.Tensor] = None,
+                 operands: Tuple[torch.Tensor, ...] = ()) -> None:
         """Launch through this kernel's C launcher of the ``dtype``
         library, or through ``route``'s (another source's launcher
         computing the same function); the launch counts as this
-        kernel's."""
+        kernel's.  ``src``, ``dst`` (None: ``src`` in place) and
+        ``operands`` are the tensors behind the pointers in ``args``,
+        which the launch audit records when it is on."""
         fn, errstr = (route or self)._bound(dtype)
         code = fn(*args)
         if code != 0:
             raise RuntimeError(f"{fn.__name__} ({dtype}): CUDA error {code} "
                                f"({errstr(code).decode()})")
         self.by_dtype[dtype] = self.by_dtype.get(dtype, 0) + 1
+        if AUDIT is not None:
+            AUDIT.launch(self.name, src=src, dst=dst, operands=operands,
+                         route="cuda")
 
 
 #: (src, dst, coef, offs, ntaps, steps, boundary, bval, geometry, batch,
@@ -146,6 +160,9 @@ KERNELS = {
     "padded_superstep_sharded": PADDED_SUPERSTEP_SHARDED,
     "padded_pipelined_sharded": PADDED_PIPELINED_SHARDED,
 }
+for _name, _kernel in KERNELS.items():
+    _kernel.name = _name
+del _name, _kernel
 
 
 def reset_launches() -> None:
@@ -246,7 +263,8 @@ def _host_array(geo):
     return (_L * len(flat))(*flat)
 
 
-def _superstep_launch(kernel: Kernel, src, dst, center, taps, geo, program,
+def _superstep_launch(kernel: Kernel, src: torch.Tensor, dst: torch.Tensor,
+                      center: torch.Tensor, taps: torch.Tensor, geo, program,
                       route: Optional[Kernel] = None) -> None:
     """One superstep launch of ``geo`` (a ``queued.QueuedGeometry`` or a
     ``streamed.StreamedGeometry``) through ``kernel``'s launcher, or
@@ -258,11 +276,13 @@ def _superstep_launch(kernel: Kernel, src, dst, center, taps, geo, program,
                       taps.reshape(-1).to(dev, src.dtype)]).to(
         torch.float32).contiguous()
     bval = torch.tensor(program.boundary_value, dtype=src.dtype).item()
+    table = streamed_tap_table(program, dev)
     kernel(src.data_ptr(), dst.data_ptr(), coef.data_ptr(),
-           streamed_tap_table(program, dev).data_ptr(), coef.numel(),
+           table.data_ptr(), coef.numel(),
            geo.steps, BOUNDARY_CODES[program.boundary], float(bval),
            _host_array(geo), geo.batch, dev.index, _stream(dev),
-           dtype=grid_dtype(program), route=route)
+           dtype=grid_dtype(program), route=route, src=src, dst=dst,
+           operands=(coef, table))
 
 
 def _shard(layout, offsets, global_shape) -> dict:
@@ -276,9 +296,10 @@ def _shard(layout, offsets, global_shape) -> dict:
                 else tuple(int(n) for n in global_shape))
 
 
-def padded_superstep(src, dst, center, taps, *, program, plan, layout,
-                     offsets=None, global_shape=None, tile=None,
-                     segment=None) -> None:
+def padded_superstep(src: torch.Tensor, dst: torch.Tensor,
+                     center: torch.Tensor, taps: torch.Tensor, *, program,
+                     plan, layout, offsets=None, global_shape=None,
+                     tile=None, segment=None) -> None:
     """B1: one superstep of ``plan.par_time`` steps of the padded carry
     ``src`` -> ``dst`` (true interior of ``dst`` only; see
     ``common.padded_superstep_plain``), a one-shot grid: the register
@@ -303,7 +324,8 @@ def padded_superstep(src, dst, center, taps, *, program, plan, layout,
     _superstep_launch(kernel, src, dst, center, taps, geo, program, route)
 
 
-def _streamed(kernel: Kernel, name: str, src, dst, center, taps, *,
+def _streamed(kernel: Kernel, name: str, src: torch.Tensor,
+              dst: torch.Tensor, center: torch.Tensor, taps: torch.Tensor, *,
               program, plan, layout, tile, segment, offsets=None,
               global_shape=None, sharded: Optional[Kernel] = None) -> None:
     """B3 or B4: a streamed superstep of the padded carry, geometry from
@@ -321,8 +343,9 @@ def _streamed(kernel: Kernel, name: str, src, dst, center, taps, *,
         _superstep_launch(kernel, src, dst, center, taps, geo, program)
 
 
-def temporal_superstep(src, dst, center, taps, *, program, plan, layout,
-                       tile=None, segment=None) -> None:
+def temporal_superstep(src: torch.Tensor, dst: torch.Tensor,
+                       center: torch.Tensor, taps: torch.Tensor, *, program,
+                       plan, layout, tile=None, segment=None) -> None:
     """B3: one superstep-chunk of ``TEMPORAL_CHUNK * plan.par_time`` steps
     over the chunk-deep ring (``plan`` is the run's plan, not the deep
     one).  ``tile`` (in-plane) and ``segment`` override the geometry's
@@ -332,9 +355,10 @@ def temporal_superstep(src, dst, center, taps, *, program, plan, layout,
               segment=segment)
 
 
-def padded_pipelined(src, dst, center, taps, *, program, plan, layout,
-                     offsets=None, global_shape=None, tile=None,
-                     segment=None) -> None:
+def padded_pipelined(src: torch.Tensor, dst: torch.Tensor,
+                     center: torch.Tensor, taps: torch.Tensor, *, program,
+                     plan, layout, offsets=None, global_shape=None,
+                     tile=None, segment=None) -> None:
     """B4: one superstep of ``plan.par_time`` steps, persistent CTAs;
     ``offsets``/``global_shape`` as :func:`padded_superstep`'s."""
     _streamed(PADDED_PIPELINED, "padded_pipelined", src, dst, center, taps,
@@ -354,8 +378,9 @@ def _rounded(padded: torch.Tensor, program, plan) -> Tuple[int, ...]:
     return rounded
 
 
-def _prepadded(kernel: Kernel, name: str, padded, center, taps, *, program,
-               plan, true_shape, offsets, tile, segment,
+def _prepadded(kernel: Kernel, name: str, padded: torch.Tensor,
+               center: torch.Tensor, taps: torch.Tensor, *, program, plan,
+               true_shape, offsets, tile, segment,
                persistent: bool) -> torch.Tensor:
     """A pre-padded superstep (B5 one-shot, B6 persistent) into a new
     tensor of the rounded grid: the register queues for a star within
@@ -383,8 +408,9 @@ def _prepadded(kernel: Kernel, name: str, padded, center, taps, *, program,
     return out
 
 
-def superstep(padded, center, taps, *, program, plan, true_shape,
-              offsets=None, tile=None, segment=None) -> torch.Tensor:
+def superstep(padded: torch.Tensor, center: torch.Tensor,
+              taps: torch.Tensor, *, program, plan, true_shape, offsets=None,
+              tile=None, segment=None) -> torch.Tensor:
     """B5: the pre-padded superstep, a grid ``boundary_pad`` already padded
     by ``plan.halo`` -> a new tensor of the rounded grid, every cell
     written (cells of the round-up slack in a tile or segment wholly past
@@ -398,7 +424,8 @@ def superstep(padded, center, taps, *, program, plan, true_shape,
                       persistent=False)
 
 
-def pipelined_superstep(padded, center, taps, *, program, plan, true_shape,
+def pipelined_superstep(padded: torch.Tensor, center: torch.Tensor,
+                        taps: torch.Tensor, *, program, plan, true_shape,
                         offsets=None, tile=None,
                         segment=None) -> torch.Tensor:
     """B6: B5's function on persistent CTAs, the first planes of a CTA's
@@ -502,4 +529,4 @@ def refresh_wrap_halo(src: torch.Tensor, layout) -> None:
     ptr, dev = src.data_ptr(), src.device
     _, args = _wrap_launch(layout, src.shape[0] if src.ndim > len(P) else 1,
                            dev, ptr % 16 == 0, src.element_size())
-    WRAP_HALO(ptr, *args, dev.index, _stream(dev), dtype=dtype)
+    WRAP_HALO(ptr, *args, dev.index, _stream(dev), dtype=dtype, src=src)

@@ -5,19 +5,30 @@ steps through the pre-padded superstep (``stencil2d``/``stencil3d``);
 ``_stencil_run`` advances any number of steps through the fused run
 executor (``common.run_call``) or, with ``fused=False``, the eager chain of
 pre-padded supersteps.  Both take a leading batch axis and
-``variant="plain" | "pipelined" | "temporal"``.
+``variant="plain" | "pipelined" | "temporal"``; the deprecated
+``pipelined=True`` bool maps to ``variant="pipelined"``.
+
+Both accept the legacy (``StencilSpec``, ``StencilCoeffs``) pair or
+(``StencilProgram``, ``ProgramCoeffs``).
+
+``stencil_run`` is the deprecated front end of ``_stencil_run``: it warns
+and dispatches into the same ``_stencil_run`` and ``run_call`` as
+``repro_torch.stencil(program).compile(...).run(grid)``, so its result
+equals the front door's.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Optional
 
 import torch
 
 from repro_torch.core.blocking import (BlockPlan, TEMPORAL_CHUNK,
                                        normalize_variant)
-from repro_torch.core.program import ProgramCoeffs, StencilProgram
+from repro_torch.core.program import (ProgramCoeffs, StencilProgram,
+                                      as_program, normalize_coeffs)
 from repro_torch.kernels import common
 from repro_torch.kernels.stencil2d import stencil2d_superstep
 from repro_torch.kernels.stencil3d import stencil3d_superstep
@@ -25,20 +36,41 @@ from repro_torch.kernels.stencil3d import stencil3d_superstep
 
 def stencil_superstep(grid: torch.Tensor, program: StencilProgram,
                       coeffs: ProgramCoeffs, plan: BlockPlan, *,
+                      pipelined: bool = False,
                       variant: Optional[str] = None) -> torch.Tensor:
     """One superstep of ``plan.par_time`` steps; ``grid`` is not written."""
-    v = normalize_variant(variant)
+    v = normalize_variant(variant, pipelined)
     # The reference's own semantics, not a fallback: a single superstep
     # cannot amortize a chunk, so the temporal variant's superstep IS the
     # plain kernel (repro/kernels/ops.py:stencil_superstep).
     if v == "temporal":
         v = "plain"
+    program = as_program(program)
     step = stencil2d_superstep if program.ndim == 2 else stencil3d_superstep
     return step(grid, program, coeffs, plan, variant=v)
 
 
+def stencil_run(grid: torch.Tensor, program: StencilProgram,
+                coeffs: ProgramCoeffs, plan: BlockPlan, steps: int, *,
+                pipelined: bool = False,
+                variant: Optional[str] = None,
+                fused: bool = True) -> torch.Tensor:
+    """Deprecated front end of :func:`_stencil_run`; use
+    ``repro_torch.stencil(program, coeffs=...).compile(grid_shape,
+    steps=...).run(grid)``, which dispatches to the same executor."""
+    warnings.warn(
+        "kernels.ops.stencil_run is deprecated; use "
+        "repro_torch.stencil(program, coeffs=...).compile(grid_shape, "
+        "steps=...).run(grid)",
+        DeprecationWarning, stacklevel=2)
+    return _stencil_run(grid, program, coeffs, plan, steps,
+                        pipelined=pipelined,  # legacy-ok
+                        variant=variant, fused=fused)
+
+
 def _stencil_run(grid: torch.Tensor, program: StencilProgram,
                  coeffs: ProgramCoeffs, plan: BlockPlan, steps: int, *,
+                 pipelined: bool = False,
                  variant: Optional[str] = None,
                  fused: bool = True) -> torch.Tensor:
     """Advance ``steps`` time steps: ``steps // period`` full launches, then
@@ -50,7 +82,9 @@ def _stencil_run(grid: torch.Tensor, program: StencilProgram,
     the chunk-deep plan through the plain kernel, as in the reference)."""
     if steps < 0:
         raise ValueError("steps must be >= 0")
-    v = normalize_variant(variant)
+    v = normalize_variant(variant, pipelined)
+    program = as_program(program)
+    coeffs = normalize_coeffs(program, coeffs)
     nb = common.batch_dims(program, grid.ndim)
     if steps == 0:
         return grid

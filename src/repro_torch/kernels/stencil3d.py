@@ -3,7 +3,9 @@
 
 ``boundary_pad`` the grid by the plan's halo plus the round-up to the
 block, one pre-padded superstep (``common.superstep_call``: B5, or B6 for
-"pipelined"), and the true region back.
+"pipelined"), and the true region back.  Takes the legacy
+(``StencilSpec``, ``StencilCoeffs``) pair or (``StencilProgram``,
+``ProgramCoeffs``).
 """
 
 from __future__ import annotations
@@ -13,17 +15,23 @@ from typing import Optional
 import torch
 
 from repro_torch.core.blocking import BlockPlan, normalize_variant
-from repro_torch.core.program import ProgramCoeffs, StencilProgram
+from repro_torch.core.program import (ProgramCoeffs, StencilProgram,
+                                      as_program, normalize_coeffs)
 from repro_torch.kernels import common
 
 
 def stencil3d_superstep(grid: torch.Tensor, program: StencilProgram,
                         coeffs: ProgramCoeffs, plan: BlockPlan, *,
+                        pipelined: bool = False,
                         variant: Optional[str] = None) -> torch.Tensor:
     """Advance a 3D grid ``(Z, Y, X)``, or a batch of them, by
     ``plan.par_time`` steps in one launch; ``variant`` picks "plain" or
-    "pipelined" (a single superstep has no temporal chunk to fuse)."""
-    pipe = normalize_variant(variant) == "pipelined"
+    "pipelined" (a single superstep has no temporal chunk to fuse);
+    ``None`` defers to the deprecated ``pipelined`` bool.  Takes the legacy
+    (``StencilSpec``, ``StencilCoeffs``) pair too."""
+    pipe = normalize_variant(variant, pipelined) == "pipelined"
+    program = as_program(program)
+    coeffs = normalize_coeffs(program, coeffs)
     if program.ndim != 3 or grid.ndim - 3 not in (0, 1):
         raise ValueError("stencil3d_superstep requires a 3D program and a "
                          "3D (or batched 4D) grid")

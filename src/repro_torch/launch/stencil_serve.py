@@ -27,7 +27,7 @@ Where this differs from the reference:
 
 * ``device=`` (None: CUDA, RP110 without a GPU; ``"cpu"`` runs the plain
   versions) and ``chip=`` replace ``interpret=``/``hw=`` and go to
-  ``compile``.  ``variant=`` is the only kernel-variant knob.
+  ``compile``.
 * ``flush()`` returns ``{rid: torch.Tensor}`` on the server's device: row
   ``i`` of its chunk's output, not copied to the host (at paper width a
   1 GiB device-to-host copy per request would dominate ``run_s``).
@@ -63,6 +63,7 @@ from repro_torch import obs
 from repro_torch.analysis.hw import GpuChip
 from repro_torch.core.program import StencilProgram, torch_dtype
 from repro_torch.executor import (CompiledStencil, _mesh_devices,
+                                  _normalize_variant_request,
                                   _resolve_device, stencil)
 from repro_torch.lint.diagnostics import DiagnosticError
 from repro_torch.lint.diagnostics import error as _diag
@@ -165,12 +166,15 @@ class StencilServer:
 
     ``max_batch`` caps the leading batch axis per run (about bounding one
     dispatch's latency and memory).  ``variant`` selects the kernel variant
-    for every group ("plain" | "pipelined" | "temporal" | "auto"/None).
+    for every group ("plain" | "pipelined" | "temporal" | "auto"/None;
+    ``pipelined=True`` is the deprecated bool spelling of
+    ``variant="pipelined"``, and both at once is RP114).
     """
 
     def __init__(self, *, max_batch: int = 8,
                  device=None,
                  chip: Optional[GpuChip] = None,
+                 pipelined: Optional[bool] = None,
                  variant: Optional[str] = None,
                  use_autotune: bool = False,
                  cache_path: Optional[str] = None,
@@ -183,6 +187,10 @@ class StencilServer:
             raise ValueError(
                 f"mesh_devices must be >= 1 (got {mesh_devices})")
         self.max_batch = max_batch
+        # one rule with the front door: conflicting requests are RP114, a
+        # lone bool warns and maps to its variant name
+        variant = _normalize_variant_request(variant, pipelined)
+        self.pipelined = variant == "pipelined"
         self.device = _resolve_device(device)
         if mesh_devices is not None and mesh_devices > 1:
             # RP110 here when too few devices are visible: a mesh server

@@ -1,5 +1,10 @@
-"""CLI of the port's pre-flight checks (counterpart of ``repro.lint``'s).
+"""CLI of the port's checks (counterpart of ``repro.lint``'s).
 
+    python -m repro_torch.lint src/repro_torch tests   # codebase rules (RP3xx)
+    python -m repro_torch.lint src --json diag.json    # + a JSON dump
+    python -m repro_torch.lint audit --ndim 2 --radius 1 \\
+        --boundary periodic --grid 64,256 --steps 9    # launch audit (RP2xx)
+    python -m repro_torch.lint audit --device cpu ...   # the plain versions
     python -m repro_torch.lint dataflow --ndim 2 --radius 1 \\
         --boundary periodic --grid 64,256 --steps 9    # the proof (RP4xx)
     python -m repro_torch.lint dataflow --devices 2,2 ...   # a mesh's proof
@@ -10,12 +15,14 @@
 
 The default plan is the H100 planner's (``core/blocking.plan_blocking``),
 under ``--devices`` on one shard's extent, its block and ``par_time``
-conformed to the shard as the reference's CLI does.  Exit status 1 when
-any ERROR diagnostic fires, 0 otherwise (warnings print but never fail
-the run); 2 for a request this port refuses: the canary on a mesh
-(``sanitize --devices``: the canary runs one device's schedule, as the
-reference's), or paths to lint (the codebase rules read JAX and Pallas;
-lint the port with ``python -m repro.lint src tests``, ROADMAP A10).
+conformed to the shard as the reference's CLI does.  ``audit`` compiles
+that run through the front door, runs it once cold, then audits one warm
+run: its launches and result (``lint/artifact.analyze_launches``) and its
+trace budget of 0 (RP203).  Exit status 1 when any ERROR diagnostic
+fires, 0 otherwise (warnings print but never fail the run); 2 for the
+canary on a mesh (``sanitize --devices``: the canary runs one device's
+schedule, as the reference's).  Findings print sorted by (path, line,
+code).
 """
 
 from __future__ import annotations
@@ -28,12 +35,13 @@ from typing import List, Optional
 from repro_torch.lint.diagnostics import (CODE_INFO, Diagnostic,
                                           DiagnosticError, error)
 
-COMMANDS = ("dataflow", "sanitize", "codes")
+COMMANDS = ("audit", "dataflow", "sanitize", "codes")
 
 
 def _render(diagnostics: List[Diagnostic], label: str,
             json_path: Optional[str]) -> int:
-    diagnostics = sorted(diagnostics, key=lambda d: d.code)
+    diagnostics = sorted(diagnostics,
+                         key=lambda d: (d.path or "", d.line or 0, d.code))
     if json_path:
         with open(json_path, "w") as fh:
             json.dump([d.to_json() for d in diagnostics], fh, indent=2)
@@ -71,7 +79,7 @@ def _parser(prog_name: str) -> argparse.ArgumentParser:
     p.add_argument("--json", default=None, help="write diagnostics JSON")
     p.add_argument("--devices", default=None,
                    help="comma-separated shards per grid axis (dataflow "
-                        "only: the canary runs one device)")
+                        "only: the canary and the audit run one device)")
     return p
 
 
@@ -125,6 +133,50 @@ def _refused(message: str) -> int:
     return 2
 
 
+def _lint(argv: List[str]) -> int:
+    """The codebase rules over paths (the reference's default command)."""
+    from repro_torch.lint.engine import lint_paths, to_json
+    p = argparse.ArgumentParser(prog="repro_torch.lint")
+    p.add_argument("paths", nargs="+", help="files/trees to lint")
+    p.add_argument("--json", default=None, help="write diagnostics JSON")
+    ns = p.parse_args(argv)
+    diags = lint_paths(ns.paths)
+    if ns.json:
+        with open(ns.json, "w") as fh:
+            fh.write(to_json(diags))
+    return _render(diags, f"lint of {' '.join(ns.paths)}", None)
+
+
+def _audit(ns, prog, plan, grid, steps, label: str) -> int:
+    """Compile the run through the front door, run it once cold, then
+    audit one warm run: its launches and result, and its trace budget."""
+    import torch
+
+    import repro_torch
+    from repro_torch.core.program import torch_dtype
+    from repro_torch.kernels import common
+    from repro_torch.lint.artifact import audit_run, check_trace_budget
+    try:
+        cs = repro_torch.stencil(prog).compile(
+            grid, steps=steps, plan=plan, variant=ns.variant,
+            device=ns.device)
+    except DiagnosticError as e:       # RP110: no card
+        return _render(e.diagnostics, label, ns.json)
+    gen = torch.Generator().manual_seed(0)
+    g = (torch.rand(grid, generator=gen) * 2 - 1).to(
+        cs.device, torch_dtype(prog.dtype))
+    cs.run(g)
+    before = common.trace_counts()
+    out, diags = audit_run(cs.run, g, expect_dtype=prog.dtype)
+    delta = common.trace_delta(before)
+    diags += check_trace_budget(delta, 0, context="a warm run")
+    if cs.device.type == "cuda":
+        torch.cuda.synchronize(cs.device)
+    print(f"warm run on {cs.device}: result {tuple(out.shape)} "
+          f"{out.dtype}, trace delta {delta}")
+    return _render(diags, label, ns.json)
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if argv and argv[0] == "codes":
@@ -135,27 +187,23 @@ def main(argv: Optional[List[str]] = None) -> int:
                   f"{info.summary:<{width}}  fix: {info.hint}")
         return 0
     if not argv or argv[0] not in COMMANDS:
-        return _refused(
-            f"usage: python -m repro_torch.lint {{{','.join(COMMANDS)}}} "
-            f"...; the codebase rules (RP3xx, a list of paths) read JAX "
-            f"and Pallas and are not ported: lint the port with "
-            f"`python -m repro.lint src tests` (ROADMAP A10)")
+        return _lint(argv)
     command = argv[0]
     p = _parser(f"repro_torch.lint {command}")
-    if command == "sanitize":
+    if command in ("sanitize", "audit"):
         p.add_argument("--device", default=None,
                        help="cuda (the default: the card's kernels) or cpu "
                             "(their plain versions)")
     ns = p.parse_args(argv[1:])
     shards = tuple(int(s) for s in ns.devices.split(",")) \
         if ns.devices else None
-    if shards is not None and command == "sanitize":
+    if shards is not None and command in ("sanitize", "audit"):
         return _refused(DiagnosticError([error(
             "RP110",
-            f"--devices {ns.devices}: the canary runs one device's "
-            f"schedule, as the reference's does; prove a mesh's schedule "
-            f"with `python -m repro_torch.lint dataflow --devices "
-            f"{ns.devices}`",
+            f"--devices {ns.devices}: the {command} runs one device's "
+            f"schedule, as the reference's canary does; prove a mesh's "
+            f"schedule with `python -m repro_torch.lint dataflow "
+            f"--devices {ns.devices}`",
             hint="drop --devices")]).args[0])
     prog, plan, grid, steps = _config(ns, shards)
     label = (f"{command} of {ns.ndim}D r={ns.radius} {ns.boundary} "
@@ -164,6 +212,8 @@ def main(argv: Optional[List[str]] = None) -> int:
              + ("" if shards is None
                 else f" on mesh {'x'.join(map(str, shards))}")
              + f", {steps} steps")
+    if command == "audit":
+        return _audit(ns, prog, plan, grid, steps, label)
     if command == "dataflow":
         from repro_torch.lint.dataflow import verify_dataflow
         return _render(verify_dataflow(prog, plan, grid, steps=steps,

@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 from repro_torch import obs
 
@@ -37,10 +37,14 @@ def _info(summary: str, severity: str = "error", hint: str = "") -> CodeInfo:
 
 
 #: The registry of the codes the port emits: RP1xx plan/program legality
-#: (``lint/verify.py`` and the front door), RP4xx the dataflow of the
-#: padded ring schedule (``lint/dataflow.py``, ``lint/sanitize.py``).  The
-#: summaries are the reference's, except RP105, whose budget on the card
-#: is shared memory per CTA; the hints speak of the card's kernels.
+#: (``lint/verify.py`` and the front door), RP2xx the audit of a run's
+#: launches (``lint/artifact.py``), RP3xx the codebase rules
+#: (``lint/rules.py``), RP4xx the dataflow of the padded ring schedule
+#: (``lint/dataflow.py``, ``lint/sanitize.py``).  The summaries are the
+#: reference's, except RP105, whose budget on the card is shared memory
+#: per CTA, and RP200, the port's own (an audit that saw no launch); the
+#: hints say what each rule checks on the card (RP2xx reads a run's
+#: buffers, not HLO text; RP302-RP304 read torch, not JAX and Pallas).
 CODE_INFO = {
     "RP101": _info("grid shape does not describe the program's spatial rank",
                    hint="give one positive extent per program axis"),
@@ -83,6 +87,52 @@ CODE_INFO = {
                    "planner floor", "warning",
                    hint="cut par_time: the CTA tile the card runs, not the "
                         "block, sets the overlap"),
+    "RP114": _info("conflicting kernel-variant requests: both pipelined= "
+                   "and variant= given",
+                   hint="pass only variant="),
+    # -- RP2xx: the audit of a run's launches (lint/artifact.py) -------------
+    "RP200": _info("launch audit recorded no kernel launch (it would pass "
+                   "vacuously)",
+                   hint="audit a region that launches the kernels: a "
+                        "renamed or bypassed launch path must fail loudly"),
+    "RP201": _info("input_output_alias pair is shape/dtype-inconsistent",
+                   hint="a launch's src and dst: one shape, dtype and "
+                        "device (a pre-padded result: the source less its "
+                        "halo), disjoint memory"),
+    "RP202": _info("unintended f64 promotion in the lowered module",
+                   hint="a float64 tensor among a launch's or the result: "
+                        "cast taps/constants to the program dtype"),
+    "RP203": _info("recompile hazard: trace-count delta exceeds the "
+                   "O(1)-compile budget",
+                   hint="a warm run must build, load, miss no geometry "
+                        "cache and plan nothing: compile once and run"),
+    "RP204": _info("donation hazard: one input buffer aliased by multiple "
+                   "outputs",
+                   hint="one buffer in two roles (a launch's src and dst, "
+                        "the caller's grid and the result): copy in"),
+    # -- RP3xx: the codebase rules (lint/rules.py) ---------------------------
+    "RP300": _info("file cannot be parsed (syntax error)",
+                   hint="fix the syntax error (or the lint invocation)"),
+    "RP301": _info("legacy stencil entry point outside the shims "
+                   "(missing # legacy-ok)",
+                   hint="migrate to repro_torch.stencil(...).compile(...)"),
+    "RP302": _info("wall-clock timing of .run(...) without "
+                   "block_until_ready",
+                   hint="on the card: torch.cuda.synchronize() (or an "
+                        "event's .synchronize()) before the second clock "
+                        "read, or CUDA events"),
+    "RP303": _info("direct pl.pallas_call outside src/repro/kernels/",
+                   hint="on the card: a library load or C launcher call "
+                        "outside src/repro_torch/kernels/; launch through "
+                        "kernels/cuda.py"),
+    "RP304": _info("Python if/while on a tracer-valued expression in a "
+                   "kernel body",
+                   hint="on the card: a device sync in the launch path (a "
+                        "branch on a tensor's value, .item(), .tolist(), "
+                        "bool(tensor)); keep values on the device"),
+    "RP305": _info("deprecated pipelined= keyword at a first-party call "
+                   "site (use variant=)",
+                   hint="replace with variant='pipelined'"),
     "RP401": _info("stale-halo read: a superstep window reaches a cell no "
                    "pad, write, wrap DMA, or boundary_fixup initialized",
                    hint="refresh the ring to the superstep's halo "
@@ -112,12 +162,15 @@ CODES = {code: info.summary for code, info in CODE_INFO.items()}
 
 @dataclasses.dataclass(frozen=True)
 class Diagnostic:
-    """One finding: a stable code, a message, a fix hint and a severity."""
+    """One finding: a stable code, a message, a fix hint and a severity;
+    ``path``/``line`` (1-based) locate a codebase finding."""
 
     code: str
     message: str
     hint: str = ""
     severity: Severity = Severity.ERROR
+    path: Optional[str] = None
+    line: Optional[int] = None
 
     def __post_init__(self):
         if self.code not in CODES:
@@ -128,12 +181,21 @@ class Diagnostic:
         return self.severity is Severity.ERROR
 
     def describe(self) -> str:
+        loc = ""
+        if self.path is not None:
+            loc = f"{self.path}:{self.line}: " if self.line is not None \
+                else f"{self.path}: "
         hint = f" (fix: {self.hint})" if self.hint else ""
-        return f"{self.code}: {self.message}{hint}"
+        return f"{loc}{self.code}: {self.message}{hint}"
 
     def to_json(self) -> dict:
-        return {"code": self.code, "severity": self.severity.value,
-                "message": self.message, "hint": self.hint}
+        """The finding as JSON; ``path`` and ``line`` only where it has a
+        location."""
+        out = {"code": self.code, "severity": self.severity.value,
+               "message": self.message, "hint": self.hint}
+        if self.path is not None:
+            out.update(path=self.path, line=self.line)
+        return out
 
 
 class DiagnosticError(ValueError):
@@ -172,11 +234,11 @@ def raise_on_error(diagnostics: Sequence[Diagnostic],
     return diags
 
 
-def error(code: str, message: str, hint: str = "") -> Diagnostic:
+def error(code: str, message: str, hint: str = "", **loc) -> Diagnostic:
     return Diagnostic(code=code, message=message, hint=hint,
-                      severity=Severity.ERROR)
+                      severity=Severity.ERROR, **loc)
 
 
-def warning(code: str, message: str, hint: str = "") -> Diagnostic:
+def warning(code: str, message: str, hint: str = "", **loc) -> Diagnostic:
     return Diagnostic(code=code, message=message, hint=hint,
-                      severity=Severity.WARNING)
+                      severity=Severity.WARNING, **loc)

@@ -1479,3 +1479,115 @@ def test_mesh_pipeline_of_pattern_units_on_the_card(cuda_device,
             for u in units:
                 want[m] = u(want[m])
     assert torch.equal(got, want)
+
+
+# ---- the legacy surface and the launch audit on the card ---------------------------
+
+def _legacy_case(cuda_device, ndim, boundary="clamp", par_time=2):
+    """A legacy spec, its coefficients and plan, and a grid on the card."""
+    import warnings
+    from repro_torch.core.spec import StencilSpec
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        spec = StencilSpec(ndim=ndim, radius=2, boundary=boundary)
+    plan = repro_torch.BlockPlan(spec=spec, block_shape=BLOCKS[ndim],
+                                 par_time=par_time)
+    gen = torch.Generator(device=cuda_device).manual_seed(ndim)
+    grid = torch.rand(GRIDS[ndim], generator=gen, device=cuda_device) * 2 - 1
+    return spec, spec.default_coeffs(seed=1), plan, grid
+
+
+def _counted(fn):
+    cuda.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: n for k, n in cuda.launches().items() if n}
+
+
+@pytest.mark.parametrize("shim,ndim,boundary,variant", [
+    ("engine_run", 2, "clamp", "plain"),
+    ("engine_run", 2, "periodic", "plain"),
+    ("engine_superstep", 2, "clamp", "plain"),
+    ("engine_superstep", 3, "constant", "pipelined"),
+    ("stencil_run", 3, "clamp", "pipelined"),
+    ("stencil_run", 2, "clamp", "temporal"),
+])
+def test_legacy_shims_equal_the_front_door_on_the_card(cuda_device, shim,
+                                                       ndim, boundary,
+                                                       variant):
+    """Each shim launches the front door's kernels, as many times, and
+    its result equals the front door's at 0."""
+    import warnings
+    from repro_torch.backends import lower
+    from repro_torch.core.temporal import StencilEngine
+    from repro_torch.kernels import ops
+    spec, coeffs, plan, grid = _legacy_case(cuda_device, ndim, boundary)
+    steps = 4 * plan.par_time + plan.par_time + 1
+    pipe = variant == "pipelined"
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        engine = StencilEngine(spec=spec, coeffs=coeffs, plan=plan,
+                               pipelined=pipe)  # legacy-ok
+    if shim == "engine_run":
+        got, counts = _counted(lambda: engine.run(grid, steps))
+    elif shim == "engine_superstep":
+        got, counts = _counted(lambda: engine.superstep(grid))
+    else:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)
+            got, counts = _counted(lambda: ops.stencil_run(
+                grid, spec, coeffs, plan, steps, variant=variant))
+    if shim == "engine_superstep":
+        low = lower(spec, plan, coeffs=coeffs,
+                    backend="cuda-pipelined" if pipe else "cuda")
+        want, front = _counted(lambda: low.superstep(grid))
+    else:
+        cs = repro_torch.stencil(spec, coeffs).compile(
+            GRIDS[ndim], steps=steps, plan=plan, variant=variant)
+        want, front = _counted(lambda: cs.run(grid))
+    assert counts == front and counts
+    assert torch.equal(got, want)
+
+
+def test_audit_of_real_launches_is_clean(cuda_device):
+    """A periodic run on the card: every launch recorded by ``data_ptr``
+    (B1 and B2), no finding, and a warm loop moves no trace counter."""
+    from repro_torch.lint.artifact import (audit_run, check_trace_budget,
+                                           record_launches)
+    spec, coeffs, plan, grid = _legacy_case(cuda_device, 2, "periodic")
+    cs = repro_torch.stencil(spec, coeffs).compile(GRIDS[2], steps=5,
+                                                   plan=plan)
+    cs.run(grid)
+    before = common.trace_counts()
+    with record_launches() as log:
+        out, diags = audit_run(cs.run, grid, expect_dtype="float32")
+    assert diags == [] and out.device == grid.device
+    assert {(la.kernel, la.route) for la in log.launches} == {
+        ("padded_superstep", "cuda"), ("wrap_halo", "cuda")}
+    for _ in range(5):
+        cs.run(grid)
+    assert check_trace_budget(common.trace_delta(before), 0) == []
+
+
+def test_audit_refuses_a_planted_alias_on_the_card(cuda_device):
+    """B1 launched with dst = src (RP204), and with a dst that overlaps
+    src by 128 cells (RP201), on the card."""
+    import math
+    from repro_torch.lint.artifact import analyze_launches, record_launches
+    prog, plan, layout = _config(2, "clamp", shape="star")
+    P = layout.padded_shape
+    n = math.prod(P)
+    c = prog.default_coeffs().to(cuda_device)
+    src = torch.rand(P, device=cuda_device)
+    with record_launches() as log:
+        cuda.padded_superstep(src, src, c.center, c.taps, program=prog,
+                              plan=plan, layout=layout)
+    torch.cuda.synchronize()
+    assert [d.code for d in analyze_launches(log.launches)] == ["RP204"]
+    big = torch.rand(n + 128, device=cuda_device)
+    with record_launches() as log:
+        cuda.padded_superstep(big[:n].view(P), big[128:].view(P), c.center,
+                              c.taps, program=prog, plan=plan,
+                              layout=layout)
+    torch.cuda.synchronize()
+    assert [d.code for d in analyze_launches(log.launches)] == ["RP201"]

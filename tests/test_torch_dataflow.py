@@ -347,13 +347,19 @@ def test_cli_reports_a_seeded_fault(monkeypatch, tmp_path):
         assert codes == {"RP405"}
 
 
-def test_cli_refuses_a_mesh_and_the_codebase_rules(capsys):
+def test_cli_refuses_a_mesh_and_the_codebase_rules(capsys, tmp_path):
     """The canary runs one device's schedule: ``sanitize --devices`` is
-    refused (the mesh's proof is ``dataflow --devices``)."""
+    refused (the mesh's proof is ``dataflow --devices``).  Paths are no
+    longer refused: they run the port's codebase rules (RP3xx), exit 1 on
+    a finding and 0 on a clean file."""
     assert lint_main(["sanitize", "--device", "cpu", "--devices", "2,1"]) \
         == 2
     err = capsys.readouterr().err
     assert "RP110" in err and "dataflow --devices 2,1" in err
-    assert lint_main(["src", "tests"]) == 2
-    err = capsys.readouterr().err
-    assert "python -m repro.lint src tests" in err and "A10" in err
+    bad = tmp_path / "bad.py"
+    bad.write_text("f(grid, pipelined=True)\n")
+    assert lint_main([str(bad)]) == 1
+    assert "RP305" in capsys.readouterr().out
+    good = tmp_path / "good.py"
+    good.write_text("f(grid, variant='pipelined')\n")
+    assert lint_main([str(good)]) == 0

@@ -347,4 +347,6 @@ def test_codes_command_lists_every_code(capsys):
         assert "fix: " in line
     assert {"RP104", "RP106", "RP107", "RP108", "RP113", "RP401", "RP402",
             "RP403", "RP404", "RP405"} <= set(CODES)
-    assert "RP114" not in CODES
+    # the legacy pipelined= bool, the launch audit and the codebase rules
+    assert {"RP114", "RP200", "RP201", "RP202", "RP203", "RP204", "RP300",
+            "RP301", "RP302", "RP303", "RP304", "RP305"} <= set(CODES)

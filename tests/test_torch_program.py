@@ -119,7 +119,10 @@ def test_normalize_variant_takes_names_only():
     assert blocking.TEMPORAL_CHUNK == 4
     assert blocking.normalize_variant(None) == "plain"
     assert blocking.normalize_variant("temporal") == "temporal"
-    for bad in ("fast", True):
+    # the deprecated bool maps as in the reference
+    assert blocking.normalize_variant(True) == "pipelined"
+    assert blocking.normalize_variant(None, True) == "pipelined"
+    for bad in ("fast", "auto"):
         with pytest.raises(ValueError, match="unknown kernel variant"):
             blocking.normalize_variant(bad)
     assert blocking.round_up(37, 16) == 48
@@ -138,11 +141,16 @@ def test_gpu_chip_datasheets():
 
 def test_diagnostic_codes_keep_the_reference_wording():
     """Same wording as the reference, except RP105, whose budget on the
-    card is shared memory per CTA, not VMEM."""
+    card is shared memory per CTA, not VMEM, and RP200, the launch audit's
+    own code (an audit that saw no launch), which the reference lacks."""
     for code, summary in diagnostics.CODES.items():
         if code == "RP105":
             assert "shared memory" in summary and "VMEM" not in summary
             assert code in ref_diag.CODES
+            continue
+        if code == "RP200":
+            assert "no kernel launch" in summary
+            assert code not in ref_diag.CODES
             continue
         assert summary == ref_diag.CODES[code], code
     err = diagnostics.DiagnosticError([diagnostics.error(
