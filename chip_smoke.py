@@ -106,7 +106,10 @@ Phases (any failure raises, so the exit code is non-zero):
     at atol 1e-3, rtol 1e-4, the tokens identical (the CPU path is the
     one ``tests/test_torch_lm.py`` holds to the JAX package); (e)
     starcoder2-7b at full width (gemma3 freed first): one engine run of 4
-    requests at batch 4, tokens/s and decode ms against its bound.
+    requests at batch 4, tokens/s and decode ms against its bound; (f)
+    ``examples/serve_lm_torch.py``'s ``main`` on the card (reduced rwkv6,
+    10 requests of 12 + 24 tokens at batch 4): its tokens, tokens/s and
+    seconds, every request served.
 
 14. 16-bit grids (:func:`half_phase`, run before 12 and 13): the main
     path of phase 2 again with the program in bfloat16 at the paper shapes
@@ -174,9 +177,10 @@ Phases (any failure raises, so the exit code is non-zero):
     CPU's max in the leaf (a bf16 moment one ulp besides; a step whose
     gradient is summed in bf16, one ulp of it), and a step that left the
     state as it was, or did not write its moments back, above it; (f)
-    ``examples/train_lm.py``'s recipe (starcoder2 family, d 512, 8
-    layers, vocab 32768, float32) for 200 steps with a checkpoint every
-    50: ce below 0.7 of its first value.
+    ``examples/train_lm_torch.py``'s ``main`` on the card (starcoder2
+    family, d 512, 8 layers, vocab 32768, float32; 200 steps of 8 x 128
+    tokens with a checkpoint every 50): ce below 0.7 of its first value,
+    its tokens/s and the checkpoints kept.
 
 17. the LM mesh tooling on one process (:func:`mesh_tooling_phase`, after
     16; the six kernels' launch counts, zeroed before, stay 0): (a) the
@@ -214,11 +218,18 @@ Phases (any failure raises, so the exit code is non-zero):
     audit (``lint/artifact``) clean over its launches.  Then B1 launched
     with dst = src and a result that is a view of the grid, which the
     audit must refuse (RP204); ``check_trace_budget`` over 5 warm engine
-    and front-door runs, which must read 0; and ``python -m
-    repro_torch.lint src/repro_torch tests/test_torch_*.py chip_smoke.py``
-    in a process of its own, started with the phase and run on the host
-    beside it, which must exit 0.  Then the phase's seconds
-    beside the card's name and power limit.
+    and front-door runs, which must read 0; the stencil examples'
+    ``main`` on the card (:data:`EXAMPLE_RUNS`:
+    ``examples/quickstart_torch.py --steps 16``, which must launch B1 and
+    B3, and ``examples/wave3d_torch.py``, B1), launches zeroed before each
+    and read after, each result against the port's oracle on the card
+    (the quickstart's run at 1e-4, its temporal run against the plain one
+    at ULP, its batch at 0; the wave at ULP, its energy within 1.01 of
+    the pulse's) and its seconds; and ``python -m repro_torch.lint
+    src/repro_torch tests/test_torch_*.py chip_smoke.py
+    examples/*_torch.py`` in a process of its own, started with the phase
+    and run on the host beside it, which must exit 0.  Then the phase's
+    seconds beside the card's name and power limit.
 
 The last lines are the ``{"kernels": [...]}`` record, the ``nvidia-smi``
 line, and ``{"ok": true, "device": {...}}``.
@@ -310,6 +321,17 @@ def bound(bytes_moved: float, flops: float, chip):
     t_bytes = bytes_moved / chip.hbm_bytes_per_s * 1e3
     t_ops = flops / chip.peak_fp32_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def example(name: str):
+    """``examples/<name>.py`` as a module, its ``main`` not run (the
+    examples are scripts, not a package)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", os.path.join(HERE, "examples", f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def random_grid(shape, seed: int, dtype: str = "float32"):
@@ -2274,6 +2296,20 @@ def lm_phase(smi, chip):
     gc.collect()
     torch.cuda.empty_cache()
 
+    # (f) the user path: examples/serve_lm_torch.py (reduced rwkv6)
+    t0 = time.perf_counter()
+    got = example("serve_lm_torch").main([])
+    torch.cuda.synchronize()
+    stats, reqs = got["stats"], got["requests"]
+    print(f"  (f) examples/serve_lm_torch.py: {len(reqs)} requests, "
+          f"{stats['tokens']} tokens in {stats['seconds']!r} s "
+          f"({stats['tokens_per_s']!r} tokens/s); the example "
+          f"{time.perf_counter() - t0!r} s in all; stencil kernel launches "
+          f"so far in the phase: {sum(cuda.launches().values())}")
+    if stats["tokens"] != 240 or not all(r.done for r in reqs):
+        raise AssertionError(f"the serving example served {stats}")
+    del got, reqs
+
     counts = cuda.launches()
     if any(counts.values()):
         raise AssertionError(f"the LM path launched stencil kernels: "
@@ -2618,7 +2654,7 @@ GRAD_LAYERS = (0, 5, 30)
 #: value near a tie rounds either way
 STEP_SHARE = 2e-4
 BF16_SLACK = 2.0 ** -7
-#: (f): examples/train_lm.py's recipe
+#: (f): examples/train_lm_torch.py's sizes (its defaults)
 EXAMPLE_STEPS, EXAMPLE_SEQ, EXAMPLE_BATCH = 200, 128, 8
 
 
@@ -3032,37 +3068,23 @@ def train_phase(smi, chip):
     # (e) card against CPU: one make_train_step per reduced config
     card_against_cpu_steps()
 
-    # (f) the user path of examples/train_lm.py
-    ex = dataclasses.replace(get_arch("starcoder2-7b").reduced(
-        d_model=512, vocab=32768), n_layers=8, d_ff=2048,
-        compute_dtype="float32")
-    with tempfile.TemporaryDirectory() as tmp:
-        run = train.build_run(ex, steps=EXAMPLE_STEPS, lr=6e-4, ckpt_dir=tmp)
-        stream = SyntheticLM(vocab=ex.vocab, seq_len=EXAMPLE_SEQ,
-                             global_batch=EXAMPLE_BATCH, seed=0)
-        b0 = {k: torch.as_tensor(v).to(run.device)
-              for k, v in stream.batch(0).items()}
-        run.opt_state, run.comp_error, first = run.train_step(
-            run.opt_state, run.comp_error, b0)
-        first_ce = float(first["ce"])
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        metrics = train.train_loop(run, stream, EXAMPLE_STEPS,
-                                   checkpoint_every=50, log_every=20,
-                                   quiet=True)
-        torch.cuda.synchronize()
-        loop_s = time.perf_counter() - t0
-        kept = run.ckpt.steps()
-    print(f"  (f) examples/train_lm.py's recipe: {ex.name} reduced to d "
+    # (f) the user path: examples/train_lm_torch.py at its own sizes
+    t0 = time.perf_counter()
+    got = example("train_lm_torch").main(
+        ["--steps", str(EXAMPLE_STEPS), "--seq", str(EXAMPLE_SEQ),
+         "--batch", str(EXAMPLE_BATCH)])
+    ex, first_ce, loop_s = got["config"], got["first_ce"], got["seconds"]
+    print(f"  (f) examples/train_lm_torch.py: {ex.name} reduced to d "
           f"{ex.d_model}, {ex.n_layers} layers, vocab {ex.vocab}, "
-          f"{common.param_count(run.model)} parameters, float32: ce "
-          f"{first_ce!r} -> {metrics['ce']!r} over {EXAMPLE_STEPS} steps in "
+          f"{got['params']} parameters, float32: ce "
+          f"{first_ce!r} -> {got['ce']!r} over {EXAMPLE_STEPS} steps in "
           f"{loop_s!r} s ({EXAMPLE_STEPS * EXAMPLE_BATCH * EXAMPLE_SEQ / loop_s!r} "
-          f"tokens/s, checkpoints every 50, kept {kept})")
-    if not metrics["ce"] < 0.7 * first_ce:
-        raise AssertionError(f"ce {metrics['ce']} is not below 0.7 of the "
+          f"tokens/s, checkpoints every 50, kept {got['checkpoints']}); "
+          f"the example {time.perf_counter() - t0!r} s in all")
+    if not got["ce"] < 0.7 * first_ce:
+        raise AssertionError(f"ce {got['ce']} is not below 0.7 of the "
                              f"first step's {first_ce}")
-    del run
+    del got
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3367,9 +3389,13 @@ def legacy_phase(smi):
     tests = sorted(os.path.join("tests", f)
                    for f in os.listdir(os.path.join(HERE, "tests"))
                    if f.startswith("test_torch_") and f.endswith(".py"))
+    examples = sorted(os.path.join("examples", f)
+                      for f in os.listdir(os.path.join(HERE, "examples"))
+                      if f.endswith("_torch.py"))
     lint = subprocess.Popen(
         [sys.executable, "-m", "repro_torch.lint",
-         os.path.join("src", "repro_torch"), *tests, "chip_smoke.py"],
+         os.path.join("src", "repro_torch"), *tests, "chip_smoke.py",
+         *examples],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         cwd=HERE, env=dict(os.environ, PYTHONPATH=os.path.join(HERE, "src")))
     try:
@@ -3528,15 +3554,79 @@ def legacy_runs(lint) -> list:
     del grid, engine, cs
     torch.cuda.empty_cache()
 
+    # the user path: examples/quickstart_torch.py and wave3d_torch.py
+    failures += example_runs()
+
     # the port's linter, started with the phase
     out, _ = lint.communicate(timeout=600)
     lines = out.strip().splitlines()
     print(f"  python -m repro_torch.lint src/repro_torch "
-          f"tests/test_torch_*.py chip_smoke.py: exit {lint.returncode}, "
+          f"tests/test_torch_*.py chip_smoke.py examples/*_torch.py: exit "
+          f"{lint.returncode}, "
           f"done {time.perf_counter() - t_lint!r} s after the phase's "
           f"start: {lines[-1][-120:] if lines else ''}")
     if lint.returncode != 0:
         failures.append("the port's linter: " + "; ".join(lines[-5:]))
+    return failures
+
+
+#: Phase 18's examples: each one's arguments and the kernels it must
+#: launch.  At 16 steps the quickstart's temporal run is one chunk-deep
+#: launch of B3 (at its default 8 the chunk is longer than the run).
+EXAMPLE_RUNS = (("quickstart_torch", ["--steps", "16"],
+                 ("padded_superstep", "temporal_superstep")),
+                ("wave3d_torch", [], ("padded_superstep",)))
+
+
+def example_runs() -> list:
+    """Phase 18: the stencil examples on the card, launches zeroed before
+    each and read after, each result held to the port's oracle on the
+    card (the examples assert their own checks too).  Returns the
+    failures."""
+    import torch
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.ref import program_nsteps
+
+    failures = []
+    for name, argv, kernels in EXAMPLE_RUNS:
+        cuda.reset_launches()
+        t0 = time.perf_counter()
+        got = example(name).main(argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = {k: n for k, n in cuda.launches().items() if n}
+        if name == "quickstart_torch":
+            plan = got["plan"]
+            steps = got["steps"]
+            want = program_nsteps(plan.spec, got["coeffs"], got["grid"],
+                                  steps)
+            errs = {"run against the oracle": max_err(got["out"], want),
+                    "temporal against plain": max_err(got["temporal"],
+                                                      got["out"]),
+                    "batched against single": max_err(got["batched"][0],
+                                                      got["out"])}
+            ok = errs["run against the oracle"] <= 1e-4 \
+                and torch.allclose(got["temporal"], got["out"], **ULP) \
+                and errs["batched against single"] == 0.0
+            what = (f"plan block={plan.block_shape} par_time="
+                    f"{plan.par_time}, {steps} steps")
+        else:
+            want = program_nsteps(got["program"], got["coeffs"],
+                                  got["u0"], 8)
+            errs = {"run against the oracle": max_err(got["u"], want)}
+            bound = max(got["energies"]) / got["e0"]
+            ok = bool(torch.allclose(got["u"], want, **ULP)) \
+                and bound <= 1.01
+            what = f"energy/e0 at most {bound!r} (limit 1.01)"
+        print(f"  examples/{name}.py {' '.join(argv)}: {what}; launches "
+              f"{counts}; max_abs_err {errs}; {secs!r} s")
+        missing = [k for k in kernels if not counts.get(k)]
+        if missing:
+            failures.append(f"{name}: no launch of {missing} ({counts})")
+        if not ok:
+            failures.append(f"{name}: {errs}")
+        del got, want
+    torch.cuda.empty_cache()
     return failures
 
 

@@ -7,6 +7,9 @@ bf16 dense tensor-core peak, NVLink, the card's memory).  Bandwidth and
 peaks are not device properties, so they come from NVIDIA's data sheets,
 picked by the card's name; the memory is the card's ``total_memory``
 where a card is present.
+
+The paper-device table reproduces paper Table II verbatim, as the
+reference's does: the devices the paper compares its Arria 10 with.
 """
 
 from __future__ import annotations
@@ -63,3 +66,28 @@ def datasheet(name: str) -> GpuChip:
     "PCIe", every other H100 as SXM)."""
     return H100_PCIE if "pcie" in name.lower() else H100_SXM
 
+
+
+@dataclasses.dataclass(frozen=True)
+class PaperDevice:
+    """A row of paper Table II."""
+
+    name: str
+    peak_gflops: float          # single-precision
+    mem_bw_gbps: float
+    tdp_watt: float
+    flop_per_byte: float
+
+
+# Paper Table II, verbatim.
+PAPER_DEVICES = {
+    "arria10": PaperDevice("Arria 10 GX 1150", 1450.0, 34.1, 70.0, 42.522),
+    "xeon": PaperDevice("Xeon E5-2650 v4", 700.0, 76.8, 105.0, 9.115),
+    "xeonphi": PaperDevice("Xeon Phi 7210F", 5325.0, 400.0, 235.0, 13.313),
+    "gtx580": PaperDevice("GTX 580", 1580.0, 192.4, 244.0, 8.212),
+    "gtx980ti": PaperDevice("GTX 980 Ti", 6900.0, 336.6, 275.0, 20.499),
+    "p100": PaperDevice("Tesla P100", 9300.0, 720.9, 250.0, 12.901),
+}
+
+ARRIA10_DSPS = 1518           # paper §V.A
+ARRIA10_MEM_CTRL_MHZ = 266.0  # paper §VI.A

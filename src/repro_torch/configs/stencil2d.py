@@ -29,6 +29,17 @@ class StencilWorkload:
         return BlockPlan(spec=self.spec, block_shape=self.block_shape,
                          par_time=self.par_time)
 
+    def compile(self, *, steps: int, plan=None, **compile_kwargs):
+        """The front door's executable for this workload: ``plan``
+        defaults to the workload's own, and every other ``compile`` knob
+        (``device``, ``batch``, ``devices``, ``backend``, ``variant``, ...)
+        passes through."""
+        # local, as autotune_workloads' import: the configs stay light
+        from repro_torch.executor import stencil
+        return stencil(self.spec).compile(
+            self.grid_shape, steps=steps,
+            plan=self.plan() if plan is None else plan, **compile_kwargs)
+
 
 def autotune_workloads(workloads: Dict[str, StencilWorkload], *,
                        chip=None, backend: Optional[str] = None,

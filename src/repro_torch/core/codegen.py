@@ -10,7 +10,8 @@
   and then in canonical tap order, never reassociated.  It works on the
   last ``program.ndim`` axes, so a leading batch axis passes through.
 * ``program_update`` is one full-grid step: pad by the halo, then the
-  interior update.  ``interior_update``/``clamped_update`` take the
+  interior update.  ``multi_step_interior`` chains ``steps`` interior
+  updates on a block that carries their halo (paper §III.A).  ``interior_update``/``clamped_update`` take the
   legacy (``StencilSpec``, ``StencilCoeffs``) pair.
 """
 
@@ -93,6 +94,24 @@ def program_update(program: StencilProgram, coeffs: ProgramCoeffs,
     padded = boundary_pad(program, grid, [(0, 0)] * nb
                           + [(r, r)] * program.ndim)
     return tap_interior_update(program, coeffs, padded)
+
+
+def multi_step_interior(program, coeffs, a: torch.Tensor,
+                        steps: int) -> torch.Tensor:
+    """``steps`` stencil applications on a halo-carrying block.
+
+    ``a`` carries a halo of ``steps * halo_radius`` per side; the result
+    shrinks by ``2 * steps * halo_radius`` per spatial axis.  This is the
+    overlapped temporal-blocking pattern (paper §III.A): the valid region
+    shrinks by the halo radius per time step, and the shrinkage is the
+    redundant-compute halo.  Takes a program or a legacy spec, and its
+    coefficients in either form.
+    """
+    prog = as_program(program)
+    c = normalize_coeffs(prog, coeffs)
+    for _ in range(steps):
+        a = tap_interior_update(prog, c, a)
+    return a
 
 
 # ---- legacy StencilSpec entry points (deprecated aliases) ------------------

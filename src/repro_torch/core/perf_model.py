@@ -10,6 +10,10 @@ Table III row's (f_max, par_vec, par_time, bsize, rad),
 :func:`predicted_gbps` is the port's own: the effective GB/s the H100
 model (``core/blocking.estimate``) predicts for a plan, through the same
 effective-bandwidth formula (:func:`gbps_from_cells_per_s`).
+
+``PAPER_TABLE3``, ``PAPER_TABLE4_2D`` and ``PAPER_TABLE5_3D`` are the
+paper's own rows, verbatim (its Arria 10, Xeon, Xeon Phi and GPUs; never
+the port's numbers).
 """
 
 from __future__ import annotations
@@ -17,11 +21,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Sequence, Tuple
 
-from repro_torch.analysis.hw import GpuChip, H100_SXM
+from repro_torch.analysis.hw import ARRIA10_DSPS, GpuChip, H100_SXM
 from repro_torch.core.program import StencilProgram, as_program
-
-#: DSP blocks of the paper's Arria 10 GX 1150 (paper §V.A).
-ARRIA10_DSPS = 1518
 
 
 def flops_per_cell(ndim: int, rad: int) -> int:
@@ -166,3 +167,31 @@ PAPER_TABLE3 = [
     PaperRow(3, 3, (256, 128), 16, 4, (696, 728, 696), 114.667, 63.737, 294.784, 7.967, 255.36, 63.183, 0.556),
     PaperRow(3, 4, (256, 128), 16, 3, (696, 728, 696), 81.597, 44.701, 273.794, 5.588, 242.77, 58.572, 0.548),
 ]
+
+# Paper Tables IV/V, verbatim: each device's measured GFLOP/s, GCell/s,
+# GFLOP/s per watt and roofline ratio (the paper's arithmetic:
+# ``roofline_ratio`` of the effective GB/s over Table II's bandwidth).
+PAPER_TABLE4_2D = {
+    # device: {rad: (gflops, gcells, gflops_per_watt, roofline_ratio)}
+    "arria10": {1: (758.204, 84.245, 10.454, 19.76), 2: (764.473, 44.969, 10.982, 10.55),
+                3: (703.797, 28.152, 10.641, 6.60), 4: (719.322, 21.798, 10.436, 5.11)},
+    "xeon": {1: (45.306, 5.034, 0.521, 0.52), 2: (85.255, 5.015, 0.942, 0.52),
+             3: (124.500, 4.980, 1.331, 0.52), 4: (165.231, 5.007, 1.737, 0.52)},
+    "xeonphi": {1: (222.804, 24.756, 1.000, 0.50), 2: (398.735, 23.455, 1.774, 0.47),
+                3: (592.250, 23.690, 2.629, 0.47), 4: (759.198, 23.006, 3.369, 0.46)},
+}
+
+PAPER_TABLE5_3D = {
+    "arria10": {1: (374.673, 28.821, 5.231, 6.76), 2: (303.234, 12.129, 5.082, 2.85),
+                3: (294.784, 7.967, 4.666, 1.87), 4: (273.794, 5.588, 4.674, 1.31)},
+    "xeon": {1: (61.282, 4.714, 0.686, 0.49), 2: (115.225, 4.609, 1.235, 0.48),
+             3: (151.996, 4.108, 1.617, 0.43), 4: (205.751, 4.199, 2.069, 0.44)},
+    "xeonphi": {1: (288.990, 22.230, 1.279, 0.44), 2: (549.300, 21.972, 2.428, 0.44),
+                3: (788.544, 21.312, 3.480, 0.43), 4: (1069.278, 21.822, 4.714, 0.44)},
+    "gtx580": {1: (224.822, 17.294, 1.229, 0.72), 2: (358.725, 14.349, 1.960, 0.60),
+               3: (404.928, 10.944, 2.213, 0.46), 4: (453.446, 9.254, 2.478, 0.38)},
+    "gtx980ti": {1: (393.322, 30.256, 1.907, 0.72), 2: (627.582, 25.103, 3.043, 0.60),
+                 3: (708.414, 19.146, 3.435, 0.46), 4: (793.295, 16.190, 3.846, 0.38)},
+    "p100": {1: (842.381, 64.799, 4.493, 0.72), 2: (1344.100, 53.764, 7.169, 0.60),
+             3: (1517.217, 41.006, 8.092, 0.46), 4: (1699.008, 34.674, 9.061, 0.38)},
+}

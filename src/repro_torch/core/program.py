@@ -231,6 +231,15 @@ class StencilProgram:
         return ProgramCoeffs(center=torch.from_numpy(center),
                              taps=torch.from_numpy(np.ascontiguousarray(raw)))
 
+    def coeffs_from_shells(self, center, shell_values) -> "ProgramCoeffs":
+        """Expand per-shell coefficients (one per distance shell,
+        :attr:`tap_groups`) to the full tap vector."""
+        shell_values = torch.as_tensor(shell_values)
+        idx = torch.as_tensor(self.tap_groups, dtype=torch.long,
+                              device=shell_values.device)
+        return ProgramCoeffs(center=torch.as_tensor(center),
+                             taps=shell_values[idx])
+
     def coeffs_from_legacy(self, legacy) -> "ProgramCoeffs":
         """Legacy ``StencilCoeffs`` (directions x radius) in tap order: for
         a star the canonical order is the direction-major flatten of that
@@ -264,6 +273,12 @@ class ProgramCoeffs:
 
     def to(self, device) -> "ProgramCoeffs":
         return ProgramCoeffs(self.center.to(device), self.taps.to(device))
+
+    def astype(self, dtype) -> "ProgramCoeffs":
+        """Both tensors cast to ``dtype`` (a torch dtype or its name)."""
+        if isinstance(dtype, str):
+            dtype = torch_dtype(dtype)
+        return ProgramCoeffs(self.center.to(dtype), self.taps.to(dtype))
 
     def as_tuple(self) -> Tuple[torch.Tensor, torch.Tensor]:
         return (self.center, self.taps)

@@ -70,6 +70,8 @@ from repro_torch.kernels import build, cuda, queued, streamed
 # ---- what a warm run must never redo (RP203) ------------------------------------
 
 _TRACE_COUNTS: Dict[str, int] = collections.Counter()
+#: The derived counters' readings at the last :func:`reset_trace_counts`.
+_TRACE_BASE: Dict[str, int] = {}
 _TRACE_LOCK = threading.Lock()
 
 
@@ -84,9 +86,22 @@ def _misses(*cached) -> int:
     return sum(fn.cache_info().misses for fn in cached)
 
 
+def _derived_counts() -> Dict[str, int]:
+    """The counters read off the build and the geometry caches."""
+    return dict(
+        library_builds=build.COUNTS["builds"],
+        library_loads=build.COUNTS["loads"],
+        wrap_geometry=_misses(cuda.wrap_boxes, cuda._wrap_launch),
+        queued_geometry=_misses(queued.carry_geometry,
+                                queued.prepadded_geometry),
+        streamed_geometry=_misses(streamed.carry_geometry,
+                                  streamed.prepadded_geometry))
+
+
 def trace_counts() -> Dict[str, int]:
     """The port's counterpart of the reference's retrace counters: what a
-    warm run of a compiled executable must never do again.
+    warm run of a compiled executable must never do again, counted since
+    the last :func:`reset_trace_counts`.
 
     library_builds, library_loads  ``nvcc`` runs and ``ctypes`` loads
                                    (``kernels/build.py``);
@@ -99,16 +114,37 @@ def trace_counts() -> Dict[str, int]:
     """
     with _TRACE_LOCK:
         counts = dict(_TRACE_COUNTS)
-    counts.update(
-        library_builds=build.COUNTS["builds"],
-        library_loads=build.COUNTS["loads"],
-        wrap_geometry=_misses(cuda.wrap_boxes, cuda._wrap_launch),
-        queued_geometry=_misses(queued.carry_geometry,
-                                queued.prepadded_geometry),
-        streamed_geometry=_misses(streamed.carry_geometry,
-                                  streamed.prepadded_geometry))
+        counts.update({k: v - _TRACE_BASE.get(k, 0)
+                       for k, v in _derived_counts().items()})
     counts.setdefault("plan_resolutions", 0)
     return counts
+
+
+def trace_count(name: str) -> int:
+    """One counter of :func:`trace_counts` (0 for a name never counted).
+
+    The reference's ``trace_count("run_call")`` counts the executables a
+    run built: a warm run of a compiled executable adds none.  The port
+    builds no executable per run; what a run resolves anew is its launch
+    geometry, so ``queued_geometry``, ``streamed_geometry`` and
+    ``wrap_geometry`` answer that question: a warm run adds to none of
+    them (nor to ``library_builds``/``library_loads``), while a run on
+    the card adds one miss for each launch geometry (superstep depth,
+    layout, batch) that no run has resolved before, as a new remainder or
+    batch rank does.  On the CPU the plain versions resolve no geometry,
+    so every counter but ``plan_resolutions`` stays 0 there.
+    """
+    return trace_counts().get(name, 0)
+
+
+def reset_trace_counts() -> None:
+    """Zero every counter of :func:`trace_counts`.  The counters read off
+    the build and the geometry caches keep a baseline instead: a reset
+    clears no cache and forces no rebuild."""
+    with _TRACE_LOCK:
+        _TRACE_COUNTS.clear()
+        _TRACE_BASE.clear()
+        _TRACE_BASE.update(_derived_counts())
 
 
 def trace_delta(before: Dict[str, int]) -> Dict[str, int]:

@@ -53,8 +53,9 @@ every step run on ``device="meta"``):
 
 The peak per device is the arguments plus the step's counted
 temporaries divided as its work is; ``fits_hbm`` compares it with
-``analysis.hw.GpuChip.hbm_bytes``.  A stencil cell (:func:`run_stencil_cell`)
-uses the reference's decomposition and ``tuning/model_rank``'s exchange.
+:data:`HBM_LIMIT` (``analysis.hw.H100_SXM.hbm_bytes``).  A stencil cell
+(:func:`run_stencil_cell`) uses the reference's decomposition and
+``tuning/model_rank``'s exchange.
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --mesh single --cells all
@@ -95,6 +96,9 @@ from repro_torch.runtime.trainer import (make_decode_step, make_prefill_step,
                                          make_train_step)
 from repro_torch.tuning.model_rank import exchange_bytes_per_superstep
 from repro_torch.tuning.space import MeshDecomposition
+
+#: The device memory ``fits_hbm`` compares a cell's peak with: one H100's.
+HBM_LIMIT = H100_SXM.hbm_bytes
 
 # ---------------------------------------------------------------------------
 # model-flops accounting (§Roofline's MODEL_FLOPS row)
@@ -570,7 +574,7 @@ def run_lm_cell(arch: str, shape_name: str, multi_pod: bool,
         notes=f"accum={args['accum']} batch_shard={shard_batch} "
               f"sharing={sharing}")
     result = cell.to_json()
-    result["fits_hbm"] = bool(peak <= H100_SXM.hbm_bytes)
+    result["fits_hbm"] = bool(peak <= HBM_LIMIT)
     result["peak_bytes"] = int(peak)
     result["arg_bytes"] = int(arg_b)
     result["arg_breakdown"] = {k: int(v) for k, v in
@@ -633,7 +637,7 @@ def run_stencil_cell(wl, multi_pod: bool, out_dir: Optional[str],
         notes=f"par_time={plan.par_time} halo={plan.halo}")
     dt = time.time() - t0
     result = cell.to_json()
-    result["fits_hbm"] = bool(2 * padded <= H100_SXM.hbm_bytes)
+    result["fits_hbm"] = bool(2 * padded <= HBM_LIMIT)
     result["peak_bytes"] = int(2 * padded)
     result["count_s"] = dt
     if verbose:

@@ -39,6 +39,7 @@ from repro_torch.core.program import StencilProgram
 from repro_torch.tuning.cache import (PlanCache, cache_key,
                                       program_fingerprint)
 from repro_torch.tuning.measure import (Measurement, best_measurement,
+                                        measure_candidates,
                                         measure_frontier)
 from repro_torch.tuning.model_rank import RankedCandidate, predict, rank
 from repro_torch.tuning.space import (Candidate, MeshDecomposition,
@@ -57,6 +58,7 @@ __all__ = [
     "cache_key",
     "enumerate_decompositions",
     "enumerate_space",
+    "measure_candidates",
     "measure_frontier",
     "predict",
     "program_fingerprint",

@@ -107,12 +107,23 @@ class PlanCache:
                 os.unlink(tmp)
             raise
 
+    def get(self, key: str) -> Optional[dict]:
+        """The most recently added record under ``key``, or None."""
+        records = self.get_all(key)
+        return records[-1] if records else None
+
     def get_all(self, key: str) -> list:
         """Every record under ``key``."""
         v = self._load().get(key)
         if v is None:
             return []
         return list(v) if isinstance(v, list) else [v]
+
+    def put(self, key: str, record: dict) -> None:
+        """Replace every record under ``key`` with ``record``."""
+        data = self._load()
+        data[key] = [record]
+        self._store(data)
 
     def add(self, key: str, record: dict) -> None:
         """Append a record under ``key``, replacing one with the same

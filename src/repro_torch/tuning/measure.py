@@ -32,7 +32,8 @@ from repro_torch.analysis.hw import GpuChip, H100_SXM
 from repro_torch.backends import lower
 from repro_torch.core.blocking import TEMPORAL_CHUNK, run_seconds
 from repro_torch.core.program import StencilProgram
-from repro_torch.tuning.model_rank import RankedCandidate
+from repro_torch.tuning.model_rank import RankedCandidate, predict
+from repro_torch.tuning.space import Candidate
 
 
 @dataclasses.dataclass(frozen=True)
@@ -164,6 +165,21 @@ def measure_frontier(program: StencilProgram,
     steps = supersteps * max(_period(r.candidate) for r in frontier)
     return [measure_candidate(program, r, grid_shape, steps=steps, **kwargs)
             for r in frontier]
+
+
+def measure_candidates(program: StencilProgram,
+                       candidates: Sequence[Candidate],
+                       grid_shape: Tuple[int, ...],
+                       chip: GpuChip = H100_SXM,
+                       **kwargs) -> List[Measurement]:
+    """Predict, then measure, raw candidates (a whole small space rather
+    than a ranked frontier), in their order; failures are kept
+    (``ok=False``).  ``kwargs`` go to :func:`measure_frontier` (``device``
+    too: the card unless the caller asks for the CPU)."""
+    frontier = [predict(program, c, chip, tuple(grid_shape))
+                for c in candidates]
+    return measure_frontier(program, frontier, grid_shape, chip=chip,
+                            **kwargs)
 
 
 def best_measurement(measurements: Sequence[Measurement]

@@ -1569,6 +1569,46 @@ def test_audit_of_real_launches_is_clean(cuda_device):
     assert check_trace_budget(common.trace_delta(before), 0) == []
 
 
+def test_trace_count_reads_new_geometry_and_no_warm_work(cuda_device):
+    """``common.trace_count`` on the card: after ``reset_trace_counts`` a
+    warm run resolves nothing, while a new remainder and a new batch rank
+    each add launch-geometry misses (the reference's ``run_call``
+    question); a reset clears no cache, so the warm run after it reads 0
+    again."""
+    prog = repro_torch.StencilProgram(ndim=2, radius=1)
+    plan = repro_torch.BlockPlan(spec=prog, block_shape=(16, 128),
+                                 par_time=3)
+    shape = (41, 157)                  # a shape no other test resolves
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    g = torch.rand(shape, generator=gen, device=cuda_device)
+    geometry = ("queued_geometry", "streamed_geometry", "wrap_geometry")
+
+    def resolved():
+        return sum(common.trace_count(n) for n in geometry)
+
+    cs = repro_torch.stencil(prog).compile(shape, steps=3 * 3 + 2, plan=plan)
+    cs_b = repro_torch.stencil(prog).compile(shape, steps=3 * 3 + 2,
+                                             plan=plan, batch=2)
+    cs.run(g)
+    common.reset_trace_counts()
+    cs.run(g)
+    cs.run(g, steps=5 * 3 + 2)             # the same remainder
+    torch.cuda.synchronize()
+    assert resolved() == 0
+    assert common.trace_count("library_builds") == 0
+    cs.run(g, steps=3 * 3 + 1)             # a new remainder
+    torch.cuda.synchronize()
+    after_rem = resolved()
+    assert after_rem >= 1
+    cs_b.run(torch.stack([g, g]))          # a new batch rank
+    assert resolved() > after_rem
+    common.reset_trace_counts()
+    cs.run(g, steps=3 * 3 + 1)
+    cs_b.run(torch.stack([g, g]))
+    torch.cuda.synchronize()
+    assert resolved() == 0
+
+
 def test_audit_refuses_a_planted_alias_on_the_card(cuda_device):
     """B1 launched with dst = src (RP204), and with a dst that overlaps
     src by 128 cells (RP201), on the card."""

@@ -399,9 +399,13 @@ def test_resume_reproduces_uninterrupted_run(tmp_path):
     kw = dict(steps=30, lr=1e-3, seed=3, device="cpu", compression="int8")
     run_a = train.build_run(cfg, **kw)
     train.train_loop(run_a, data, 30, quiet=True)
+    # no step is a straggler: a save the watchdog made on a slow step
+    # would add a checkpoint to the ones asserted below
     run_b = train.build_run(cfg, ckpt_dir=str(tmp_path), **kw)
+    run_b.watchdog = fault.StepWatchdog(threshold=float("inf"))
     train.train_loop(run_b, data, 15, checkpoint_every=5, quiet=True)
     run_c = train.build_run(cfg, ckpt_dir=str(tmp_path), **kw)
+    run_c.watchdog = fault.StepWatchdog(threshold=float("inf"))
     train.train_loop(run_c, data, 30, checkpoint_every=50, quiet=True)
     assert run_c.ckpt.steps() == [10, 15, 30]
     assert int(run_c.opt_state.step) == 30
