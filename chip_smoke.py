@@ -13,10 +13,11 @@ Phases (any failure raises, so the exit code is non-zero):
 2. the main path, ``repro_torch.stencil(...).compile(...).run(grid)``, at
    the paper's single-device workloads under each kernel variant, and the
    pre-padded superstep through ``repro_torch.backends.lower(...)``
-   (see :func:`cases`).  Launch counts are zeroed just before each run and
-   read just after, and must equal the schedule's; each result is compared
-   with the port's oracle (``core/reference.program_nsteps``) on the same
-   card tensors;
+   (see :func:`cases`), and the register queues at ``3d_r2_paper``
+   (:func:`queue_cases`, the yardstick of phase 14's rows there).  Launch
+   counts are zeroed just before each run and read just after, and must
+   equal the schedule's; each result is compared with the port's oracle
+   (``core/reference.program_nsteps``) on the same card tensors;
 3. each kernel's wrapper against its plain version on the same inputs at
    the shapes the main path gives it (bit for bit; B2 per refresh, every
    wrap axis in one launch), then its time: CUDA
@@ -82,7 +83,11 @@ Phases (any failure raises, so the exit code is non-zero):
     superstep`` (B5 with shard origins); ``compile(devices=4,
     plan="model")``; ``StencilServer(mesh_devices=4)``;
 12. the ``ptxas`` report of every instantiation in every dtype: no stack
-    frame;
+    frame, the same register queues in every dtype; where the toolkit has
+    ``cuobjdump``, each 16-bit instantiation's SASS counts of conversions
+    between float and 16 bits, packed 16-bit pair arithmetic and float32
+    arithmetic, and no conversion per tap in the fixed-tap bodies
+    (:data:`SASS_CONVERSIONS`);
 13. the LM serving path (:func:`lm_phase`; it reaches none of the six
     kernels, and their launch counts, zeroed before, stay 0): (a)
     gemma3-4b at full width in its own dtypes (float32 params, bfloat16
@@ -114,9 +119,9 @@ Phases (any failure raises, so the exit code is non-zero):
 14. 16-bit grids (:func:`half_phase`, run before 12 and 13): the main
     path of phase 2 again with the program in bfloat16 at the paper shapes
     (:data:`HALF_CASES`: B1 on both bodies, B2, B3, B4, B5 and B6 on both
-    bodies; a 16-bit star of radius 4 runs the streamed body, so the
-    register queues run at ``3d_r2_paper``) and in float16 at one
-    configuration per body, launch counts
+    bodies; the radius-4 stars on the register queues, as in float32) and
+    in float16 at one configuration per body (the queues at radius 4
+    too), and the register queues at ``3d_r2_paper``, launch counts
     zeroed before and read after (all of the dtype's library), the run
     against the port's oracle on the card at 0 (the coefficients rounded
     to the grid's dtype, as the kernels take them), each kernel against
@@ -1970,23 +1975,35 @@ def mesh_served(smi):
 
 
 #: The kernels ``ptxas_report`` reads, by source: each instantiation's
-#: name in the log, and how many instantiations the source has in float32
-#: and in 16 bits (the queued source leaves four register queues out of
-#: its 16-bit libraries, for both instantiations each:
-#: ``core/blocking.QUEUE_STEPS_16``).
-PTXAS = {"streamed_superstep.cu": (("streamed_kernel",), 36, 36),
-         "queued_superstep.cu": (("queue_kernel",), 42, 34),
-         "wrap_halo.cu": (("wrap_halo_kernel",), 1, 1)}
+#: name in the log, and how many instantiations the source has, the same
+#: in every dtype (the 16-bit libraries have float32's register queues:
+#: ``core/blocking.QUEUE_STEPS``).
+PTXAS = {"streamed_superstep.cu": (("streamed_kernel",), 36),
+         "queued_superstep.cu": (("queue_kernel",), 42),
+         "wrap_halo.cu": (("wrap_halo_kernel",), 1)}
+#: What a 16-bit fixed-tap instantiation (``build.sass_counts``) may have
+#: besides its packed pair arithmetic: conversions between float and 16
+#: bits (``cvt`` and ``widen``) outside the tap loop (the boundary value,
+#: the carry's loads and ghost planes), the same at every radius (2-38),
+#: and float32 arithmetic for the index division (0 or 13).  When each
+#: multiply and add went through float, the same instantiations had 30-2041
+#: conversions and 36-888 float32 operations.
+SASS_CONVERSIONS = 40
+SASS_FP32 = 16
 
 
 def ptxas_report():
     """The ``-Xptxas=-v`` lines of every kernel instantiation, from the
     build's log of the library this run loaded; raises when one has a
-    stack frame or an instantiation has no report."""
+    stack frame or an instantiation has no report.  Then, where the
+    toolkit has ``cuobjdump``, each 16-bit superstep instantiation's SASS
+    counts (``build.sass_counts``); raises when a fixed-tap one (every
+    queue instantiation, the streamed body's stars and boxes) has no
+    packed arithmetic, more than :data:`SASS_CONVERSIONS` conversions or
+    more than :data:`SASS_FP32` float32 operations."""
     from repro_torch.kernels import build
-    for (source, (names, count32, count16)), dtype in itertools.product(
+    for (source, (names, count)), dtype in itertools.product(
             PTXAS.items(), build.DTYPES):
-        count = count32 if dtype == "float32" else count16
         entry = None
         found = 0
         for line in build.build_log(source, dtype).splitlines():
@@ -2005,6 +2022,35 @@ def ptxas_report():
         if found != count:
             raise AssertionError(f"{source} ({dtype}): ptxas reported "
                                  f"{found} instantiations, expected {count}")
+    if not build.cuobjdump():
+        print("sass: no cuobjdump beside nvcc, SASS counts not taken")
+        return
+    for source, dtype in itertools.product(
+            ("queued_superstep.cu", "streamed_superstep.cu"),
+            ("bfloat16", "float16")):
+        funcs = build.sass_functions(build.sass(build.library_path(source,
+                                                                   dtype)))
+        totals = dict.fromkeys(build.SASS_CLASSES, 0)
+        for name in sorted(funcs, key=build.kernel_label):
+            label = build.kernel_label(name)
+            counts = build.sass_counts(funcs[name])
+            print(f"sass {source} ({dtype}) {label}: " + ", ".join(
+                f"{k} {v}" for k, v in counts.items()))
+            for k, v in counts.items():
+                totals[k] += v
+            fixed = label.startswith("queue_kernel<") or (
+                label.startswith("streamed_kernel<")
+                and not label.startswith("streamed_kernel<0,"))
+            conversions = counts["cvt"] + counts["widen"]
+            if fixed and (conversions > SASS_CONVERSIONS
+                          or counts["fp32"] > SASS_FP32
+                          or counts["packed"] == 0):
+                raise AssertionError(
+                    f"{source} ({dtype}) {label}: {conversions} "
+                    f"conversions, {counts['fp32']} float32 and "
+                    f"{counts['packed']} packed operations")
+        print(f"sass {source} ({dtype}) all {len(funcs)} kernels: "
+              + ", ".join(f"{k} {v}" for k, v in totals.items()))
 
 
 #: Phase 13 (module docstring): the full-width models, the decode-vs-
@@ -3633,10 +3679,9 @@ def example_runs() -> list:
 #: Phase 14 (module docstring): the 16-bit main path.  Each case of
 #: :func:`cases` and :func:`queue_cases` whose name and check are listed
 #: runs again with its program in the dtype; bfloat16 covers B1-B6 on
-#: both bodies at the paper shapes, float16 one configuration per body.
-#: A 16-bit star of radius 4 runs the streamed body
-#: (``core/blocking.QUEUE_STEPS_16``), so the register queues run at
-#: ``3d_r2_paper``.
+#: both bodies at the paper shapes (the radius-4 stars' B1, B5 and B6 on
+#: the register queues, as in float32), float16 one configuration per body
+#: and the queues at radius 4.
 HALF_CASES = {
     "bfloat16": (("2d_r4_paper", "carry"), ("3d_r4_paper", "carry"),
                  ("2d_box_periodic_pod", "carry"), ("3d_r2_paper", "carry"),
@@ -3646,7 +3691,7 @@ HALF_CASES = {
                  ("2d_box_periodic_pod", "prepadded"),
                  ("3d_r2_paper", "prepadded")),
     "float16": (("3d_r2_paper", "carry"), ("2d_box_periodic_pod", "carry"),
-                ("2d_r4_paper", "temporal"),
+                ("2d_r4_paper", "carry"), ("2d_r4_paper", "temporal"),
                 ("2d_box_periodic_pod", "pipelined"),
                 ("3d_r2_paper", "prepadded"),
                 ("2d_box_periodic_pod", "prepadded")),
@@ -3848,7 +3893,7 @@ def main() -> int:
         print(f"  build {src} {dtype}: done {secs!r} s after the start")
 
     records = []
-    for case in cases():
+    for case in cases() + queue_cases():
         state = drive_main_path(case, chip)
         records += check_kernels(case, state, chip)
         del state

@@ -52,18 +52,12 @@ CARRY_KERNELS = {"plain": "padded_superstep",
 #: thread computes per in-plane cell (``csrc/streamed_superstep.cu``).
 COLUMN_PLANES = {2: 4, 3: 2}
 #: Fused steps the register-queue path takes for a star, by grid rank and
-#: radius: a thread's queues (``3r`` values per stage and cell, x4 cells)
-#: and its strip's taps stay within 128 registers without spilling
+#: radius, in every grid dtype: a thread's queues (``3r`` values per stage
+#: and cell, x4 cells: four floats, or two 16-bit pairs) and its strip's
+#: taps stay within 128 registers without spilling
 #: (``queued_superstep.cu:choose_queue`` instantiates these; a 3D star of
-#: radius 4 at 2 steps spilled 168 bytes).
+#: radius 4 at 2 steps spilled 168 bytes in float32).
 QUEUE_STEPS = {2: {1: 4, 2: 3, 3: 2, 4: 2}, 3: {1: 4, 2: 3, 3: 2, 4: 1}}
-#: The same for a 16-bit grid (``csrc/elem.cuh``): every multiply and add
-#: rounds to the grid's dtype, and those roundings take registers, so
-#: ptxas spilled the 2D instantiations of radius 4 (1 and 2 steps; radius 3
-#: at 2 steps on a mesh shard) and the 3D one of radius 4 at 128
-#: registers; those run the streamed kernel (``queued_superstep.cu:
-#: choose_queue`` leaves them out of the 16-bit libraries).
-QUEUE_STEPS_16 = {2: {1: 4, 2: 3, 3: 1}, 3: {1: 4, 2: 3, 3: 2}}
 #: Queue values per cell a thread keeps in registers over all stages: each
 #: stage's queue holds ``3r`` planes (a group of ``r`` computed in a step
 #: and ``r`` on either side); a star with ``steps*3r > QUEUE_REGS`` leaves
@@ -167,12 +161,9 @@ def streamed_smem_bytes(ndim: int, radius: int, ntaps: int, steps: int,
 def queue_path(program: StencilProgram, steps: int) -> bool:
     """Whether ``steps`` fused steps of ``program`` take the register-queue
     path of ``csrc/queued_superstep.cu`` (a star of radius 1..4 and at
-    most :data:`QUEUE_STEPS` steps; :data:`QUEUE_STEPS_16` on a 16-bit
-    grid)."""
-    table = QUEUE_STEPS if dtype_bytes(program.dtype) == 4 \
-        else QUEUE_STEPS_16
+    most :data:`QUEUE_STEPS` steps, in every grid dtype)."""
     return program.shape == "star" and \
-        steps <= table[program.ndim].get(program.halo_radius, 0)
+        steps <= QUEUE_STEPS[program.ndim].get(program.halo_radius, 0)
 
 
 def kernel_body(program: StencilProgram, kernel: str, steps: int) -> str:
@@ -484,8 +475,8 @@ def _efficiency(key) -> float:
     nearest measured steps of the same launcher, tap set and bytes per
     cell (the fewer on a tie); for a tap set not measured, the median of
     its launcher at that many bytes per cell.  A 16-bit launch never takes
-    a float32 row: its kernels convert every operand and round every
-    result."""
+    a float32 row: its kernels run other instructions (16-bit pairs) on
+    half the bytes."""
     if key in cal.EFFICIENCY:
         return cal.EFFICIENCY[key]
     near = [k for k in cal.EFFICIENCY

@@ -47,16 +47,24 @@ BUILD_SECONDS: Dict[Tuple[str, str], float] = {}
 COUNTS: Dict[str, int] = {"builds": 0, "loads": 0}
 
 
-def nvcc() -> str:
-    """Path of the CUDA compiler: ``$CUDA_HOME/bin``, ``PATH``, or the
-    toolkit's default install."""
+def _toolkit(name: str) -> str:
+    """Path of the CUDA toolkit's program ``name``: ``$CUDA_HOME/bin``,
+    ``PATH``, or the toolkit's default install; "" where there is none."""
     home = os.environ.get("CUDA_HOME")
-    for cand in (home and os.path.join(home, "bin", "nvcc"),
-                 shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+    for cand in (home and os.path.join(home, "bin", name),
+                 shutil.which(name), f"/usr/local/cuda/bin/{name}"):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found: the CUDA kernels build only where "
-                       "the CUDA toolkit is installed")
+    return ""
+
+
+def nvcc() -> str:
+    """Path of the CUDA compiler (:func:`_toolkit`)."""
+    path = _toolkit("nvcc")
+    if not path:
+        raise RuntimeError("nvcc not found: the CUDA kernels build only "
+                           "where the CUDA toolkit is installed")
+    return path
 
 
 def includes(source: str) -> Tuple[str, ...]:
@@ -163,6 +171,104 @@ def _build(libraries) -> Dict[Tuple[str, str], str]:
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return logs
+
+
+def cuobjdump() -> str:
+    """Path of the toolkit's ``cuobjdump`` (:func:`_toolkit`), or "" where
+    the toolkit has none."""
+    return _toolkit("cuobjdump")
+
+
+def sass(path) -> str:
+    """The SASS of every kernel in the library at ``path``
+    (``cuobjdump -sass``)."""
+    tool = cuobjdump()
+    if not tool:
+        raise RuntimeError("cuobjdump not found beside nvcc")
+    return subprocess.run([tool, "-sass", str(path)], check=True,
+                          capture_output=True, text=True).stdout
+
+
+_FUNCTION = re.compile(r"^\s*Function\s*:\s*(\S+)")
+_INSTRUCTION = re.compile(
+    r"^\s*/\*[0-9a-f]+\*/\s+((?:@!?U?P[T0-9]+\s+)?[A-Z][A-Z0-9_.]*.*?);")
+
+
+def sass_functions(text: str) -> Dict[str, Tuple[str, ...]]:
+    """Each kernel's instructions in ``cuobjdump -sass`` output ``text``,
+    by mangled name: opcode and operands, without addresses or encodings
+    (so two builds compare line by line)."""
+    out: Dict[str, list] = {}
+    name = None
+    for line in text.splitlines():
+        m = _FUNCTION.match(line)
+        if m:
+            name = m.group(1)
+            out[name] = []
+            continue
+        m = _INSTRUCTION.match(line)
+        if m and name is not None:
+            out[name].append(" ".join(m.group(1).split()))
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def kernel_label(mangled: str) -> str:
+    """A kernel instantiation's short name from its mangled one, template
+    arguments in order: ``queue_kernel<2,4,2,0>`` (its namespace, which
+    for an anonymous one carries a hash of the file, left out); a name it
+    does not parse comes back as it is."""
+    m = re.match(r"_ZN(\d+)", mangled)
+    if not m:
+        return mangled
+    rest = mangled[m.end() + int(m.group(1)):]
+    m = re.match(r"(\d+)", rest)
+    if not m:
+        return mangled
+    ident = rest[m.end():m.end() + int(m.group(1))]
+    rest = rest[m.end() + int(m.group(1)):]
+    args = re.match(r"I((?:L[a-z]n?\d+E)+)E", rest)
+    if not args:
+        return ident
+    vals = re.findall(r"L[a-z](n?\d+)E", args.group(1))
+    return f"{ident}<{','.join(v.replace('n', '-') for v in vals)}>"
+
+
+#: SASS opcode classes :func:`sass_counts` counts: conversions between
+#: float and 16 bits (one cell, or two packed by ``F2FP``), a half widened
+#: to float by ``HADD2.F32``, packed 16-bit pair arithmetic (``HFMA2.MMA``
+#: too, the pair FMA issued on the other pipe, but not as a move of a
+#: constant, ``-RZ, RZ`` sources) and float32 arithmetic.
+SASS_CLASSES = ("cvt", "widen", "packed", "fp32")
+
+
+def sass_class(instruction: str) -> str:
+    """The :data:`SASS_CLASSES` entry of one :func:`sass_functions`
+    instruction, or "" for none."""
+    words = instruction.replace(",", " ").split()
+    if words[0].startswith("@"):
+        words = words[1:]
+    opcode = words[0]
+    base = opcode.split(".")[0]
+    if opcode.startswith("HADD2.F32"):
+        return "widen"
+    if base in ("F2F", "F2FP"):
+        return "cvt"
+    if base in ("HMUL2", "HADD2", "HFMA2"):
+        return "" if words[2:4] == ["-RZ", "RZ"] else "packed"
+    if base in ("FMUL", "FADD", "FFMA"):
+        return "fp32"
+    return ""
+
+
+def sass_counts(instructions) -> Dict[str, int]:
+    """Instructions of each :data:`SASS_CLASSES` class in one kernel's
+    :func:`sass_functions` entry."""
+    counts = dict.fromkeys(SASS_CLASSES, 0)
+    for ins in instructions:
+        cls = sass_class(ins)
+        if cls:
+            counts[cls] += 1
+    return counts
 
 
 def load(source: str, dtype: str = "float32") -> ctypes.CDLL:

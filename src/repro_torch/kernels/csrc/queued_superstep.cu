@@ -77,17 +77,23 @@
 //     for planes above the grid and, when a stage computes plane 0,
 //     overwrite the queue entries of planes -R..-1 with it.
 //
-// Arithmetic: acc = c0*v0, then acc = acc + ck*vk in canonical tap order
-// with __fmul_rn/__fadd_rn (no FMA contraction), each rounded to the grid's
-// dtype (elem.cuh), so every output equals the plain version's bit for
-// bit.  The grid and the shared planes hold the grid's dtype (one library
-// per dtype, kernels/build.py); the register queues hold floats, which
-// hold a 16-bit value exactly.  Coefficients sit in constant memory
-// (copied on the launch's stream before the launch), so the fixed-tap
-// multiplies take them as operands and spend no registers.  The bank is
-// one per device: a launch's stream waits for the previous launch of this
-// source before overwriting it (launch()), so launches on two streams
-// take turns instead of reading each other's coefficients.
+// Arithmetic: acc = c0*v0, then acc = acc + ck*vk in canonical tap order,
+// each multiply and add rounded to the grid's dtype with no FMA
+// contraction, in lanes (elem.cuh): a thread's 4 cells are 4 float lanes
+// in float32 and two (bfloat162 / half2) pairs in 16 bits, multiplied and
+// added by one __hmul2_rn / __hadd2_rn per pair, so every output equals
+// the plain version's bit for bit and a 16-bit tap costs no conversion.
+// An x tap at an odd offset joins its pair from the two pairs it
+// straddles with one byte permute.  The grid, the shared planes and the
+// register queues hold the grid's dtype (one library per dtype,
+// kernels/build.py): in 16 bits a queue entry is two pairs, half the
+// registers of float32's four floats.  Coefficients sit in constant
+// memory (copied on the launch's stream before the launch), floats in
+// float32 and (c, c) pairs in 16 bits, so the fixed-tap multiplies take
+// them as operands and spend no registers.  The bank is one per device:
+// a launch's stream waits for the previous launch of this source before
+// overwriting it (launch()), so launches on two streams take turns
+// instead of reading each other's coefficients.
 //
 // What bounds it on the H100.  At the paper's shapes one read of the
 // source and one write of the output is 0.64-0.90 ms of device memory;
@@ -149,9 +155,14 @@ enum Field {
 };
 
 // The coefficients of the running launch, rounded to the grid's dtype by
-// the host and held as floats: one bank per device, so launches on
-// different streams take turns (launch() below).
-__constant__ float c_coef[kMaxTaps];
+// the host (kernels/cuda.py:coefficient_bank; elem.cuh:coef_t): one bank
+// per device, so launches on different streams take turns (launch()
+// below).
+__constant__ coef_t c_coef[kMaxTaps];
+
+__device__ __forceinline__ lane coef(int k) {
+  return coef_lane(c_coef[k]);
+}
 
 // Extents and offsets are 32-bit (the launcher checks they fit); flat
 // indices into the grids are 64-bit (flat()).
@@ -432,17 +443,17 @@ __device__ void issue_group(const elem* __restrict__ src, elem* ring0,
   unsigned long long* bar = bars + slot;
   long long row = 0;
   if (threadIdx.x < 32) {
-    const int lane = threadIdx.x;
+    const int wl = threadIdx.x;  // lane of warp 0
     uint32_t bytes = 0;
     for (int j = 0; j < g.B; ++j) {
       const PlaneLoad pl = plane_load<SH>(g, it, kg * g.B + j, boundary);
       if (!pl.bulk) continue;
-      for (int iy = lane; iy < g.E1; iy += 32)
+      for (int iy = wl; iy < g.E1; iy += 32)
         if (row_source<SH>(g, it, pl, iy, boundary, &row) == 0)
           bytes += (uint32_t)(pl.sc1 - pl.sc0) * sizeof(elem);
     }
     bytes = __reduce_add_sync(0xffffffffu, bytes);
-    if (lane == 0) mbar_arrive_tx(bar, bytes);
+    if (wl == 0) mbar_arrive_tx(bar, bytes);
     __syncwarp();
     // no proxy fence here: it would wait for this warp's earlier global
     // stores; the threads that wrote cells of a ring slot with plain
@@ -451,7 +462,7 @@ __device__ void issue_group(const elem* __restrict__ src, elem* ring0,
       const PlaneLoad pl = plane_load<SH>(g, it, kg * g.B + j, boundary);
       if (!pl.bulk) continue;
       elem* out = ring0 + (slot * g.B + j) * g.plane;
-      for (int iy = lane; iy < g.E1; iy += 32) {
+      for (int iy = wl; iy < g.E1; iy += 32) {
         if (row_source<SH>(g, it, pl, iy, boundary, &row) != 0) continue;
         bulk_copy(out + iy * g.P + pl.sc0,
                   src + row + pl.sx0 + (pl.sc0 - g.pad),
@@ -581,71 +592,80 @@ struct StarIdx {
   static constexpr int zp = zm + R;
 };
 
+// The lanes of a thread's strip of kV cells (elem.cuh): 4 in float32, 2
+// in 16 bits.
+constexpr int kL = kStripLanes;
+
+// kL lanes, as a streamed-axis tap reader returns them.  In float32 it
+// is aligned as a float4 (16 bytes): aligned to 4, ptxas allocates the 3D
+// one-step queues' registers differently (tools/sass_diff.py).
+struct alignas(kLaneCells == 1 ? 16 : alignof(lane)) Strip {
+  lane l[kL];
+};
+
 // One stage's four outputs of a strip: in-plane taps from the plane `in`
 // (cell at `at`), streamed-axis taps `zval(d)` (the stage before at plane
 // offset d: from its queue, or for stage 1 from the loaded ring), summed
-// in canonical order, each multiply and add rounded to the grid's dtype.
+// in canonical order, each multiply and add rounded to the grid's dtype,
+// one lane (a cell, or a pair of cells) at a time.
 template <int R, int ND, class Z>
 __device__ __forceinline__ void star_strip(const elem* in, int at, int P,
-                                           Z zval, float (&acc)[kV]) {
+                                           Z zval, lane (&acc)[kL]) {
   using I = StarIdx<R, ND>;
-  float w[12];
-  {
-    const float4 a = ld4(in + at - 4), b = ld4(in + at), c = ld4(in + at + 4);
-    w[0] = a.x, w[1] = a.y, w[2] = a.z, w[3] = a.w;
-    w[4] = b.x, w[5] = b.y, w[6] = b.z, w[7] = b.w;
-    w[8] = c.x, w[9] = c.y, w[10] = c.z, w[11] = c.w;
-  }
+  constexpr int C = kLaneCells;
+  // cells at - 4 .. at + 7; lane v's x tap at offset d starts at cell
+  // 4 + C*v + d (lane_at joins a pair that starts at an odd cell)
+  lane w[3 * kL];
+  ld_lanes(in + at - 4, w);
+  ld_lanes(in + at, w + kL);
+  ld_lanes(in + at + 4, w + 2 * kL);
 #pragma unroll
-  for (int v = 0; v < kV; ++v) acc[v] = mul_r(c_coef[0], w[4 + v]);
-#pragma unroll
-  for (int d = 1; d <= R; ++d)
-#pragma unroll
-    for (int v = 0; v < kV; ++v)
-      acc[v] = add_r(acc[v], mul_r(c_coef[I::xm + d - 1], w[4 + v - d]));
+  for (int v = 0; v < kL; ++v)
+    acc[v] = lmul(coef(0), lane_at(w, 4 + C * v));
 #pragma unroll
   for (int d = 1; d <= R; ++d)
 #pragma unroll
-    for (int v = 0; v < kV; ++v)
-      acc[v] = add_r(acc[v], mul_r(c_coef[I::xp + d - 1], w[4 + v + d]));
+    for (int v = 0; v < kL; ++v)
+      acc[v] = ladd(acc[v],
+                    lmul(coef(I::xm + d - 1), lane_at(w, 4 + C * v - d)));
+#pragma unroll
+  for (int d = 1; d <= R; ++d)
+#pragma unroll
+    for (int v = 0; v < kL; ++v)
+      acc[v] = ladd(acc[v],
+                    lmul(coef(I::xp + d - 1), lane_at(w, 4 + C * v + d)));
   if constexpr (ND == 3) {
 #pragma unroll
     for (int d = 1; d <= R; ++d) {
-      const float4 y = ld4(in + at - d * P);
-      const float yv[4] = {y.x, y.y, y.z, y.w};
+      lane y[kL];
+      ld_lanes(in + at - d * P, y);
 #pragma unroll
-      for (int v = 0; v < kV; ++v)
-        acc[v] = add_r(acc[v], mul_r(c_coef[I::ym + d - 1], yv[v]));
+      for (int v = 0; v < kL; ++v)
+        acc[v] = ladd(acc[v], lmul(coef(I::ym + d - 1), y[v]));
     }
 #pragma unroll
     for (int d = 1; d <= R; ++d) {
-      const float4 y = ld4(in + at + d * P);
-      const float yv[4] = {y.x, y.y, y.z, y.w};
+      lane y[kL];
+      ld_lanes(in + at + d * P, y);
 #pragma unroll
-      for (int v = 0; v < kV; ++v)
-        acc[v] = add_r(acc[v], mul_r(c_coef[I::yp + d - 1], yv[v]));
+      for (int v = 0; v < kL; ++v)
+        acc[v] = ladd(acc[v], lmul(coef(I::yp + d - 1), y[v]));
     }
   }
 #pragma unroll
   for (int d = 1; d <= R; ++d) {
-    const float4 z = zval(-d);
-    const float zv[4] = {z.x, z.y, z.z, z.w};
+    const Strip z = zval(-d);
 #pragma unroll
-    for (int v = 0; v < kV; ++v)
-      acc[v] = add_r(acc[v], mul_r(c_coef[I::zm + d - 1], zv[v]));
+    for (int v = 0; v < kL; ++v)
+      acc[v] = ladd(acc[v], lmul(coef(I::zm + d - 1), z.l[v]));
   }
 #pragma unroll
   for (int d = 1; d <= R; ++d) {
-    const float4 z = zval(d);
-    const float zv[4] = {z.x, z.y, z.z, z.w};
+    const Strip z = zval(d);
 #pragma unroll
-    for (int v = 0; v < kV; ++v)
-      acc[v] = add_r(acc[v], mul_r(c_coef[I::zp + d - 1], zv[v]));
+    for (int v = 0; v < kL; ++v)
+      acc[v] = ladd(acc[v], lmul(coef(I::zp + d - 1), z.l[v]));
   }
-}
-
-__device__ __forceinline__ float4 f4(const float (&v)[kV]) {
-  return make_float4(v[0], v[1], v[2], v[3]);
 }
 
 // The queue path: a star of radius R, T fused steps, groups of B = R
@@ -670,6 +690,7 @@ queue_kernel(const elem* __restrict__ src, elem* __restrict__ dst,
   // centre plane j of stage s at parity p: group 2(s-1) + p
   elem* cbuf = smem + g.D0 * g.plane;
   bval = rnd(bval);  // the host rounded it to the grid's dtype already
+  const elem bv = to_e(bval);
   unsigned long long* bars = reinterpret_cast<unsigned long long*>(
       smem + g.plane * g.planes + kGuard);
   init_barriers(bars, g.G);
@@ -683,14 +704,15 @@ queue_kernel(const elem* __restrict__ src, elem* __restrict__ dst,
   const int c0 = col - g.pad;  // stage-0 column of the strip's cell 0
   const bool clamp = boundary == kClamp, constant = boundary == kConstant;
 
-  // q[s - S0]: the queue of stage s (stage 0's only if it fits kQueueRegs)
-  float q[T - S0][Q][kV];
+  // q[s - S0]: the queue of stage s (stage 0's only if it fits
+  // kQueueRegs), kL lanes a plane
+  lane q[T - S0][Q][kL];
 #pragma unroll
   for (int s = 0; s < T - S0; ++s)
 #pragma unroll
     for (int i = 0; i < Q; ++i)
 #pragma unroll
-      for (int v = 0; v < kV; ++v) q[s][i][v] = 0.0f;
+      for (int v = 0; v < kL; ++v) q[s][i][v] = splat(to_e(0.0f));
 
   issue_first<SH>(src, ring0, bars, g, boundary, bval);
   unsigned step = 0;  // groups consumed by this CTA
@@ -713,13 +735,13 @@ queue_kernel(const elem* __restrict__ src, elem* __restrict__ dst,
         if (!mine || k < 2 * (s + 1)) continue;
 #pragma unroll
         for (int j = 0; j < R; ++j) {
-          float val[kV];
+          lane val[kL];
 #pragma unroll
-          for (int v = 0; v < kV; ++v) {
-            val[v] = q[s - S0][2 * R + j][v];
-            if (constant && fr.outside(g, iy, c0 + v)) val[v] = bval;
-          }
-          st4(cbuf + ((2 * (s - 1) + par) * R + j) * g.plane + at, f4(val));
+          for (int v = 0; v < kL; ++v) val[v] = q[s - S0][2 * R + j][v];
+#pragma unroll
+          for (int v = 0; v < kV; ++v)
+            if (constant && fr.outside(g, iy, c0 + v)) set_cell(val, v, bv);
+          st_lanes(cbuf + ((2 * (s - 1) + par) * R + j) * g.plane + at, val);
         }
       }
       mbar_wait(bars + slot, parity);
@@ -765,13 +787,9 @@ queue_kernel(const elem* __restrict__ src, elem* __restrict__ dst,
 #pragma unroll
         for (int i = 0; i < Q - R; ++i)
 #pragma unroll
-          for (int v = 0; v < kV; ++v) q[0][i][v] = q[0][i + R][v];
+          for (int v = 0; v < kL; ++v) q[0][i][v] = q[0][i + R][v];
 #pragma unroll
-        for (int j = 0; j < R; ++j) {
-          const float4 n = ld4(ring(j) + at);
-          q[0][Q - R + j][0] = n.x, q[0][Q - R + j][1] = n.y;
-          q[0][Q - R + j][2] = n.z, q[0][Q - R + j][3] = n.w;
-        }
+        for (int j = 0; j < R; ++j) ld_lanes(ring(j) + at, q[0][Q - R + j]);
       }
 #pragma unroll
       for (int s = 1; s <= T; ++s) {
@@ -790,7 +808,7 @@ queue_kernel(const elem* __restrict__ src, elem* __restrict__ dst,
 #pragma unroll
           for (int i = 0; i < Q - R; ++i)
 #pragma unroll
-            for (int v = 0; v < kV; ++v) qs[i][v] = qs[i + R][v];
+            for (int v = 0; v < kL; ++v) qs[i][v] = qs[i + R][v];
         }
 #pragma unroll
         for (int j = 0; j < R; ++j) {
@@ -798,16 +816,20 @@ queue_kernel(const elem* __restrict__ src, elem* __restrict__ dst,
           const elem* in =
               s == 1 ? ring(j - R) + 0
                      : cbuf + ((2 * (s - 2) + par) * R + j) * g.plane;
-          float acc[kV];
+          lane acc[kL];
           if (s - 1 >= S0) {
             const auto& qp = q[s - 1 - S0 < 0 ? 0 : s - 1 - S0];
             star_strip<R, ND>(in, at, g.P, [&](int d) {
-              return make_float4(qp[R + j + d][0], qp[R + j + d][1],
-                                 qp[R + j + d][2], qp[R + j + d][3]);
+              Strip t;
+#pragma unroll
+              for (int v = 0; v < kL; ++v) t.l[v] = qp[R + j + d][v];
+              return t;
             }, acc);
           } else {
             star_strip<R, ND>(in, at, g.P, [&](int d) {
-              return ld4(ring(j - R + d) + at);
+              Strip t;
+              ld_lanes(ring(j - R + d) + at, t.l);
+              return t;
             }, acc);
           }
           if (s == T) {
@@ -818,7 +840,7 @@ queue_kernel(const elem* __restrict__ src, elem* __restrict__ dst,
 #pragma unroll
             for (int v = 0; v < kV; ++v) {
               const int c = c0 + v;
-              if (c >= g.h2 && c < g.h2 + tw) row[c] = to_e(acc[v]);
+              if (c >= g.h2 && c < g.h2 + tw) row[c] = cell(acc, v);
             }
             continue;
           }
@@ -826,20 +848,20 @@ queue_kernel(const elem* __restrict__ src, elem* __restrict__ dst,
           const int gp = g.o0 + p;
           if (constant && (gp < 0 || gp >= g.n0)) {
 #pragma unroll
-            for (int v = 0; v < kV; ++v) acc[v] = bval;
+            for (int v = 0; v < kL; ++v) acc[v] = splat(bv);
           } else if (clamp && gp >= g.n0) {
             // a copy of plane n - 1: the plane before this one
 #pragma unroll
-            for (int v = 0; v < kV; ++v) acc[v] = qs[Q - R + j - 1][v];
+            for (int v = 0; v < kL; ++v) acc[v] = qs[Q - R + j - 1][v];
           }
 #pragma unroll
-          for (int v = 0; v < kV; ++v) qs[Q - R + j][v] = acc[v];
+          for (int v = 0; v < kL; ++v) qs[Q - R + j][v] = acc[v];
           if (clamp && gp == 0) {
             // planes -R..-1 are copies of plane 0
 #pragma unroll
             for (int d = 1; d <= R; ++d)
 #pragma unroll
-              for (int v = 0; v < kV; ++v) qs[Q - R + j - d][v] = acc[v];
+              for (int v = 0; v < kL; ++v) qs[Q - R + j - d][v] = acc[v];
           }
         }
       }
@@ -851,10 +873,9 @@ using QueueFn = void (*)(const elem*, elem*, Geo, int, float);
 
 // The queue path's instantiations: stars of radius 1..4 in 2D and 3D,
 // up to QUEUE_STEPS[ndim][R] fused steps (core/blocking.py), what fits
-// 128 registers without spilling; each for one device's carry and the
-// pre-padded grids (SH false) and for a mesh shard's carry (SH true).  A
-// 16-bit build leaves out what spilled there (QUEUE_STEPS_16): 2D radius
-// 4, 2D radius 3 at 2 steps, 3D radius 4.
+// 128 registers without spilling in every dtype; each for one device's
+// carry and the pre-padded grids (SH false) and for a mesh shard's carry
+// (SH true).
 template <bool SH>
 QueueFn choose_queue(int nd, int r, int t) {
   switch (nd * 100 + r * 10 + t) {
@@ -866,11 +887,9 @@ QueueFn choose_queue(int nd, int r, int t) {
     case 222: return queue_kernel<2, 2, 2, SH>;
     case 223: return queue_kernel<2, 2, 3, SH>;
     case 231: return queue_kernel<2, 3, 1, SH>;
-#if REPRO_DTYPE == 0
     case 232: return queue_kernel<2, 3, 2, SH>;
     case 241: return queue_kernel<2, 4, 1, SH>;
     case 242: return queue_kernel<2, 4, 2, SH>;
-#endif
     case 311: return queue_kernel<3, 1, 1, SH>;
     case 312: return queue_kernel<3, 1, 2, SH>;
     case 313: return queue_kernel<3, 1, 3, SH>;
@@ -880,9 +899,7 @@ QueueFn choose_queue(int nd, int r, int t) {
     case 323: return queue_kernel<3, 2, 3, SH>;
     case 331: return queue_kernel<3, 3, 1, SH>;
     case 332: return queue_kernel<3, 3, 2, SH>;
-#if REPRO_DTYPE == 0
     case 341: return queue_kernel<3, 4, 1, SH>;
-#endif
     default: return nullptr;
   }
 }
@@ -939,7 +956,7 @@ int launch(const void* src, void* dst, const void* coef, int ntaps,
   else
     err = cudaStreamWaitEvent(st, bank_free, 0);
   if (err != cudaSuccess) return err;
-  err = cudaMemcpyToSymbolAsync(c_coef, coef, sizeof(float) * ntaps, 0,
+  err = cudaMemcpyToSymbolAsync(c_coef, coef, sizeof(coef_t) * ntaps, 0,
                                 cudaMemcpyDeviceToDevice, st);
   if (err != cudaSuccess) return err;
   q<<<(unsigned)blocks, kThreads, smem, st>>>(

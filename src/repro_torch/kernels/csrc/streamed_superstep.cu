@@ -70,11 +70,18 @@
 //   whole grid.
 //
 // Arithmetic: every output is acc = c0*v0, then acc = acc + ck*vk in the
-// canonical tap order with __fmul_rn/__fadd_rn (no FMA contraction), each
-// rounded to the grid's dtype (elem.cuh), so the kernel equals its plain
+// canonical tap order, each multiply and add rounded to the grid's dtype
+// with no FMA contraction (elem.cuh), so the kernel equals its plain
 // version bit for bit.  The grid and the rings hold the grid's dtype (one
-// library per dtype, kernels/build.py); coefficients are floats holding
-// the values the host rounded to it.
+// library per dtype, kernels/build.py).  The fixed-tap path computes in
+// lanes: in float32 a thread's P planes are P floats; in 16 bits planes
+// (v, v + 1) are one bfloat162 / half2 pair, built from the two ring
+// cells by one permute, multiplied and added by one __hmul2_rn /
+// __hadd2_rn, with the coefficients as (c, c) pairs in registers: no
+// conversion per tap.  The flat path (any other tap set) computes in
+// float and rounds after each operation (mul_r, add_r), its coefficients
+// floats in shared memory; in 16 bits it converts each operand and
+// result.
 //
 // What bounds it on the H100.  At the paper's shapes one read of the
 // source and one write of the output is a few milliseconds of device
@@ -531,9 +538,11 @@ __host__ __device__ constexpr int num_taps() {
   return 1;
 }
 
+// A fixed tap set's coefficients in registers, one lane each: a float,
+// or a (c, c) pair in 16 bits.
 template <int S, int R, int ND>
 struct FixedCoef {
-  float c[num_taps<S, R, ND>()];
+  lane c[num_taps<S, R, ND>()];
 };
 
 // The sum over a fixed tap set in its canonical order (core/program.py),
@@ -542,33 +551,33 @@ struct FixedCoef {
 //         streamed axis in 2D) - and +; then (3D) the streamed axis - and +.
 //   box:  center; then every offset by Chebyshev shell 1..R, each shell in
 //         lexicographic order of the grid's axes.
-// acc = c0*v0, acc = acc + ck*vk with __fmul_rn/__fadd_rn, each rounded to
-// the grid's dtype.
+// acc = c0*v0, acc = acc + ck*vk, each rounded to the grid's dtype, a lane
+// at a time (elem.cuh: lmul, ladd).
 template <int S, int R, int ND, class Val>
-__device__ __forceinline__ float fixed_sum(const float* c, Val val) {
-  float a = mul_r(c[0], val(0, 0, 0));
+__device__ __forceinline__ lane fixed_sum(const lane* c, Val val) {
+  lane a = lmul(c[0], val(0, 0, 0));
   int k = 1;
   if constexpr (S == kStar) {
 #pragma unroll
     for (int j = 1; j <= R; ++j)
-      a = add_r(a, mul_r(c[k++], val(0, 0, -j)));
+      a = ladd(a, lmul(c[k++], val(0, 0, -j)));
 #pragma unroll
     for (int j = 1; j <= R; ++j)
-      a = add_r(a, mul_r(c[k++], val(0, 0, j)));
+      a = ladd(a, lmul(c[k++], val(0, 0, j)));
     if constexpr (ND == 3) {
 #pragma unroll
       for (int j = 1; j <= R; ++j)
-        a = add_r(a, mul_r(c[k++], val(0, -j, 0)));
+        a = ladd(a, lmul(c[k++], val(0, -j, 0)));
 #pragma unroll
       for (int j = 1; j <= R; ++j)
-        a = add_r(a, mul_r(c[k++], val(0, j, 0)));
+        a = ladd(a, lmul(c[k++], val(0, j, 0)));
     }
 #pragma unroll
     for (int j = 1; j <= R; ++j)
-      a = add_r(a, mul_r(c[k++], val(-j, 0, 0)));
+      a = ladd(a, lmul(c[k++], val(-j, 0, 0)));
 #pragma unroll
     for (int j = 1; j <= R; ++j)
-      a = add_r(a, mul_r(c[k++], val(j, 0, 0)));
+      a = ladd(a, lmul(c[k++], val(j, 0, 0)));
   } else if constexpr (S == kBox) {
     constexpr int RY = ND == 3 ? R : 0;
 #pragma unroll
@@ -582,7 +591,7 @@ __device__ __forceinline__ float fixed_sum(const float* c, Val val) {
             const int az = z < 0 ? -z : z, ay = y < 0 ? -y : y;
             const int ax = x < 0 ? -x : x;
             const int m = az > ay ? (az > ax ? az : ax) : (ay > ax ? ay : ax);
-            if (m == n) a = add_r(a, mul_r(c[k++], val(z, y, x)));
+            if (m == n) a = ladd(a, lmul(c[k++], val(z, y, x)));
           }
         }
       }
@@ -592,7 +601,8 @@ __device__ __forceinline__ float fixed_sum(const float* c, Val val) {
 }
 
 // Fixed-tap path: a thread owns one in-plane cell of the pass and computes
-// it on all P planes of the group.  The ring planes those read are one
+// it on all P planes of the group, P / kLaneCells lanes (planes C*v ..
+// C*v + C - 1, C = kLaneCells).  The ring planes those read are one
 // register array of plane offsets, so a ring cell that feeds several of
 // its outputs is read once.  Planes past the group's end (a short group at
 // the segment's ends) are computed and not stored.
@@ -603,7 +613,9 @@ __device__ __forceinline__ void column_pass(
     elem* __restrict__ dst) {
   constexpr int P = column_planes<ND>();
   constexpr int NB = P + 2 * R;  // ring planes read
+  constexpr int C = kLaneCells;
   const Plane pl(p, g, it, boundary);
+  const elem bv = to_e(bval);
   const int nq = (int)(p.qhi - p.qlo);
   const int dq = (int)(p.qlo - z0);
   const int pitch = p.ri.pitch;
@@ -630,17 +642,19 @@ __device__ __forceinline__ void column_pass(
     int my, mx;
     const bool fill = !pl.map(p, boundary, iy, ix, &my, &mx);
     const elem* q = p.in + (my - p.ri.oy) * pitch + mx - p.ri.ox;
-    float acc[P];
+    lane acc[P / C];
 #pragma unroll
-    for (int v = 0; v < P; ++v)
+    for (int v = 0; v < P / C; ++v)
       acc[v] = fixed_sum<S, R, ND>(fc.c, [&](int dz, int dy, int dx) {
-        return to_f(q[rb[v + R + dz] + dy * pitch + dx]);
+        const int m = C * v + R + dz;
+        return pair(q[rb[m] + dy * pitch + dx],
+                    q[rb[m + C - 1] + dy * pitch + dx]);
       });
     int os = out0;
 #pragma unroll
     for (int v = 0; v < P; ++v) {
       if (v < nq) {
-        const elem val = to_e(fill ? bval : acc[v]);
+        const elem val = fill ? bv : cell(acc, v);
         if (p.last)
           dst[pl.dst0 + v * dplane + (long long)iy * g.d2 + ix] = val;
         else
@@ -682,7 +696,7 @@ __device__ __forceinline__ void ghost_plane(elem* ring, const Ring& r,
 template <int S, int R, int ND, int M>
 __global__ void __launch_bounds__(kThreads, 2)
 streamed_kernel(const elem* __restrict__ src, elem* __restrict__ dst,
-                const float* __restrict__ coef, const int* __restrict__ offs,
+                const coef_t* __restrict__ coef, const int* __restrict__ offs,
                 int ntaps, int boundary, float bval, Geo g) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   elem* smem = reinterpret_cast<elem*>(smem_raw);
@@ -704,11 +718,13 @@ streamed_kernel(const elem* __restrict__ src, elem* __restrict__ dst,
       }
     }
   }
-  for (int k = threadIdx.x; k < ntaps; k += kThreads) s_coef[k] = coef[k];
+  for (int k = threadIdx.x; k < ntaps; k += kThreads)
+    s_coef[k] = coef_float(coef[k]);
   FixedCoef<S, R, ND> fc;
   if constexpr (S != kAny) {
 #pragma unroll
-    for (int k = 0; k < num_taps<S, R, ND>(); ++k) fc.c[k] = coef[k];
+    for (int k = 0; k < num_taps<S, R, ND>(); ++k)
+      fc.c[k] = coef_lane(coef[k]);
   }
   __syncthreads();
 
@@ -829,7 +845,7 @@ streamed_kernel(const elem* __restrict__ src, elem* __restrict__ dst,
   }
 }
 
-using KernelFn = void (*)(const elem*, elem*, const float*, const int*,
+using KernelFn = void (*)(const elem*, elem*, const coef_t*, const int*,
                           int, int, float, Geo);
 
 // The instantiation for the geometry: a fixed tap set (star of radius
@@ -895,7 +911,7 @@ int launch(const void* src, void* dst, const void* coef, const void* offs,
   fn<<<(unsigned)blocks, kThreads, smem,
        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const elem*>(src), static_cast<elem*>(dst),
-      static_cast<const float*>(coef), static_cast<const int*>(offs), ntaps,
+      static_cast<const coef_t*>(coef), static_cast<const int*>(offs), ntaps,
       boundary, bval, g);
   return cudaGetLastError();
 }
@@ -910,7 +926,9 @@ const char* streamed_superstep_error_string(int code) {
 
 // Each launcher runs one launch on `stream` and returns a cudaError_t (0 on
 // success).  `geometry` is the host array of Field, `steps` the fused
-// steps T, `coef`/`offs` the device tap tables ((streamed, y, x) rows).
+// steps T, `coef` the device coefficient bank (kernels/cuda.py:
+// coefficient_bank: ntaps floats, or ntaps (c, c) pairs in 16 bits),
+// `offs` the device tap table ((streamed, y, x) rows).
 
 int temporal_superstep_launch(const void* src, void* dst, const void* coef,
                               const void* offs, int ntaps, int steps,

@@ -9,7 +9,9 @@ at the first launch (``kernels/build.py``), one per source and grid dtype
 have); the launch counts add up over the dtypes, and :func:`launches` by
 dtype tells them apart.  The coefficients reach the kernels rounded to
 the grid's dtype, as the TPU kernels cast them
-(``repro/kernels/common.py:_superstep_pallas``), held as floats.
+(``repro/kernels/common.py:_superstep_pallas``): as floats for a float32
+grid, as (c, c) pairs of the grid's dtype for a 16-bit one, whose kernels
+multiply two cells at a time (:func:`coefficient_bank`).
 
 Which TPU kernel of ``repro/kernels/common.py`` each one replaces (the
 source headers say what bounds each on the card and what its design does
@@ -263,22 +265,37 @@ def _host_array(geo):
     return (_L * len(flat))(*flat)
 
 
+def coefficient_bank(center: torch.Tensor, taps: torch.Tensor,
+                     grid: torch.Tensor) -> torch.Tensor:
+    """The coefficients as the kernels read them: ``center`` and ``taps``
+    rounded to ``grid``'s dtype on its device (``common.grid_coeffs``) in
+    canonical order, as float32 values for a float32 grid and as (c, c)
+    pairs of the grid's dtype (``c0, c0, c1, c1, ...``) for a 16-bit one,
+    where one 32-bit entry multiplies a lane of two cells
+    (``csrc/elem.cuh``: ``coef_t``)."""
+    coef = torch.cat([center.reshape(1).to(grid.device, grid.dtype),
+                      taps.reshape(-1).to(grid.device, grid.dtype)])
+    if grid.dtype == torch.float32:
+        return coef.contiguous()
+    return coef.repeat_interleave(2).contiguous()
+
+
 def _superstep_launch(kernel: Kernel, src: torch.Tensor, dst: torch.Tensor,
                       center: torch.Tensor, taps: torch.Tensor, geo, program,
                       route: Optional[Kernel] = None) -> None:
     """One superstep launch of ``geo`` (a ``queued.QueuedGeometry`` or a
     ``streamed.StreamedGeometry``) through ``kernel``'s launcher, or
     through ``route``'s (the same function on another source): taps as
-    (streamed, y, x) rows.  The coefficients and the boundary value go
-    rounded to the grid's dtype, as floats."""
+    (streamed, y, x) rows.  The coefficients go as
+    :func:`coefficient_bank`, the boundary value rounded to the grid's
+    dtype, as a float."""
     dev = src.device
-    coef = torch.cat([center.reshape(1).to(dev, src.dtype),
-                      taps.reshape(-1).to(dev, src.dtype)]).to(
-        torch.float32).contiguous()
+    coef = coefficient_bank(center, taps, src)
+    ntaps = 1 + taps.numel()
     bval = torch.tensor(program.boundary_value, dtype=src.dtype).item()
     table = streamed_tap_table(program, dev)
     kernel(src.data_ptr(), dst.data_ptr(), coef.data_ptr(),
-           table.data_ptr(), coef.numel(),
+           table.data_ptr(), ntaps,
            geo.steps, BOUNDARY_CODES[program.boundary], float(bval),
            _host_array(geo), geo.batch, dev.index, _stream(dev),
            dtype=grid_dtype(program), route=route, src=src, dst=dst,

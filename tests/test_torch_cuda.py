@@ -14,7 +14,8 @@ import pytest
 import torch
 
 import repro_torch
-from repro_torch.core.blocking import TEMPORAL_CHUNK
+from repro_torch.core.blocking import (CARRY_KERNELS, QUEUE_STEPS,
+                                      TEMPORAL_CHUNK)
 from repro_torch.core.codegen import boundary_pad
 from repro_torch.core.reference import program_nsteps
 from repro_torch.kernels import common, cuda
@@ -942,12 +943,13 @@ def _prog16(ndim, boundary, shape, radius, dtype):
 @pytest.mark.parametrize("dtype", DT16)
 @pytest.mark.parametrize("ndim", [2, 3])
 @pytest.mark.parametrize("boundary", ["clamp", "periodic", "constant"])
-@pytest.mark.parametrize("shape,radius,steps", QUEUED)
+@pytest.mark.parametrize("shape,radius,steps", QUEUED + [("star", 4, 1)])
 @pytest.mark.parametrize("variant", ["plain", "temporal", "pipelined"])
 def test_16bit_carry_kernels_equal_plain_versions(cuda_device, dtype, ndim,
                                                   boundary, shape, radius,
                                                   steps, variant):
-    """B1 (both bodies), B3 (at par_time 1: a chunk of 4 steps) and B4 in
+    """B1 (both bodies: the register queues take a star of radius 4 at 1
+    and, in 2D, 2 steps), B3 (at par_time 1: a chunk of 4 steps) and B4 in
     16 bits against ``padded_superstep_plain`` on a random padded carry,
     batch 2, exact; B2 exact on the periodic ring."""
     prog = _prog16(ndim, boundary, shape, radius, dtype)
@@ -988,15 +990,19 @@ def test_16bit_carry_kernels_equal_plain_versions(cuda_device, dtype, ndim,
 @pytest.mark.parametrize("boundary", ["clamp", "periodic", "constant"])
 @pytest.mark.parametrize("variant", ["plain", "pipelined"])
 @pytest.mark.parametrize("shape", ["star", "box", "diamond"])
+@pytest.mark.parametrize("radius", [2, 4])
 def test_16bit_prepadded_kernels_equal_plain_versions(cuda_device, dtype,
                                                       ndim, boundary,
-                                                      variant, shape):
+                                                      variant, shape,
+                                                      radius):
     """B5 and B6 in 16 bits through ``superstep_call`` against
     ``superstep_plain`` (batch 2, a shard origin in a larger grid): the
-    register queues (star) and the streamed pre-padded mode, exact."""
-    prog = _prog16(ndim, boundary, shape, 2, dtype)
+    register queues (a star: radius 4 at 2 steps in 2D, at 1 in 3D) and
+    the streamed pre-padded mode, exact."""
+    prog = _prog16(ndim, boundary, shape, radius, dtype)
+    par_time = 1 if (ndim, radius) == (3, 4) else 2
     plan = repro_torch.BlockPlan(spec=prog, block_shape=BLOCKS[ndim],
-                                 par_time=2)
+                                 par_time=par_time)
     grid = GRIDS[ndim]
     h = plan.halo
     rounded = tuple(common.round_up(n, b) for n, b in zip(grid,
@@ -1022,17 +1028,134 @@ def test_16bit_prepadded_kernels_equal_plain_versions(cuda_device, dtype,
     torch.testing.assert_close(got[ix], want[ix], rtol=0, atol=0)
 
 
+#: The 16-bit edge cases: input classes that reach the corners of the
+#: rounding, and the kernels of the packed arithmetic (``csrc/elem.cuh``,
+#: ``__hmul2_rn``/``__hadd2_rn`` on pairs) as (variant, ndim, shape,
+#: radius, par_time): B1 on the register queues (radius 4 in 2D and 3D),
+#: B1 on the streamed body (a box, and a star past the queues' steps), B3
+#: (2D radius 4: a lane of two planes, 3D radius 2: one lane a thread).
+EDGE_CLASSES = ("subnormal", "ties", "zeros", "specials", "overflow")
+EDGE_KERNELS = [("plain", 2, "star", 4, 2), ("plain", 3, "star", 4, 1),
+                ("plain", 2, "box", 1, 2), ("plain", 2, "star", 1, 6),
+                ("temporal", 2, "star", 4, 1), ("temporal", 3, "star", 2, 1)]
+
+
+def _edge_inputs(kind, prog, shape, seed):
+    """A carry of ``shape`` in the program's dtype and coefficients for
+    one :data:`EDGE_CLASSES` class (numpy, seeded):
+
+    - subnormal: multiples of the smallest subnormal up to four times the
+      smallest normal; a bfloat16 product then lies below float's normal
+      range, where float rounds before the cast does;
+    - ties: p-bit values over p + 3 binades and coefficients of 3
+      significant bits, so products and sums land on halfway points;
+    - zeros: +0 and -0 in seven cells of ten, negative coefficients;
+    - specials: +inf, -inf and NaN in two cells of a hundred each;
+    - overflow: values within a factor 2 of the largest finite, and
+      coefficients up to 1.5, so products and sums overflow to inf."""
+    dt = getattr(torch, prog.dtype)
+    info = torch.finfo(dt)
+    p = 8 if prog.dtype == "bfloat16" else 11  # significand bits
+    rng = np.random.RandomState(seed)
+    n = int(np.prod(shape))
+    sign = rng.choice([-1.0, 1.0], n)
+    k = prog.num_neighbor_taps + 1
+    coef = rng.choice([-1.0, 1.0], k) * rng.choice(
+        [0.375, 0.5, 0.625, 0.75, 1.0, 1.5], k)
+    if kind == "subnormal":
+        q = info.tiny * 2.0 ** (1 - p)
+        v = sign * rng.randint(0, 2 ** (p + 1), n) * q
+        coef = None
+    elif kind == "ties":
+        m = 2 ** (p - 1) + rng.randint(0, 2 ** (p - 1), n)
+        v = sign * m * 2.0 ** (rng.randint(-p - 2, 1, n) - (p - 1))
+    elif kind == "zeros":
+        v = np.where(rng.uniform(size=n) < 0.7, sign * 0.0,
+                     sign * rng.uniform(0.5, 2.0, n))
+    elif kind == "specials":
+        v = sign * rng.uniform(0.5, 2.0, n)
+        u = rng.uniform(size=n)
+        v = np.where(u < 0.02, np.inf, np.where(u < 0.04, -np.inf, v))
+        v = np.where((u >= 0.04) & (u < 0.06), np.nan, v)
+        coef = None
+    else:
+        v = sign * info.max * rng.uniform(0.5, 1.0, n)
+    grid = torch.from_numpy(v.reshape(shape)).to(dt)
+    if coef is None:
+        coeffs = prog.default_coeffs(seed=seed)
+    else:
+        c = torch.from_numpy(coef).to(dt)
+        coeffs = repro_torch.ProgramCoeffs(c[0], c[1:])
+    return grid, coeffs
+
+
+def _assert_same_bits(got, want):
+    """Equal at 0 with NaN in the same cells, and bit for bit elsewhere
+    (so +0 and -0 differ)."""
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    bits_g = got.view(torch.int16)[~nan]
+    bits_w = want.view(torch.int16)[~nan]
+    assert torch.equal(bits_g, bits_w), \
+        f"{int((bits_g != bits_w).sum())} cells differ in their bits"
+
+
+@pytest.mark.parametrize("dtype", DT16)
+@pytest.mark.parametrize("kind", EDGE_CLASSES)
+@pytest.mark.parametrize("variant,ndim,shape,radius,par_time", EDGE_KERNELS)
+def test_16bit_edge_values_equal_plain_versions(cuda_device, dtype, kind,
+                                                variant, ndim, shape, radius,
+                                                par_time):
+    """The packed 16-bit arithmetic of B1 (both bodies) and B3 gives
+    ``padded_superstep_plain``'s bits on subnormals, rounding ties, signed
+    zeros, infinities, NaN and overflow (:func:`_edge_inputs`), batch 2,
+    with the kernel and body the case names."""
+    prog = repro_torch.StencilProgram(ndim=ndim, radius=radius, shape=shape,
+                                      boundary="clamp", dtype=dtype)
+    plan = repro_torch.BlockPlan(spec=prog, block_shape=BLOCKS[ndim],
+                                 par_time=par_time)
+    grid = (23, 30, 150) if ndim == 3 else (37, 150)
+    layout = common.ring_schedule(prog, plan, grid, par_time,
+                                  variant=variant).layout
+    src, coeffs = _edge_inputs(kind, prog, (2,) + layout.padded_shape,
+                               seed=EDGE_CLASSES.index(kind))
+    src, coeffs = src.to(cuda_device), coeffs.to(cuda_device)
+    name = "temporal_superstep" if variant == "temporal" \
+        else "padded_superstep"
+    body = "streamed" if variant == "temporal" else plan.body(name)
+    assert body == ("queue" if shape == "star" and radius == 4
+                    and variant == "plain" else "streamed")
+    before = cuda.launches(dtype)[name]
+    got, want = torch.zeros_like(src), torch.zeros_like(src)
+    common.padded_superstep(src, got, coeffs.center, coeffs.taps,
+                            program=prog, plan=plan, layout=layout,
+                            variant=variant)
+    assert cuda.launches(dtype)[name] == before + 1
+    deep = common.deep_plan(plan) if variant == "temporal" else plan
+    common.padded_superstep_plain(src, want, coeffs.center, coeffs.taps,
+                                  program=prog, plan=deep, layout=layout)
+    ix = _interior(layout)
+    _assert_same_bits(got[ix], want[ix])
+
+
 @pytest.mark.parametrize("dtype", DT16)
 @pytest.mark.parametrize("ndim", [2, 3])
 @pytest.mark.parametrize("boundary", ["clamp", "periodic", "constant"])
 @pytest.mark.parametrize("shape,radius,steps", [("star", 2, 3),
-                                                ("box", 1, 2)])
+                                                ("box", 1, 2),
+                                                ("star", 4, 1),
+                                                ("star", 3, 2),
+                                                ("star", 4, 2)])
 @pytest.mark.parametrize("where", sorted(SHARD_ORIGINS))
 @pytest.mark.parametrize("variant", ["plain", "pipelined"])
 def test_16bit_sharded_carry_equals_plain_version(cuda_device, dtype, ndim,
                                                   boundary, shape, radius,
                                                   steps, where, variant):
-    """The sharded instantiations of B1 and B4 in 16 bits, exact."""
+    """The sharded instantiations of B1 and B4 in 16 bits, exact: B1's
+    register queues at radius 4 (2D at 1 and 2 steps, 3D at 1) and 2D
+    radius 3 at 2 steps among them, and the streamed body where a star
+    is past the queues (3D radius 4 at 2 steps)."""
     prog, plan, layout, offsets, global_shape, src, coeffs = _shard_case(
         ndim, boundary, shape, radius, steps, where, cuda_device)
     prog = dataclasses.replace(prog, dtype=dtype)
@@ -1041,6 +1164,10 @@ def test_16bit_sharded_carry_equals_plain_version(cuda_device, dtype, ndim,
     launch, name = (cuda.padded_superstep, "padded_superstep_sharded") \
         if variant == "plain" else (cuda.padded_pipelined,
                                     "padded_pipelined_sharded")
+    queued = (shape == "star" and variant == "plain"
+              and steps <= QUEUE_STEPS[ndim][radius])
+    assert plan.body(CARRY_KERNELS[variant]) == \
+        ("queue" if queued else "streamed")
     got, want = torch.zeros_like(src), torch.zeros_like(src)
     before = cuda.launches(dtype)
     launch(src, got, coeffs.center, coeffs.taps, program=prog, plan=plan,

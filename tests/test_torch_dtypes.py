@@ -281,15 +281,16 @@ def test_rp105_sizes_shared_memory_by_the_cell(shape, ndim, radius,
 
 
 @pytest.mark.parametrize("ndim,radius,steps,f32,f16", [
-    (2, 4, 1, "queue", "streamed"), (2, 4, 2, "queue", "streamed"),
-    (2, 3, 2, "queue", "streamed"), (2, 3, 1, "queue", "queue"),
-    (3, 4, 1, "queue", "streamed"), (3, 3, 2, "queue", "queue"),
-    (3, 1, 4, "queue", "queue")])
+    (2, 4, 1, "queue", "queue"), (2, 4, 2, "queue", "queue"),
+    (2, 3, 2, "queue", "queue"), (2, 3, 1, "queue", "queue"),
+    (3, 4, 1, "queue", "queue"), (3, 3, 2, "queue", "queue"),
+    (3, 1, 4, "queue", "queue"), (3, 4, 2, "streamed", "streamed")])
 def test_16_bit_stars_take_the_queues_that_fit(ndim, radius, steps, f32,
                                                f16):
-    """The register queues a 16-bit grid has (``QUEUE_STEPS_16``): the
-    instantiations whose roundings spilled at 128 registers run the
-    streamed body instead, in both 16-bit dtypes."""
+    """A 16-bit grid has float32's register queues (``QUEUE_STEPS``, one
+    table): its packed pairs take half the queue registers, so radius 4
+    and radius 3 at 2 steps no longer spill; past the table (3D radius 4
+    at 2 steps) every dtype runs the streamed body."""
     from repro_torch.core.blocking import kernel_body
     for dtype, want in (("float32", f32), ("bfloat16", f16),
                         ("float16", f16)):
@@ -298,6 +299,42 @@ def test_16_bit_stars_take_the_queues_that_fit(ndim, radius, steps, f32,
         for kernel in ("padded_superstep", "superstep",
                        "pipelined_superstep"):
             assert kernel_body(prog, kernel, steps) == want
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("shape,ndim,radius", [("star", 2, 4),
+                                               ("star", 3, 4),
+                                               ("box", 2, 2)])
+def test_coefficient_bank_layout(dtype, shape, ndim, radius):
+    """The coefficients as the kernels read them
+    (``cuda.coefficient_bank``): ``common.grid_coeffs`` in canonical
+    order, float32 for a float32 grid; for a 16-bit grid each coefficient
+    twice, so that 32-bit entry k holds (c_k, c_k) with c_k in its low
+    half as a lane's first cell (``csrc/elem.cuh``), bit for bit the
+    reference's cast of the same values to the grid's dtype."""
+    from repro_torch.kernels import cuda
+    prog = repro_torch.StencilProgram(ndim=ndim, radius=radius, shape=shape,
+                                      dtype=dtype)
+    coeffs = prog.default_coeffs(seed=3)
+    grid = torch.zeros((4,) * ndim, dtype=DTYPES[dtype])
+    center, taps = common.grid_coeffs(coeffs.center, coeffs.taps, grid)
+    want = torch.cat([center.reshape(1), taps.reshape(-1)])
+    bank = cuda.coefficient_bank(coeffs.center, coeffs.taps, grid)
+    assert bank.dtype == grid.dtype and bank.is_contiguous()
+    ref = np.asarray(jnp.asarray(
+        np.concatenate([np.asarray(coeffs.center.float()).reshape(1),
+                        np.asarray(coeffs.taps.float()).reshape(-1)]),
+        dtype=getattr(jnp, dtype)).astype(np.float32))
+    np.testing.assert_array_equal(want.float().numpy(), ref)
+    if dtype == "float32":
+        assert torch.equal(bank, want)
+        return
+    assert bank.numel() == 2 * prog.num_taps
+    assert torch.equal(bank[0::2], want) and torch.equal(bank[1::2], want)
+    words = bank.view(torch.int32).long() & 0xFFFFFFFF
+    bits = want.view(torch.int16).long() & 0xFFFF
+    assert torch.equal(words & 0xFFFF, bits)
+    assert torch.equal(words >> 16, bits)
 
 
 def test_queued_planes_at_two_bytes():

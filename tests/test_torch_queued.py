@@ -39,9 +39,8 @@ from repro.kernels import common as ref_common
 import repro_torch
 from repro_torch.analysis.hw import H100_SXM
 from repro_torch.configs import stencil2d, stencil3d
-from repro_torch.core.blocking import (QUEUE_STEPS, QUEUE_STEPS_16,
-                                       QueuedPlanes, queue_path,
-                                       queued_planes, round_up)
+from repro_torch.core.blocking import (QUEUE_STEPS, QueuedPlanes,
+                                       queue_path, queued_planes, round_up)
 from repro_torch.core.codegen import boundary_pad
 from repro_torch.kernels import common, cuda, queued, streamed
 from repro_torch.lint.verify import smem_diagnostics
@@ -664,14 +663,15 @@ def test_strips_cover_the_stage_one_region(ndim, radius, steps, pad):
 
 
 @pytest.mark.parametrize("ndim", [2, 3])
-@pytest.mark.parametrize("radius,steps", [(1, 4), (2, 3), (3, 2)])
+@pytest.mark.parametrize("radius,steps", [(1, 4), (2, 3), (3, 2), (4, 2)])
 @pytest.mark.parametrize("pad", range(8, 16))
 def test_strips_cover_the_stage_one_region_in_16_bits(ndim, radius, steps,
                                                        pad):
     """At 2 bytes a cell the x shift is 8..15 (16-byte copies are 8
     cells): the strips still cover the stage-1 region inside the row and
-    fit the CTA at the picked tile, for every queue of a 16-bit grid."""
-    steps = min(steps, QUEUE_STEPS_16[ndim][radius])
+    fit the CTA at the picked tile, for every queue of a 16-bit grid
+    (the float32 table, radius 4 included)."""
+    steps = min(steps, QUEUE_STEPS[ndim][radius])
     prog = _program(ndim, "clamp", radius=radius, dtype="bfloat16")
     tile = queued.pick_queued_tile(prog, steps, LIMIT)
     planes = queued_planes(prog, steps, tile)
@@ -711,6 +711,25 @@ def test_paper_picks_fit_two_ctas_per_sm():
             streamed.pick_streamed_tile(box.program, box.par_time, LIMIT)
         assert box.smem_bytes_for((992,), kernel) == \
             box.smem_bytes_for((992,), "padded_pipelined")
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_16_bit_paper_picks_fit_two_ctas_per_sm(dtype):
+    """The radius-4 paper stars in 16 bits run B1, B5 and B6 on the
+    register queues, like float32, at a tile that leaves room for two
+    CTAs per SM and whose strips fit the CTA's threads."""
+    works = {**stencil2d.workloads(), **stencil3d.workloads()}
+    for name in ("2d_r4_paper", "3d_r4_paper"):
+        work = works[name]
+        prog = dataclasses.replace(work.spec, dtype=dtype)
+        plan = dataclasses.replace(work.plan(), spec=prog)
+        assert plan.itemsize == 2
+        for kernel in QUEUED:
+            tile = cuda.pick_tile(plan, kernel, LIMIT)
+            assert plan.body(kernel) == "queue"
+            assert plan.smem_bytes_for(tile, kernel) <= \
+                LIMIT // 2 - queued.CTA_RESERVED
+            assert queued_planes(prog, plan.par_time, tile).threads_fit
 
 
 def _old_window_fits(plan, kernel):
