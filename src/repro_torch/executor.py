@@ -33,7 +33,9 @@ With the flight recorder on (``REPRO_TORCH_OBS=1`` or
 ``repro_torch.obs.profile()``) ``compile`` emits a ``compile`` span and
 each ``run`` a ``run`` span timed on the card (CUDA events beside the host
 clock) plus one accuracy sample; off, ``run`` pays one ``obs.active()``
-lookup and stays asynchronous.
+lookup and one flag read and stays asynchronous.  With the recorder off
+and a ``torch.profiler`` recording, ``run`` is a ``run`` range in the
+profiler's trace around the dispatch, which synchronises nothing.
 
 ``devices=N`` or shards per axis lays the run over a mesh of the devices
 ``core/distributed.visible_devices`` gives (one per card, or with
@@ -677,12 +679,16 @@ class CompiledStencil:
 
         With the flight recorder on, the run is timed under a ``run`` span
         (:meth:`_run_recorded`), which synchronises the device; off, it is
-        only enqueued on the current stream."""
+        only enqueued on the current stream, inside a ``run`` range while
+        a profiler records."""
         steps = self.steps if steps is None else _check_steps(steps)
         self._check_grid(grid)
         self._check_fits(steps)
         rec = obs.active()
-        if rec is None or torch.compiler.is_compiling():
+        if rec is None:
+            with obs.profiler_range("run"):
+                return self._dispatch(grid, steps)
+        if torch.compiler.is_compiling():
             return self._dispatch(grid, steps)
         return self._run_recorded(rec, grid, steps)
 

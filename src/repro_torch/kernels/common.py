@@ -25,7 +25,11 @@ The kernels of a superstep, each with a plain PyTorch version here:
 
 Each dispatches on where the tensor lies: a CUDA tensor launches the
 hand-written kernel (``kernels/cuda.py``), a CPU tensor takes the plain
-version, and any other device raises.
+version, and any other device raises.  Each runs inside a
+``launch.<key>`` span (``repro_torch.obs``), the key the kernel's in
+``cuda.KERNELS``, on the card and on the CPU alike; ``run_call``'s pad-in,
+superstep loop and slice-out run inside ``run_call.pad_in``,
+``run_call.supersteps`` and ``run_call.slice_out``.
 
 A grid is float32, bfloat16 or float16 (the program's ``dtype``), and so
 is the carry.  The coefficients are cast to the grid's dtype at each
@@ -54,11 +58,13 @@ from __future__ import annotations
 import collections
 import dataclasses
 import itertools
+import math
 import threading
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.blocking import (CARRY_KERNELS, BlockPlan,
                                        TEMPORAL_CHUNK, normalize_variant,
                                        round_up)
@@ -574,6 +580,20 @@ def _on_cuda(t: torch.Tensor) -> bool:
                      f"plain version here (cuda or cpu)")
 
 
+#: The span of each kernel's launch, by its key in ``cuda.KERNELS``.
+LAUNCH_SPANS = {name: "launch." + name for name in cuda.KERNELS}
+
+
+def _launch_attrs(t: torch.Tensor, spatial: int, cells: int,
+                  steps: int) -> dict:
+    """A launch span's recorder attributes: the grid's dtype, its batch,
+    the cells the launch writes (every grid of the batch) and its fused
+    steps."""
+    batch = t.shape[0] if t.ndim > spatial else 1
+    return dict(dtype=str(t.dtype).removeprefix("torch."), batch=batch,
+                cells=batch * cells, steps=steps)
+
+
 def deep_plan(plan: BlockPlan) -> BlockPlan:
     """The chunk-deep plan of the temporal variant: ``TEMPORAL_CHUNK``
     supersteps fused into one (reference ``build_temporal_kernel``)."""
@@ -596,27 +616,32 @@ def padded_superstep(src: torch.Tensor, dst: torch.Tensor,
     instantiation of B1 or B4."""
     v = normalize_variant(variant)
     shard = dict(offsets=offsets, global_shape=global_shape)
-    if v == "temporal" and (offsets is not None
-                            or global_shape is not None):
+    sharded = offsets is not None or global_shape is not None
+    if v == "temporal" and sharded:
         raise ValueError("the temporal chunk runs on one device only: a "
                          "shard's ring is exchanged once per superstep")
-    if _on_cuda(src):
-        if v == "temporal":
-            cuda.temporal_superstep(src, dst, center, taps, program=program,
-                                    plan=plan, layout=layout)
-        else:
-            launch = cuda.padded_superstep if v == "plain" \
-                else cuda.padded_pipelined
-            launch(src, dst, center, taps, program=program, plan=plan,
-                   layout=layout, **shard)
-        return dst
-    padded_superstep_plain(
-        src, dst, center, taps, program=program,
-        plan=deep_plan(plan) if v == "temporal" else plan, layout=layout,
-        **shard)
-    sharded = offsets is not None or global_shape is not None
-    _audit_plain(CARRY_KERNELS[v] + ("_sharded" if sharded else ""), src,
-                 dst, center, taps)
+    name = CARRY_KERNELS[v] + ("_sharded" if sharded else "")
+    with obs.span(LAUNCH_SPANS[name]) as sp:
+        if sp.recording:
+            sp.set(**_launch_attrs(
+                src, program.ndim, math.prod(layout.local_shape),
+                plan.par_time * (TEMPORAL_CHUNK if v == "temporal" else 1)))
+        if _on_cuda(src):
+            if v == "temporal":
+                cuda.temporal_superstep(src, dst, center, taps,
+                                        program=program, plan=plan,
+                                        layout=layout)
+            else:
+                launch = cuda.padded_superstep if v == "plain" \
+                    else cuda.padded_pipelined
+                launch(src, dst, center, taps, program=program, plan=plan,
+                       layout=layout, **shard)
+            return dst
+        padded_superstep_plain(
+            src, dst, center, taps, program=program,
+            plan=deep_plan(plan) if v == "temporal" else plan,
+            layout=layout, **shard)
+        _audit_plain(name, src, dst, center, taps)
     return dst
 
 
@@ -624,12 +649,24 @@ def refresh_wrap_halo(src: torch.Tensor,
                       layout: PaddedLayout) -> torch.Tensor:
     """Periodic ring refresh of ``src`` in place: one CUDA launch for a
     CUDA tensor, the plain version for a CPU tensor."""
-    if _on_cuda(src):
-        cuda.refresh_wrap_halo(src, layout)
-        return src
-    refresh_wrap_halo_plain(src, layout)
-    _audit_plain("wrap_halo", src, None)
+    with obs.span(LAUNCH_SPANS["wrap_halo"]) as sp:
+        if sp.recording:
+            sp.set(**_launch_attrs(src, len(layout.rounded),
+                                   _ring_cells(layout), 0))
+        if _on_cuda(src):
+            cuda.refresh_wrap_halo(src, layout)
+            return src
+        refresh_wrap_halo_plain(src, layout)
+        _audit_plain("wrap_halo", src, None)
     return src
+
+
+def _ring_cells(layout: PaddedLayout) -> int:
+    """The cells one ring refresh writes: each of :func:`wrap_copies`'s
+    strips, every other axis at its padded extent."""
+    P = layout.padded_shape
+    return sum(c.width * math.prod(P) // P[c.axis]
+               for c in wrap_copies(layout))
 
 
 # ---- executors -----------------------------------------------------------------
@@ -673,15 +710,23 @@ def superstep_call(padded: torch.Tensor, center: torch.Tensor,
     if v == "temporal":
         v = "plain"
     batch_dims(program, padded.ndim)
-    if _on_cuda(padded):
-        launch = cuda.pipelined_superstep if v == "pipelined" \
-            else cuda.superstep
-        return launch(padded, center, taps, program=program, plan=plan,
-                      true_shape=tuple(true_shape), offsets=offsets)
-    out = superstep_plain(padded, center, taps, program=program, plan=plan,
+    name = "pipelined_superstep" if v == "pipelined" else "superstep"
+    with obs.span(LAUNCH_SPANS[name]) as sp:
+        if sp.recording:
+            sp.set(**_launch_attrs(
+                padded, program.ndim,
+                math.prod(n - 2 * plan.halo
+                          for n in padded.shape[-program.ndim:]),
+                plan.par_time))
+        if _on_cuda(padded):
+            launch = cuda.pipelined_superstep if v == "pipelined" \
+                else cuda.superstep
+            return launch(padded, center, taps, program=program, plan=plan,
                           true_shape=tuple(true_shape), offsets=offsets)
-    _audit_plain("pipelined_superstep" if v == "pipelined" else "superstep",
-                 padded, out, center, taps)
+        out = superstep_plain(padded, center, taps, program=program,
+                              plan=plan, true_shape=tuple(true_shape),
+                              offsets=offsets)
+        _audit_plain(name, padded, out, center, taps)
     return out
 
 
@@ -760,27 +805,32 @@ def run_call(grid: torch.Tensor, center: torch.Tensor, taps: torch.Tensor,
                           variant=v)
     launches = run_launches(sched)
     if sched.fallback:
-        for _, step_variant, step_plan, count in launches:
-            for _ in range(count):
-                grid = pad_superstep(grid, center, taps, program=program,
-                                     plan=step_plan, variant=step_variant)
+        with obs.span("run_call.supersteps"):
+            for _, step_variant, step_plan, count in launches:
+                for _ in range(count):
+                    grid = pad_superstep(grid, center, taps,
+                                         program=program, plan=step_plan,
+                                         variant=step_variant)
         return grid.contiguous()
     layout = sched.layout
     nb = grid.ndim - program.ndim
-    src = grid.new_zeros(tuple(grid.shape[:nb]) + layout.padded_shape)
     interior = _interior([layout.halo] * program.ndim, true_shape)
-    src[interior] = grid
-    dst = torch.zeros_like(src)
+    with obs.span("run_call.pad_in"):
+        src = grid.new_zeros(tuple(grid.shape[:nb]) + layout.padded_shape)
+        src[interior] = grid
+        dst = torch.zeros_like(src)
     # The temporal remainder (fewer than TEMPORAL_CHUNK * par_time steps)
     # is the reference's own semantics, not a fallback: one plain
     # superstep of `rem` steps inside the same deep ring
     # (repro/kernels/common.py:run_call).
-    for _, step_variant, step_plan, count in launches:
-        for _ in range(count):
-            if layout.wrap_axes:
-                refresh_wrap_halo(src, layout)
-            padded_superstep(src, dst, center, taps, program=program,
-                             plan=step_plan, layout=layout,
-                             variant=step_variant)
-            src, dst = dst, src
-    return src[interior].contiguous()
+    with obs.span("run_call.supersteps"):
+        for _, step_variant, step_plan, count in launches:
+            for _ in range(count):
+                if layout.wrap_axes:
+                    refresh_wrap_halo(src, layout)
+                padded_superstep(src, dst, center, taps, program=program,
+                                 plan=step_plan, layout=layout,
+                                 variant=step_variant)
+                src, dst = dst, src
+    with obs.span("run_call.slice_out"):
+        return src[interior].contiguous()

@@ -33,7 +33,9 @@ Where this differs from the reference:
   1 GiB device-to-host copy per request would dominate ``run_s``).
 * Chunks are enqueued without waiting; a CUDA event recorded after each
   chunk's dispatch is what the resolution pass waits on
-  (:func:`wait_ready`) before it stamps the chunk's latency samples.
+  (:func:`wait_ready`).  Every request's latency sample is stamped once,
+  after the whole resolution pass, at ``flush()``'s return: what the
+  client holds.
 * ``mesh_devices`` above what ``core/distributed.visible_devices`` gives
   (one per card, or ``REPRO_TORCH_FORCE_DEVICE_COUNT``) is RP110 at
   construction, never a silent single-device server.
@@ -42,6 +44,14 @@ Where this differs from the reference:
   others are served.  A device fault (an illegal address) leaves the CUDA
   context unusable for every group, so it is raised, never recorded as
   one group's failure.
+
+Spans (``repro_torch.obs``): ``serve.flush`` on the server's own
+recorder; through the global recorder, or as profiler ranges while a
+``torch.profiler`` records, ``serve.submit`` and, inside ``serve.flush``,
+``serve.group`` (grouping, fingerprints), per chunk ``serve.stack`` (the
+``torch.stack``), ``serve.dispatch`` (``_compiled_for``, the enqueue, the
+done-event) and ``serve.wait``, and ``serve.route`` (results, latency
+stamps).
 
 CPU-scale usage:
     PYTHONPATH=src python -m repro_torch.launch.stencil_serve --device cpu \\
@@ -126,12 +136,9 @@ class ServeStats:
     def seconds(self) -> float:
         return self.compile_seconds + self.run_seconds
 
-    @property
-    def mcell_steps_per_s(self) -> float:
-        return self.cell_steps / max(self.seconds, 1e-9) / 1e6
-
     def latency_percentiles(self) -> Dict[str, float]:
-        """{"p50": s, "p95": s, "p99": s} of submit->result latency."""
+        """{"p50": s, "p95": s, "p99": s} of submit to ``flush()``'s
+        return."""
         return self.recorder.percentiles("serve.request_latency_s")
 
 
@@ -232,21 +239,22 @@ class StencilServer:
         """Queue one run; returns the request id ``flush()`` resolves.  The
         grid moves to the server's device in the program's dtype, as the
         reference casts it."""
-        if not isinstance(program, StencilProgram):
-            raise TypeError(f"program must be a StencilProgram (got "
-                            f"{type(program).__name__})")
-        grid = _as_grid(grid, program, self.device)
-        if grid.ndim != program.ndim:
-            raise ValueError(
-                f"request grid rank {grid.ndim} != program ndim "
-                f"{program.ndim}")
-        if steps < 0:
-            raise ValueError("steps must be >= 0")
-        rid = self._next_rid
-        self._next_rid += 1
-        self._pending.append(
-            StencilRequest(rid, program, grid, steps,
-                           t_submit=time.perf_counter()))
+        with obs.span("serve.submit"):
+            if not isinstance(program, StencilProgram):
+                raise TypeError(f"program must be a StencilProgram (got "
+                                f"{type(program).__name__})")
+            grid = _as_grid(grid, program, self.device)
+            if grid.ndim != program.ndim:
+                raise ValueError(
+                    f"request grid rank {grid.ndim} != program ndim "
+                    f"{program.ndim}")
+            if steps < 0:
+                raise ValueError("steps must be >= 0")
+            rid = self._next_rid
+            self._next_rid += 1
+            self._pending.append(
+                StencilRequest(rid, program, grid, steps,
+                               t_submit=time.perf_counter()))
         return rid
 
     def pending(self) -> int:
@@ -319,24 +327,24 @@ class StencilServer:
         rec = self.recorder
         pending, self._pending = self._pending, []
         rec.observe("serve.queue_depth", float(len(pending)))
-        groups: Dict[tuple, List[StencilRequest]] = {}
-        for req in pending:
-            groups.setdefault(self._group_key(req), []).append(req)
-
         results: Dict[int, torch.Tensor] = {}
         failed_before = len(self.failed)
         outs = []
-        with rec.span("serve.flush", requests=len(pending),
-                      groups=len(groups)) as flush_span:
+        with rec.span("serve.flush", requests=len(pending)) as flush_span:
+            groups: Dict[tuple, List[StencilRequest]] = {}
+            with obs.span("serve.group"):
+                for req in pending:
+                    groups.setdefault(self._group_key(req), []).append(req)
+            flush_span.set(groups=len(groups))
             for (fp, shape, _dtype, steps), reqs in groups.items():
                 program = self._programs[fp]
                 done = 0     # requests of this group whose chunk already ran
                 if steps == 0:      # identity: results are the inputs, no run
                     for lo in range(0, len(reqs), self.max_batch):
                         chunk = reqs[lo:lo + self.max_batch]
-                        outs.append((chunk,
-                                     torch.stack([r.grid for r in chunk]),
-                                     None))
+                        with obs.span("serve.stack"):
+                            stacked = torch.stack([r.grid for r in chunk])
+                        outs.append((chunk, stacked, None))
                         self._count_chunk(chunk, shape, steps)
                     continue
                 try:
@@ -363,15 +371,21 @@ class StencilServer:
                         # on the mesh every chunk is one batched run
                         batch = len(chunk) if (on_mesh or len(chunk) > 1) \
                             else None
-                        cs = self._compiled_for(program, shape, steps, batch,
-                                                on_mesh)
-                        grid = chunk[0].grid if batch is None \
-                            else torch.stack([r.grid for r in chunk])
-                        # timed here: the enqueue; wait_ready synchronises
-                        out = cs.run(grid, steps)  # lint-ok: RP302
                         if batch is None:
-                            out = out[None]
-                        outs.append((chunk, out, self._record_done()))
+                            grid = chunk[0].grid
+                        else:
+                            with obs.span("serve.stack"):
+                                grid = torch.stack([r.grid for r in chunk])
+                        with obs.span("serve.dispatch"):
+                            cs = self._compiled_for(program, shape, steps,
+                                                    batch, on_mesh)
+                            # timed here: the enqueue; wait_ready
+                            # synchronises
+                            out = cs.run(grid, steps)  # lint-ok: RP302
+                            if batch is None:
+                                out = out[None]
+                            ready = self._record_done()
+                        outs.append((chunk, out, ready))
                         # the first dispatch of an (executable, steps) pair
                         # pays the plan resolution; later ones only enqueue
                         wkey = (id(cs), steps)
@@ -393,26 +407,35 @@ class StencilServer:
             # before the first wait; a chunk whose wait raises fails only
             # its own rids.
             t0 = time.perf_counter()
+            ready_chunks = []
             for chunk, out, ready in outs:
                 try:
-                    out = wait_ready(out, ready)
+                    with obs.span("serve.wait"):
+                        out = wait_ready(out, ready)
                 except Exception as e:
                     if _device_fault(e):
                         raise
                     for req in chunk:
                         self.failed[req.rid] = f"{type(e).__name__}: {e}"
                     continue
+                ready_chunks.append((chunk, out))
+            with obs.span("serve.route"):
+                for chunk, out in ready_chunks:
+                    for i, req in enumerate(chunk):
+                        results[req.rid] = out[i]
+                rec.observe("serve.run_s", time.perf_counter() - t0)
+                rec.count("serve.requests", len(pending))
+                newly_failed = len(self.failed) - failed_before
+                if newly_failed:
+                    rec.count("serve.failed", newly_failed)
+                flush_span.set(results=len(results), failed=newly_failed)
+                # one stamp for every answered request, at the return: what
+                # the client holds, whichever chunk it rode
                 t_done = time.perf_counter()
-                for i, req in enumerate(chunk):
-                    results[req.rid] = out[i]
-                    rec.observe("serve.request_latency_s",
-                                t_done - req.t_submit)
-            rec.observe("serve.run_s", time.perf_counter() - t0)
-            rec.count("serve.requests", len(pending))
-            newly_failed = len(self.failed) - failed_before
-            if newly_failed:
-                rec.count("serve.failed", newly_failed)
-            flush_span.set(results=len(results), failed=newly_failed)
+                for chunk, _ in ready_chunks:
+                    for req in chunk:
+                        rec.observe("serve.request_latency_s",
+                                    t_done - req.t_submit)
         return results
 
     def _record_done(self) -> Optional[torch.cuda.Event]:
@@ -484,8 +507,7 @@ def main(argv=None):
     print(f"[stencil-serve] {s.requests} requests -> {s.batches} batches "
           f"({s.batched_requests} batched) on {server.device}, "
           f"{s.compile_seconds * 1e3:.1f} ms compile + "
-          f"{s.run_seconds * 1e3:.1f} ms run, "
-          f"{s.mcell_steps_per_s:.1f} Mcell-steps/s")
+          f"{s.run_seconds * 1e3:.1f} ms run")
     print(f"[stencil-serve] request latency "
           f"p50={lat['p50'] * 1e3:.1f} ms p95={lat['p95'] * 1e3:.1f} ms "
           f"p99={lat['p99'] * 1e3:.1f} ms")

@@ -12,6 +12,35 @@ scope) turns recording on; when off, every module-level helper returns
 the shared no-op after one dict lookup, no recorder is built, and ``run``
 stays asynchronous.
 
+One clock with the device trace: while a ``torch.profiler`` records,
+every span also opens ``record_function(<span name>)`` for its extent, a
+``user_annotation`` in the exported Chrome trace beside the kernels.  So
+:func:`span` has three states: recorder off and no profiler, the shared
+no-op (after one :func:`active` lookup and one flag read); recorder off
+and a profiler recording, a span that is only the profiler range;
+recorder on, the recorded span, plus the range while a profiler records.
+No span synchronises the device, records an event or copies anything;
+attributes go on the recorder's event only.  While ``torch.compile``
+traces, the helper records nothing.
+
+The spans, by layer (names fixed; the ones through :func:`span` are
+recorded only by the global recorder, never into the serving front's own):
+
+    serving front  ``serve.submit`` (one ``submit``), ``serve.flush`` (one
+                   ``flush``, the server's recorder), inside it
+                   ``serve.group``, per chunk ``serve.stack``,
+                   ``serve.dispatch`` and ``serve.wait``, then
+                   ``serve.route`` (results and latency stamps)
+    front door     ``compile``, ``run`` (``CompiledStencil.run``; with the
+                   recorder off and a profiler recording, a range around
+                   the dispatch that never synchronises)
+    run driver     ``run_call.pad_in``, ``run_call.supersteps``,
+                   ``run_call.slice_out`` (``kernels/common.run_call``)
+    kernel wrappers  ``launch.<key>`` per superstep or ring refresh, the
+                   key one of ``kernels/cuda.KERNELS`` (attributes
+                   ``dtype``, ``batch``, ``cells``, ``steps``)
+    build          ``kernels.build``
+
 Usage::
 
     import repro_torch, repro_torch.obs
@@ -38,17 +67,21 @@ from __future__ import annotations
 
 import contextlib
 import os
+import sys
 import threading
 from typing import Optional
 
 from repro_torch.obs.history import (DEFAULT_HISTORY_PATH, SCHEMA_VERSION,
                                      append_sample, default_history_path,
                                      read_history)
-from repro_torch.obs.recorder import NULL_SPAN, Recorder, Span, percentile
+from repro_torch.obs.recorder import (NULL_SPAN, ProfilerRange, Recorder,
+                                     Span, percentile, profiler_range,
+                                     profiling)
 
 __all__ = [
     "DEFAULT_HISTORY_PATH",
     "NULL_SPAN",
+    "ProfilerRange",
     "Recorder",
     "SCHEMA_VERSION",
     "Span",
@@ -60,6 +93,8 @@ __all__ = [
     "observe",
     "percentile",
     "profile",
+    "profiler_range",
+    "profiling",
     "read_history",
     "record_accuracy",
     "reset",
@@ -157,9 +192,18 @@ def profile(jsonl_path: Optional[str] = None,
 # -- module-level instrumentation helpers (no-ops when disabled) -------------
 
 def span(name: str, **attrs):
-    """A timed-region context manager, or the shared no-op when disabled."""
+    """A timed-region context manager: the global recorder's span when it
+    is on, else a profiler range while a profiler records, else the shared
+    no-op.  Nothing is recorded while ``torch.compile`` traces."""
     rec = active()
-    return NULL_SPAN if rec is None else rec.span(name, **attrs)
+    if rec is None:
+        return profiler_range(name)
+    return NULL_SPAN if _compiling() else rec.span(name, **attrs)
+
+
+def _compiling() -> bool:
+    torch = sys.modules.get("torch")
+    return torch is not None and torch.compiler.is_compiling()
 
 
 def event(name: str, **attrs) -> None:

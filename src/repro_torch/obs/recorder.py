@@ -19,6 +19,12 @@ run still leaves its trace on disk.  The module-level helpers of
 ``repro_torch.obs`` route through the global switch
 (``REPRO_TORCH_OBS``); an explicitly constructed ``Recorder`` (the serving
 front's) always records.
+
+While a ``torch.profiler`` records, every span also opens
+``torch.profiler.record_function(<span name>)`` for its extent, so it
+lands in the exported Chrome trace as a ``user_annotation`` on the
+profiler's clock, beside the device's kernels.  The profiler's flag is
+read through ``sys.modules``: this module never imports torch.
 """
 
 from __future__ import annotations
@@ -26,9 +32,33 @@ from __future__ import annotations
 import collections
 import json
 import os
+import sys
 import threading
 import time
 from typing import Dict, List, Optional, Sequence
+
+
+#: The module whose flag says a ``torch.profiler`` records, and whose
+#: ``record_function`` opens a range in its trace.
+_PROFILER = "torch.autograd.profiler"
+
+
+def profiling() -> bool:
+    """Whether a ``torch.profiler`` records in this process: one module
+    lookup and one flag read, False where torch was never imported."""
+    prof = sys.modules.get(_PROFILER)
+    return prof is not None and prof._is_profiler_enabled
+
+
+def _open_range(name: str):
+    """A ``record_function`` range named ``name``, entered, while a
+    profiler records; else None."""
+    prof = sys.modules.get(_PROFILER)
+    if prof is None or not prof._is_profiler_enabled:
+        return None
+    rng = prof.record_function(name)
+    rng.__enter__()
+    return rng
 
 
 class _NullSpan:
@@ -36,6 +66,8 @@ class _NullSpan:
     the off switch allocates nothing per site."""
 
     __slots__ = ()
+    #: whether ``set`` keeps attributes (callers skip computing them)
+    recording = False
 
     def __enter__(self):
         return self
@@ -50,14 +82,47 @@ class _NullSpan:
 NULL_SPAN = _NullSpan()
 
 
+class ProfilerRange:
+    """A span that is only a profiler range: no recorder event, no
+    attributes (the recorder-off span while a profiler records)."""
+
+    __slots__ = ("name", "_range")
+    recording = False
+
+    def __init__(self, name: str):
+        self.name = name
+        self._range = None
+
+    def __enter__(self) -> "ProfilerRange":
+        self._range = _open_range(self.name)
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        if self._range is not None:
+            self._range.__exit__(exc_type, exc, tb)
+            self._range = None
+        return False
+
+    def set(self, **attrs) -> "ProfilerRange":
+        return self
+
+
+def profiler_range(name: str):
+    """A :class:`ProfilerRange` while a profiler records, else the shared
+    no-op."""
+    return ProfilerRange(name) if profiling() else NULL_SPAN
+
+
 class Span:
-    """A timed region; emits one ``span`` event when the context exits.
+    """A timed region; emits one ``span`` event when the context exits,
+    and is a profiler range too while a profiler records.
 
     ``set(**attrs)`` attaches attributes mid-flight (metrics computed after
     the timed work, e.g. achieved GB/s once the wall time is known).
     """
 
-    __slots__ = ("_rec", "name", "attrs", "_t0", "dur_s")
+    __slots__ = ("_rec", "name", "attrs", "_t0", "dur_s", "_range")
+    recording = True
 
     def __init__(self, rec: "Recorder", name: str, attrs: dict):
         self._rec = rec
@@ -65,17 +130,22 @@ class Span:
         self.attrs = attrs
         self._t0 = None
         self.dur_s = None
+        self._range = None
 
     def set(self, **attrs) -> "Span":
         self.attrs.update(attrs)
         return self
 
     def __enter__(self) -> "Span":
+        self._range = _open_range(self.name)
         self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, exc_type, exc, tb) -> bool:
         self.dur_s = time.perf_counter() - self._t0
+        if self._range is not None:
+            self._range.__exit__(exc_type, exc, tb)
+            self._range = None
         ev = {"type": "span", "name": self.name, "dur_s": self.dur_s}
         if exc_type is not None:
             ev["error"] = exc_type.__name__

@@ -7,7 +7,7 @@ module of ``src/repro``, its ``__all__`` and its top-level public names
 ``src/repro_torch`` (whose imports count too), and each public member of a
 class both modules define (methods, properties, class fields, and in the
 port also the attributes its methods set on ``self``).  A name the port
-lacks must be in :data:`NOT_TO_PORT` (TPU-only or JAX-only) or in
+lacks must be in :data:`NOT_TO_PORT` (TPU-only, JAX-only or retired) or in
 :data:`NAMED_OTHERWISE` (with the port's names, which must exist); a
 table entry that is no longer a gap fails too, so the table stays the
 list of the differences that remain.  ``module:*`` is a whole module.
@@ -21,7 +21,7 @@ REF = os.path.join(ROOT, "src", "repro")
 PORT = os.path.join(ROOT, "src", "repro_torch")
 
 #: names the port does not carry: TPU or JAX machinery with no counterpart
-#: on the card, each with the reason
+#: on the card, or a reading the port retired, each with the reason
 NOT_TO_PORT = {
     "core/compat.py:*": "JAX API drift shims (make_mesh, shard_map, "
                         "tracing); the port calls torch directly",
@@ -97,6 +97,9 @@ NOT_TO_PORT = {
                                                        "shard",
     "core/temporal.py:StencilEngine.interpret": "Pallas interpret mode",
     "tuning/space.py:Candidate.halo_aligned": "TPU sublane alignment",
+    "launch/stencil_serve.py:ServeStats.mcell_steps_per_s":
+        "cell-steps over compile plus dispatch seconds, not over a window: "
+        "retired; a served rate is cell-steps over a timed window",
 }
 
 #: names the port spells otherwise: the port's names (``module:name``,

@@ -164,7 +164,6 @@ def test_server_stats_split_and_latency():
     assert s.run_seconds > 0            # the resolution pass always counts
     assert s.seconds == pytest.approx(s.compile_seconds + s.run_seconds)
     assert s.cell_steps == 5 * 20 * 140 * 3
-    assert s.mcell_steps_per_s > 0
 
     rec = server.recorder
     assert rec.samples("serve.queue_depth") == [5.0]
