@@ -52,7 +52,7 @@ import math
 import operator
 import time
 import warnings
-from typing import Optional, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -620,7 +620,27 @@ class CompiledStencil:
                 grid_shape=self._local_shape(), steps=steps)
         raise_on_error(self._fits[key], source="verify")
 
-    def _check_grid(self, grid: torch.Tensor) -> None:
+    def _check_grid(self, grid) -> None:
+        """The grid's type, device, dtype and shape against the compile's.
+        A batch may come as a sequence of grids, each checked as a tensor;
+        its shape is then its count before the grids' one shape."""
+        if isinstance(grid, (list, tuple)):
+            for g in grid:
+                self._check_tensor(g)
+            shapes = list(dict.fromkeys(tuple(g.shape) for g in grid))
+            if len(shapes) != 1:
+                raise DiagnosticError([_diag(
+                    "RP101",
+                    f"a batch of grids needs one shape (got "
+                    f"{shapes or 'no grid'}); compile() pins the grid "
+                    f"shape {self.grid_shape}",
+                    hint="submit grids of one shape as one batch")])
+            self._check_shape((len(grid),) + shapes[0])
+            return
+        self._check_tensor(grid)
+        self._check_shape(tuple(grid.shape))
+
+    def _check_tensor(self, grid) -> None:
         if not isinstance(grid, torch.Tensor):
             raise TypeError(f"grid must be a torch.Tensor on {self.device} "
                             f"(got {type(grid).__name__})")
@@ -639,43 +659,49 @@ class CompiledStencil:
                 hint=f"cast the grid with .to({want}), or compile a "
                      f"program of dtype {str(grid.dtype).split('.')[-1]!r}"
             )])
+
+    def _check_shape(self, shape: Tuple[int, ...]) -> None:
         want = self.grid_shape if self.batch is None \
             else (self.batch,) + self.grid_shape
-        if tuple(grid.shape) == want:
+        if shape == want:
             return
         spatial = len(self.grid_shape)
-        if self.batch is None and grid.ndim == spatial + 1 \
-                and tuple(grid.shape[1:]) == self.grid_shape:
+        if self.batch is None and len(shape) == spatial + 1 \
+                and shape[1:] == self.grid_shape:
             raise DiagnosticError([_diag(
                 "RP103",
                 f"this executable was compiled unbatched for grid "
                 f"{self.grid_shape} but got a batched grid of shape "
-                f"{tuple(grid.shape)}; compile(batch={grid.shape[0]}) to "
+                f"{shape}; compile(batch={shape[0]}) to "
                 f"run a leading axis of independent grids",
-                hint=f"recompile with batch={grid.shape[0]}")])
-        if self.batch is not None and tuple(grid.shape) == self.grid_shape:
+                hint=f"recompile with batch={shape[0]}")])
+        if self.batch is not None and shape == self.grid_shape:
             raise DiagnosticError([_diag(
                 "RP103",
                 f"this executable was compiled for batch={self.batch} "
                 f"grids of shape {self.grid_shape} but got a single "
-                f"unbatched grid {tuple(grid.shape)}; stack the grids "
+                f"unbatched grid {shape}; stack the grids "
                 f"(B, *grid) or compile(batch=None)",
                 hint="batch rank is pinned at compile time")])
         raise DiagnosticError([_diag(
             "RP101",
-            f"grid shape {tuple(grid.shape)} does not match the compiled "
+            f"grid shape {shape} does not match the compiled "
             f"{'batch=' + str(self.batch) + ' ' if self.batch else ''}"
             f"grid_shape {want}; compile() pins shapes so the executable "
             f"cache stays exact — recompile for a different shape",
-            hint=f"recompile for grid {tuple(grid.shape)}")])
+            hint=f"recompile for grid {shape}")])
 
-    def run(self, grid: torch.Tensor,
+    def run(self, grid: Union[torch.Tensor, Sequence[torch.Tensor]],
             steps: Optional[int] = None) -> torch.Tensor:
         """Advance ``steps`` time steps (default: the compiled count) and
         return a new tensor in the grid's dtype; ``grid`` is not written
         and has the program's dtype (float32, bfloat16 or float16;
         another is RP109).  A count whose kernels fit no CTA tile is
-        RP105, before any launch.
+        RP105, before any launch.  A batched executable also takes its
+        batch as a list or tuple of ``batch`` grids of the compiled shape,
+        which the fused executor copies into its padded carry one by one
+        (the mesh and a lowered backend stack them first); the result is
+        the one tensor a stacked batch gives.
 
         With the flight recorder on, the run is timed under a ``run`` span
         (:meth:`_run_recorded`), which synchronises the device; off, it is
@@ -692,7 +718,10 @@ class CompiledStencil:
             return self._dispatch(grid, steps)
         return self._run_recorded(rec, grid, steps)
 
-    def _dispatch(self, grid: torch.Tensor, steps: int) -> torch.Tensor:
+    def _dispatch(self, grid, steps: int) -> torch.Tensor:
+        if not isinstance(grid, torch.Tensor) and (
+                self._dist is not None or self._lowered is not None):
+            grid = torch.stack(grid)     # these take one tensor
         if self._dist is not None:
             return self._dist.run(grid, steps)
         if self._lowered is not None:

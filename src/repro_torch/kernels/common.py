@@ -29,7 +29,8 @@ version, and any other device raises.  Each runs inside a
 ``launch.<key>`` span (``repro_torch.obs``), the key the kernel's in
 ``cuda.KERNELS``, on the card and on the CPU alike; ``run_call``'s pad-in,
 superstep loop and slice-out run inside ``run_call.pad_in``,
-``run_call.supersteps`` and ``run_call.slice_out``.
+``run_call.supersteps`` and ``run_call.slice_out``, and the bytes they
+move count as ``run_call.copy_bytes``.
 
 A grid is float32, bfloat16 or float16 (the program's ``dtype``), and so
 is the carry.  The coefficients are cast to the grid's dtype at each
@@ -777,34 +778,75 @@ def run_call_padfallback(grid: torch.Tensor, center: torch.Tensor,
     return grid.contiguous()
 
 
-def run_call(grid: torch.Tensor, center: torch.Tensor, taps: torch.Tensor,
+def zero_outside(buf: torch.Tensor, layout: PaddedLayout) -> torch.Tensor:
+    """Zero every cell of the padded buffer ``buf`` (optionally behind one
+    batch axis) outside the true interior ``[H, H+n)``, in place: per axis
+    the ring ``[0, H)`` and the slack with the far ring ``[H+n, P)``, each
+    slab narrowed on the axes before it to their true interior, so the
+    ``2 * ndim`` slabs cover the outside once and the interior not at all.
+    Returns ``buf``."""
+    H = layout.halo
+    view = buf
+    nb = buf.ndim - len(layout.local_shape)
+    for d, (n, p) in enumerate(zip(layout.local_shape,
+                                   layout.padded_shape)):
+        ax = nb + d
+        view.narrow(ax, 0, H).zero_()
+        view.narrow(ax, H + n, p - H - n).zero_()
+        view = view.narrow(ax, H, n)
+    return buf
+
+
+def run_call(grid, center: torch.Tensor, taps: torch.Tensor,
              full: int, *, program: StencilProgram, plan: BlockPlan,
              true_shape: Tuple[int, ...], rem: int,
              variant: Optional[str] = None) -> torch.Tensor:
     """Fused multi-superstep executor over a persistent padded carry.
 
-    ``grid`` is the true-shaped grid, optionally behind one batch axis; it
-    is copied into the padded layout once and never written.  Each
-    superstep refreshes the periodic ring of the source (if any), runs the
-    variant's superstep kernel into the other buffer, and swaps the two.
-    ``full`` supersteps run first, then one shallower superstep of ``rem``
-    steps whose windows read at ring offset ``H - rem * radius``.
+    ``grid`` is the true-shaped grid, optionally behind one batch axis, or
+    a batch given as a sequence of true-shaped grids (row ``i`` of the
+    batch is ``grid[i]``); it is copied into the padded layout once, a
+    grid a copy, and never written.  The two buffers are allocated
+    uninitialised and only their cells outside the true interior are
+    zeroed (:func:`zero_outside`): every launch writes a buffer's true
+    interior before reading it, so each buffer holds at every launch what
+    zero-filled buffers would.  Each superstep refreshes the periodic ring
+    of the source (if any), runs the variant's superstep kernel into the
+    other buffer, and swaps the two.  ``full`` supersteps run first, then
+    one shallower superstep of ``rem`` steps whose windows read at ring
+    offset ``H - rem * radius``.
 
     Under "temporal" the ring is ``TEMPORAL_CHUNK`` times deeper, each of
     the ``full`` launches is one chunk of ``TEMPORAL_CHUNK * par_time``
     steps, and ``rem`` counts leftover steps.  A wrap-degenerate layout
-    re-pads every superstep as :func:`run_call_padfallback` does, for
-    temporal with the chunk-deep plan and the plain kernel.  The launches
-    are those of :func:`run_launches`.  Returns a new tensor holding the
-    true interior.
+    re-pads every superstep as :func:`run_call_padfallback` does (a
+    sequence stacked first), for temporal with the chunk-deep plan and the
+    plain kernel.  The launches are those of :func:`run_launches`.
+    Returns a new tensor holding the true interior.
+
+    The device bytes the padded carry's own copies move (each grid's copy
+    in and slice out, read and written, and the zeroed cells of both
+    buffers) count as ``run_call.copy_bytes`` while a recorder is on.
     """
+    rows = None if isinstance(grid, torch.Tensor) else tuple(grid)
+    if rows is not None:
+        if len(rows) == 0:
+            raise ValueError("a batch given as a sequence needs a grid")
+        if any(tuple(r.shape) != tuple(true_shape) for r in rows):
+            raise ValueError(
+                f"every grid of a sequence must have the true shape "
+                f"{tuple(true_shape)} (got "
+                f"{[tuple(r.shape) for r in rows]})")
+    first = grid if rows is None else rows[0]
     v = normalize_variant(variant)
-    center, taps = grid_coeffs(center, taps, grid)
+    center, taps = grid_coeffs(center, taps, first)
     period = plan.par_time * (TEMPORAL_CHUNK if v == "temporal" else 1)
     sched = ring_schedule(program, plan, true_shape, full * period + rem,
                           variant=v)
     launches = run_launches(sched)
     if sched.fallback:
+        if rows is not None:
+            grid = torch.stack(rows)
         with obs.span("run_call.supersteps"):
             for _, step_variant, step_plan, count in launches:
                 for _ in range(count):
@@ -813,12 +855,23 @@ def run_call(grid: torch.Tensor, center: torch.Tensor, taps: torch.Tensor,
                                          variant=step_variant)
         return grid.contiguous()
     layout = sched.layout
-    nb = grid.ndim - program.ndim
+    batch = (len(rows),) if rows is not None \
+        else tuple(grid.shape[:grid.ndim - program.ndim])
     interior = _interior([layout.halo] * program.ndim, true_shape)
     with obs.span("run_call.pad_in"):
-        src = grid.new_zeros(tuple(grid.shape[:nb]) + layout.padded_shape)
-        src[interior] = grid
-        dst = torch.zeros_like(src)
+        src = first.new_empty(batch + layout.padded_shape)
+        dst = torch.empty_like(src)
+        if rows is None:
+            src[interior] = grid
+        else:
+            for i, row in enumerate(rows):
+                src[i][interior] = row
+        zero_outside(src, layout)
+        zero_outside(dst, layout)
+    cells = math.prod(batch) * math.prod(true_shape)
+    # in and out, a read and a write each; the outside of both buffers
+    obs.count("run_call.copy_bytes", first.element_size() * (
+        4 * cells + 2 * (src.numel() - cells)))
     # The temporal remainder (fewer than TEMPORAL_CHUNK * par_time steps)
     # is the reference's own semantics, not a fallback: one plain
     # superstep of `rem` steps inside the same deep ring

@@ -68,7 +68,7 @@ def stencil_run(grid: torch.Tensor, program: StencilProgram,
                         variant=variant, fused=fused)
 
 
-def _stencil_run(grid: torch.Tensor, program: StencilProgram,
+def _stencil_run(grid, program: StencilProgram,
                  coeffs: ProgramCoeffs, plan: BlockPlan, steps: int, *,
                  pipelined: bool = False,
                  variant: Optional[str] = None,
@@ -76,16 +76,30 @@ def _stencil_run(grid: torch.Tensor, program: StencilProgram,
     """Advance ``steps`` time steps: ``steps // period`` full launches, then
     one superstep of the remainder, the period being ``par_time`` or, under
     "temporal", ``par_time * TEMPORAL_CHUNK``.  ``grid`` may carry a
-    leading batch axis; it is never written.  ``steps == 0`` returns
-    ``grid``.  ``fused=False`` runs the eager chain of pre-padded
-    supersteps instead of the padded carry (for temporal, each chunk is
-    the chunk-deep plan through the plain kernel, as in the reference)."""
+    leading batch axis, or be a batch given as a sequence of equal-shaped
+    grids, which the padded carry takes row by row (every other path
+    stacks it first); it is never written.  ``steps == 0`` returns
+    ``grid`` (a sequence stacked).  ``fused=False`` runs the eager chain of
+    pre-padded supersteps instead of the padded carry (for temporal, each
+    chunk is the chunk-deep plan through the plain kernel, as in the
+    reference)."""
     if steps < 0:
         raise ValueError("steps must be >= 0")
     v = normalize_variant(variant, pipelined)
     program = as_program(program)
     coeffs = normalize_coeffs(program, coeffs)
-    nb = common.batch_dims(program, grid.ndim)
+    rows = not isinstance(grid, torch.Tensor)
+    if rows:
+        grid = tuple(grid)
+        if not grid:
+            raise ValueError("a batch given as a sequence needs a grid")
+        common.batch_dims(program, grid[0].ndim + 1)
+        true_shape = tuple(grid[0].shape)
+    else:
+        nb = common.batch_dims(program, grid.ndim)
+        true_shape = tuple(grid.shape[nb:])
+    if steps == 0 or not fused:
+        grid = torch.stack(grid) if rows else grid
     if steps == 0:
         return grid
     period = plan.par_time * (TEMPORAL_CHUNK if v == "temporal" else 1)
@@ -102,5 +116,4 @@ def _stencil_run(grid: torch.Tensor, program: StencilProgram,
         return grid
     return common.run_call(grid, coeffs.center, coeffs.taps, full,
                            program=program, plan=plan,
-                           true_shape=tuple(grid.shape[nb:]), rem=rem,
-                           variant=v)
+                           true_shape=true_shape, rem=rem, variant=v)

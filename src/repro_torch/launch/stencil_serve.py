@@ -48,10 +48,12 @@ Where this differs from the reference:
 Spans (``repro_torch.obs``): ``serve.flush`` on the server's own
 recorder; through the global recorder, or as profiler ranges while a
 ``torch.profiler`` records, ``serve.submit`` and, inside ``serve.flush``,
-``serve.group`` (grouping, fingerprints), per chunk ``serve.stack`` (the
-``torch.stack``), ``serve.dispatch`` (``_compiled_for``, the enqueue, the
-done-event) and ``serve.wait``, and ``serve.route`` (results, latency
-stamps).
+``serve.group`` (grouping, fingerprints), per chunk ``serve.dispatch``
+(``_compiled_for``, the enqueue, the done-event) and ``serve.wait``, and
+``serve.route`` (results, latency stamps).  A batched chunk hands its
+grids to the run as a list, which the run driver copies into its padded
+carry one by one; only an identity chunk (``steps == 0``, no run) stacks
+its grids, inside ``serve.stack``.
 
 CPU-scale usage:
     PYTHONPATH=src python -m repro_torch.launch.stencil_serve --device cpu \\
@@ -371,11 +373,10 @@ class StencilServer:
                         # on the mesh every chunk is one batched run
                         batch = len(chunk) if (on_mesh or len(chunk) > 1) \
                             else None
-                        if batch is None:
-                            grid = chunk[0].grid
-                        else:
-                            with obs.span("serve.stack"):
-                                grid = torch.stack([r.grid for r in chunk])
+                        # a batch goes as its grids: the run driver copies
+                        # each into the padded carry once, with no stack
+                        grid = chunk[0].grid if batch is None \
+                            else [r.grid for r in chunk]
                         with obs.span("serve.dispatch"):
                             cs = self._compiled_for(program, shape, steps,
                                                     batch, on_mesh)

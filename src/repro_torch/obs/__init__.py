@@ -28,14 +28,18 @@ recorded only by the global recorder, never into the serving front's own):
 
     serving front  ``serve.submit`` (one ``submit``), ``serve.flush`` (one
                    ``flush``, the server's recorder), inside it
-                   ``serve.group``, per chunk ``serve.stack``,
-                   ``serve.dispatch`` and ``serve.wait``, then
+                   ``serve.group``, per chunk ``serve.dispatch`` (an
+                   identity chunk's ``serve.stack`` instead: its results
+                   are its stacked inputs) and ``serve.wait``, then
                    ``serve.route`` (results and latency stamps)
     front door     ``compile``, ``run`` (``CompiledStencil.run``; with the
                    recorder off and a profiler recording, a range around
                    the dispatch that never synchronises)
-    run driver     ``run_call.pad_in``, ``run_call.supersteps``,
-                   ``run_call.slice_out`` (``kernels/common.run_call``)
+    run driver     ``run_call.pad_in`` (each grid's copy into the
+                   padded carry, the zeroed ring and slack),
+                   ``run_call.supersteps``, ``run_call.slice_out``
+                   (``kernels/common.run_call``); counter
+                   ``run_call.copy_bytes``
     kernel wrappers  ``launch.<key>`` per superstep or ring refresh, the
                    key one of ``kernels/cuda.KERNELS`` (attributes
                    ``dtype``, ``batch``, ``cells``, ``steps``)
@@ -213,8 +217,10 @@ def event(name: str, **attrs) -> None:
 
 
 def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to a counter of the global recorder when it is on (not
+    while ``torch.compile`` traces, as :func:`span`)."""
     rec = active()
-    if rec is not None:
+    if rec is not None and not _compiling():
         rec.count(name, n)
 
 

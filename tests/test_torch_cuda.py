@@ -642,6 +642,76 @@ def test_served_batch_equals_unbatched_runs(cuda_device, ndim):
     assert {k: v // 3 for k, v in cuda.launches().items() if v} == launched
 
 
+def _zero_filled_run(cs, grid, steps):
+    """``cs``'s run of ``grid`` over zero-filled carry buffers (the padded
+    source ``new_zeros`` with the interior copied in, the destination
+    ``zeros_like``), launch for launch as ``common.run_call``."""
+    sched = common.ring_schedule(cs.program, cs.plan, cs.grid_shape, steps,
+                                 variant=cs.variant)
+    layout = sched.layout
+    inner = _interior(layout)
+    src = grid.new_zeros(grid.shape[:grid.ndim - cs.program.ndim]
+                         + layout.padded_shape)
+    src[inner] = grid
+    dst = torch.zeros_like(src)
+    c = cs.coeffs
+    for _, variant, plan, count in common.run_launches(sched):
+        for _ in range(count):
+            if layout.wrap_axes:
+                common.refresh_wrap_halo(src, layout)
+            common.padded_superstep(src, dst, c.center, c.taps,
+                                    program=cs.program, plan=plan,
+                                    layout=layout, variant=variant)
+            src, dst = dst, src
+    return src[inner].contiguous()
+
+
+@pytest.mark.parametrize("ndim", [2, 3])
+def test_served_chunk_of_four_equals_four_runs(cuda_device, ndim):
+    """A served chunk of 4 radius-4 stars goes to the run driver as a list
+    of grids, each copied once into an uninitialised carry whose ring and
+    slack alone are zeroed.  The allocator's free memory is first filled
+    with NaN, so a cell read before any launch wrote it would show.  The
+    results equal 4 unbatched front-door runs and the zero-filled carry's
+    run at 0, and the recorder counts the driver's bytes."""
+    from repro_torch import obs
+    from repro_torch.launch.stencil_serve import StencilServer
+    from repro_torch.tuning.cache import program_fingerprint
+    prog = repro_torch.StencilProgram(ndim=ndim, radius=4)
+    shape = {2: (300, 1100), 3: (40, 72, 300)}[ndim]
+    steps = {2: 9, 3: 3}[ndim]
+    gen = torch.Generator(device=cuda_device).manual_seed(20 + ndim)
+    grids = [torch.rand(shape, generator=gen, device=cuda_device) * 2 - 1
+             for _ in range(4)]
+    server = StencilServer(max_batch=4)
+    rids = [server.submit(prog, g, steps) for g in grids]
+    server.flush()                      # plans and geometries, warm
+    rids = [server.submit(prog, g, steps) for g in grids]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()            # no free block but the poisoned one
+    poison = torch.full((1 << 27,), float("nan"), device=cuda_device)
+    del poison                          # its block goes back to the cache
+    with obs.profile() as rec:
+        results = server.flush()
+    assert not server.failed and server.stats.batched_requests == 8
+    plan, backend = server._resolved[(program_fingerprint(prog), shape)]
+    cs = repro_torch.stencil(prog).compile(shape, steps=steps, plan=plan,
+                                           backend=backend)
+    batched = repro_torch.stencil(prog).compile(
+        shape, steps=steps, batch=4, plan=plan, backend=backend)
+    old = _zero_filled_run(batched, torch.stack(grids), steps)
+    for i, (rid, g) in enumerate(zip(rids, grids)):
+        assert not torch.isnan(results[rid]).any()
+        torch.testing.assert_close(results[rid], cs.run(g), rtol=0, atol=0)
+        torch.testing.assert_close(results[rid], old[i], rtol=0, atol=0)
+    layout = common.ring_schedule(prog, plan, shape, steps,
+                                  variant=batched.variant).layout
+    n = int(np.prod(shape))
+    outside = 4 * (int(np.prod(layout.padded_shape)) - n)
+    assert rec.counter("run_call.copy_bytes") == 4 * (4 * 4 * n
+                                                      + 2 * outside)
+
+
 @pytest.mark.parametrize("variant,want", [
     ("plain", {"padded_superstep": 3, "wrap_halo": 3}),
     ("pipelined", {"padded_pipelined": 3, "wrap_halo": 3}),

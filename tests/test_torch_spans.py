@@ -3,9 +3,11 @@
 * under ``torch.profiler`` a front-door ``run`` and a two-chunk
   ``StencilServer`` flush on the CPU export a Chrome trace whose
   ``user_annotation`` events hold every span, nested as the layers nest:
-  ``serve.flush`` > ``serve.group``/``serve.stack``/``serve.dispatch``/
-  ``serve.wait``/``serve.route``, ``serve.dispatch`` > ``run`` >
-  ``run_call.*``, ``run_call.supersteps`` > ``launch.<kernel>``;
+  ``serve.flush`` > ``serve.group``/``serve.dispatch``/``serve.wait``/
+  ``serve.route``, ``serve.dispatch`` > ``run`` > ``run_call.*``,
+  ``run_call.supersteps`` > ``launch.<kernel>``;
+* a batched chunk stacks nothing: its row copies and the ring fills lie in
+  ``run_call.pad_in``; only an identity chunk stacks, in ``serve.stack``;
 * the off path, structurally: with ``record_function`` made to raise and
   neither the recorder nor a profiler on, the helpers return the shared
   no-op and a run and a flush succeed; with only the profiler on, the
@@ -33,7 +35,6 @@ SHAPE = (20, 140)
 #: the program's spans, and the span each lies inside
 PARENT = {
     "serve.group": "serve.flush",
-    "serve.stack": "serve.flush",
     "serve.dispatch": "serve.flush",
     "serve.wait": "serve.flush",
     "serve.route": "serve.flush",
@@ -133,23 +134,46 @@ def test_run_and_flush_spans_nest_in_the_profiler_trace(tmp_path):
         assert any(_inside(r, d) for d in _named(ua, "serve.dispatch"))
     assert len(_named(ua, "serve.dispatch")) == 2
     assert len(_named(ua, "serve.wait")) == 2
-    assert len(_named(ua, "serve.stack")) == 1     # the lone one is not
+    assert not _named(ua, "serve.stack")    # the batched one goes as rows
     # the route follows every wait
     (route,) = _named(ua, "serve.route")
     assert all(w[2] <= route[1] for w in _named(ua, "serve.wait"))
 
 
+def _serve_identity():
+    """Two requests of 0 steps: one identity chunk, stacked, no run."""
+    server = StencilServer(max_batch=2, max_par_time=2, device="cpu")
+    rids = [server.submit(_program(), _grid(i), 0) for i in range(2)]
+    assert set(server.flush()) == set(rids) and not server.failed
+
+
 def test_stack_and_launches_lie_in_their_spans(tmp_path):
     events = _profiled(_serve_two_chunks, tmp_path)
     ua, ops = events["user_annotation"], events["cpu_op"]
-    (stack,) = _named(ua, "serve.stack")
-    stacks = _named(ops, "aten::stack")
-    assert stacks and all(_inside(s, stack) for s in stacks)
+    # no stack: the batched chunk's two rows and the lone grid are copied
+    # into their padded carries, and only the ring and slack are zeroed
+    # (two buffers, a lo and a hi slab per axis), all inside the pad-in
+    assert not _named(ua, "serve.stack") and not _named(ops, "aten::stack")
+    pads = _named(ua, "run_call.pad_in")
+    assert len(pads) == 2
+    for pad, rows in zip(sorted(pads, key=lambda e: e[1]), (2, 1)):
+        inside = [o[0] for o in ops if _inside(o, pad)]
+        assert inside.count("aten::copy_") == rows
+        assert inside.count("aten::zero_") == 2 * 2 * len(SHAPE)
+        assert not {"aten::zeros", "aten::zeros_like",
+                    "aten::new_zeros"} & set(inside)
     launches = _named(ua, "launch.padded_superstep")
     # 3 steps at par_time 2: a full superstep and a remainder, per chunk
     assert len(launches) == 4
     loops = _named(ua, "run_call.supersteps")
     assert all(any(_inside(x, lp) for lp in loops) for x in launches)
+    # an identity chunk still stacks its grids, inside serve.stack
+    events = _profiled(_serve_identity, tmp_path)
+    ua, ops = events["user_annotation"], events["cpu_op"]
+    (stack,) = _named(ua, "serve.stack")
+    stacks = _named(ops, "aten::stack")
+    assert stacks and all(_inside(s, stack) for s in stacks)
+    assert not _named(ua, "run")
 
 
 @pytest.mark.parametrize("variant,fields,key", [
@@ -282,9 +306,12 @@ def test_server_recorder_keeps_only_its_flush():
         server = _serve_two_chunks()
     assert {e["name"] for e in server.recorder.spans()} == {"serve.flush"}
     got = {e["name"] for e in rec.spans()}
-    assert {"serve.submit", "serve.group", "serve.stack", "serve.dispatch",
+    assert {"serve.submit", "serve.group", "serve.dispatch",
             "serve.wait", "serve.route", "run"} <= got
-    assert "serve.flush" not in got
+    assert "serve.flush" not in got and "serve.stack" not in got
+    # the run driver's bytes go to the global recorder too
+    assert rec.counter("run_call.copy_bytes") > 0
+    assert server.recorder.counter("run_call.copy_bytes") == 0
 
 
 def test_compiling_records_no_span(monkeypatch):
