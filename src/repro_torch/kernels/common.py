@@ -27,7 +27,9 @@ Each dispatches on where the tensor lies: a CUDA tensor launches the
 hand-written kernel (``kernels/cuda.py``), a CPU tensor takes the plain
 version, and any other device raises.  Each runs inside a
 ``launch.<key>`` span (``repro_torch.obs``), the key the kernel's in
-``cuda.KERNELS``, on the card and on the CPU alike; ``run_call``'s pad-in,
+``cuda.KERNELS``, on the card and on the CPU alike; inside it a superstep
+launch opens ``superstep.steps.<T>``, T the steps it fuses, and its cell
+updates count as ``superstep.cell_steps``.  ``run_call``'s pad-in,
 superstep loop and slice-out run inside ``run_call.pad_in``,
 ``run_call.supersteps`` and ``run_call.slice_out``, and the bytes they
 move count as ``run_call.copy_bytes``.
@@ -583,6 +585,21 @@ def _on_cuda(t: torch.Tensor) -> bool:
 
 #: The span of each kernel's launch, by its key in ``cuda.KERNELS``.
 LAUNCH_SPANS = {name: "launch." + name for name in cuda.KERNELS}
+#: The prefix of the range a superstep launch opens inside its launch
+#: span: ``superstep.steps.<T>``, T the steps the launch fuses.
+STEPS_SPAN = "superstep.steps."
+#: The counter of the cell updates superstep launches make (recorder on).
+CELL_STEPS = "superstep.cell_steps"
+
+
+def _record_superstep(sp, t: torch.Tensor, spatial: int, cells: int,
+                      steps: int) -> None:
+    """A recorded superstep launch: its span ``sp`` takes the launch's
+    attributes, and its cell updates (every grid of the batch, every
+    fused step) count as :data:`CELL_STEPS`."""
+    attrs = _launch_attrs(t, spatial, cells, steps)
+    sp.set(**attrs)
+    obs.count(CELL_STEPS, attrs["cells"] * steps)
 
 
 def _launch_attrs(t: torch.Tensor, spatial: int, cells: int,
@@ -622,11 +639,12 @@ def padded_superstep(src: torch.Tensor, dst: torch.Tensor,
         raise ValueError("the temporal chunk runs on one device only: a "
                          "shard's ring is exchanged once per superstep")
     name = CARRY_KERNELS[v] + ("_sharded" if sharded else "")
-    with obs.span(LAUNCH_SPANS[name]) as sp:
+    steps = plan.par_time * (TEMPORAL_CHUNK if v == "temporal" else 1)
+    with obs.span(LAUNCH_SPANS[name]) as sp, \
+            obs.span(STEPS_SPAN + str(steps)):
         if sp.recording:
-            sp.set(**_launch_attrs(
-                src, program.ndim, math.prod(layout.local_shape),
-                plan.par_time * (TEMPORAL_CHUNK if v == "temporal" else 1)))
+            _record_superstep(sp, src, program.ndim,
+                              math.prod(layout.local_shape), steps)
         if _on_cuda(src):
             if v == "temporal":
                 cuda.temporal_superstep(src, dst, center, taps,
@@ -712,13 +730,12 @@ def superstep_call(padded: torch.Tensor, center: torch.Tensor,
         v = "plain"
     batch_dims(program, padded.ndim)
     name = "pipelined_superstep" if v == "pipelined" else "superstep"
-    with obs.span(LAUNCH_SPANS[name]) as sp:
+    with obs.span(LAUNCH_SPANS[name]) as sp, \
+            obs.span(STEPS_SPAN + str(plan.par_time)):
         if sp.recording:
-            sp.set(**_launch_attrs(
-                padded, program.ndim,
-                math.prod(n - 2 * plan.halo
-                          for n in padded.shape[-program.ndim:]),
-                plan.par_time))
+            _record_superstep(sp, padded, program.ndim, math.prod(
+                n - 2 * plan.halo for n in padded.shape[-program.ndim:]),
+                plan.par_time)
         if _on_cuda(padded):
             launch = cuda.pipelined_superstep if v == "pipelined" \
                 else cuda.superstep

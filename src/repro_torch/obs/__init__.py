@@ -42,7 +42,10 @@ recorded only by the global recorder, never into the serving front's own):
                    ``run_call.copy_bytes``
     kernel wrappers  ``launch.<key>`` per superstep or ring refresh, the
                    key one of ``kernels/cuda.KERNELS`` (attributes
-                   ``dtype``, ``batch``, ``cells``, ``steps``)
+                   ``dtype``, ``batch``, ``cells``, ``steps``); inside a
+                   superstep's, ``superstep.steps.<T>``, T the steps the
+                   launch fuses; counter ``superstep.cell_steps`` (cells
+                   times steps of every superstep launch)
     build          ``kernels.build``
 
 Usage::

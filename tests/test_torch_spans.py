@@ -15,6 +15,10 @@
 * with the recorder on, the launch spans carry their attributes and the
   server's own recorder keeps only its ``serve.flush``;
 * every latency sample of a flush is stamped after its last chunk's wait;
+* each superstep launch opens one ``superstep.steps.<T>`` range inside
+  its launch span, T its own fused steps (a call's tail and a temporal
+  chunk included), a ring refresh none; with the recorder on, the
+  launches' cell updates count as ``superstep.cell_steps``;
 * on the card (``gpu`` marker), every ``launch.*`` range holds the
   launcher's runtime call.
 """
@@ -217,7 +221,8 @@ def test_off_path_returns_the_shared_no_op(monkeypatch):
 
     monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
     assert obs.active() is None and not obs.profiling()
-    for name in ("serve.submit", "run_call.pad_in", "launch.wrap_halo"):
+    for name in ("serve.submit", "run_call.pad_in", "launch.wrap_halo",
+                 common.STEPS_SPAN + "2"):
         assert obs.span(name) is obs.NULL_SPAN
         assert obs.profiler_range(name) is obs.NULL_SPAN
     assert obs.NULL_SPAN.recording is False
@@ -320,6 +325,81 @@ def test_compiling_records_no_span(monkeypatch):
         assert obs.span("launch.padded_superstep") is obs.NULL_SPAN
         _compiled().run(_grid())
     assert rec.events == []
+
+
+def _pinned(variant, steps, par_time=2, **fields):
+    """A CPU executable of a pinned plan, one block the grid's extent."""
+    prog = _program(**fields)
+    plan = repro_torch.BlockPlan(spec=prog, block_shape=SHAPE,
+                                 par_time=par_time)
+    return repro_torch.stencil(prog).compile(
+        SHAPE, steps=steps, plan=plan, variant=variant, device="cpu")
+
+
+def _steps_ranges(ua):
+    return [e for e in ua if e[0].startswith(common.STEPS_SPAN)]
+
+
+CHUNK = common.TEMPORAL_CHUNK
+
+
+@pytest.mark.parametrize("variant,steps,fields,key,depths", [
+    # two full supersteps and a one-step tail
+    ("plain", 5, {}, "padded_superstep", [2, 2, 1]),
+    ("pipelined", 5, {}, "padded_pipelined", [2, 2, 1]),
+    # two chunks of CHUNK supersteps, then a plain tail of 3 steps
+    ("temporal", 4 * CHUNK + 3, {}, "temporal_superstep",
+     [2 * CHUNK, 2 * CHUNK, 3]),
+    ("plain", 3, {"shape": "box", "boundary": "periodic"},
+     "padded_superstep", [2, 1]),
+])
+def test_each_superstep_launch_opens_one_steps_range(tmp_path, variant,
+                                                     steps, fields, key,
+                                                     depths):
+    cs = _pinned(variant, steps, **fields)
+    grid = _grid()
+    cs.run(grid)
+    ua = _profiled(lambda: cs.run(grid), tmp_path)["user_annotation"]
+    launches = sorted(
+        (e for e in ua if e[0] in {common.LAUNCH_SPANS[k] for k in (
+            key, "padded_superstep")}), key=lambda e: e[1])
+    ranges = _steps_ranges(ua)
+    assert len(ranges) == len(launches)
+    got = []
+    for sp in launches:
+        (inner,) = [r for r in ranges if _inside(r, sp)]
+        got.append(int(inner[0][len(common.STEPS_SPAN):]))
+    assert got == depths and sum(got) == steps
+    # a ring refresh fuses no steps: it opens no range
+    for sp in _named(ua, common.LAUNCH_SPANS["wrap_halo"]):
+        assert not [r for r in ranges if _inside(r, sp)]
+    if fields:
+        assert _named(ua, common.LAUNCH_SPANS["wrap_halo"])
+    with obs.profile() as rec:
+        cs.run(grid)
+    assert rec.counter(common.CELL_STEPS) == steps * math.prod(SHAPE)
+    assert sorted(sp["steps"] for name in {common.LAUNCH_SPANS[key],
+                                           "launch.padded_superstep"}
+                  for sp in rec.spans(name)) == sorted(got)
+    assert sum(len(rec.spans(common.STEPS_SPAN + str(t)))
+               for t in set(got)) == len(got)
+
+
+@pytest.mark.parametrize("par_time", [1, 3])
+def test_prepadded_superstep_opens_its_steps_range(tmp_path, par_time):
+    cs = _pinned("plain", 6, par_time=par_time)
+    coeffs = cs.coeffs
+    grid = _grid()
+
+    def one():
+        common.pad_superstep(grid, coeffs.center, coeffs.taps,
+                             program=cs.program, plan=cs.plan)
+
+    ua = _profiled(one, tmp_path)["user_annotation"]
+    (launch,) = _named(ua, common.LAUNCH_SPANS["superstep"])
+    (inner,) = _steps_ranges(ua)
+    assert inner[0] == f"{common.STEPS_SPAN}{par_time}"
+    assert _inside(inner, launch)
 
 
 def test_latency_is_stamped_after_the_last_wait(monkeypatch):
